@@ -6,19 +6,32 @@ Run from the repository root on a machine with a CUDA card, `nvcc` and
 PyTorch built for CUDA. It imports torch, numpy and zutis_tpu_torch only.
 
   1. Card and build: requires CUDA, prints the card's name and power limit,
-     builds the flash-attention kernel from zutis_tpu_torch/csrc with nvcc
-     for sm_90a, and turns TF32 off for matmuls and cuDNN.
-  2. Kernel against its plain version on the card, at the three attention
-     shapes of the serving path (batch 8, bf16), a ragged case and a
-     kv_mask case with an all-masked item (plus f32 inputs); times the
+     builds the flash-attention and attention-probe kernels from
+     zutis_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source, started
+     together), prints ptxas's registers and spills, and turns TF32 off for
+     matmuls and cuDNN.
+  2. Flash kernel against its plain version on the card, at the three
+     attention shapes of the serving path (batch 8, bf16), a ragged case and
+     a kv_mask case with an all-masked item (plus f32 inputs); times the
      kernel, the plain version and F.scaled_dot_product_attention (a
      yardstick only: the port never calls it) with CUDA events.
-  3. Serving at full width: ZUTIS ViT-B/16 (seeded random weights, bf16
+  3. Probe kernels against their plain versions on the card in bf16: every
+     family, layout, sum mode, exp mode and the dots-only kt, at the tuning
+     tool's shape [64,12,577,577,64], the serving encoder shape, a ragged
+     shape and a d = 96 shape; the three `single` layouts must come out bit
+     for bit alike. Times each kernel at the two 577 shapes beside its plain
+     version, its bound, SDPA and flash_attention.
+  4. The tuning path: zutis_tpu_torch.tools.kernel_tune.run for every
+     variant at the tool's shape, with every launch count set to 0 before and
+     read after; each variant must print RESULT_OK, and the exact ones must
+     stay within 2e-2 of an f32 softmax.
+  5. Serving at full width: ZUTIS ViT-B/16 (seeded random weights, bf16
      matrices) behind InferenceServer(image_size=384, batch_size=8), 20
      requests through start/submit/stop plus one synchronous infer; checks
-     the outputs, that every batch forward launched the kernel 24 times, the
-     kernel path against the "torch" attention path, and the instance decode
-     against a CPU rerun; reports the serving rate.
+     the outputs, that every batch forward launched the flash kernel 24
+     times and no probe kernel, the kernel path against the "torch"
+     attention path, and the instance decode against a CPU rerun; reports
+     the serving rate.
 
 Prints the kernel record and the card on lines of their own, then, as the
 last line, {"ok": true, "device": {...}}. Exits non-zero, with no result
@@ -26,11 +39,14 @@ line, on any failure or without a card.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,14 +55,13 @@ import torch.nn.functional as F
 from zutis_tpu_torch.engine.server import InferenceServer
 from zutis_tpu_torch.models.layers import MultiHeadAttention
 from zutis_tpu_torch.models.zutis import ZUTIS
+from zutis_tpu_torch.ops import attention_probes as ap
 from zutis_tpu_torch.ops import flash_attention as fa
 from zutis_tpu_torch.ops import rle
 from zutis_tpu_torch.ops.nms import mask_nms
 from zutis_tpu_torch.postproc.instance import classify_proposals
-
-# H100 SXM published dense peaks (NVIDIA data sheet) for the roofline bound
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+from zutis_tpu_torch.tools import kernel_tune
+from zutis_tpu_torch.tools.kernel_tune import bound
 
 BATCH = 8
 IMAGE_SIZE = 384
@@ -61,6 +76,38 @@ MAIN_SHAPES = [
     ("decoder cross", (BATCH, 8, 100, 2304, 96), 6),
 ]
 LAUNCHES_PER_FORWARD = sum(n for _, _, n in MAIN_SHAPES)
+PROBES = {  # kernel name -> (wrapper, plain version, TPU kernel body)
+    "single_attention": (ap.single_attention, ap.single_attention_reference,
+                         "tools/pallas_tune.py:54"),
+    "fastsm_attention": (ap.fastsm_attention, ap.fastsm_attention_reference,
+                         "tools/pallas_tune.py:173"),
+    "kt_attention": (ap.kt_attention, ap.kt_attention_reference,
+                     "tools/pallas_tune.py:252"),
+}
+# (kernel, label, options): every family, layout, sum mode and exp mode
+PROBE_CONFIGS = (
+    [("single_attention", f"single {hp}", dict(heads_per_cell=hp))
+     for hp in ap.HEADS_PER_CELL]
+    + [("single_attention", f"single {hp} {m}", dict(heads_per_cell=hp, exp_mode=m))
+       for hp in ("unroll", "grid") for m in ("bf16", "mul")]
+    + [("fastsm_attention", f"fastsm {sm}" + ("" if m == "exp" else f" {m}"),
+        dict(sum_mode=sm, exp_mode=m))
+       for sm in ap.SUM_MODES for m in ap.EXP_MODES]
+    + [("kt_attention", "kt" + ("" if m == "exp" else f" {m}"),
+        dict(exp_mode=m, dots_only=False)) for m in ap.EXP_MODES]
+    + [("kt_attention", "kt dots-only", dict(exp_mode="exp", dots_only=True))]
+)
+PROBE_SHAPES = [
+    ("tool", kernel_tune.SHAPE),
+    ("encoder", (BATCH, 12, 577, 577, 64)),
+    ("ragged", (2, 3, 130, 260, 64)),
+    ("d96", (2, 4, 100, 300, 96)),
+]
+PROBE_TIMED_SHAPES = ("tool", "encoder")
+# kernel_tune runs of the tuning path: every variant, plus probe modes
+TUNE_RUNS = ([(v, "exp", False) for v in kernel_tune.VARIANTS]
+             + [("kt", "exp", True), ("single", "mul", False),
+                ("fastsm-mxu", "bf16", False)])
 TOL_BF16 = 2e-2  # bf16 outputs (8-bit mantissa) against the f32 plain version
 TOL_F32 = 1e-4   # f32 inputs take hi/lo bf16 splits (~16 mantissa bits)
 MIN_SEMANTIC_AGREEMENT = 0.985
@@ -120,16 +167,6 @@ def host_ms(fn, device: torch.device, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(b, h, sq, sk, d, itemsize=2):
-    """(least ms on the card, "bytes" or "operations") for one attention
-    call: each of q, k, v read once and o written once, against
-    4*b*h*sq*sk*d operations at the bf16 tensor-core peak."""
-    flops = 4 * b * h * sq * sk * d
-    nbytes = itemsize * (2 * b * h * sq * d + 2 * b * h * sk * d)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def phase_card() -> str:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a card")
@@ -140,11 +177,17 @@ def phase_card() -> str:
     card = smi.stdout.strip().splitlines()[0]
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
-    path, seconds, log = fa.build()
-    print(f"build: {path.name} in {seconds:.1f} s", flush=True)
-    for line in log.splitlines():  # registers and spills of each kernel
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print(f"build: {line.strip()}", flush=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        builds = [pool.submit(m.build) for m in (fa, ap)]
+        results = [b.result() for b in builds]
+    print(f"build: both libraries in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for path, seconds, log in results:
+        print(f"build: {path.name} in {seconds:.1f} s", flush=True)
+        for line in log.splitlines():  # registers and spills of each kernel
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"build: {line.strip()}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -203,6 +246,125 @@ def phase_kernel():
               f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound",
               flush=True)
     return max_err, rows
+
+
+def _probe_kernel_only(label, kw, q, k, v):
+    """The call that `label` times: the probe wrapper, or for kt the kernel
+    alone on a K^T made beforehand."""
+    if label.startswith("kt"):
+        kt = ap.transpose_keys(k)
+        return lambda: ap.kt_attention_kernel(q, kt, v, 128, **kw)
+    wrapper = PROBES[next(n for n, lab, _ in PROBE_CONFIGS if lab == label)][0]
+    return lambda: wrapper(q, k, v, 128, **kw)
+
+
+def phase_probes():
+    """Each probe kernel, layout and mode against its plain version in bf16;
+    the `single` layouts bit for bit against each other; times at the two
+    577-token shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    max_err = {name: 0.0 for name in PROBES}
+    max_rel = {name: 0.0 for name in PROBES}
+    timings = []
+    for shape_name, (b, h, sq, sk, d) in PROBE_SHAPES:
+        q, k, v = _inputs(gen, b, h, sq, sk, d, torch.bfloat16)
+        outs = {}
+        for kernel, label, kw in PROBE_CONFIGS:
+            wrapper, reference, _ = PROBES[kernel]
+            before = wrapper.launches
+            got = wrapper(q, k, v, 128, **kw)
+            torch.cuda.synchronize()
+            check(wrapper.launches == before + 1, f"{label}: no kernel launch")
+            want = reference(q, k, v, **kw).float()
+            check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+            err = (got.float() - want).abs().max().item()
+            # relative to the largest |output|: "mul" drives single's output
+            # to ~1e-30 and the dots-only probe's reaches ~100, where one
+            # flipped bf16 rounding of p moves a sum of 577 products
+            rel = err / want.abs().max().item()
+            print(f"probe check {shape_name} {[b, h, sq, sk, d]} {label}: "
+                  f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol "
+                  f"{TOL_BF16})", flush=True)
+            check(rel <= TOL_BF16,
+                  f"{label} at {shape_name}: kernel disagrees with its plain version")
+            max_err[kernel] = max(max_err[kernel], err)
+            max_rel[kernel] = max(max_rel[kernel], rel)
+            outs[label] = got
+            del want
+        same = (torch.equal(outs["single unroll"], outs["single batched"])
+                and torch.equal(outs["single unroll"], outs["single grid"]))
+        print(f"probe check {shape_name}: single unroll/batched/grid "
+              f"bit-identical: {same}", flush=True)
+        check(same, f"single layouts differ at {shape_name}")
+        del outs
+        if shape_name in PROBE_TIMED_SHAPES:
+            timings.append(_time_probes(shape_name, q, k, v))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return max_err, max_rel, timings
+
+
+def _time_probes(shape_name, q, k, v):
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bound_ms, bound_by = bound(b, h, sq, sk, d)
+    # the plain versions hold [b, h, sq, 640] f32 logits: fewer calls at b 64
+    plain_calls = dict(calls=3, reps=5, warmup=1) if b > BATCH else {}
+    row = dict(name=shape_name, shape=[b, h, sq, sk, d], bound_ms=bound_ms,
+               bound_by=bound_by,
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+               flash_ms=cuda_ms(lambda: fa.flash_attention(q, k, v)),
+               transpose_ms=cuda_ms(lambda: ap.transpose_keys(k)),
+               plain_ms={name: cuda_ms(lambda: ref(q, k, v), **plain_calls)
+                         for name, (_, ref, _) in PROBES.items()},
+               ms={})
+    for _, label, kw in PROBE_CONFIGS:
+        if kw.get("exp_mode", "exp") == "exp":
+            row["ms"][label] = cuda_ms(_probe_kernel_only(label, kw, q, k, v))
+    row["ms"]["kt with transpose"] = cuda_ms(lambda: ap.kt_attention(q, k, v, 128))
+    for label, ms in row["ms"].items():
+        print(f"probe time {shape_name} {row['shape']} {label}: kernel "
+              f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / ms:.1%} of bound", flush=True)
+    print(f"probe time {shape_name} {row['shape']}: plain "
+          + ", ".join(f"{n} {t:.4f} ms" for n, t in row["plain_ms"].items())
+          + f"; sdpa {row['library_ms']:.4f} ms; flash_attention "
+          f"{row['flash_ms']:.4f} ms; K transpose {row['transpose_ms']:.4f} ms",
+          flush=True)
+    return row
+
+
+def phase_tune():
+    """The tuning path: kernel_tune.run for every variant at the tool's
+    shape, with every launch count set to 0 before and read after."""
+    inputs = kernel_tune.make_inputs(kernel_tune.SHAPE, "cuda")
+    counted = {"flash_attention": fa.flash_attention,
+               **{name: w for name, (w, _, _) in PROBES.items()}}
+    for w in counted.values():
+        w.launches = 0
+    results = []
+    for variant, exp_mode, dots_only in TUNE_RUNS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = kernel_tune.run(variant, 128, exp_mode, dots_only,
+                                  inputs=inputs)
+        sys.stdout.write(buf.getvalue())
+        check(any(line.startswith(f"RESULT_OK variant={variant} block_q=128 ms=")
+                  for line in buf.getvalue().splitlines()),
+              f"kernel_tune {variant}: no RESULT_OK line")
+        if res["exact"]:
+            check(res["max_err"] <= kernel_tune.TOL_BF16,
+                  f"kernel_tune {variant}: RESULT_MAXERR {res['max_err']} over "
+                  f"{kernel_tune.TOL_BF16}")
+        results.append(res)
+    launches = {name: w.launches for name, w in counted.items()}
+    print(f"tune: launches in {len(TUNE_RUNS)} kernel_tune runs: "
+          f"{json.dumps(launches)}", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"the tuning path never launched {name}")
+    del inputs
+    torch.cuda.empty_cache()
+    return launches, results
 
 
 def profile_device(fn, device: torch.device, top: int = 12):
@@ -275,7 +437,8 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     threshold = float(torch.quantile(proposals.flatten()[::7].float(), 0.9))
     print(f"serving: threshold {threshold:.6f}", flush=True)
 
-    fa.flash_attention.launches = 0
+    for w in (fa.flash_attention, *(w for w, _, _ in PROBES.values())):
+        w.launches = 0
     server = InferenceServer(model, text, image_size=image_size,
                              batch_size=BATCH, threshold=threshold,
                              max_wait_ms=50, device=device)
@@ -285,6 +448,7 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     server.stop()
     sync = server.infer(images[:BATCH])
     launches = fa.flash_attention.launches
+    probe_launches = sum(w.launches for w, _, _ in PROBES.values())
     batches = server.batches
     print(f"serving: {len(results)} async + {len(sync)} sync requests in "
           f"{batches} batch forwards, {launches} kernel launches", flush=True)
@@ -306,6 +470,7 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
               and len(a["instances"]) == len(b["instances"]),
               "sync and async answers differ for the same batch")
     print(f"serving: {n_inst} instances returned", flush=True)
+    check(probe_launches == 0, "serving launched a probe kernel")
     if device.type == "cuda":
         check(launches == LAUNCHES_PER_FORWARD * batches,
               f"{launches} kernel launches for {batches} batch forwards, "
@@ -401,6 +566,8 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
 def main() -> None:
     card = phase_card()
     max_err, rows = phase_kernel()
+    probe_err, probe_rel, probe_rows = phase_probes()
+    tune_launches, tune_results = phase_tune()
     stats = phase_serving()
     print(f"serving on {card}: {json.dumps(stats)}", flush=True)
 
@@ -426,6 +593,34 @@ def main() -> None:
         "library_ms": per_forward("library_ms"),
         "shapes": rows,
     }]
+    tool = next(r for r in probe_rows if r["name"] == "tool")
+    headline = {"single_attention": "single unroll",
+                "fastsm_attention": "fastsm lane", "kt_attention": "kt"}
+    for name, (_, _, replaces) in PROBES.items():
+        family = name.split("_")[0]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "zutis_tpu_torch/csrc/attention_probes.cu",
+            "replaces": replaces,
+            "launches": tune_launches[name],
+            "max_abs_err": probe_err[name],
+            "max_rel_err": probe_rel[name],  # of the largest |output|
+            # one call at the tuning tool's shape [64, 12, 577, 577, 64]
+            "ms": tool["ms"][headline[name]],
+            "plain_ms": tool["plain_ms"][name],
+            "bound_ms": tool["bound_ms"],
+            "bound_by": tool["bound_by"],
+            "library_ms": tool["library_ms"],
+            "serving_launches": 0,
+            "shapes": [dict(r, ms={k: t for k, t in r["ms"].items()
+                                   if k.startswith(family)},
+                            plain_ms=r["plain_ms"][name])
+                       for r in probe_rows],
+        })
+    print("tune runs: " + json.dumps(
+        [{k: r[k] for k in ("variant", "exp_mode", "dots_only", "max_err", "ms")}
+         for r in tune_results]), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

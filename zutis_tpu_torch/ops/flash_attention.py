@@ -12,10 +12,8 @@ CPU. For a CUDA tensor it launches the kernel or raises: an unsupported
 dtype, head dim or layout, a missing `nvcc` or a failed build is an error,
 never a fallback.
 
-The kernel is built at first use with `nvcc` for sm_90a into
-`build/zutis_tpu_torch/` beside the package (a directory git ignores), keyed
-by a hash of the source and flags, and bound through its plain C interface
-with ctypes.
+The kernel is built at first use with `nvcc` for sm_90a (`_build.py`) and
+bound through its plain C interface with ctypes.
 
 The backward pass (a recomputing `torch.autograd.Function`, as the JAX
 package's `_flash_bwd`) belongs to the training path and is not here yet.
@@ -23,91 +21,34 @@ package's `_flash_bwd`) belongs to the training path and is not here yet.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zutis_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",  # report registers, shared memory and spills
-)
+from zutis_tpu_torch.ops import _build
+
+SOURCE = _build.CSRC / "flash_attention.cu"
+STEM = "libzutis_flash"
 HEAD_DIMS = (64, 96)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _NEG_INF = -1e30
 
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
+
+def build():
+    """Compile the kernel library if needed; see `_build.build`."""
+    return _build.build(SOURCE, STEM)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found is not None:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    raise RuntimeError(
-        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the flash "
-        "attention kernel cannot be built"
-    )
-
-
-def build() -> tuple[Path, float, str]:
-    """Compile the kernel library if this source and these flags have not
-    been built yet. Returns (library path, seconds spent compiling, compiler
-    output with ptxas's per-kernel resource report; empty when no build
-    was needed)."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"libzutis_flash_{digest.hexdigest()[:16]}.so"
-    if lib_path.exists():
-        return lib_path, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {SOURCE} (exit {proc.returncode}):\n"
-            f"{proc.stderr}{proc.stdout}"
-        )
-    os.replace(tmp, lib_path)  # atomic: a reader never sees half a library
-    return lib_path, seconds, proc.stderr + proc.stdout
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _, _ = build()
-            lib = ctypes.CDLL(str(path))
-            lib.zutis_flash_attention_fwd.restype = ctypes.c_int
-            lib.zutis_flash_attention_fwd.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                ctypes.c_void_p,
-            ]
-            lib.zutis_cuda_error_string.restype = ctypes.c_char_p
-            lib.zutis_cuda_error_string.argtypes = [ctypes.c_int]
-            _lib = lib
-        return _lib
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.zutis_flash_attention_fwd.restype = ctypes.c_int
+    lib.zutis_flash_attention_fwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+        ctypes.c_void_p,
+    ]
 
 
 def flash_attention_reference(
@@ -138,7 +79,7 @@ def check_kernel_inputs(q, k, v, kv_mask) -> None:
     f32, head dim outside HEAD_DIMS, mismatched shapes or devices, a head dim
     that is not contiguous, or strides and addresses not 16-byte aligned."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention expects q, k, v of rank 4 [b, h, s, d]")
+        raise ValueError("the attention kernels take q, k, v of rank 4 [b, h, s, d]")
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
@@ -195,7 +136,7 @@ def flash_attention(
     mask = None
     if kv_mask is not None:
         mask = (kv_mask > 0).to(torch.int32).contiguous()
-    lib = _library()
+    lib = _build.load(SOURCE, STEM, _bind)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
     with torch.cuda.device(q.device):
@@ -206,9 +147,7 @@ def flash_attention(
             _DTYPE_CODES[q.dtype], b, h, sq, sk, d, strides, d ** -0.5,
             stream,
         )
-    if err != 0:
-        msg = lib.zutis_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash attention kernel launch failed: {msg} ({err})")
+    _build.check_launch(lib, err, "flash attention")
     flash_attention.launches += 1
     return o
 
