@@ -18,9 +18,11 @@ PyTorch built for CUDA. It imports torch, numpy and zutis_tpu_torch only.
   3. Probe kernels against their plain versions on the card in bf16: every
      family, layout, sum mode, exp mode and the dots-only kt, at the tuning
      tool's shape [64,12,577,577,64], the serving encoder shape, a ragged
-     shape and a d = 96 shape; the three `single` layouts must come out bit
-     for bit alike. Times each kernel at the two 577 shapes beside its plain
-     version, its bound, SDPA and flash_attention.
+     shape and a d = 96 shape, and `single` also at sk 1000 (d 64) and 896
+     (d 96) and on strided [b, s, h, d] views; the three `single` layouts
+     must come out bit for bit alike. Prints the `single` kernel's shared
+     memory and blocks per SM. Times each kernel at the two 577 shapes
+     beside its plain version, its bound, SDPA and flash_attention.
   4. The tuning path: zutis_tpu_torch.tools.kernel_tune.run for every
      variant at the tool's shape, with every launch count set to 0 before and
      read after; each variant must print RESULT_OK, and the exact ones must
@@ -42,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -102,6 +105,14 @@ PROBE_SHAPES = [
     ("encoder", (BATCH, 12, 577, 577, 64)),
     ("ragged", (2, 3, 130, 260, 64)),
     ("d96", (2, 4, 100, 300, 96)),
+]
+# `single` alone: more keys than a block holding V whole could take (768 at
+# d 64, 512 at d 96), and q, k, v as [b, h, s, d] views of [b, s, h, d]
+# tensors, whose strides go into the tensor maps
+SINGLE_SHAPES = [
+    ("long keys", (2, 4, 130, 1000, 64), False),
+    ("long keys d96", (2, 4, 100, 896, 96), False),
+    ("strided", (2, 12, 577, 577, 64), True),
 ]
 PROBE_TIMED_SHAPES = ("tool", "encoder")
 # kernel_tune runs of the tuning path: every variant, plus probe modes
@@ -167,6 +178,38 @@ def host_ms(fn, device: torch.device, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name in its mangled symbol, with its integer template
+    arguments: `single_kernel<64,0,1>`."""
+    names = []
+    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+        ident = mangled[m.end():m.end() + int(m.group(1))]
+        args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[m.end() + len(ident):])
+        if args:
+            return f"{ident}<{','.join(re.findall(r'L[a-z](\d+)E', args.group(1)))}>"
+        if not ident.startswith("_GLOBAL"):
+            names.append(ident)
+    return names[0] if names else mangled[:80]
+
+
+def ptxas_report(log: str) -> list:
+    """One line per kernel from ptxas's -v report: its name with template
+    arguments, registers, spill stores and loads; and ptxas's warnings."""
+    lines, name, spills = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            name = _kernel_name(line.split("'")[1] if "'" in line else line.strip())
+        elif "spill stores" in line:
+            spills = line.split(",", 1)[1].strip() if "," in line else line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line)
+            lines.append(f"{name}: {regs.group(1) if regs else '?'} registers, {spills}")
+            name, spills = None, ""
+        elif "warning" in line.lower() or "Performance Loss" in line:
+            lines.append(line.strip()[:200])
+    return lines
+
+
 def phase_card() -> str:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a card")
@@ -185,9 +228,8 @@ def phase_card() -> str:
           flush=True)
     for path, seconds, log in results:
         print(f"build: {path.name} in {seconds:.1f} s", flush=True)
-        for line in log.splitlines():  # registers and spills of each kernel
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                print(f"build: {line.strip()}", flush=True)
+        for line in ptxas_report(log):
+            print(f"build: {line}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -195,7 +237,12 @@ def phase_card() -> str:
     return card
 
 
-def _inputs(gen, b, h, sq, sk, d, dtype):
+def _inputs(gen, b, h, sq, sk, d, dtype, strided=False):
+    """q, k, v [b, h, s, d]; `strided` makes them [b, s, h, d] and returns
+    [b, h, s, d] views."""
+    if strided:
+        return [torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+                .transpose(1, 2) for s in (sq, sk, sk)]
     return [torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
             for s in (sq, sk, sk)]
 
@@ -258,50 +305,76 @@ def _probe_kernel_only(label, kw, q, k, v):
     return lambda: wrapper(q, k, v, 128, **kw)
 
 
+def _check_probes(shape_name, q, k, v, configs, max_err, max_rel):
+    """Each config's kernel against its plain version; the `single` layouts
+    bit for bit against each other."""
+    outs = {}
+    for kernel, label, kw in configs:
+        wrapper, reference, _ = PROBES[kernel]
+        before = wrapper.launches
+        got = wrapper(q, k, v, 128, **kw)
+        torch.cuda.synchronize()
+        check(wrapper.launches == before + 1, f"{label}: no kernel launch")
+        want = reference(q, k, v, **kw).float()
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+        err = (got.float() - want).abs().max().item()
+        # relative to the largest |output|: "mul" drives single's output
+        # to ~1e-30 and the dots-only probe's reaches ~100, where one
+        # flipped bf16 rounding of p moves a sum of 577 products
+        rel = err / want.abs().max().item()
+        print(f"probe check {shape_name} {list(q.shape[:3]) + list(k.shape[2:])} "
+              f"{label}: max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol "
+              f"{TOL_BF16})", flush=True)
+        check(rel <= TOL_BF16,
+              f"{label} at {shape_name}: kernel disagrees with its plain version")
+        max_err[kernel] = max(max_err[kernel], err)
+        max_rel[kernel] = max(max_rel[kernel], rel)
+        outs[label] = got
+        del want
+    same = (torch.equal(outs["single unroll"], outs["single batched"])
+            and torch.equal(outs["single unroll"], outs["single grid"]))
+    print(f"probe check {shape_name}: single unroll/batched/grid "
+          f"bit-identical: {same}", flush=True)
+    check(same, f"single layouts differ at {shape_name}")
+
+
+def single_occupancy():
+    """The `single` kernel's dynamic shared memory and blocks per SM at sk
+    577, for each layout, head dim and block_q."""
+    occ = {}
+    for hp in ap.HEADS_PER_CELL:
+        for d in (64, 96):
+            for block_q in ap.SINGLE_BLOCK_Q[::-1]:
+                smem, blocks = ap.single_occupancy(d, 577, block_q, hp)
+                occ[f"{hp} d{d} block_q {block_q}"] = dict(
+                    smem_bytes=smem, blocks_per_sm=blocks)
+                print(f"single occupancy {hp} d {d} sk 577 block_q {block_q}: "
+                      f"{smem} bytes of dynamic shared memory, {blocks} "
+                      "block(s) per SM", flush=True)
+    return occ
+
+
 def phase_probes():
     """Each probe kernel, layout and mode against its plain version in bf16;
-    the `single` layouts bit for bit against each other; times at the two
-    577-token shapes."""
+    the `single` layouts bit for bit against each other, also at its edge
+    shapes; times at the two 577-token shapes."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     max_err = {name: 0.0 for name in PROBES}
     max_rel = {name: 0.0 for name in PROBES}
     timings = []
     for shape_name, (b, h, sq, sk, d) in PROBE_SHAPES:
         q, k, v = _inputs(gen, b, h, sq, sk, d, torch.bfloat16)
-        outs = {}
-        for kernel, label, kw in PROBE_CONFIGS:
-            wrapper, reference, _ = PROBES[kernel]
-            before = wrapper.launches
-            got = wrapper(q, k, v, 128, **kw)
-            torch.cuda.synchronize()
-            check(wrapper.launches == before + 1, f"{label}: no kernel launch")
-            want = reference(q, k, v, **kw).float()
-            check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
-            err = (got.float() - want).abs().max().item()
-            # relative to the largest |output|: "mul" drives single's output
-            # to ~1e-30 and the dots-only probe's reaches ~100, where one
-            # flipped bf16 rounding of p moves a sum of 577 products
-            rel = err / want.abs().max().item()
-            print(f"probe check {shape_name} {[b, h, sq, sk, d]} {label}: "
-                  f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol "
-                  f"{TOL_BF16})", flush=True)
-            check(rel <= TOL_BF16,
-                  f"{label} at {shape_name}: kernel disagrees with its plain version")
-            max_err[kernel] = max(max_err[kernel], err)
-            max_rel[kernel] = max(max_rel[kernel], rel)
-            outs[label] = got
-            del want
-        same = (torch.equal(outs["single unroll"], outs["single batched"])
-                and torch.equal(outs["single unroll"], outs["single grid"]))
-        print(f"probe check {shape_name}: single unroll/batched/grid "
-              f"bit-identical: {same}", flush=True)
-        check(same, f"single layouts differ at {shape_name}")
-        del outs
+        _check_probes(shape_name, q, k, v, PROBE_CONFIGS, max_err, max_rel)
         if shape_name in PROBE_TIMED_SHAPES:
             timings.append(_time_probes(shape_name, q, k, v))
         del q, k, v
         torch.cuda.empty_cache()
-    return max_err, max_rel, timings
+    single_configs = [c for c in PROBE_CONFIGS if c[0] == "single_attention"]
+    for shape_name, (b, h, sq, sk, d), strided in SINGLE_SHAPES:
+        q, k, v = _inputs(gen, b, h, sq, sk, d, torch.bfloat16, strided)
+        _check_probes(shape_name, q, k, v, single_configs, max_err, max_rel)
+        del q, k, v
+    return max_err, max_rel, timings, single_occupancy()
 
 
 def _time_probes(shape_name, q, k, v):
@@ -322,6 +395,10 @@ def _time_probes(shape_name, q, k, v):
         if kw.get("exp_mode", "exp") == "exp":
             row["ms"][label] = cuda_ms(_probe_kernel_only(label, kw, q, k, v))
     row["ms"]["kt with transpose"] = cuda_ms(lambda: ap.kt_attention(q, k, v, 128))
+    # one consumer warpgroup a block: K loaded per 64 query rows, 2 blocks an SM
+    for hp in ("unroll", "grid"):
+        row["ms"][f"single {hp} block_q 64"] = cuda_ms(
+            lambda: ap.single_attention(q, k, v, 64, hp))
     for label, ms in row["ms"].items():
         print(f"probe time {shape_name} {row['shape']} {label}: kernel "
               f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
@@ -566,7 +643,7 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
 def main() -> None:
     card = phase_card()
     max_err, rows = phase_kernel()
-    probe_err, probe_rel, probe_rows = phase_probes()
+    probe_err, probe_rel, probe_rows, occupancy = phase_probes()
     tune_launches, tune_results = phase_tune()
     stats = phase_serving()
     print(f"serving on {card}: {json.dumps(stats)}", flush=True)
@@ -618,6 +695,9 @@ def main() -> None:
                             plain_ms=r["plain_ms"][name])
                        for r in probe_rows],
         })
+        if family == "single":  # the headline layout at the tool's shape
+            kernels[-1].update(occupancy["unroll d64 block_q 128"],
+                               occupancy=occupancy)
     print("tune runs: " + json.dumps(
         [{k: r[k] for k in ("variant", "exp_mode", "dots_only", "max_err", "ms")}
          for r in tune_results]), flush=True)

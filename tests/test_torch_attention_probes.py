@@ -183,8 +183,11 @@ def test_kt_kernel_entry_refuses_cpu_tensors():
     ((1, 2, 16, 64), torch.bfloat16, 24, "fastsm", ValueError),
     ((1, 2, 16, 64), torch.bfloat16, 0, "kt", ValueError),
     ((1, 2, 16, 64), torch.bfloat16, 144, "single", ValueError),
-    ((1, 2, 769, 64), torch.bfloat16, 128, "single", ValueError),
-    ((1, 2, 513, 96), torch.bfloat16, 64, "single", ValueError),
+    ((1, 2, 1537, 64), torch.bfloat16, 128, "single", ValueError),
+    ((1, 2, 961, 96), torch.bfloat16, 64, "single", ValueError),
+    ((1, 2, 16, 64), torch.bfloat16, 16, "single", ValueError),
+    ((1, 2, 16, 64), torch.bfloat16, 48, "single", ValueError),
+    ((1, 2, 16, 96), torch.bfloat16, 96, "single", ValueError),
 ])
 def test_kernel_input_check_rejects_what_the_kernels_do_not_take(
         shape, dtype, block_q, family, error):
@@ -193,13 +196,14 @@ def test_kernel_input_check_rejects_what_the_kernels_do_not_take(
         ap.check_kernel_inputs(q, q, q, block_q, family)
 
 
-@pytest.mark.parametrize("sk,d", [(768, 64), (512, 96)])
+@pytest.mark.parametrize("sk,d", [(1536, 64), (896, 96)])
 def test_kernel_input_check_accepts_single_up_to_its_shared_memory_limit(sk, d):
     assert ap.single_smem_bytes(sk, d) <= ap.SMEM_LIMIT
     assert ap.single_smem_bytes(sk + 1, d) > ap.SMEM_LIMIT
     q = torch.zeros(1, 2, 16, d, dtype=torch.bfloat16)
     k = torch.zeros(1, 2, sk, d, dtype=torch.bfloat16)
-    ap.check_kernel_inputs(q, k, k, 16, "single")
+    ap.check_kernel_inputs(q, k, k, 128, "single")
+    ap.check_kernel_inputs(q, k, k, 64, "single")  # one warpgroup: less Q
     ap.check_kernel_inputs(q, torch.zeros(1, 2, 2 * sk, d, dtype=torch.bfloat16),
                            torch.zeros(1, 2, 2 * sk, d, dtype=torch.bfloat16),
                            128, "fastsm")  # streaming: no such limit

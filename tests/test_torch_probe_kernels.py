@@ -34,9 +34,10 @@ def _cuda_inputs(seed, b, h, sq, sk, d):
 CUDA_SHAPES = [(2, 12, 577, 577, 64), (2, 3, 130, 260, 64), (2, 4, 100, 300, 96)]
 
 
-def _check_on_card(wrapper, reference, option_sets):
-    for shape in CUDA_SHAPES:
-        q, k, v = _cuda_inputs(5, *shape)
+def _check_on_card(wrapper, reference, option_sets, shapes=CUDA_SHAPES,
+                   make_inputs=_cuda_inputs):
+    for shape in shapes:
+        q, k, v = make_inputs(5, *shape)
         for kwargs in option_sets:
             before = wrapper.launches
             got = wrapper(q, k, v, 64, **kwargs)
@@ -48,11 +49,49 @@ def _check_on_card(wrapper, reference, option_sets):
                                        rtol=2 ** -7, atol=2 ** -7)
 
 
+SINGLE_OPTIONS = [dict(heads_per_cell=hp, exp_mode=m)
+                  for hp in ap.HEADS_PER_CELL for m in ap.EXP_MODES]
+
+
 @pytest.mark.cuda
 def test_cuda_single_kernel_matches_reference_on_the_card():
     _check_on_card(ap.single_attention, ap.single_attention_reference,
-                   [dict(heads_per_cell=hp, exp_mode=m)
-                    for hp in ap.HEADS_PER_CELL for m in ap.EXP_MODES])
+                   SINGLE_OPTIONS)
+
+
+@pytest.mark.cuda
+def test_cuda_single_kernel_takes_keys_beyond_its_old_limit():
+    # sk 768 (d 64) and 512 (d 96) bounded the design that kept V resident
+    _check_on_card(ap.single_attention, ap.single_attention_reference,
+                   SINGLE_OPTIONS, shapes=[(2, 4, 130, 1000, 64),
+                                           (1, 4, 100, 896, 96)])
+
+
+def _strided_inputs(seed, b, h, sq, sk, d):
+    """q, k, v made as [b, s, h, d] and passed as [b, h, s, d] views: the
+    tensor maps take the caller's strides."""
+    q, k, v = _cuda_inputs(seed, b, h, sq, sk, d)
+    return [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+
+
+@pytest.mark.cuda
+def test_cuda_single_kernel_takes_strided_views():
+    q, _, _ = _strided_inputs(5, 2, 3, 10, 20, 64)
+    assert not q.is_contiguous() and q.stride(2) == 3 * 64
+    _check_on_card(ap.single_attention, ap.single_attention_reference,
+                   SINGLE_OPTIONS, shapes=[(2, 12, 577, 577, 64),
+                                           (2, 4, 100, 300, 96)],
+                   make_inputs=_strided_inputs)
+
+
+@pytest.mark.cuda
+def test_cuda_single_occupancy_reports_the_launched_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    for d, sk, block_q in ((64, 577, 128), (96, 577, 128), (64, 1536, 64)):
+        smem, blocks = ap.single_occupancy(d, sk, block_q)
+        assert smem == ap.single_smem_bytes(sk, d, block_q)
+        assert blocks >= 1
 
 
 @pytest.mark.cuda

@@ -21,15 +21,25 @@
 // against 65.5 GFLOP of products, 0.068 ms against 0.066 ms: at the card's
 // balance point. Each row also takes sk exponentials on the SFU.
 //
-// Fragment layouts of mma.m16n8k16 (PTX ISA), with g = lane / 4, t = lane % 4:
+// `single` runs on Hopper's TMA, mbarriers and wgmma (helpers in hopper.cuh;
+// design note at its kernel). `fastsm` and `kt` run on mma.sync with ldmatrix
+// operands and a cp.async ring. Fragment layouts of mma.m16n8k16 (PTX ISA),
+// with g = lane / 4, t = lane % 4 (wgmma's A and accumulator fragments repeat
+// them per warp of the warpgroup):
 //   A (16x16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
 //   B (16x8, "col"):      b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8.., n = g)
 //   C (16x8 f32):         c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-// Every warp owns 16 query rows; a block holds block_q / 16 warps.
+// In fastsm and kt every warp owns 16 query rows; a block holds block_q / 16
+// warps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
+
 
 namespace {
 
@@ -250,108 +260,348 @@ __device__ __forceinline__ void store_rows(bf16* o, long long ss, int row0, int 
 // s = q k^T + bias (0 on keys, -1e30 on padding), m = row max,
 // p = exp_mode(s - m), l = sum of the f32 p, o = (bf16(p) V) / l.
 //
-// Bound: as above; the row max needs the whole row before any exponential.
-// Design: on the TPU the cell holds K, V and the [block_q, sk_pad] f32 logits
-// in VMEM. Here one head's K and V stay resident in shared memory (640 keys x
-// 64 dims x 2 tensors in bf16 is 184 KB with row padding), loaded from HBM
-// once per block as two cp.async groups, and each warp sweeps the resident K
-// twice: once for the row max (which may start as soon as K has landed), once
-// for the exponentials, l and P V. The logits live only as 16 x 64 register
-// fragments; a [16, 640] f32 row block per warp would need 320 registers a
-// thread. `head_loop` blocks own (batch, q tile) and walk the heads,
-// restaging K/V per head (the TPU's "unroll" and "batched" cells: 12 heads of
-// K/V cannot share one block's shared memory); the other blocks own
-// (batch, head, q tile) (the TPU's "grid"). All run the same per-head code, so
-// their outputs are bit-identical.
+// Bound: bytes at both probe shapes, 227 MB in 0.0677 ms at
+// [64, 12, 577, 577, 64] and 28 MB in 0.0085 ms at batch 8. The row max needs
+// the whole row before any exponential, so the kernel sweeps K twice:
+// 6 b h sq sk d tensor operations where a streaming softmax does 4.
+//
+// Design (Hopper): on the TPU the cell holds K, V and the [block_q, sk_pad]
+// f32 logits in VMEM. Here a block is one producer warp and block_q / 64
+// consumer warpgroups, each owning 64 query rows.
+//   - The producer's one thread loads with TMA (tensor maps over [b, h, s, d]
+//     with s's extent sq or sk, so rows past the edge arrive as zeros) in
+//     64-row x 32-column boxes with a 64-byte swizzle, each completing on an
+//     mbarrier: the Q tile; every 64-key chunk of K into a resident K area,
+//     one "full" barrier per chunk, so sweep 1 starts on chunk 0 while the
+//     rest lands; and V, which only sweep 2 reads, through a 2-stage ring
+//     with full and empty barriers that fills during sweep 1.
+//   - Consumers read Q once into wgmma A fragments, pre-scaled in f32 and
+//     rounded to bf16, and release its tile. Both products are
+//     wgmma.mma_async with A from registers: S = Q K^T (m64n64k16, K chunk
+//     K-major through a descriptor) and O += P V (m64n{64,96}k16, the S
+//     accumulator rounded to bf16 is P's A fragment, V MN-major). Logits
+//     live only as one 64 x 64 f32 accumulator per warpgroup.
+//   - Head-loop blocks (the TPU's "unroll" and "batched" cells) own (batch,
+//     q tile) and walk the heads: the producer loads head h+1's Q as soon as
+//     head h's is in registers, head h+1's K chunk j as soon as sweep 2 of
+//     head h has released it, and V straight on through the ring, so no
+//     head waits for a whole restage. "grid" blocks own one head. All run
+//     the same per-head code, so their outputs are bit-identical.
+//   - Both sweeps overlap the exponential work with the tensor cores inside a
+//     warpgroup (design at single_consumer), and the block's two warpgroups
+//     interleave on the SM.
+//   - Shared memory: K (sk rounded up to 64 keys) + Q + 2 V stages, 112 KB at
+//     d 64 and sk 577, 168 KB at d 96. With block_q 128, one block per SM:
+//     the overlapped sweeps hold two S accumulators and P beside O and Q,
+//     122 registers at d 64 and 146-149 at d 96, where two 288-thread blocks
+//     would have to fit in 96 and spill. So a block's first K load and last
+//     stores overlap only its own two warpgroups' work. block_q 64 (one
+//     warpgroup, 160 threads, 104 KB) fits two blocks per SM at d 64, at
+//     the cost of loading K once per 64 query rows; persistent blocks would
+//     overlap both without that cost.
 // ---------------------------------------------------------------------------
 
-__host__ __device__ constexpr int single_rows(int sk) { return (sk + kTileN - 1) / kTileN * kTileN; }
+constexpr int kChunkRows = 64;                              // keys per K/V chunk; query rows per warpgroup
+constexpr int kBoxCols = 32;                                // a box row: 32 bf16 = 64 swizzled bytes
+constexpr int kBoxBytes = kChunkRows * kBoxCols * 2;        // one TMA box
+constexpr int kVStages = 2;
+constexpr int kSingleThreads = 2 * 128 + 32;                // block_q 128: two consumer warpgroups + producer
+constexpr uint32_t kRowStrideBytes = kBoxCols * 2;          // a swizzled row
+constexpr uint32_t kGroupStrideBytes = 8 * kRowStrideBytes; // an 8-row group: the swizzle pattern
 
-template <int D>
-__host__ __device__ constexpr int single_smem_bytes(int sk) {
-  return 2 * single_rows(sk) * row_stride(D) * static_cast<int>(sizeof(bf16));
+__host__ __device__ constexpr int single_chunks(int sk) { return (sk + kChunkRows - 1) / kChunkRows; }
+__host__ __device__ constexpr int chunk_bytes(int d) { return d * kChunkRows * 2; }  // d / 32 boxes
+
+// Byte offsets into a `single` block's dynamic shared memory. Every tile area
+// is a multiple of 4 KB from the 1 KB-aligned base; the mbarriers follow:
+// k_full[n], k_empty[n], q_full, q_empty, v_full[kVStages], v_empty[kVStages].
+struct SingleLayout {
+  int k, q, v, bars, total;
+};
+
+__host__ __device__ constexpr SingleLayout single_layout(int d, int sk, int groups) {
+  const int n = single_chunks(sk), c = chunk_bytes(d);
+  const int q = n * c, v = q + groups * c, bars = v + kVStages * c;
+  return SingleLayout{0, q, v, bars, bars + (2 * n + 2 + 2 * kVStages) * 8};
 }
 
+struct SingleBars {
+  uint32_t base;
+  int n;
+  __device__ uint32_t k_full(int j) const { return base + 8 * j; }
+  __device__ uint32_t k_empty(int j) const { return base + 8 * (n + j); }
+  __device__ uint32_t q_full() const { return base + 8 * (2 * n); }
+  __device__ uint32_t q_empty() const { return base + 8 * (2 * n + 1); }
+  __device__ uint32_t v_full(int s) const { return base + 8 * (2 * n + 2 + s); }
+  __device__ uint32_t v_empty(int s) const { return base + 8 * (2 * n + 2 + kVStages + s); }
+};
+
+// One warp's share of releasing a buffer: the barrier counts 4 arrivals per
+// consumer warpgroup.
+__device__ __forceinline__ void release(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(bar);
+}
+
+// The producer: one thread issues every TMA load of the block, in an order in
+// which each wait depends only on loads issued before it.
+template <int D>
+__device__ void single_producer(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv, const Params& p,
+                                uint32_t base, const SingleLayout& lay, const SingleBars& bar, int groups, int bi,
+                                int head0, int n_heads, int q0) {
+  constexpr uint32_t kChunk = chunk_bytes(D);
+  const int n = bar.n, items = n * n_heads;  // V items: (head, chunk) in walk order
+  hopper::prefetch_tensormap(tq);
+  hopper::prefetch_tensormap(tk);
+  hopper::prefetch_tensormap(tv);
+  auto load_rows = [&](const CUtensorMap* map, uint32_t dst, uint32_t full, int row0, int hi) {
+#pragma unroll
+    for (int x = 0; x < D / kBoxCols; ++x) {
+      hopper::tma_load_4d(dst + x * kBoxBytes, map, full, x * kBoxCols, row0, hi, bi);
+    }
+  };
+  auto load_q = [&](int hh) {
+    hopper::mbar_arrive_expect_tx(bar.q_full(), groups * kChunk);
+    for (int g = 0; g < groups; ++g) {
+      const int row0 = q0 + g * kChunkRows;
+      // a warpgroup whose rows all lie past sq loads some valid rows instead
+      // (its results are never stored)
+      load_rows(tq, base + lay.q + g * kChunk, bar.q_full(), row0 < p.sq ? row0 : 0, head0 + hh);
+    }
+  };
+  auto load_k = [&](int hh, int j) {
+    hopper::mbar_arrive_expect_tx(bar.k_full(j), kChunk);
+    load_rows(tk, base + lay.k + j * kChunk, bar.k_full(j), j * kChunkRows, head0 + hh);
+  };
+  auto load_v = [&](int t) {
+    const int s = t % kVStages;
+    hopper::mbar_arrive_expect_tx(bar.v_full(s), kChunk);
+    load_rows(tv, base + lay.v + s * kChunk, bar.v_full(s), (t % n) * kChunkRows, head0 + t / n);
+  };
+
+  load_q(0);
+  for (int j = 0; j < n; ++j) load_k(0, j);
+  for (int t = 0; t < kVStages && t < items; ++t) load_v(t);
+  for (int hh = 0; hh < n_heads; ++hh) {
+    if (hh + 1 < n_heads) {
+      hopper::mbar_wait(bar.q_empty(), hh & 1);  // head hh's Q is in registers
+      load_q(hh + 1);
+    }
+    for (int j = 0; j < n; ++j) {
+      const int t = hh * n + j;
+      if (hh + 1 < n_heads) {
+        hopper::mbar_wait(bar.k_empty(j), hh & 1);  // sweep 2 of head hh is past chunk j
+        load_k(hh + 1, j);
+      }
+      if (t + kVStages < items) {
+        hopper::mbar_wait(bar.v_empty(t % kVStages), (t / kVStages) & 1);
+        load_v(t + kVStages);
+      }
+    }
+  }
+}
+
+// Issue S[64 x 64] = Q K^T for this warpgroup's rows and one resident K chunk
+// (d / 32 boxes of [64 keys, 32 dims]; a K step of 16 dims is 32 bytes into a
+// box) as one wgmma group; the caller waits for it.
+template <int D>
+__device__ __forceinline__ void qk_issue(float (&s)[kTileN / 8][4], const uint32_t (&qa)[D / 16][4], uint32_t k_chunk) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t addr = k_chunk + (ks / 2) * kBoxBytes + (ks % 2) * 32;
+    const uint64_t desc = hopper::smem_desc(addr, 16, kGroupStrideBytes, hopper::kSwizzle64B);
+    hopper::WgmmaRS<kTileN>::template mma<0>(s, qa[ks], desc, ks > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// Issue acc[64 x D] += P[64 x 64] V[64 x D] as one wgmma group, P as bf16 A
+// fragments; the caller waits for it. V's chunk is MN-major: d / 32 boxes of
+// [64 keys, 32 dims], a K step of 16 keys is 16 rows further.
+template <int D>
+__device__ __forceinline__ void pv_issue(float (&acc)[D / 8][4], const uint32_t (&pa)[kTileN / 16][4],
+                                         uint32_t v_chunk) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < kTileN / 16; ++c) {
+    const uint32_t addr = v_chunk + c * 16 * kRowStrideBytes;
+    const uint64_t desc = hopper::smem_desc(addr, kBoxBytes, kGroupStrideBytes, hopper::kSwizzle64B);
+    hopper::WgmmaRS<D>::template mma<1>(acc, pa[c], desc, 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// The row max of one chunk's logits, keys at or past sk excluded.
+__device__ __forceinline__ void chunk_max(float (&m)[2], const float (&s)[kTileN / 8][4], int col0, int sk) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int nn = 0; nn < kTileN / 8; ++nn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (col0 + nn * 8 + 2 * t + (e & 1) < sk) m[e >> 1] = fmaxf(m[e >> 1], s[nn][e]);
+    }
+  }
+}
+
+// p = exp_mode(s - m) of one chunk in place, 0 at or past sk, and the f32 p
+// into the row sums l.
+template <int kMode>
+__device__ __forceinline__ void chunk_softmax(float (&s)[kTileN / 8][4], float (&l)[2], const float (&m)[2], int col0,
+                                              int sk) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int nn = 0; nn < kTileN / 8; ++nn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = col0 + nn * 8 + 2 * t + (e & 1);
+      s[nn][e] = col < sk ? probe_exp<kMode>(__fsub_rn(s[nn][e], m[e >> 1])) : 0.f;
+      l[e >> 1] = __fadd_rn(l[e >> 1], s[nn][e]);
+    }
+  }
+}
+
+// bf16(p) as the A fragments of P V: m64n8 block nn of the S accumulator is
+// half of K step nn / 2.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kTileN / 16][4], const float (&s)[kTileN / 8][4]) {
+#pragma unroll
+  for (int nn = 0; nn < kTileN / 8; ++nn) {
+    pa[nn / 2][2 * (nn % 2)] = pack(s[nn][0], s[nn][1]);  // rounds p to bf16
+    pa[nn / 2][2 * (nn % 2) + 1] = pack(s[nn][2], s[nn][3]);
+  }
+}
+
+// A consumer warpgroup: for each head of the block, its 64 query rows. No
+// wgmma group stays in flight across a loop iteration. Sweep 1 issues two
+// chunks' Q K^T before it takes the first one's max. Sweep 2 issues chunk j's
+// Q K^T and chunk j-1's P V together, and takes chunk j's softmax while P V
+// runs.
 template <int D, int kMode>
-__device__ __forceinline__ void single_head(const Params& p, int bi, int hi, int q0, bf16* s_k, bf16* s_v) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int rows = single_rows(p.sk);
-  const bf16* q = p.q + bi * p.q_sb + hi * p.q_sh;
-  const bf16* k = p.k + bi * p.k_sb + hi * p.k_sh;
-  const bf16* v = p.v + bi * p.v_sb + hi * p.v_sh;
-  bf16* o = p.o + bi * p.o_sb + hi * p.o_sh;
-  const int row0 = q0 + warp * 16;
-
-  load_rows<D>(s_k, k, p.k_ss, 0, rows, p.sk);
-  cp_async_commit();
-  load_rows<D>(s_v, v, p.v_ss, 0, rows, p.sk);
-  cp_async_commit();
-  uint32_t qa[D / 16][4];
-  load_q<D>(qa, q, p.q_ss, row0, p.sq, p.scale);
-  cp_async_wait<1>();  // K has landed
-  __syncthreads();
-
-  float s[kTileN / 8][4];
-  float m[2] = {-1e30f, -1e30f};  // padded keys' logit: their max changes nothing
-  for (int j = 0; j < rows / kTileN; ++j) {
-    qk_tile<D, false>(s, qa, s_k + j * kTileN * row_stride(D));
+__device__ void single_consumer(const Params& p, uint32_t base, const SingleLayout& lay, const SingleBars& bar, int bi,
+                                int head0, int n_heads, int q0) {
+  constexpr uint32_t kChunk = chunk_bytes(D);
+  const int n = bar.n;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + wg * kChunkRows + warp * 16;  // this warp's 16 rows
+  const uint32_t q_tile = base + lay.q + wg * kChunk;
+  auto k_chunk = [&](int j) { return base + lay.k + j * kChunk; };
+  float sa[kTileN / 8][4] = {}, sb[kTileN / 8][4] = {};
+  for (int hh = 0; hh < n_heads; ++hh) {
+    // Q as A fragments, pre-scaled in f32 and rounded to bf16 as the JAX fn
+    // does before its kernel; rows past sq arrived as zeros
+    hopper::mbar_wait(bar.q_full(), hh & 1);
+    uint32_t qa[D / 16][4];
 #pragma unroll
-    for (int n = 0; n < kTileN / 8; ++n) {
+    for (int ks = 0; ks < D / 16; ++ks) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * kTileN + n * 8 + 2 * t + (e & 1);
-        if (col < p.sk) m[e >> 1] = fmaxf(m[e >> 1], s[n][e]);
+      for (int i = 0; i < 4; ++i) {
+        const int r = warp * 16 + g + (i & 1) * 8;
+        const int c = ks * 16 + 2 * t + (i >> 1) * 8;
+        const uint32_t raw = hopper::ld_shared_u32(
+            hopper::swizzle_64b(q_tile + (c / kBoxCols) * kBoxBytes + r * kRowStrideBytes + (c % kBoxCols) * 2));
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+        qa[ks][i] = pack(__fmul_rn(f.x, p.scale), __fmul_rn(f.y, p.scale));
       }
     }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
-    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
-  }
-  cp_async_wait<0>();  // V has landed
-  __syncthreads();
+    hopper::fence_proxy_async();  // these reads come before the next Q's TMA write
+    release(bar.q_empty());
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float l[2] = {0.f, 0.f};
-  for (int j = 0; j < rows / kTileN; ++j) {
-    qk_tile<D, false>(s, qa, s_k + j * kTileN * row_stride(D));
-#pragma unroll
-    for (int n = 0; n < kTileN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * kTileN + n * 8 + 2 * t + (e & 1);
-        const float pe = col < p.sk ? probe_exp<kMode>(__fsub_rn(s[n][e], m[e >> 1])) : 0.f;
-        l[e >> 1] = __fadd_rn(l[e >> 1], pe);
-        s[n][e] = round_bf16(pe);  // P V takes bf16 p; l took the f32 p
-      }
+    // sweep 1: the exact row max, two chunks at a time as K lands (an odd
+    // last chunk is taken twice, which leaves the max as it is)
+    float m[2] = {-1e30f, -1e30f};  // padded keys' logit: their max changes nothing
+    for (int j = 0; j < n; j += 2) {
+      const int j1 = j + 1 < n ? j + 1 : j;
+      hopper::mbar_wait(bar.k_full(j), hh & 1);
+      qk_issue<D>(sa, qa, k_chunk(j));
+      hopper::mbar_wait(bar.k_full(j1), hh & 1);
+      qk_issue<D>(sb, qa, k_chunk(j1));
+      hopper::wgmma_wait<1>();
+      chunk_max(m, sa, j * kTileN, p.sk);
+      hopper::wgmma_wait<0>();
+      chunk_max(m, sb, j1 * kTileN, p.sk);
     }
-    pv_tile<D>(acc, s, s_v + j * kTileN * row_stride(D));
-  }
-  quad_sum(l);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float p_pad = probe_exp<kMode>(__fsub_rn(-1e30f, m[r]));  // 0 unless "mul"
-    l[r] = __fadd_rn(l[r], __fmul_rn(static_cast<float>(p.n_pad), p_pad));
+    for (int r = 0; r < 2; ++r) {
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+    }
+
+    // sweep 2: exponentials, the f32 row sum and bf16(p) V, V from the ring
+    float acc[D / 8][4];
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn) acc[nn][0] = acc[nn][1] = acc[nn][2] = acc[nn][3] = 0.f;
+    float l[2] = {0.f, 0.f};
+    uint32_t pa[kTileN / 16][4];
+    const int item0 = hh * n;  // chunk 0's place in the block's V stream
+    auto pv = [&](int j) {     // issue P V of chunk j, P in pa
+      const int item = item0 + j;
+      hopper::mbar_wait(bar.v_full(item % kVStages), (item / kVStages) & 1);
+      pv_issue<D>(acc, pa, base + lay.v + (item % kVStages) * kChunk);
+    };
+    qk_issue<D>(sa, qa, k_chunk(0));
+    hopper::wgmma_wait<0>();
+    release(bar.k_empty(0));
+    chunk_softmax<kMode>(sa, l, m, 0, p.sk);
+    pack_p(pa, sa);
+    for (int j = 1; j < n; ++j) {
+      qk_issue<D>(sa, qa, k_chunk(j));
+      pv(j - 1);
+      hopper::wgmma_wait<1>();  // Q K^T of chunk j is done
+      release(bar.k_empty(j));
+      chunk_softmax<kMode>(sa, l, m, j * kTileN, p.sk);
+      hopper::wgmma_wait<0>();  // P V of chunk j - 1 is done with pa and V
+      release(bar.v_empty((item0 + j - 1) % kVStages));
+      pack_p(pa, sa);
+    }
+    pv(n - 1);
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(acc);
+    release(bar.v_empty((item0 + n - 1) % kVStages));
+    quad_sum(l);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float p_pad = probe_exp<kMode>(__fsub_rn(-1e30f, m[r]));  // 0 unless "mul"
+      l[r] = __fadd_rn(l[r], __fmul_rn(static_cast<float>(p.n_pad), p_pad));
+    }
+    store_rows<D>(p.o + bi * p.o_sb + (head0 + hh) * p.o_sh, p.o_ss, row0, p.sq, acc, l);
   }
-  store_rows<D>(o, p.o_ss, row0, p.sq, acc, l);
 }
 
 template <int D, int kMode, bool kHeadLoop>
-__global__ void __launch_bounds__(kMaxThreads) single_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_k = reinterpret_cast<bf16*>(smem);
-  bf16* s_v = s_k + single_rows(p.sk) * row_stride(D);
-  const int q0 = blockIdx.x * (blockDim.x / 32) * 16;
-  if constexpr (kHeadLoop) {
-    for (int hi = 0; hi < p.h; ++hi) {
-      single_head<D, kMode>(p, blockIdx.y, hi, q0, s_k, s_v);
-      __syncthreads();  // every warp is done with this head's K/V
+__global__ void __launch_bounds__(kSingleThreads, 1)
+    single_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const Params p, int groups) {
+  extern __shared__ __align__(1024) unsigned char single_smem[];
+  const uint32_t base = hopper::smem_u32(single_smem);
+  const SingleLayout lay = single_layout(D, p.sk, groups);
+  const SingleBars bar{base + static_cast<uint32_t>(lay.bars), single_chunks(p.sk)};
+  const int consumers = 128 * groups;
+  if (threadIdx.x == 0) {
+    if (base % 1024 != 0) __trap();  // the swizzled tiles need the pattern's alignment
+    for (int j = 0; j < bar.n; ++j) {
+      hopper::mbar_init(bar.k_full(j), 1);
+      hopper::mbar_init(bar.k_empty(j), 4 * groups);
+    }
+    hopper::mbar_init(bar.q_full(), 1);
+    hopper::mbar_init(bar.q_empty(), 4 * groups);
+    for (int s = 0; s < kVStages; ++s) {
+      hopper::mbar_init(bar.v_full(s), 1);
+      hopper::mbar_init(bar.v_empty(s), 4 * groups);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int bi = kHeadLoop ? blockIdx.y : blockIdx.z;
+  const int head0 = kHeadLoop ? 0 : blockIdx.y;
+  const int n_heads = kHeadLoop ? p.h : 1;
+  const int q0 = blockIdx.x * kChunkRows * groups;
+  if (threadIdx.x >= consumers) {  // the producer warp; one thread issues
+    if (threadIdx.x == consumers) {
+      single_producer<D>(&tq, &tk, &tv, p, base, lay, bar, groups, bi, head0, n_heads, q0);
     }
   } else {
-    single_head<D, kMode>(p, blockIdx.z, blockIdx.y, q0, s_k, s_v);
+    single_consumer<D, kMode>(p, base, lay, bar, bi, head0, n_heads, q0);
   }
 }
 
@@ -489,16 +739,52 @@ cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
 }
 
+// The kernel of one (head dim, exp mode, layout), passed to `fn` as compile-time
+// constants; cudaErrorInvalidValue for a mode it does not know.
+template <int D, typename Fn>
+cudaError_t with_single_kernel(int head_loop, int exp_mode, Fn&& fn) {
+  using std::integral_constant;
+  if (head_loop) {
+    if (exp_mode == kExp) return fn(integral_constant<int, kExp>(), std::true_type());
+    if (exp_mode == kMul) return fn(integral_constant<int, kMul>(), std::true_type());
+    if (exp_mode == kBf16) return fn(integral_constant<int, kBf16>(), std::true_type());
+  } else {
+    if (exp_mode == kExp) return fn(integral_constant<int, kExp>(), std::false_type());
+    if (exp_mode == kMul) return fn(integral_constant<int, kMul>(), std::false_type());
+    if (exp_mode == kBf16) return fn(integral_constant<int, kBf16>(), std::false_type());
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int D, int kMode, bool kHeadLoop>
-cudaError_t launch_single(const Params& p, int b, int block_q, cudaStream_t stream) {
+cudaError_t launch_single(const CUtensorMap (&maps)[3], const Params& p, int b, int groups, cudaStream_t stream) {
   static const cudaError_t configured = allow_smem(single_kernel<D, kMode, kHeadLoop>);
   if (configured != cudaSuccess) return configured;
-  const int smem = single_smem_bytes<D>(p.sk);
+  const int smem = single_layout(D, p.sk, groups).total;
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  const int block_q = kChunkRows * groups;
   const int nq = (p.sq + block_q - 1) / block_q;
   const dim3 grid = kHeadLoop ? dim3(nq, b, 1) : dim3(nq, p.h, b);
-  single_kernel<D, kMode, kHeadLoop><<<grid, block_q * 2, smem, stream>>>(p);
+  single_kernel<D, kMode, kHeadLoop><<<grid, 128 * groups + 32, smem, stream>>>(maps[0], maps[1], maps[2], p, groups);
   return cudaGetLastError();
+}
+
+// Tensor maps of q, k, v as rank 4 {d, s, h, b} with the caller's strides, in
+// boxes of 64 rows by 32 columns with a 64-byte swizzle.
+int single_maps(CUtensorMap (&maps)[3], const void* q, const void* k, const void* v, int b, int h, int sq, int sk,
+                int d, const long long* strides) {
+  const void* ptrs[3] = {q, k, v};
+  const int rows[3] = {sq, sk, sk};
+  for (int i = 0; i < 3; ++i) {
+    const uint64_t dims[4] = {static_cast<uint64_t>(d), static_cast<uint64_t>(rows[i]), static_cast<uint64_t>(h),
+                              static_cast<uint64_t>(b)};
+    const uint64_t bytes[3] = {static_cast<uint64_t>(strides[3 * i + 2]) * 2,
+                               static_cast<uint64_t>(strides[3 * i + 1]) * 2, static_cast<uint64_t>(strides[3 * i]) * 2};
+    const uint32_t box[4] = {kBoxCols, kChunkRows, 1, 1};
+    const int err = hopper::encode_bf16_4d(&maps[i], ptrs[i], dims, bytes, box, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 template <int D, int kMode, int kSum, bool kKT, bool kDotsOnly>
@@ -533,17 +819,22 @@ Params make_params(const void* q, const void* k, const void* v, void* o, int h, 
 bool block_q_ok(int block_q) { return block_q >= 16 && block_q <= 128 && block_q % 16 == 0; }
 
 template <int D>
-cudaError_t single_d(const Params& p, int b, int block_q, int head_loop, int exp_mode, cudaStream_t s) {
-  if (head_loop) {
-    if (exp_mode == kExp) return launch_single<D, kExp, true>(p, b, block_q, s);
-    if (exp_mode == kMul) return launch_single<D, kMul, true>(p, b, block_q, s);
-    if (exp_mode == kBf16) return launch_single<D, kBf16, true>(p, b, block_q, s);
-  } else {
-    if (exp_mode == kExp) return launch_single<D, kExp, false>(p, b, block_q, s);
-    if (exp_mode == kMul) return launch_single<D, kMul, false>(p, b, block_q, s);
-    if (exp_mode == kBf16) return launch_single<D, kBf16, false>(p, b, block_q, s);
-  }
-  return cudaErrorInvalidValue;
+cudaError_t single_d(const CUtensorMap (&maps)[3], const Params& p, int b, int groups, int head_loop, int exp_mode,
+                     cudaStream_t s) {
+  return with_single_kernel<D>(head_loop, exp_mode, [&](auto mode, auto loop) {
+    return launch_single<D, decltype(mode)::value, decltype(loop)::value>(maps, p, b, groups, s);
+  });
+}
+
+template <int D>
+cudaError_t single_occupancy_d(int sk, int groups, int head_loop, int exp_mode, int* smem, int* blocks) {
+  return with_single_kernel<D>(head_loop, exp_mode, [&](auto mode, auto loop) {
+    const auto kernel = single_kernel<D, decltype(mode)::value, decltype(loop)::value>;
+    const cudaError_t err = allow_smem(kernel);
+    if (err != cudaSuccess) return err;
+    *smem = single_layout(D, sk, groups).total;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, 128 * groups + 32, *smem);
+  });
 }
 
 template <int D, int kSum>
@@ -576,16 +867,34 @@ extern "C" {
 // block_q or size this library does not take. Each launches on `stream`,
 // allocates nothing and does not synchronise.
 
-// single: head_loop 1 = blocks own (batch, q tile) and walk the heads
-// ("unroll", "batched"); 0 = blocks own (batch, head, q tile) ("grid").
+// single: block_q is 64 or 128 (one or two consumer warpgroups); head_loop
+// 1 = blocks own (batch, q tile) and walk the heads ("unroll", "batched");
+// 0 = blocks own (batch, head, q tile) ("grid"). q, k and v are read through
+// tensor maps; a map the driver will not encode returns
+// hopper::kErrTensorMapEncode. A pipeline wait that never completes traps the
+// kernel, which fails the launch at the next synchronisation.
 int zutis_probe_single(const void* q, const void* k, const void* v, void* o, int b, int h, int sq, int sk, int d,
                        const long long* strides, float scale, int block_q, int head_loop, int exp_mode,
                        void* stream) {
-  if (!block_q_ok(block_q)) return static_cast<int>(cudaErrorInvalidValue);
+  if (block_q != 64 && block_q != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (d != 64 && d != 96) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[3];
+  const int err = single_maps(maps, q, k, v, b, h, sq, sk, d, strides);
+  if (err != 0) return err;
   const Params p = make_params(q, k, v, o, h, sq, sk, strides, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return single_d<64>(p, b, block_q, head_loop, exp_mode, s);
-  if (d == 96) return single_d<96>(p, b, block_q, head_loop, exp_mode, s);
+  if (d == 64) return single_d<64>(maps, p, b, block_q / kChunkRows, head_loop, exp_mode, s);
+  return single_d<96>(maps, p, b, block_q / kChunkRows, head_loop, exp_mode, s);
+}
+
+// The dynamic shared memory of one `single` block at this sk, and the blocks
+// of that kernel an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int zutis_probe_single_occupancy(int d, int sk, int block_q, int head_loop, int exp_mode, int* smem_bytes,
+                                 int* blocks_per_sm) {
+  if (block_q != 64 && block_q != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = block_q / kChunkRows;
+  if (d == 64) return single_occupancy_d<64>(sk, groups, head_loop, exp_mode, smem_bytes, blocks_per_sm);
+  if (d == 96) return single_occupancy_d<96>(sk, groups, head_loop, exp_mode, smem_bytes, blocks_per_sm);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -616,6 +925,9 @@ int zutis_probe_kt(const void* q, const void* kt, const void* v, void* o, int b,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-const char* zutis_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+const char* zutis_cuda_error_string(int err) {
+  const char* own = hopper::error_string(err);
+  return own != nullptr ? own : cudaGetErrorString(static_cast<cudaError_t>(err));
+}
 
 }  // extern "C"

@@ -1,0 +1,257 @@
+// PTX helpers for Hopper (sm_90a) kernels: mbarriers, TMA tensor loads,
+// wgmma with A from registers, shared-memory matrix descriptors, and the
+// host side of a tensor map. Nothing here is specific to one kernel.
+//
+// Conventions:
+//   - shared-memory addresses are 32-bit `.shared` addresses (smem_u32);
+//   - a tile that TMA writes with a 64-byte swizzle is read by wgmma through
+//     a descriptor with layout kSwizzle64B and by threads through
+//     swizzle_64b(), all three on absolute address bits, so tiles must start
+//     on a 512-byte boundary (the pattern repeats every 8 rows of 64 bytes);
+//   - wgmma accumulators follow mma.m16n8k16's C layout per 8-column block:
+//     warp w of the warpgroup holds rows 16w..16w+15, d[n][0..1] is (row g,
+//     cols 8n+2t, +1) and d[n][2..3] is row g+8, with g = lane / 4 and
+//     t = lane % 4; A from registers follows mma's A layout in the same way.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums only; the driver is reached at run time
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// Error codes beside cudaError_t's (which stop below 1000)
+// ---------------------------------------------------------------------------
+
+constexpr int kErrNoTensorMapEncoder = 10001;  // the driver has no cuTensorMapEncodeTiled
+constexpr int kErrTensorMapEncode = 10002;     // cuTensorMapEncodeTiled refused the map
+
+inline const char* error_string(int err) {
+  if (err == kErrNoTensorMapEncoder) return "the CUDA driver offers no cuTensorMapEncodeTiled";
+  if (err == kErrTensorMapEncode) return "cuTensorMapEncodeTiled refused a tensor map (shape, strides or address)";
+  return nullptr;
+}
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps
+// ---------------------------------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, fetched through the runtime so that a
+// library needs no -lcuda; nullptr if the driver lacks it.
+inline EncodeTiledFn encode_tiled_fn() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiledFn>(f)
+                                                                        : nullptr;
+  }();
+  return fn;
+}
+
+// A rank-4 bf16 tensor map: extents dims[0..3], innermost first; byte
+// strides[0..2] of dims 1..3 (multiples of 16); boxes of box[0..3] elements.
+// Loads fill elements past an extent with zeros. Returns 0 or one of the
+// error codes above.
+inline int encode_bf16_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
+                          const uint64_t (&strides)[3], const uint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return kErrNoTensorMapEncoder;
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint64_t gdim[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint32_t gbox[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gdim, st, gbox,
+                            estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMapEncode;
+}
+
+// ---------------------------------------------------------------------------
+// Device: shared memory, mbarriers, TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The 64-byte swizzle that TMA (CU_TENSOR_MAP_SWIZZLE_64B) and wgmma
+// (kSwizzle64B) apply: address bits [4, 6) ^= bits [7, 9).
+__device__ __forceinline__ uint32_t swizzle_64b(uint32_t addr) { return addr ^ (((addr >> 7) & 3u) << 4); }
+
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// After the inits, before any thread or TMA uses the barriers (then a
+// __syncthreads).
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory accesses with later
+// async-proxy ones (TMA, wgmma).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Arrive once and add `bytes` to the transactions the current phase awaits.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Cycles a wait may take before the kernel traps: seconds at the H100's
+// clock, where a healthy wait takes microseconds. A trap fails the launch,
+// so a pipeline fault surfaces as an error and never as a hung card.
+constexpr long long kMbarTimeoutCycles = 1ll << 33;
+
+// Wait until the phase with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > kMbarTimeoutCycles) __trap();
+  }
+}
+
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// One box of a rank-4 map at element coordinates (c0 innermost) into shared
+// memory at `dst`, completing its bytes on mbarrier `bar`. `map` is a
+// __grid_constant__ kernel parameter.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Device: wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator register
+// across a wgmma issue or wait.
+__device__ __forceinline__ void fence_operand(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+
+template <int R, int C>
+__device__ __forceinline__ void fence_operands(float (&x)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) fence_operand(x[i][j]);
+  }
+}
+
+constexpr int kSwizzle128B = 1, kSwizzle64B = 2, kSwizzle32B = 3;
+
+// The 64-bit shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (multiples of 16 bytes), swizzle layout. With a
+// swizzle, a K-major operand (K contiguous, rows at the swizzle width) takes
+// SBO = the step between 8-row groups and no LBO; an MN-major operand takes
+// LBO = the step between swizzle-wide column blocks along MN and SBO = the
+// step between 8-row groups along K. A K step inside the swizzle width adds
+// its bytes to the start address.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(layout) << 62;
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N]: bf16 operands, f32 accumulators, A
+// from registers (4 x b32 per thread), B through a descriptor; kTransB 0
+// for a K-major B, 1 for an MN-major B. scale_d 0 overwrites D.
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaRS<64> {
+  template <int kTransB>
+  static __device__ __forceinline__ void mma(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<96> {
+  template <int kTransB>
+  static __device__ __forceinline__ void mma(float (&d)[12][4], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, %53;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(scale_d));
+  }
+};
+
+}  // namespace hopper

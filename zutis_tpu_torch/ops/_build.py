@@ -2,8 +2,9 @@
 
 Each source under `csrc/` holds kernels behind a plain C interface. It is
 compiled at first use with `nvcc` for sm_90a into `build/zutis_tpu_torch/`
-beside the package (a directory git ignores), keyed by a hash of the source
-and flags, and loaded with ctypes. A missing `nvcc` or a failed build raises.
+beside the package (a directory git ignores), keyed by a hash of the source,
+the headers beside it and the flags, and loaded with ctypes. A missing `nvcc`
+or a failed build raises.
 """
 from __future__ import annotations
 
@@ -43,13 +44,24 @@ def _nvcc() -> str:
     )
 
 
+def _digest(source: Path) -> str:
+    """Hash of what a build of `source` compiles: the source, every `*.cuh`
+    header in its directory and below (names and contents, so that an edit
+    to a header alone rebuilds), and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.rglob("*.cuh")):
+        h.update(header.relative_to(source.parent).as_posix().encode() + b"\0")
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(source: Path, stem: str) -> tuple[Path, float, str]:
-    """Compile `source` into `BUILD_DIR/<stem>_<hash>.so` if this source and
-    these flags have not been built yet. Returns (library path, seconds spent
-    compiling, compiler output with ptxas's per-kernel resource report; empty
-    when no build was needed)."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
+    """Compile `source` into `BUILD_DIR/<stem>_<digest>.so` if this source,
+    its headers and these flags have not been built yet. Returns (library
+    path, seconds spent compiling, compiler output with ptxas's per-kernel
+    resource report; empty when no build was needed)."""
+    lib_path = BUILD_DIR / f"{stem}_{_digest(source)}.so"
     if lib_path.exists():
         return lib_path, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -26,11 +26,16 @@ rounded to bf16, rounded to bf16.
 
 Each wrapper takes the plain version only for tensors that lie on the CPU.
 For a CUDA tensor it launches its kernel or raises: the kernels take bf16 at
-head dims 64 and 96 and `block_q` a multiple of 16 up to 128, and `single`
-keeps one head's K and V in shared memory, so its sk is at most 768 at d = 64
-and 512 at d = 96 (`single_smem_bytes`). `block_q` sets the query rows a
-block owns and does not change the result. The plain versions also take f32.
-Launch counts are the wrappers' `.launches`.
+head dims 64 and 96. `fastsm` and `kt` take `block_q` a multiple of 16 up to
+128. `single` runs on Hopper's TMA and wgmma: it takes `block_q` 64 or 128
+(one or two 64-row warpgroups), reads q, k and v through tensor maps, and
+keeps one head's K resident in shared memory beside its Q tile and a
+two-stage V ring, so its sk is at most 1,536 at d = 64 and 896 at d = 96
+with `block_q` 128 (1,600 and 960 with 64; `single_smem_bytes`).
+`single_occupancy` reports a `single` kernel's shared memory and blocks per
+SM on the card. `block_q` sets the query rows a block owns and does not
+change the result. The plain versions also take f32. Launch counts are the
+wrappers' `.launches`.
 """
 from __future__ import annotations
 
@@ -50,6 +55,8 @@ SUM_MODES = ("lane", "mxu")
 KEY_PAD = 128      # the JAX fns pad sk to a multiple of this
 KEY_TILE = 64      # keys per shared-memory tile in the kernels
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
+SINGLE_BLOCK_Q = (64, 128)  # one or two consumer warpgroups of 64 rows
+SINGLE_V_STAGES = 2  # V chunks in `single`'s ring
 
 
 def build():
@@ -67,6 +74,9 @@ def _bind(lib: ctypes.CDLL) -> None:
             ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
+    fn = lib.zutis_probe_single_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
 
 
 def _check_mode(value: str, allowed: tuple, what: str) -> None:
@@ -146,33 +156,44 @@ def kt_attention_reference(q, k, v, exp_mode="exp", dots_only=False):
 
 # ---------------------------------------------------------------- kernels
 
-def single_smem_bytes(sk: int, d: int) -> int:
-    """Shared memory of one `single` block: one head's K and V, sk rounded
-    up to a 64-key tile, rows padded by 16 bytes, in bf16."""
-    return 2 * (-(-sk // KEY_TILE) * KEY_TILE) * (d + 8) * 2
+def single_smem_bytes(sk: int, d: int, block_q: int = 128) -> int:
+    """Dynamic shared memory of one `single` block: one head's K (sk rounded
+    up to a 64-key chunk), the Q tile and SINGLE_V_STAGES V chunks, all
+    64-key (or 64-row) chunks of d bf16 columns with no padding, then the
+    mbarriers: a full and an empty one per K chunk, per Q and per V stage."""
+    chunks = -(-sk // KEY_TILE)
+    tiles = chunks + block_q // KEY_TILE + SINGLE_V_STAGES
+    return tiles * KEY_TILE * d * 2 + (2 * chunks + 2 + 2 * SINGLE_V_STAGES) * 8
 
 
 def check_kernel_inputs(q, k, v, block_q: int, family: str) -> None:
     """Raise on anything the probe kernels do not take: what
     `flash_attention.check_kernel_inputs` refuses (rank, shapes, head dims,
     devices, grid size, a head dim that is not contiguous, strides or
-    addresses not 16-byte aligned), and a dtype other than bf16, no keys, a
-    `block_q` that is not a multiple of 16 in [16, 128], and for `single` a
-    head's K and V over the shared-memory limit."""
+    addresses not 16-byte aligned), and a dtype other than bf16, no keys;
+    for `single` a `block_q` other than 64 or 128, or a block over the
+    shared-memory limit; for the others a `block_q` that is not a multiple
+    of 16 in [16, 128]."""
     fa.check_kernel_inputs(q, k, v, None)
     if q.dtype != torch.bfloat16:
         raise TypeError(f"dtype {q.dtype}: the probe kernels take bfloat16")
     sk, d = k.shape[2], k.shape[3]
     if sk == 0:
         raise ValueError("the probes need at least one key")
-    if not (isinstance(block_q, int) and 16 <= block_q <= 128
-            and block_q % 16 == 0):
+    if family == "single":
+        if block_q not in SINGLE_BLOCK_Q:
+            raise ValueError(
+                f"block_q {block_q!r}: single takes {SINGLE_BLOCK_Q} (one or "
+                "two 64-row warpgroups)")
+        if single_smem_bytes(sk, d, block_q) > SMEM_LIMIT:
+            raise ValueError(
+                f"single keeps one head's K in shared memory: sk {sk} at d {d} "
+                f"and block_q {block_q} needs {single_smem_bytes(sk, d, block_q)}"
+                f" bytes, over {SMEM_LIMIT} (with block_q 128, sk <= 1536 at "
+                "d 64 and <= 896 at d 96)")
+    elif not (isinstance(block_q, int) and 16 <= block_q <= 128
+              and block_q % 16 == 0):
         raise ValueError(f"block_q {block_q!r}: a multiple of 16 in [16, 128]")
-    if family == "single" and single_smem_bytes(sk, d) > SMEM_LIMIT:
-        raise ValueError(
-            f"single keeps one head's K and V in shared memory: sk {sk} at "
-            f"d {d} needs {single_smem_bytes(sk, d)} bytes, over {SMEM_LIMIT} "
-            "(sk <= 768 at d 64, <= 512 at d 96)")
 
 
 def _on_cpu(q: torch.Tensor, what: str) -> bool:
@@ -218,6 +239,25 @@ def single_attention(q, k, v, block_q=128, heads_per_cell="unroll",
                 int(heads_per_cell != "grid"), EXP_MODES.index(exp_mode))
     single_attention.launches += 1
     return o
+
+
+def single_occupancy(d: int, sk: int, block_q: int = 128,
+                     heads_per_cell: str = "unroll",
+                     exp_mode: str = "exp") -> tuple[int, int]:
+    """(dynamic shared memory bytes, blocks per SM) of the `single` kernel
+    that these arguments launch, from the current card's occupancy
+    calculator."""
+    _check_mode(heads_per_cell, HEADS_PER_CELL, "heads_per_cell")
+    _check_mode(exp_mode, EXP_MODES, "exp_mode")
+    if heads_per_cell == "batched":
+        exp_mode = "exp"
+    lib = _build.load(SOURCE, STEM, _bind)
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.zutis_probe_single_occupancy(
+        d, sk, block_q, int(heads_per_cell != "grid"),
+        EXP_MODES.index(exp_mode), ctypes.byref(smem), ctypes.byref(blocks))
+    _build.check_launch(lib, err, "single occupancy")
+    return smem.value, blocks.value
 
 
 def fastsm_attention(q, k, v, block_q=128, sum_mode="lane", exp_mode="exp"):
