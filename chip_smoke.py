@@ -10,11 +10,15 @@ PyTorch built for CUDA. It imports torch, numpy and zutis_tpu_torch only.
      zutis_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source, started
      together), prints ptxas's registers and spills, and turns TF32 off for
      matmuls and cuDNN.
-  2. Flash kernel against its plain version on the card, at the three
-     attention shapes of the serving path (batch 8, bf16), a ragged case and
-     a kv_mask case with an all-masked item (plus f32 inputs); times the
-     kernel, the plain version and F.scaled_dot_product_attention (a
-     yardstick only: the port never calls it) with CUDA events.
+  2. Flash kernels against their plain version on the card, at the three
+     attention shapes of the serving path (batch 8, bf16), also as strided
+     [b, s, h, d] views as the model passes them, ragged cases and kv_mask
+     cases with an all-masked item (plus f32 inputs); checks that the bf16
+     kernel was compiled to TMA loads and wgmma with no mma.sync or cp.async
+     (cuobjdump, which must be in the toolkit); prints its shared memory and
+     blocks per SM; times each main-path shape beside the plain version and
+     F.scaled_dot_product_attention (a yardstick only: the port never calls
+     it).
   3. Probe kernels against their plain versions on the card in bf16: every
      family, layout, sum mode, exp mode and the dots-only kt, at the tuning
      tool's shape [64,12,577,577,64], the serving encoder shape, a ragged
@@ -45,11 +49,13 @@ import contextlib
 import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -58,6 +64,7 @@ import torch.nn.functional as F
 from zutis_tpu_torch.engine.server import InferenceServer
 from zutis_tpu_torch.models.layers import MultiHeadAttention
 from zutis_tpu_torch.models.zutis import ZUTIS
+from zutis_tpu_torch.ops import _build
 from zutis_tpu_torch.ops import attention_probes as ap
 from zutis_tpu_torch.ops import flash_attention as fa
 from zutis_tpu_torch.ops import rle
@@ -120,6 +127,10 @@ TUNE_RUNS = ([(v, "exp", False) for v in kernel_tune.VARIANTS]
              + [("kt", "exp", True), ("single", "mul", False),
                 ("fastsm-mxu", "bf16", False)])
 TOL_BF16 = 2e-2  # bf16 outputs (8-bit mantissa) against the f32 plain version
+# bf16 flash, relative to the largest |output|: ~2.6x the 3.1e-3 read on an
+# H100 (P and the output rounded to bf16); giving the 63 zero keys past the
+# edge at sk 577 weight would cost ~7%
+TOL_FLASH_BF16 = 8e-3
 TOL_F32 = 1e-4   # f32 inputs take hi/lo bf16 splits (~16 mantissa bits)
 MIN_SEMANTIC_AGREEMENT = 0.985
 SEMANTIC_SLACK = 0.002  # 0.2 points: ~37 of the 18,432 pixels of a batch
@@ -178,15 +189,22 @@ def host_ms(fn, device: torch.device, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+_LENGTH = re.compile(r"(\d+)(?=[A-Za-z_])")  # the length before a mangled name
+
+
 def _kernel_name(mangled: str) -> str:
     """A kernel's name in its mangled symbol, with its integer template
-    arguments: `single_kernel<64,0,1>`."""
-    names = []
-    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+    arguments: `single_kernel<64,0,1>`, `flash_wgmma_kernel<96>`. Each
+    length-prefixed name is skipped whole, so that the digits of the
+    anonymous namespace's hash never read as a length."""
+    names, pos = [], 0
+    while (m := _LENGTH.search(mangled, pos)):
         ident = mangled[m.end():m.end() + int(m.group(1))]
-        args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[m.end() + len(ident):])
+        pos = m.end() + len(ident)
+        args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[pos:])
         if args:
-            return f"{ident}<{','.join(re.findall(r'L[a-z](\d+)E', args.group(1)))}>"
+            vals = re.findall(r"L[a-z](\d+)E", args.group(1))
+            return f"{ident}<{','.join(vals)}>"
         if not ident.startswith("_GLOBAL"):
             names.append(ident)
     return names[0] if names else mangled[:80]
@@ -210,7 +228,7 @@ def ptxas_report(log: str) -> list:
     return lines
 
 
-def phase_card() -> str:
+def phase_card() -> tuple[str, Path]:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a card")
     smi = subprocess.run(
@@ -234,7 +252,40 @@ def phase_card() -> str:
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
-    return card
+    return card, results[0][0]
+
+
+SASS_OPS = ("UTMALDG", "HGMMA", "HMMA", "LDGSTS")  # TMA, wgmma, mma.sync, cp.async
+
+
+def sass_check(lib: Path) -> dict:
+    """Opcode counts of each bf16 flash kernel in the built library, from
+    cuobjdump's SASS; each must load through TMA (UTMALDG) and multiply on
+    wgmma (HGMMA), with no mma.sync (HMMA) and no cp.async (LDGSTS).
+    cuobjdump ships beside nvcc; fails without it."""
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        tool = str(Path(_build._nvcc()).parent / "cuobjdump")
+    check(Path(tool).exists(), "no cuobjdump beside nvcc: the bf16 flash "
+          "kernel's opcodes cannot be checked")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()[:300]}")
+    counts = {}
+    for block in out.stdout.split("Function : ")[1:]:
+        name = _kernel_name(block.split()[0])
+        if name.startswith("flash_wgmma_kernel"):
+            counts[name] = {op: len(re.findall(rf"\b{op}\b", block))
+                            for op in SASS_OPS}
+    check(len(counts) == len(fa.HEAD_DIMS),
+          f"cuobjdump found {sorted(counts)} for the bf16 flash kernel")
+    for name, c in counts.items():
+        print(f"sass: {name}: {json.dumps(c)}", flush=True)
+        check(c["UTMALDG"] > 0 and c["HGMMA"] > 0,
+              f"{name} has no TMA load or no wgmma")
+        check(c["HMMA"] == 0 and c["LDGSTS"] == 0,
+              f"{name} still holds mma.sync or cp.async")
+    return counts
 
 
 def _inputs(gen, b, h, sq, sk, d, dtype, strided=False):
@@ -247,52 +298,87 @@ def _inputs(gen, b, h, sq, sk, d, dtype, strided=False):
             for s in (sq, sk, sk)]
 
 
+def flash_occupancy() -> dict:
+    """The bf16 flash kernel's dynamic shared memory and blocks per SM, for
+    each head dim."""
+    occ = {}
+    for d in fa.HEAD_DIMS:
+        smem, blocks = fa.occupancy(d)
+        check(smem == fa.smem_layout(d)["total"],
+              f"flash shared memory {smem} differs from smem_layout")
+        occ[f"d{d}"] = dict(smem_bytes=smem, blocks_per_sm=blocks)
+        print(f"flash occupancy d {d}: {smem} bytes of dynamic shared "
+              f"memory, {blocks} block(s) per SM", flush=True)
+    return occ
+
+
 def phase_kernel():
-    """Kernel against its plain version; per-shape times and bounds."""
+    """Kernels against their plain version; per-shape times and bounds."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
-    cases = [(name, shape, None, torch.bfloat16) for name, shape, _ in MAIN_SHAPES]
-    cases += [("ragged", (1, 1, 130, 260, 64), None, torch.bfloat16),
-              ("kv_mask", (3, 8, 64, 200, 96), "mask", torch.bfloat16),
-              ("kv_mask f32", (3, 8, 64, 200, 96), "mask", torch.float32),
-              ("ragged f32", (2, 12, 77, 333, 64), None, torch.float32)]
-    for name, (b, h, sq, sk, d), masked, dtype in cases:
-        q, k, v = _inputs(gen, b, h, sq, sk, d, dtype)
+    cases = [(name, shape, None, torch.bfloat16, False)
+             for name, shape, _ in MAIN_SHAPES]
+    cases += [(f"{name} strided", shape, None, torch.bfloat16, True)
+              for name, shape, _ in MAIN_SHAPES]
+    cases += [("ragged", (1, 1, 130, 260, 64), None, torch.bfloat16, False),
+              ("ragged sq 577 sk 260", (2, 3, 577, 260, 64), None,
+               torch.bfloat16, True),
+              # one key in the last chunk and 63 past the edge
+              ("keys past the edge", (2, 4, 100, 65, 96), None,
+               torch.bfloat16, False),
+              ("kv_mask", (3, 8, 64, 200, 96), "mask", torch.bfloat16, False),
+              ("kv_mask strided", (3, 4, 130, 300, 64), "mask",
+               torch.bfloat16, True),
+              ("kv_mask f32", (3, 8, 64, 200, 96), "mask", torch.float32, False),
+              ("ragged f32", (2, 12, 77, 333, 64), None, torch.float32, False)]
+    for name, (b, h, sq, sk, d), masked, dtype, strided in cases:
+        q, k, v = _inputs(gen, b, h, sq, sk, d, dtype, strided)
         mask = None
         if masked:
             mask = (torch.rand(b, sk, generator=gen, device="cuda") > 0.3).int()
             mask[1] = 0  # an item with no valid key
+        before = fa.flash_attention.launches
         got = fa.flash_attention(q, k, v, mask)
         torch.cuda.synchronize()
+        check(fa.flash_attention.launches == before + 1, f"{name}: no launch")
+        check(got.stride() == q.stride(), f"{name}: output not in q's layout")
         want = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask)
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         err = (got.float() - want).abs().max().item()
         rel = err / max(want.abs().max().item(), 1e-30)
-        tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+        if dtype == torch.bfloat16:
+            tol, ok = f"{TOL_FLASH_BF16} rel", rel <= TOL_FLASH_BF16
+        else:
+            tol, ok = f"{TOL_F32} abs", err <= TOL_F32
         print(f"kernel check {name} {[b, h, sq, sk, d]} {str(dtype)[6:]}: "
               f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol {tol})",
               flush=True)
-        check(err <= tol, f"{name}: kernel disagrees with its plain version")
+        check(ok, f"{name}: kernel disagrees with its plain version")
         if masked:
             check(bool((got[1] == 0).all()), f"{name}: all-masked item not zero")
         max_err = max(max_err, err)
 
+    occupancy = flash_occupancy()
     rows = []
     for name, (b, h, sq, sk, d), per_forward in MAIN_SHAPES:
         q, k, v = _inputs(gen, b, h, sq, sk, d, torch.bfloat16)
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
+        qs, ks, vs = _inputs(gen, b, h, sq, sk, d, torch.bfloat16, True)
+        strided_ms = cuda_ms(lambda: fa.flash_attention(qs, ks, vs))
+        del qs, ks, vs
         plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
         bound_ms, bound_by = bound(b, h, sq, sk, d)
         rows.append(dict(name=name, shape=[b, h, sq, sk, d],
-                         per_forward=per_forward, ms=ms, plain_ms=plain_ms,
+                         per_forward=per_forward, ms=ms,
+                         strided_ms=strided_ms, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by))
-        print(f"kernel time {name} {[b, h, sq, sk, d]}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound",
-              flush=True)
-    return max_err, rows
+                         bound_by=bound_by, **occupancy[f"d{d}"]))
+        print(f"kernel time {name} {[b, h, sq, sk, d]}: kernel {ms:.4f} ms "
+              f"(strided [b,s,h,d] {strided_ms:.4f}), plain {plain_ms:.4f} "
+              f"ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {bound_ms / ms:.1%} of bound", flush=True)
+    return max_err, rows, occupancy
 
 
 def _probe_kernel_only(label, kw, q, k, v):
@@ -387,6 +473,8 @@ def _time_probes(shape_name, q, k, v):
                bound_by=bound_by,
                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                flash_ms=cuda_ms(lambda: fa.flash_attention(q, k, v)),
+               flash_plain_ms=cuda_ms(
+                   lambda: fa.flash_attention_reference(q, k, v), **plain_calls),
                transpose_ms=cuda_ms(lambda: ap.transpose_keys(k)),
                plain_ms={name: cuda_ms(lambda: ref(q, k, v), **plain_calls)
                          for name, (_, ref, _) in PROBES.items()},
@@ -406,7 +494,9 @@ def _time_probes(shape_name, q, k, v):
     print(f"probe time {shape_name} {row['shape']}: plain "
           + ", ".join(f"{n} {t:.4f} ms" for n, t in row["plain_ms"].items())
           + f"; sdpa {row['library_ms']:.4f} ms; flash_attention "
-          f"{row['flash_ms']:.4f} ms; K transpose {row['transpose_ms']:.4f} ms",
+          f"{row['flash_ms']:.4f} ms (plain {row['flash_plain_ms']:.4f}); "
+          "K transpose "
+          f"{row['transpose_ms']:.4f} ms",
           flush=True)
     return row
 
@@ -641,8 +731,9 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
 
 
 def main() -> None:
-    card = phase_card()
-    max_err, rows = phase_kernel()
+    card, flash_lib = phase_card()
+    sass = sass_check(flash_lib)
+    max_err, rows, flash_occ = phase_kernel()
     probe_err, probe_rel, probe_rows, occupancy = phase_probes()
     tune_launches, tune_results = phase_tune()
     stats = phase_serving()
@@ -668,6 +759,13 @@ def main() -> None:
         "bound_ms": per_forward("bound_ms"),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": per_forward("library_ms"),
+        # occupancy of the block the encoder self-attention (12 of the 24
+        # calls) launches; every shape's own is in its row
+        "smem_bytes": rows[0]["smem_bytes"],
+        "blocks_per_sm": rows[0]["blocks_per_sm"],
+        "block_q": fa.KEY_CHUNK,  # query rows a block, at every shape
+        "occupancy": flash_occ,
+        "sass": sass,
         "shapes": rows,
     }]
     tool = next(r for r in probe_rows if r["name"] == "tool")

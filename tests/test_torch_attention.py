@@ -5,8 +5,9 @@ in interpret mode on the CPU, as tests/test_flash_attention.py runs it) and
 against `_xla_reference`; the "torch" dispatcher path against the JAX "xla"
 path. Tolerances: f32 at 2e-5 (the JAX kernel test's own, for
 summation-order differences); bf16 at 1/64 relative and absolute, one or two
-roundings of an 8-bit mantissa at the logits or the output. The CUDA kernel
-test needs the card and skips elsewhere.
+roundings of an 8-bit mantissa at the logits or the output. The CUDA kernels'
+tests need the card and live in tests/test_torch_flash_kernel.py, which
+imports no JAX so that it runs on the card's machine.
 """
 import numpy as np
 import pytest
@@ -169,22 +170,3 @@ def test_flash_attention_refuses_other_devices():
     with pytest.raises(ValueError):
         tflash.flash_attention(q, q, q)
 
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_reference_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    cases = [((2, 12, 577, 577, 64), False), ((2, 8, 100, 2304, 96), False),
-             ((1, 1, 130, 260, 64), False), ((3, 8, 64, 200, 96), True)]
-    for (b, h, sq, sk, d), masked in cases:
-        q, k, v = (torch.from_numpy(x).cuda().bfloat16()
-                   for x in _qkv(8, b, h, sq, sk, d))
-        mask = (torch.from_numpy(_mask(8, b, sk, all_masked=1)).cuda()
-                if masked else None)
-        before = tflash.flash_attention.launches
-        got = tflash.flash_attention(q, k, v, mask)
-        torch.cuda.synchronize()
-        assert tflash.flash_attention.launches == before + 1
-        want = tflash.flash_attention_reference(q.float(), k.float(),
-                                                v.float(), mask)
-        torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)

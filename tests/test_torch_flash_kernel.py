@@ -1,0 +1,210 @@
+"""The flash-attention kernels (csrc/flash_attention.cu) against their plain
+version on the card, and the bf16 kernel's launch geometry and input checks
+on the CPU.
+
+The kernels have no CPU mode, so the tests that launch them are marked
+`cuda` and skip without a card. The file imports no JAX, so that it runs on
+a machine with a card and no JAX:
+
+    python -m pytest --noconftest tests/test_torch_flash_kernel.py
+
+Inputs are numpy-seeded. bf16 outputs are held to 8e-3 of the largest
+|output| against the plain version on f32 copies of the same inputs: the
+kernel rounds P to bf16 before P V and the output to bf16, about 2^-9
+relative each, and reads at most 3.1e-3 of it on an H100. Giving the zero
+keys past a ragged edge any weight, or skipping a 64-key chunk, costs
+several times that. f32 inputs take hi/lo bf16 splits (~16 mantissa bits)
+and are held to 1e-4 absolute.
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from zutis_tpu_torch.ops import _build
+from zutis_tpu_torch.ops import flash_attention as fa
+
+TOL_BF16 = 8e-3  # of the largest |output|
+TOL_F32 = 1e-4
+# [b, h, sq, sk, d] of the serving forward at 384 px, batch 8
+ENCODER_SELF = (8, 12, 577, 577, 64)
+DECODER_SELF = (8, 8, 100, 100, 96)
+DECODER_CROSS = (8, 8, 100, 2304, 96)
+
+
+def _qkv(seed, b, h, sq, sk, d, strided=False):
+    """q, k, v [b, h, s, d]; `strided` makes them [b, s, h, d] and returns
+    [b, h, s, d] views, as the model's projections reach the kernel."""
+    rng = np.random.RandomState(seed)
+    if strided:
+        return [torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+                .transpose(1, 2) for s in (sq, sk, sk)]
+    return [torch.from_numpy(rng.randn(b, h, s, d).astype(np.float32))
+            for s in (sq, sk, sk)]
+
+
+def _mask(seed, b, sk, all_masked):
+    m = (np.random.RandomState(seed).rand(b, sk) > 0.3).astype(np.int32)
+    m[all_masked] = 0
+    return torch.from_numpy(m)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+
+
+def _check(shape, dtype=torch.bfloat16, masked=False, strided=False):
+    """One launch against the plain version on f32 copies of its inputs."""
+    _needs_card()
+    b, h, sq, sk, d = shape
+    q, k, v = (x.cuda().to(dtype) for x in _qkv(8, *shape, strided=strided))
+    mask = _mask(8, b, sk, all_masked=1).cuda() if masked else None
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert got.stride() == q.stride()  # written in place of the caller's layout
+    want = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask)
+    if dtype == torch.bfloat16:
+        tol = TOL_BF16 * want.abs().max().item()
+    else:
+        tol = TOL_F32
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+    if masked:
+        assert (got[1] == 0).all()  # no valid key: exactly zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,masked,strided", [
+    (ENCODER_SELF, torch.bfloat16, False, False),
+    (DECODER_SELF, torch.bfloat16, False, False),
+    (DECODER_CROSS, torch.bfloat16, False, False),
+    (ENCODER_SELF, torch.bfloat16, False, True),
+    (DECODER_SELF, torch.bfloat16, False, True),
+    (DECODER_CROSS, torch.bfloat16, False, True),
+    ((1, 2, 577, 260, 64), torch.bfloat16, False, False),   # ragged sq, sk
+    ((2, 3, 130, 260, 96), torch.bfloat16, False, True),
+    ((3, 8, 64, 200, 96), torch.bfloat16, True, False),     # all-masked item
+    ((3, 4, 130, 300, 64), torch.bfloat16, True, True),
+    ((2, 3, 50, 70, 64), torch.bfloat16, True, True),
+    ((3, 2, 190, 129, 96), torch.bfloat16, True, True),
+    ((3, 8, 64, 200, 96), torch.float32, True, False),
+    ((2, 12, 77, 333, 64), torch.float32, False, False),
+    ((2, 4, 100, 300, 96), torch.float32, False, True),
+], ids=lambda x: str(x).replace("torch.", "").replace(" ", ""))
+def test_cuda_kernel_matches_reference_on_the_card(shape, dtype, masked,
+                                                   strided):
+    _check(shape, dtype, masked, strided)
+
+
+# the last chunk holds 1 key and 63 rows that TMA fills with zeros: only the
+# per-chunk validity keeps them out of the softmax
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 4, 100, 1, 64), (2, 4, 100, 65, 96), (1, 4, 130, 577, 64),
+], ids=str)
+def test_cuda_keys_past_the_edge_get_no_weight(shape):
+    _check(shape, strided=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_cuda_occupancy_reports_the_launched_kernel(d):
+    _needs_card()
+    smem, blocks = fa.occupancy(d)
+    assert smem == fa.smem_layout(d)["total"]
+    assert blocks == 2  # the design: one block's loads overlap the other's work
+
+
+# ---------------------------------------------------------------- on the CPU
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_smem_layout_keeps_tiles_on_the_swizzle_pattern(d):
+    lay = fa.smem_layout(d)
+    chunk = fa.KEY_CHUNK * d * 2
+    tiles = [lay["q"]] + [lay[area] + s * chunk for area in ("k", "v")
+                          for s in range(fa.STAGES)]
+    # TMA's and wgmma's 64-byte swizzle repeats every 512 bytes, from
+    # absolute address bits, so every tile (and every 4 KB box in it)
+    # starts on that boundary
+    assert all(t % 512 == 0 for t in tiles)
+    assert all(t % 4096 == 0 for t in tiles)
+    # areas in order, none overlapping the next
+    assert lay["q"] + chunk <= lay["k"]
+    assert lay["k"] + fa.STAGES * chunk <= lay["v"]
+    assert lay["v"] + fa.STAGES * chunk <= lay["valid"]
+    assert lay["valid"] + fa.STAGES * 8 <= lay["bars"]
+    assert lay["bars"] % 8 == 0  # mbarriers are 8-byte words
+    assert lay["total"] == lay["bars"] + (1 + 4 * fa.STAGES) * 8
+    assert lay["total"] <= fa.SMEM_LIMIT
+
+
+def test_smem_layout_leaves_room_for_two_blocks():
+    # two blocks (plus the 1 KB each block reserves) must fit in the SM's
+    # 228 KB at both head dims
+    for d in fa.HEAD_DIMS:
+        assert 2 * (fa.smem_layout(d)["total"] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("source,name,attr", [
+    ("flash_attention.cu", "kFlashStages", "STAGES"),
+    ("hopper.cuh", "kChunkRows", "KEY_CHUNK"),
+    ("hopper.cuh", "kSmemLimit", "SMEM_LIMIT"),
+])
+def test_smem_layout_mirrors_the_kernels_constants(source, name, attr):
+    text = (_build.CSRC / source).read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", text)
+    assert found == [str(getattr(fa, attr))]
+
+
+def test_kernel_input_check_refuses_no_keys():
+    q = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at least one key"):
+        fa.check_kernel_inputs(q, q[:, :, :0], q[:, :, :0], None)
+
+
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("rank 3", ValueError, "rank 4"),
+    ("shape mismatch", ValueError, "shape mismatch"),
+    ("head dim 32", ValueError, "head dim 32"),
+    ("float16", TypeError, "bfloat16 or all float32"),
+    ("mixed dtypes", TypeError, "bfloat16 or all float32"),
+    ("head dim strided", ValueError, "contiguous"),
+    ("row stride unaligned", ValueError, "16-byte"),
+    ("address unaligned", ValueError, "16-byte"),
+    ("mask shape", ValueError, "kv_mask"),
+    ("batch over the grid", ValueError, "launch grid"),
+])
+def test_kernel_input_check_refuses_what_the_kernels_do_not_take(
+        case, error, match):
+    q = k = v = _bf16(2, 2, 8, 64)
+    mask = None
+    if case == "rank 3":
+        q = _bf16(2, 8, 64)
+    elif case == "shape mismatch":
+        k = _bf16(2, 3, 8, 64)
+    elif case == "head dim 32":
+        q = k = v = _bf16(2, 2, 8, 32)
+    elif case == "float16":
+        q = k = v = q.half()
+    elif case == "mixed dtypes":
+        k = k.float()
+    elif case == "head dim strided":
+        q = _bf16(2, 2, 64, 8).transpose(2, 3)
+    elif case == "row stride unaligned":
+        q = _bf16(2, 2, 8, 66)[..., :64]  # a 132-byte row step
+    elif case == "address unaligned":
+        q = _bf16(2 * 2 * 8 * 64 + 1)[1:].view(2, 2, 8, 64)
+    elif case == "mask shape":
+        mask = torch.ones(2, 9, dtype=torch.int32)
+    elif case == "batch over the grid":
+        q = k = v = _bf16(1, 2, 8, 64).expand(65536, 2, 8, 64)
+    with pytest.raises(error, match=match):
+        fa.check_kernel_inputs(q, k, v, mask)

@@ -44,10 +44,11 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using hopper::kSmemLimit;
+using hopper::pack_bf16x2;
 
 constexpr int kTileN = 64;          // keys per tile
 constexpr int kMaxThreads = 256;    // block_q up to 128
-constexpr int kSmemLimit = 232448;  // dynamic shared memory one block may use
 constexpr int kExp = 0, kMul = 1, kBf16 = 2;
 constexpr int kLane = 0, kMxu = 1;
 
@@ -106,11 +107,6 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack(float a, float b) {  // a in the low half
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
 // The probe's exponential. Products and sums that follow are written with _rn
@@ -142,7 +138,7 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[D / 16][4], const bf16* q,
       qa[ks][i] = 0;
       if (row < sq) {
         const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(q + row * ss + col));
-        qa[ks][i] = pack(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
+        qa[ks][i] = pack_bf16x2(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
       }
     }
   }
@@ -213,8 +209,9 @@ __device__ __forceinline__ void pv_tile(float (&acc)[D / 8][4], const float (&p)
   const int lane = threadIdx.x & 31, j = lane >> 3, r = lane & 7;
 #pragma unroll
   for (int c = 0; c < kTileN / 16; ++c) {
-    const uint32_t pa[4] = {pack(p[2 * c][0], p[2 * c][1]), pack(p[2 * c][2], p[2 * c][3]),
-                            pack(p[2 * c + 1][0], p[2 * c + 1][1]), pack(p[2 * c + 1][2], p[2 * c + 1][3])};
+    const uint32_t pa[4] = {pack_bf16x2(p[2 * c][0], p[2 * c][1]), pack_bf16x2(p[2 * c][2], p[2 * c][3]),
+                            pack_bf16x2(p[2 * c + 1][0], p[2 * c + 1][1]),
+                            pack_bf16x2(p[2 * c + 1][2], p[2 * c + 1][3])};
 #pragma unroll
     for (int n = 0; n < D / 8; n += 2) {
       // matrix j: keys c*16 + (j & 1)*8 .. +7 of dims (n + j / 2)*8 .. +7
@@ -245,10 +242,10 @@ __device__ __forceinline__ void store_rows(bf16* o, long long ss, int row0, int 
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (row_a < sq) {
-      *reinterpret_cast<uint32_t*>(o + row_a * ss + col) = pack(acc[n][0] / l[0], acc[n][1] / l[0]);
+      *reinterpret_cast<uint32_t*>(o + row_a * ss + col) = pack_bf16x2(acc[n][0] / l[0], acc[n][1] / l[0]);
     }
     if (row_b < sq) {
-      *reinterpret_cast<uint32_t*>(o + row_b * ss + col) = pack(acc[n][2] / l[1], acc[n][3] / l[1]);
+      *reinterpret_cast<uint32_t*>(o + row_b * ss + col) = pack_bf16x2(acc[n][2] / l[1], acc[n][3] / l[1]);
     }
   }
 }
@@ -301,16 +298,18 @@ __device__ __forceinline__ void store_rows(bf16* o, long long ss, int row0, int 
 //     overlap both without that cost.
 // ---------------------------------------------------------------------------
 
-constexpr int kChunkRows = 64;                              // keys per K/V chunk; query rows per warpgroup
-constexpr int kBoxCols = 32;                                // a box row: 32 bf16 = 64 swizzled bytes
-constexpr int kBoxBytes = kChunkRows * kBoxCols * 2;        // one TMA box
+// keys per K/V chunk and query rows per warpgroup: hopper.cuh's attention chunks
+using hopper::chunk_bytes;
+using hopper::kBoxBytes;
+using hopper::kBoxCols;
+using hopper::kChunkRows;
+using hopper::pack_p;
+using hopper::pv_issue;
+using hopper::qk_issue;
 constexpr int kVStages = 2;
 constexpr int kSingleThreads = 2 * 128 + 32;                // block_q 128: two consumer warpgroups + producer
-constexpr uint32_t kRowStrideBytes = kBoxCols * 2;          // a swizzled row
-constexpr uint32_t kGroupStrideBytes = 8 * kRowStrideBytes; // an 8-row group: the swizzle pattern
 
 __host__ __device__ constexpr int single_chunks(int sk) { return (sk + kChunkRows - 1) / kChunkRows; }
-__host__ __device__ constexpr int chunk_bytes(int d) { return d * kChunkRows * 2; }  // d / 32 boxes
 
 // Byte offsets into a `single` block's dynamic shared memory. Every tile area
 // is a multiple of 4 KB from the 1 KB-aligned base; the mbarriers follow:
@@ -335,13 +334,6 @@ struct SingleBars {
   __device__ uint32_t v_full(int s) const { return base + 8 * (2 * n + 2 + s); }
   __device__ uint32_t v_empty(int s) const { return base + 8 * (2 * n + 2 + kVStages + s); }
 };
-
-// One warp's share of releasing a buffer: the barrier counts 4 arrivals per
-// consumer warpgroup.
-__device__ __forceinline__ void release(uint32_t bar) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(bar);
-}
 
 // The producer: one thread issues every TMA load of the block, in an order in
 // which each wait depends only on loads issued before it.
@@ -401,37 +393,6 @@ __device__ void single_producer(const CUtensorMap* tq, const CUtensorMap* tk, co
   }
 }
 
-// Issue S[64 x 64] = Q K^T for this warpgroup's rows and one resident K chunk
-// (d / 32 boxes of [64 keys, 32 dims]; a K step of 16 dims is 32 bytes into a
-// box) as one wgmma group; the caller waits for it.
-template <int D>
-__device__ __forceinline__ void qk_issue(float (&s)[kTileN / 8][4], const uint32_t (&qa)[D / 16][4], uint32_t k_chunk) {
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const uint32_t addr = k_chunk + (ks / 2) * kBoxBytes + (ks % 2) * 32;
-    const uint64_t desc = hopper::smem_desc(addr, 16, kGroupStrideBytes, hopper::kSwizzle64B);
-    hopper::WgmmaRS<kTileN>::template mma<0>(s, qa[ks], desc, ks > 0);
-  }
-  hopper::wgmma_commit();
-}
-
-// Issue acc[64 x D] += P[64 x 64] V[64 x D] as one wgmma group, P as bf16 A
-// fragments; the caller waits for it. V's chunk is MN-major: d / 32 boxes of
-// [64 keys, 32 dims], a K step of 16 keys is 16 rows further.
-template <int D>
-__device__ __forceinline__ void pv_issue(float (&acc)[D / 8][4], const uint32_t (&pa)[kTileN / 16][4],
-                                         uint32_t v_chunk) {
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int c = 0; c < kTileN / 16; ++c) {
-    const uint32_t addr = v_chunk + c * 16 * kRowStrideBytes;
-    const uint64_t desc = hopper::smem_desc(addr, kBoxBytes, kGroupStrideBytes, hopper::kSwizzle64B);
-    hopper::WgmmaRS<D>::template mma<1>(acc, pa[c], desc, 1);
-  }
-  hopper::wgmma_commit();
-}
-
 // The row max of one chunk's logits, keys at or past sk excluded.
 __device__ __forceinline__ void chunk_max(float (&m)[2], const float (&s)[kTileN / 8][4], int col0, int sk) {
   const int t = threadIdx.x & 3;
@@ -458,16 +419,6 @@ __device__ __forceinline__ void chunk_softmax(float (&s)[kTileN / 8][4], float (
       s[nn][e] = col < sk ? probe_exp<kMode>(__fsub_rn(s[nn][e], m[e >> 1])) : 0.f;
       l[e >> 1] = __fadd_rn(l[e >> 1], s[nn][e]);
     }
-  }
-}
-
-// bf16(p) as the A fragments of P V: m64n8 block nn of the S accumulator is
-// half of K step nn / 2.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[kTileN / 16][4], const float (&s)[kTileN / 8][4]) {
-#pragma unroll
-  for (int nn = 0; nn < kTileN / 8; ++nn) {
-    pa[nn / 2][2 * (nn % 2)] = pack(s[nn][0], s[nn][1]);  // rounds p to bf16
-    pa[nn / 2][2 * (nn % 2) + 1] = pack(s[nn][2], s[nn][3]);
   }
 }
 
@@ -498,14 +449,13 @@ __device__ void single_consumer(const Params& p, uint32_t base, const SingleLayo
       for (int i = 0; i < 4; ++i) {
         const int r = warp * 16 + g + (i & 1) * 8;
         const int c = ks * 16 + 2 * t + (i >> 1) * 8;
-        const uint32_t raw = hopper::ld_shared_u32(
-            hopper::swizzle_64b(q_tile + (c / kBoxCols) * kBoxBytes + r * kRowStrideBytes + (c % kBoxCols) * 2));
+        const uint32_t raw = hopper::ld_chunk_pair(q_tile, r, c);
         const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
-        qa[ks][i] = pack(__fmul_rn(f.x, p.scale), __fmul_rn(f.y, p.scale));
+        qa[ks][i] = pack_bf16x2(__fmul_rn(f.x, p.scale), __fmul_rn(f.y, p.scale));
       }
     }
     hopper::fence_proxy_async();  // these reads come before the next Q's TMA write
-    release(bar.q_empty());
+    hopper::warp_arrive(bar.q_empty());
 
     // sweep 1: the exact row max, two chunks at a time as K lands (an odd
     // last chunk is taken twice, which leaves the max as it is)
@@ -541,23 +491,23 @@ __device__ void single_consumer(const Params& p, uint32_t base, const SingleLayo
     };
     qk_issue<D>(sa, qa, k_chunk(0));
     hopper::wgmma_wait<0>();
-    release(bar.k_empty(0));
+    hopper::warp_arrive(bar.k_empty(0));
     chunk_softmax<kMode>(sa, l, m, 0, p.sk);
     pack_p(pa, sa);
     for (int j = 1; j < n; ++j) {
       qk_issue<D>(sa, qa, k_chunk(j));
       pv(j - 1);
       hopper::wgmma_wait<1>();  // Q K^T of chunk j is done
-      release(bar.k_empty(j));
+      hopper::warp_arrive(bar.k_empty(j));
       chunk_softmax<kMode>(sa, l, m, j * kTileN, p.sk);
       hopper::wgmma_wait<0>();  // P V of chunk j - 1 is done with pa and V
-      release(bar.v_empty((item0 + j - 1) % kVStages));
+      hopper::warp_arrive(bar.v_empty((item0 + j - 1) % kVStages));
       pack_p(pa, sa);
     }
     pv(n - 1);
     hopper::wgmma_wait<0>();
     hopper::fence_operands(acc);
-    release(bar.v_empty((item0 + n - 1) % kVStages));
+    hopper::warp_arrive(bar.v_empty((item0 + n - 1) % kVStages));
     quad_sum(l);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -667,7 +617,7 @@ __global__ void __launch_bounds__(kMaxThreads) maxfree_kernel(const Params p) {
   uint32_t qa[D / 16][4];
   load_q<D>(qa, q, p.q_ss, row0, p.sq, p.scale);
 
-  const uint32_t ones = pack(1.f, 1.f);
+  const uint32_t ones = pack_bf16x2(1.f, 1.f);
   float acc[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -702,8 +652,9 @@ __global__ void __launch_bounds__(kMaxThreads) maxfree_kernel(const Params p) {
     if constexpr (kSum == kMxu && !kDotsOnly) {
 #pragma unroll
       for (int c = 0; c < kTileN / 16; ++c) {
-        const uint32_t pa[4] = {pack(s[2 * c][0], s[2 * c][1]), pack(s[2 * c][2], s[2 * c][3]),
-                                pack(s[2 * c + 1][0], s[2 * c + 1][1]), pack(s[2 * c + 1][2], s[2 * c + 1][3])};
+        const uint32_t pa[4] = {pack_bf16x2(s[2 * c][0], s[2 * c][1]), pack_bf16x2(s[2 * c][2], s[2 * c][3]),
+                                pack_bf16x2(s[2 * c + 1][0], s[2 * c + 1][1]),
+                                pack_bf16x2(s[2 * c + 1][2], s[2 * c + 1][3])};
         mma(l_mma, pa, ones, ones);
       }
     }
@@ -767,24 +718,6 @@ cudaError_t launch_single(const CUtensorMap (&maps)[3], const Params& p, int b, 
   const dim3 grid = kHeadLoop ? dim3(nq, b, 1) : dim3(nq, p.h, b);
   single_kernel<D, kMode, kHeadLoop><<<grid, 128 * groups + 32, smem, stream>>>(maps[0], maps[1], maps[2], p, groups);
   return cudaGetLastError();
-}
-
-// Tensor maps of q, k, v as rank 4 {d, s, h, b} with the caller's strides, in
-// boxes of 64 rows by 32 columns with a 64-byte swizzle.
-int single_maps(CUtensorMap (&maps)[3], const void* q, const void* k, const void* v, int b, int h, int sq, int sk,
-                int d, const long long* strides) {
-  const void* ptrs[3] = {q, k, v};
-  const int rows[3] = {sq, sk, sk};
-  for (int i = 0; i < 3; ++i) {
-    const uint64_t dims[4] = {static_cast<uint64_t>(d), static_cast<uint64_t>(rows[i]), static_cast<uint64_t>(h),
-                              static_cast<uint64_t>(b)};
-    const uint64_t bytes[3] = {static_cast<uint64_t>(strides[3 * i + 2]) * 2,
-                               static_cast<uint64_t>(strides[3 * i + 1]) * 2, static_cast<uint64_t>(strides[3 * i]) * 2};
-    const uint32_t box[4] = {kBoxCols, kChunkRows, 1, 1};
-    const int err = hopper::encode_bf16_4d(&maps[i], ptrs[i], dims, bytes, box, CU_TENSOR_MAP_SWIZZLE_64B);
-    if (err != 0) return err;
-  }
-  return 0;
 }
 
 template <int D, int kMode, int kSum, bool kKT, bool kDotsOnly>
@@ -879,7 +812,7 @@ int zutis_probe_single(const void* q, const void* k, const void* v, void* o, int
   if (block_q != 64 && block_q != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (d != 64 && d != 96) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[3];
-  const int err = single_maps(maps, q, k, v, b, h, sq, sk, d, strides);
+  const int err = hopper::attention_maps(maps, q, k, v, b, h, sq, sk, d, strides);
   if (err != 0) return err;
   const Params p = make_params(q, k, v, o, h, sq, sk, strides, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

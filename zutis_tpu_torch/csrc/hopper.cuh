@@ -1,6 +1,8 @@
 // PTX helpers for Hopper (sm_90a) kernels: mbarriers, TMA tensor loads,
 // wgmma with A from registers, shared-memory matrix descriptors, and the
-// host side of a tensor map. Nothing here is specific to one kernel.
+// host side of a tensor map; then the 64-row attention chunks that the
+// `single` probe (attention_probes.cu) and the bf16 flash forward
+// (flash_attention.cu) both load with TMA and feed to wgmma.
 //
 // Conventions:
 //   - shared-memory addresses are 32-bit `.shared` addresses (smem_u32);
@@ -16,6 +18,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only; the driver is reached at run time
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,6 +36,9 @@ inline const char* error_string(int err) {
   if (err == kErrTensorMapEncode) return "cuTensorMapEncodeTiled refused a tensor map (shape, strides or address)";
   return nullptr;
 }
+
+// Dynamic shared memory one block may use on an H100 (227 KB).
+constexpr int kSmemLimit = 232448;
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps
@@ -95,6 +101,16 @@ __device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
   return v;
 }
 
+__device__ __forceinline__ uint64_t ld_shared_u64(uint32_t addr) {
+  uint64_t v;
+  asm volatile("ld.shared.b64 %0, [%1];\n" : "=l"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_u64(uint32_t addr, uint64_t v) {
+  asm volatile("st.shared.b64 [%0], %1;\n" ::"r"(addr), "l"(v) : "memory");
+}
+
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
@@ -111,6 +127,13 @@ __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// One warp's share of releasing a buffer: lane 0 arrives once for the warp,
+// after every lane is done with it (a consumer warpgroup counts 4).
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
 }
 
 // Arrive once and add `bytes` to the transactions the current phase awaits.
@@ -253,5 +276,95 @@ struct WgmmaRS<96> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(scale_d));
   }
 };
+
+// ---------------------------------------------------------------------------
+// Attention chunks: 64 rows (keys, or one warpgroup's query rows) of a
+// [b, h, s, d] bf16 tensor, loaded by TMA as d / 32 boxes of [64 rows, 32
+// columns] with a 64-byte swizzle (box x holds columns 32x..32x+31, a row of
+// a box is 64 bytes), so a chunk is d * 128 bytes and every box starts on a
+// 4 KB step from the chunk's start.
+// ---------------------------------------------------------------------------
+
+constexpr int kChunkRows = 64;
+constexpr int kBoxCols = 32;                                // a box row: 32 bf16 = 64 swizzled bytes
+constexpr int kBoxBytes = kChunkRows * kBoxCols * 2;        // one TMA box
+constexpr uint32_t kRowStrideBytes = kBoxCols * 2;          // a swizzled row
+constexpr uint32_t kGroupStrideBytes = 8 * kRowStrideBytes; // an 8-row group: the swizzle pattern
+
+__host__ __device__ constexpr int chunk_bytes(int d) { return d * kChunkRows * 2; }  // d / 32 boxes
+
+// Tensor maps of q, k, v as rank 4 {d, s, h, b} with the caller's (batch,
+// head, row) strides in elements (strides[3i..3i+2] for q, k, v), s's extent
+// sq for q and sk for k and v, so that rows past the edge arrive as zeros; in
+// boxes of one chunk's 64 rows by 32 columns with a 64-byte swizzle. Returns
+// 0 or an error code of encode_bf16_4d.
+inline int attention_maps(CUtensorMap (&maps)[3], const void* q, const void* k, const void* v, int b, int h, int sq,
+                          int sk, int d, const long long* strides) {
+  const void* ptrs[3] = {q, k, v};
+  const int rows[3] = {sq, sk, sk};
+  for (int i = 0; i < 3; ++i) {
+    const uint64_t dims[4] = {static_cast<uint64_t>(d), static_cast<uint64_t>(rows[i]), static_cast<uint64_t>(h),
+                              static_cast<uint64_t>(b)};
+    const uint64_t bytes[3] = {static_cast<uint64_t>(strides[3 * i + 2]) * 2,
+                               static_cast<uint64_t>(strides[3 * i + 1]) * 2, static_cast<uint64_t>(strides[3 * i]) * 2};
+    const uint32_t box[4] = {kBoxCols, kChunkRows, 1, 1};
+    const int err = encode_bf16_4d(&maps[i], ptrs[i], dims, bytes, box, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+// The bf16 pair (row r, columns c and c + 1; c even) of a chunk, as a thread
+// reads it for an A fragment.
+__device__ __forceinline__ uint32_t ld_chunk_pair(uint32_t chunk, int r, int c) {
+  return ld_shared_u32(swizzle_64b(chunk + (c / kBoxCols) * kBoxBytes + r * kRowStrideBytes + (c % kBoxCols) * 2));
+}
+
+// Issue S[64 x 64] = Q K^T for this warpgroup's rows and one K chunk (K-major:
+// a K step of 16 dims is 32 bytes into a box row) as one wgmma group; the
+// caller waits for it.
+template <int D>
+__device__ __forceinline__ void qk_issue(float (&s)[kChunkRows / 8][4], const uint32_t (&qa)[D / 16][4],
+                                         uint32_t k_chunk) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t addr = k_chunk + (ks / 2) * kBoxBytes + (ks % 2) * 32;
+    const uint64_t desc = smem_desc(addr, 16, kGroupStrideBytes, kSwizzle64B);
+    WgmmaRS<kChunkRows>::template mma<0>(s, qa[ks], desc, ks > 0);
+  }
+  wgmma_commit();
+}
+
+// Issue acc[64 x D] += P[64 x 64] V[64 x D] as one wgmma group, P as bf16 A
+// fragments; the caller waits for it. V's chunk is MN-major: a K step of 16
+// keys is 16 rows further, LBO the 4 KB step between 32-column boxes.
+template <int D>
+__device__ __forceinline__ void pv_issue(float (&acc)[D / 8][4], const uint32_t (&pa)[kChunkRows / 16][4],
+                                         uint32_t v_chunk) {
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < kChunkRows / 16; ++c) {
+    const uint32_t addr = v_chunk + c * 16 * kRowStrideBytes;
+    const uint64_t desc = smem_desc(addr, kBoxBytes, kGroupStrideBytes, kSwizzle64B);
+    WgmmaRS<D>::template mma<1>(acc, pa[c], desc, 1);
+  }
+  wgmma_commit();
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {  // a in the low half, both rounded
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// bf16(p) as the A fragments of P V: m64n8 block nn of the S accumulator is
+// half of K step nn / 2.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kChunkRows / 16][4], const float (&s)[kChunkRows / 8][4]) {
+#pragma unroll
+  for (int nn = 0; nn < kChunkRows / 8; ++nn) {
+    pa[nn / 2][2 * (nn % 2)] = pack_bf16x2(s[nn][0], s[nn][1]);  // rounds p to bf16
+    pa[nn / 2][2 * (nn % 2) + 1] = pack_bf16x2(s[nn][2], s[nn][3]);
+  }
+}
 
 }  // namespace hopper

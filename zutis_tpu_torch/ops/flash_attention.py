@@ -1,19 +1,25 @@
-"""Flash-attention forward: the hand-written Hopper kernel
-(csrc/flash_attention.cu) and its plain PyTorch version.
+"""Flash-attention forward: the hand-written Hopper kernels
+(csrc/flash_attention.cu) and their plain PyTorch version.
 
-The kernel replaces the TPU kernel zutis_tpu/ops/flash_attention.py::
-_flash_kernel. It computes softmax(q k^T / sqrt(d), keys masked by `kv_mask`)
-v with f32 softmax statistics, keeps the [sq, sk] logits on chip, and gives
-an item whose mask has no valid key an all-zero output, as the JAX wrapper
-does after its kernel.
+The kernels replace the TPU kernel zutis_tpu/ops/flash_attention.py::
+_flash_kernel. They compute softmax(q k^T / sqrt(d), keys masked by
+`kv_mask`) v with f32 softmax statistics, keep the [sq, sk] logits on chip,
+and give an item whose mask has no valid key an all-zero output, as the JAX
+wrapper does after its kernel.
+
+Dispatch is by dtype. bf16, the serving path, runs on Hopper's TMA,
+mbarriers and wgmma: one producer warp streams 64-key K and V chunks
+through a ring in shared memory (`STAGES` deep) to one consumer warpgroup
+of 64 query rows. f32 runs on an mma.sync kernel with hi/lo bf16 splits.
+Both take 64 query rows a block.
 
 `flash_attention` takes the plain version only for tensors that lie on the
-CPU. For a CUDA tensor it launches the kernel or raises: an unsupported
-dtype, head dim or layout, a missing `nvcc` or a failed build is an error,
-never a fallback.
+CPU. For a CUDA tensor it launches a kernel or raises: an unsupported
+dtype, head dim or layout, no keys, a tensor map the driver refuses, a
+missing `nvcc` or a failed build is an error, never a fallback.
 
-The kernel is built at first use with `nvcc` for sm_90a (`_build.py`) and
-bound through its plain C interface with ctypes.
+The kernels are built at first use with `nvcc` for sm_90a (`_build.py`) and
+bound through their plain C interface with ctypes.
 
 The backward pass (a recomputing `torch.autograd.Function`, as the JAX
 package's `_flash_bwd`) belongs to the training path and is not here yet.
@@ -32,6 +38,9 @@ STEM = "libzutis_flash"
 HEAD_DIMS = (64, 96)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _NEG_INF = -1e30
+KEY_CHUNK = 64        # keys per K/V chunk, and query rows per block
+STAGES = 4            # K/V chunks in the bf16 kernel's ring
+SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 
 
 def build():
@@ -46,9 +55,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p,
     ]
+    lib.zutis_flash_occupancy.restype = ctypes.c_int
+    lib.zutis_flash_occupancy.argtypes = (
+        [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2)
 
 
 def flash_attention_reference(
@@ -74,10 +85,27 @@ def flash_attention_reference(
     return out.to(q.dtype)
 
 
+def smem_layout(d: int) -> dict:
+    """Byte offsets into one bf16 block's dynamic shared memory, as the
+    kernel lays it out (flash_layout in csrc/flash_attention.cu): the Q
+    tile, STAGES K chunks, STAGES V chunks (each 64 rows of d bf16 columns,
+    no padding), a 64-bit key-validity word per stage, then the mbarriers:
+    q_full and a full and an empty one per K and V stage. `total` is the
+    block's size."""
+    chunk = KEY_CHUNK * d * 2
+    k = chunk
+    v = k + STAGES * chunk
+    valid = v + STAGES * chunk
+    bars = valid + STAGES * 8
+    return dict(q=0, k=k, v=v, valid=valid, bars=bars,
+                total=bars + (1 + 4 * STAGES) * 8)
+
+
 def check_kernel_inputs(q, k, v, kv_mask) -> None:
-    """Raise on anything the kernel does not take: dtype other than bf16 or
-    f32, head dim outside HEAD_DIMS, mismatched shapes or devices, a head dim
-    that is not contiguous, or strides and addresses not 16-byte aligned."""
+    """Raise on anything the kernels do not take: dtype other than bf16 or
+    f32, head dim outside HEAD_DIMS, no keys, mismatched shapes or devices,
+    a head dim that is not contiguous, or strides and addresses not 16-byte
+    aligned."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("the attention kernels take q, k, v of rank 4 [b, h, s, d]")
     b, h, sq, d = q.shape
@@ -90,6 +118,8 @@ def check_kernel_inputs(q, k, v, kv_mask) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(
             f"head dim {d} not supported by the kernel (supported: {HEAD_DIMS})")
+    if sk == 0:
+        raise ValueError("the kernels need at least one key")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the kernel takes q, k, v "
@@ -111,6 +141,16 @@ def check_kernel_inputs(q, k, v, kv_mask) -> None:
             raise ValueError(
                 f"kv_mask must be [b, sk] = {(b, sk)} on {q.device}, got "
                 f"{tuple(kv_mask.shape)} on {kv_mask.device}")
+
+
+def occupancy(d: int) -> tuple[int, int]:
+    """(dynamic shared memory bytes, blocks per SM) of the bf16 kernel at
+    this head dim, from the current card's occupancy calculator."""
+    lib = _build.load(SOURCE, STEM, _bind)
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.zutis_flash_occupancy(d, ctypes.byref(smem), ctypes.byref(blocks))
+    _build.check_launch(lib, err, "flash occupancy")
+    return smem.value, blocks.value
 
 
 def flash_attention(
