@@ -8,25 +8,28 @@ PyTorch built for CUDA. It imports torch, numpy and zutis_tpu_torch only.
   1. Card and build: requires CUDA, prints the card's name and power limit,
      builds the flash-attention and attention-probe kernels from
      zutis_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source, started
-     together), prints ptxas's registers and spills, and turns TF32 off for
-     matmuls and cuDNN.
+     together), prints ptxas's registers and spills, fails if ptxas
+     serialised any kernel's wgmma, and turns TF32 off for matmuls and cuDNN.
   2. Flash kernels against their plain version on the card, at the three
      attention shapes of the serving path (batch 8, bf16), also as strided
      [b, s, h, d] views as the model passes them, ragged cases and kv_mask
      cases with an all-masked item (plus f32 inputs); checks that the bf16
-     kernel was compiled to TMA loads and wgmma with no mma.sync or cp.async
-     (cuobjdump, which must be in the toolkit); prints its shared memory and
-     blocks per SM; times each main-path shape beside the plain version and
-     F.scaled_dot_product_attention (a yardstick only: the port never calls
-     it).
+     kernel and every probe kernel were compiled to TMA loads and wgmma with
+     no mma.sync or cp.async (cuobjdump, which must be in the toolkit);
+     prints its shared memory and blocks per SM; times each main-path shape
+     beside the plain version and F.scaled_dot_product_attention (a
+     yardstick only: the port never calls it).
   3. Probe kernels against their plain versions on the card in bf16: every
      family, layout, sum mode, exp mode and the dots-only kt, at the tuning
      tool's shape [64,12,577,577,64], the serving encoder shape, a ragged
-     shape and a d = 96 shape, and `single` also at sk 1000 (d 64) and 896
-     (d 96) and on strided [b, s, h, d] views; the three `single` layouts
-     must come out bit for bit alike. Prints the `single` kernel's shared
-     memory and blocks per SM. Times each kernel at the two 577 shapes
-     beside its plain version, its bound, SDPA and flash_attention.
+     shape and a d = 96 shape (fastsm and kt at block_q 128 and 64), and
+     `single` also at sk 1000 (d 64) and 896 (d 96) and on strided
+     [b, s, h, d] views, fastsm and kt at sk 1, 65 and 577 on strided views
+     (keys past the edge); the three `single` layouts must come out bit for
+     bit alike. Prints each probe kernel's shared memory and blocks per SM.
+     Times each kernel at the two 577 shapes (fastsm and kt at both
+     block_q) beside its plain version, its bound, SDPA and
+     flash_attention.
   4. The tuning path: zutis_tpu_torch.tools.kernel_tune.run for every
      variant at the tool's shape, with every launch count set to 0 before and
      read after; each variant must print RESULT_OK, and the exact ones must
@@ -120,6 +123,13 @@ SINGLE_SHAPES = [
     ("long keys", (2, 4, 130, 1000, 64), False),
     ("long keys d96", (2, 4, 100, 896, 96), False),
     ("strided", (2, 12, 577, 577, 64), True),
+]
+# fastsm and kt alone: the last chunk holds 1 key and 63 that TMA fills with
+# zeros (sk 1, 65, 577), q, k, v as strided [b, s, h, d] views
+MAXFREE_EDGE_SHAPES = [
+    ("sk 1", (2, 4, 100, 1, 64)),
+    ("sk 65", (2, 4, 100, 65, 96)),
+    ("sk 577", (1, 4, 130, 577, 64)),
 ]
 PROBE_TIMED_SHAPES = ("tool", "encoder")
 # kernel_tune runs of the tuning path: every variant, plus probe modes
@@ -228,7 +238,7 @@ def ptxas_report(log: str) -> list:
     return lines
 
 
-def phase_card() -> tuple[str, Path]:
+def phase_card() -> tuple[str, list]:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a card")
     smi = subprocess.run(
@@ -246,39 +256,60 @@ def phase_card() -> tuple[str, Path]:
           flush=True)
     for path, seconds, log in results:
         print(f"build: {path.name} in {seconds:.1f} s", flush=True)
-        for line in ptxas_report(log):
+        report = ptxas_report(log)
+        for line in report:
             print(f"build: {line}", flush=True)
+        # C7511-C7515: ptxas serialised a kernel's wgmma, e.g. because a
+        # register of a wgmma in flight was touched before its wait
+        serialised = [line for line in report if "serialized" in line]
+        check(not serialised, f"{path.name}: ptxas serialised wgmma: "
+              f"{serialised[:2]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
-    return card, results[0][0]
+    return card, [path for path, _, _ in results]
 
 
 SASS_OPS = ("UTMALDG", "HGMMA", "HMMA", "LDGSTS")  # TMA, wgmma, mma.sync, cp.async
+# the wgmma kernels of each library and their instantiations: flash's bf16
+# kernel per head dim; `single` per head dim, exp mode and layout; the
+# max-free kernel per head dim for fastsm (3 exp x 2 sum modes) and kt (3
+# exp modes, dots-only)
+SASS_KERNELS = {
+    "flash_wgmma_kernel": len(fa.HEAD_DIMS),
+    "single_kernel": 2 * len(ap.EXP_MODES) * 2,
+    "maxfree_kernel": 2 * (len(ap.EXP_MODES) * len(ap.SUM_MODES)
+                           + len(ap.EXP_MODES) + 1),
+}
 
 
-def sass_check(lib: Path) -> dict:
-    """Opcode counts of each bf16 flash kernel in the built library, from
-    cuobjdump's SASS; each must load through TMA (UTMALDG) and multiply on
-    wgmma (HGMMA), with no mma.sync (HMMA) and no cp.async (LDGSTS).
-    cuobjdump ships beside nvcc; fails without it."""
+def sass_check(libs: list) -> dict:
+    """Opcode counts of each wgmma kernel in the built libraries (every
+    instantiation of SASS_KERNELS), from cuobjdump's SASS; each must load
+    through TMA (UTMALDG) and multiply on wgmma (HGMMA), with no mma.sync
+    (HMMA) and no cp.async (LDGSTS). cuobjdump ships beside nvcc; fails
+    without it."""
     tool = shutil.which("cuobjdump")
     if tool is None:
         tool = str(Path(_build._nvcc()).parent / "cuobjdump")
-    check(Path(tool).exists(), "no cuobjdump beside nvcc: the bf16 flash "
-          "kernel's opcodes cannot be checked")
-    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                         text=True, timeout=300)
-    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()[:300]}")
+    check(Path(tool).exists(), "no cuobjdump beside nvcc: the wgmma "
+          "kernels' opcodes cannot be checked")
     counts = {}
-    for block in out.stdout.split("Function : ")[1:]:
-        name = _kernel_name(block.split()[0])
-        if name.startswith("flash_wgmma_kernel"):
-            counts[name] = {op: len(re.findall(rf"\b{op}\b", block))
-                            for op in SASS_OPS}
-    check(len(counts) == len(fa.HEAD_DIMS),
-          f"cuobjdump found {sorted(counts)} for the bf16 flash kernel")
+    for lib in libs:
+        out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                             text=True, timeout=300)
+        check(out.returncode == 0,
+              f"cuobjdump failed: {out.stderr.strip()[:300]}")
+        for block in out.stdout.split("Function : ")[1:]:
+            name = _kernel_name(block.split()[0])
+            if name.split("<")[0] in SASS_KERNELS:
+                counts[name] = {op: len(re.findall(rf"\b{op}\b", block))
+                                for op in SASS_OPS}
+    for kernel, n in SASS_KERNELS.items():
+        found = sorted(k for k in counts if k.split("<")[0] == kernel)
+        check(len(found) == n,
+              f"cuobjdump found {found} for {kernel}, expected {n}")
     for name, c in counts.items():
         print(f"sass: {name}: {json.dumps(c)}", flush=True)
         check(c["UTMALDG"] > 0 and c["HGMMA"] > 0,
@@ -381,42 +412,49 @@ def phase_kernel():
     return max_err, rows, occupancy
 
 
-def _probe_kernel_only(label, kw, q, k, v):
+def _probe_kernel_only(label, kw, q, k, v, block_q=128):
     """The call that `label` times: the probe wrapper, or for kt the kernel
     alone on a K^T made beforehand."""
     if label.startswith("kt"):
         kt = ap.transpose_keys(k)
-        return lambda: ap.kt_attention_kernel(q, kt, v, 128, **kw)
+        return lambda: ap.kt_attention_kernel(q, kt, v, block_q, **kw)
     wrapper = PROBES[next(n for n, lab, _ in PROBE_CONFIGS if lab == label)][0]
-    return lambda: wrapper(q, k, v, 128, **kw)
+    return lambda: wrapper(q, k, v, block_q, **kw)
 
 
 def _check_probes(shape_name, q, k, v, configs, max_err, max_rel):
-    """Each config's kernel against its plain version; the `single` layouts
+    """Each config's kernel against its plain version, fastsm and kt at
+    both block_q and `single` at 128; the `single` layouts, where checked,
     bit for bit against each other."""
     outs = {}
     for kernel, label, kw in configs:
         wrapper, reference, _ = PROBES[kernel]
-        before = wrapper.launches
-        got = wrapper(q, k, v, 128, **kw)
-        torch.cuda.synchronize()
-        check(wrapper.launches == before + 1, f"{label}: no kernel launch")
         want = reference(q, k, v, **kw).float()
-        check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
-        err = (got.float() - want).abs().max().item()
-        # relative to the largest |output|: "mul" drives single's output
-        # to ~1e-30 and the dots-only probe's reaches ~100, where one
-        # flipped bf16 rounding of p moves a sum of 577 products
-        rel = err / want.abs().max().item()
-        print(f"probe check {shape_name} {list(q.shape[:3]) + list(k.shape[2:])} "
-              f"{label}: max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol "
-              f"{TOL_BF16})", flush=True)
-        check(rel <= TOL_BF16,
-              f"{label} at {shape_name}: kernel disagrees with its plain version")
-        max_err[kernel] = max(max_err[kernel], err)
-        max_rel[kernel] = max(max_rel[kernel], rel)
-        outs[label] = got
+        block_qs = (128,) if kernel == "single_attention" else ap.BLOCK_Q[::-1]
+        for block_q in block_qs:
+            before = wrapper.launches
+            got = wrapper(q, k, v, block_q, **kw)
+            torch.cuda.synchronize()
+            check(wrapper.launches == before + 1, f"{label}: no kernel launch")
+            check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+            err = (got.float() - want).abs().max().item()
+            # relative to the largest |output|: "mul" drives single's output
+            # to ~1e-30 and the dots-only probe's reaches ~100, where one
+            # flipped bf16 rounding of p moves a sum of 577 products
+            rel = err / want.abs().max().item()
+            print(f"probe check {shape_name} "
+                  f"{list(q.shape[:3]) + list(k.shape[2:])} {label} block_q "
+                  f"{block_q}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
+                  f"(tol {TOL_BF16})", flush=True)
+            check(rel <= TOL_BF16, f"{label} block_q {block_q} at "
+                  f"{shape_name}: kernel disagrees with its plain version")
+            max_err[kernel] = max(max_err[kernel], err)
+            max_rel[kernel] = max(max_rel[kernel], rel)
+            if block_q == 128:
+                outs[label] = got
         del want
+    if "single unroll" not in outs:
+        return
     same = (torch.equal(outs["single unroll"], outs["single batched"])
             and torch.equal(outs["single unroll"], outs["single grid"]))
     print(f"probe check {shape_name}: single unroll/batched/grid "
@@ -430,13 +468,33 @@ def single_occupancy():
     occ = {}
     for hp in ap.HEADS_PER_CELL:
         for d in (64, 96):
-            for block_q in ap.SINGLE_BLOCK_Q[::-1]:
+            for block_q in ap.BLOCK_Q[::-1]:
                 smem, blocks = ap.single_occupancy(d, 577, block_q, hp)
-                occ[f"{hp} d{d} block_q {block_q}"] = dict(
+                occ[f"single {hp} d{d} block_q {block_q}"] = dict(
                     smem_bytes=smem, blocks_per_sm=blocks)
                 print(f"single occupancy {hp} d {d} sk 577 block_q {block_q}: "
                       f"{smem} bytes of dynamic shared memory, {blocks} "
                       "block(s) per SM", flush=True)
+    return occ
+
+
+def maxfree_occupancy():
+    """The fastsm and kt kernels' dynamic shared memory and blocks per SM
+    (any sk), for each family, head dim and block_q, in the lane sum and
+    exp mode."""
+    occ = {}
+    for family in ("fastsm", "kt"):
+        for d in (64, 96):
+            for block_q in ap.BLOCK_Q[::-1]:
+                smem, blocks = ap.maxfree_occupancy(d, block_q, family)
+                check(smem == ap.maxfree_smem_layout(d, block_q)["total"],
+                      f"{family} shared memory {smem} differs from "
+                      "maxfree_smem_layout")
+                occ[f"{family} d{d} block_q {block_q}"] = dict(
+                    smem_bytes=smem, blocks_per_sm=blocks)
+                print(f"{family} occupancy d {d} block_q {block_q}: {smem} "
+                      f"bytes of dynamic shared memory, {blocks} block(s) "
+                      "per SM", flush=True)
     return occ
 
 
@@ -460,7 +518,14 @@ def phase_probes():
         q, k, v = _inputs(gen, b, h, sq, sk, d, torch.bfloat16, strided)
         _check_probes(shape_name, q, k, v, single_configs, max_err, max_rel)
         del q, k, v
-    return max_err, max_rel, timings, single_occupancy()
+    maxfree_configs = [c for c in PROBE_CONFIGS if c[0] != "single_attention"]
+    for shape_name, (b, h, sq, sk, d) in MAXFREE_EDGE_SHAPES:
+        q, k, v = _inputs(gen, b, h, sq, sk, d, torch.bfloat16, strided=True)
+        _check_probes(f"{shape_name} strided", q, k, v, maxfree_configs,
+                      max_err, max_rel)
+        del q, k, v
+    occupancy = dict(single_occupancy(), **maxfree_occupancy())
+    return max_err, max_rel, timings, occupancy
 
 
 def _time_probes(shape_name, q, k, v):
@@ -479,9 +544,12 @@ def _time_probes(shape_name, q, k, v):
                plain_ms={name: cuda_ms(lambda: ref(q, k, v), **plain_calls)
                          for name, (_, ref, _) in PROBES.items()},
                ms={})
-    for _, label, kw in PROBE_CONFIGS:
+    for kernel, label, kw in PROBE_CONFIGS:
         if kw.get("exp_mode", "exp") == "exp":
             row["ms"][label] = cuda_ms(_probe_kernel_only(label, kw, q, k, v))
+            if kernel != "single_attention":  # one warpgroup a block
+                row["ms"][f"{label} block_q 64"] = cuda_ms(
+                    _probe_kernel_only(label, kw, q, k, v, 64))
     row["ms"]["kt with transpose"] = cuda_ms(lambda: ap.kt_attention(q, k, v, 128))
     # one consumer warpgroup a block: K loaded per 64 query rows, 2 blocks an SM
     for hp in ("unroll", "grid"):
@@ -731,8 +799,8 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
 
 
 def main() -> None:
-    card, flash_lib = phase_card()
-    sass = sass_check(flash_lib)
+    card, libs = phase_card()
+    sass = sass_check(libs)
     max_err, rows, flash_occ = phase_kernel()
     probe_err, probe_rel, probe_rows, occupancy = phase_probes()
     tune_launches, tune_results = phase_tune()
@@ -765,7 +833,7 @@ def main() -> None:
         "blocks_per_sm": rows[0]["blocks_per_sm"],
         "block_q": fa.KEY_CHUNK,  # query rows a block, at every shape
         "occupancy": flash_occ,
-        "sass": sass,
+        "sass": {k: c for k, c in sass.items() if k.startswith("flash")},
         "shapes": rows,
     }]
     tool = next(r for r in probe_rows if r["name"] == "tool")
@@ -793,9 +861,15 @@ def main() -> None:
                             plain_ms=r["plain_ms"][name])
                        for r in probe_rows],
         })
-        if family == "single":  # the headline layout at the tool's shape
-            kernels[-1].update(occupancy["unroll d64 block_q 128"],
-                               occupancy=occupancy)
+        # occupancy of the headline call (d 64, block_q 128), the family's
+        # other occupancies beside it, and the SASS opcode counts of its kernel
+        layout = " unroll" if family == "single" else ""
+        kernel_name = "single_kernel" if family == "single" else "maxfree_kernel"
+        kernels[-1].update(
+            occupancy[f"{family}{layout} d64 block_q 128"], block_q=128,
+            occupancy={k: o for k, o in occupancy.items()
+                       if k.split()[0] == family},
+            sass={k: c for k, c in sass.items() if k.startswith(kernel_name)})
     print("tune runs: " + json.dumps(
         [{k: r[k] for k in ("variant", "exp_mode", "dots_only", "max_err", "ms")}
          for r in tune_results]), flush=True)

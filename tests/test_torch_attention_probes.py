@@ -196,6 +196,23 @@ def test_kernel_input_check_rejects_what_the_kernels_do_not_take(
         ap.check_kernel_inputs(q, q, q, block_q, family)
 
 
+@pytest.mark.parametrize("block_q", [16, 32, 48, 96])
+@pytest.mark.parametrize("family", ["fastsm", "kt"])
+def test_kernel_input_check_refuses_maxfree_block_q_but_64_and_128(
+        family, block_q):
+    q = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"block_q {block_q}: {family} takes"):
+        ap.check_kernel_inputs(q, q, q, block_q, family)
+
+
+@pytest.mark.parametrize("block_q", ap.BLOCK_Q)
+@pytest.mark.parametrize("family", ["fastsm", "kt"])
+def test_kernel_input_check_takes_maxfree_block_q_64_and_128(family, block_q):
+    q = torch.zeros(1, 2, 16, 96, dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 5000, 96, dtype=torch.bfloat16)  # streamed: any sk
+    ap.check_kernel_inputs(q, k, k, block_q, family)
+
+
 @pytest.mark.parametrize("sk,d", [(1536, 64), (896, 96)])
 def test_kernel_input_check_accepts_single_up_to_its_shared_memory_limit(sk, d):
     assert ap.single_smem_bytes(sk, d) <= ap.SMEM_LIMIT

@@ -1,12 +1,13 @@
 // Attention-tuning probes for Hopper (sm_90a), bound to Python through a plain
 // C interface (ctypes; see zutis_tpu_torch/ops/attention_probes.py).
 //
-// Three kernel families replace the three Pallas probes of
-// tools/pallas_tune.py. Each computes, for q [b, h, sq, d] and k, v
-// [b, h, sk, d] in bf16, the probe's function exactly as its JAX `fn` does
-// (wrapper plus kernel), not textbook attention:
+// Two kernels replace the three Pallas probes of tools/pallas_tune.py: `single`
+// replaces make_single's, and `maxfree` make_fastsm's and make_kt's. Each
+// computes, for q [b, h, sq, d] and k, v [b, h, sk, d] in bf16, the probe's
+// function exactly as its JAX `fn` does (wrapper plus kernel), not textbook
+// attention:
 //   - q is pre-scaled in f32 by d^-1/2 and rounded back to bf16 before the
-//     products; the kernels do that as they load q;
+//     products; the kernels do that as they read q into registers;
 //   - the JAX fn pads sk to a multiple of 128 with zero K/V rows and an
 //     additive per-key bias. With the "mul" exp mode the padded keys add to
 //     the row sum l, so the kernels count ceil(sk/128)*128 - sk virtual padded
@@ -21,16 +22,10 @@
 // against 65.5 GFLOP of products, 0.068 ms against 0.066 ms: at the card's
 // balance point. Each row also takes sk exponentials on the SFU.
 //
-// `single` runs on Hopper's TMA, mbarriers and wgmma (helpers in hopper.cuh;
-// design note at its kernel). `fastsm` and `kt` run on mma.sync with ldmatrix
-// operands and a cp.async ring. Fragment layouts of mma.m16n8k16 (PTX ISA),
-// with g = lane / 4, t = lane % 4 (wgmma's A and accumulator fragments repeat
-// them per warp of the warpgroup):
-//   A (16x16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-//   B (16x8, "col"):      b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8.., n = g)
-//   C (16x8 f32):         c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-// In fastsm and kt every warp owns 16 query rows; a block holds block_q / 16
-// warps.
+// Both kernels run on Hopper's TMA, mbarriers and wgmma (helpers and the
+// accumulator layout in hopper.cuh): one producer warp whose one thread
+// issues every TMA load, and block_q / 64 consumer warpgroups of 64 query
+// rows each. Design notes at each kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,68 +39,25 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using hopper::chunk_bytes;
+using hopper::kChunkRows;
 using hopper::kSmemLimit;
 using hopper::pack_bf16x2;
 
-constexpr int kTileN = 64;          // keys per tile
-constexpr int kMaxThreads = 256;    // block_q up to 128
 constexpr int kExp = 0, kMul = 1, kBf16 = 2;
 constexpr int kLane = 0, kMxu = 1;
+constexpr int kProbeThreads = 2 * 128 + 32;  // block_q 128: two consumer warpgroups + producer
 
+// What the kernels need beside their tensor maps of q, k (or K^T) and v.
 struct Params {
-  const bf16* q;
-  const bf16* k;  // K [b, h, sk, d], or K^T [b, h, d, >= sk] for the kt family
-  const bf16* v;
   bf16* o;
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;  // k_ss: a key row of K, or a dim row of K^T
-  long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
   int h, sq, sk;
   int n_pad;  // padded keys of the JAX layout: ceil(sk / 128) * 128 - sk
   float scale;
 };
 
-// Shared-memory rows are padded by 16 bytes so that the 8 row addresses of an
-// ldmatrix fall on different banks.
-__host__ __device__ constexpr int row_stride(int cols) { return cols + 8; }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // src-size 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 b16 matrices; lane L gives the address of row L % 8 of matrix L / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// D[16x8] += A[16x16] * B[16x8], bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+__host__ __device__ constexpr int key_chunks(int sk) { return (sk + kChunkRows - 1) / kChunkRows; }
 
 __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
@@ -123,107 +75,26 @@ __device__ __forceinline__ float probe_exp(float x) {
   }
 }
 
-// This warp's 16 query rows as A fragments, q pre-scaled in f32 and rounded
-// to bf16 as the JAX fn does before its kernel; rows at or past sq are zero.
+// This warp's 16 rows of a warpgroup's Q chunk as wgmma A fragments,
+// pre-scaled in f32 and rounded to bf16 as the JAX fn does before its kernel;
+// rows past sq arrived as zeros.
 template <int D>
-__device__ __forceinline__ void load_q(uint32_t (&qa)[D / 16][4], const bf16* q, long long ss, int row0,
-                                       int sq, float scale) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void scaled_q(uint32_t (&qa)[D / 16][4], uint32_t q_tile, float scale) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = row0 + g + (i & 1) * 8;
-      const int col = ks * 16 + 2 * t + (i >> 1) * 8;
-      qa[ks][i] = 0;
-      if (row < sq) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(q + row * ss + col));
-        qa[ks][i] = pack_bf16x2(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
-      }
+      const int r = warp * 16 + g + (i & 1) * 8;
+      const int c = ks * 16 + 2 * t + (i >> 1) * 8;
+      const uint32_t raw = hopper::ld_chunk_pair(q_tile, r, c);
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+      qa[ks][i] = pack_bf16x2(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
     }
   }
 }
 
-// Rows [row0, row0 + n_rows) of a [rows, D] slice into a padded shared tile;
-// rows at or past `valid` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* tile, const bf16* g, long long ss, int row0, int n_rows,
-                                          int valid) {
-  constexpr int kChunksPerRow = D / 8;
-  for (int c = threadIdx.x; c < n_rows * kChunksPerRow; c += blockDim.x) {
-    const int r = c / kChunksPerRow;
-    const int col = (c % kChunksPerRow) * 8;
-    const int gr = row0 + r;
-    const bool ok = gr < valid;
-    cp_async16(tile + r * row_stride(D) + col, g + (ok ? gr : 0) * ss + col, ok);
-  }
-}
-
-// Keys [key0, key0 + 64) of K^T [D, >= sk] (row stride ss) into a padded
-// [D, 64] shared tile. The caller's K^T holds at least round_up(sk, 8)
-// columns, so a chunk of 8 keys that starts before sk is read whole; later
-// chunks are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_kt_tile(bf16* tile, const bf16* g, long long ss, int key0, int sk) {
-  constexpr int kChunksPerRow = kTileN / 8;
-  for (int c = threadIdx.x; c < D * kChunksPerRow; c += blockDim.x) {
-    const int r = c / kChunksPerRow;
-    const int col = (c % kChunksPerRow) * 8;
-    const bool ok = key0 + col < sk;
-    cp_async16(tile + r * row_stride(kTileN) + col, g + r * ss + (ok ? key0 + col : 0), ok);
-  }
-}
-
-// S[16 x 64] = Q K^T for this warp's rows and one tile of 64 keys. The tile is
-// K [64, D] (row = key) or, with kKT, K^T [D, 64] (row = dim). mma's B operand
-// wants (dim, key) pairs of one key in a register: plain ldmatrix gives that
-// from K's rows, ldmatrix.trans from K^T's.
-template <int D, bool kKT>
-__device__ __forceinline__ void qk_tile(float (&s)[kTileN / 8][4], const uint32_t (&qa)[D / 16][4],
-                                        const bf16* tile) {
-  const int lane = threadIdx.x & 31, j = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int n = 0; n < kTileN / 8; ++n) {
-    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 32; ++kk) {
-      // matrix j holds dims kk*32 + j*8 .. +7 of keys n*8 .. +7:
-      // b0, b1 of k-step 2kk, then b0, b1 of k-step 2kk + 1
-      uint32_t b[4];
-      if constexpr (kKT) {
-        ldsm_x4_trans(b, tile + (kk * 32 + j * 8 + r) * row_stride(kTileN) + n * 8);
-      } else {
-        ldsm_x4(b, tile + (n * 8 + r) * row_stride(D) + kk * 32 + j * 8);
-      }
-      mma(s[n], qa[2 * kk], b[0], b[1]);
-      mma(s[n], qa[2 * kk + 1], b[2], b[3]);
-    }
-  }
-}
-
-// acc[16 x D] += P[16 x 64] V[64 x D]; P is already rounded to bf16 values, so
-// packing it is exact. V's tile is [64, D] (row = key) and takes ldmatrix.trans.
-template <int D>
-__device__ __forceinline__ void pv_tile(float (&acc)[D / 8][4], const float (&p)[kTileN / 8][4],
-                                        const bf16* tile) {
-  const int lane = threadIdx.x & 31, j = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int c = 0; c < kTileN / 16; ++c) {
-    const uint32_t pa[4] = {pack_bf16x2(p[2 * c][0], p[2 * c][1]), pack_bf16x2(p[2 * c][2], p[2 * c][3]),
-                            pack_bf16x2(p[2 * c + 1][0], p[2 * c + 1][1]),
-                            pack_bf16x2(p[2 * c + 1][2], p[2 * c + 1][3])};
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      // matrix j: keys c*16 + (j & 1)*8 .. +7 of dims (n + j / 2)*8 .. +7
-      uint32_t b[4];
-      ldsm_x4_trans(b, tile + (c * 16 + (j & 1) * 8 + r) * row_stride(D) + (n + (j >> 1)) * 8);
-      mma(acc[n], pa, b[0], b[1]);
-      mma(acc[n + 1], pa, b[2], b[3]);
-    }
-  }
-}
-
-// The row sums of the C fragment's rows g and g + 8 across the 4 lanes of a
+// The row sums of the accumulator rows g and g + 8 across the 4 lanes of a
 // quad.
 __device__ __forceinline__ void quad_sum(float (&l)[2]) {
 #pragma unroll
@@ -233,6 +104,8 @@ __device__ __forceinline__ void quad_sum(float (&l)[2]) {
   }
 }
 
+// acc / l of this warp's 16 rows (from row0) into o, rows at or past sq
+// skipped.
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* o, long long ss, int row0, int sq, const float (&acc)[D / 8][4],
                                            const float (&l)[2]) {
@@ -299,17 +172,10 @@ __device__ __forceinline__ void store_rows(bf16* o, long long ss, int row0, int 
 // ---------------------------------------------------------------------------
 
 // keys per K/V chunk and query rows per warpgroup: hopper.cuh's attention chunks
-using hopper::chunk_bytes;
-using hopper::kBoxBytes;
-using hopper::kBoxCols;
-using hopper::kChunkRows;
 using hopper::pack_p;
 using hopper::pv_issue;
 using hopper::qk_issue;
 constexpr int kVStages = 2;
-constexpr int kSingleThreads = 2 * 128 + 32;                // block_q 128: two consumer warpgroups + producer
-
-__host__ __device__ constexpr int single_chunks(int sk) { return (sk + kChunkRows - 1) / kChunkRows; }
 
 // Byte offsets into a `single` block's dynamic shared memory. Every tile area
 // is a multiple of 4 KB from the 1 KB-aligned base; the mbarriers follow:
@@ -319,7 +185,7 @@ struct SingleLayout {
 };
 
 __host__ __device__ constexpr SingleLayout single_layout(int d, int sk, int groups) {
-  const int n = single_chunks(sk), c = chunk_bytes(d);
+  const int n = key_chunks(sk), c = chunk_bytes(d);
   const int q = n * c, v = q + groups * c, bars = v + kVStages * c;
   return SingleLayout{0, q, v, bars, bars + (2 * n + 2 + 2 * kVStages) * 8};
 }
@@ -346,29 +212,23 @@ __device__ void single_producer(const CUtensorMap* tq, const CUtensorMap* tk, co
   hopper::prefetch_tensormap(tq);
   hopper::prefetch_tensormap(tk);
   hopper::prefetch_tensormap(tv);
-  auto load_rows = [&](const CUtensorMap* map, uint32_t dst, uint32_t full, int row0, int hi) {
-#pragma unroll
-    for (int x = 0; x < D / kBoxCols; ++x) {
-      hopper::tma_load_4d(dst + x * kBoxBytes, map, full, x * kBoxCols, row0, hi, bi);
-    }
-  };
   auto load_q = [&](int hh) {
     hopper::mbar_arrive_expect_tx(bar.q_full(), groups * kChunk);
     for (int g = 0; g < groups; ++g) {
       const int row0 = q0 + g * kChunkRows;
       // a warpgroup whose rows all lie past sq loads some valid rows instead
       // (its results are never stored)
-      load_rows(tq, base + lay.q + g * kChunk, bar.q_full(), row0 < p.sq ? row0 : 0, head0 + hh);
+      hopper::load_chunk<D>(base + lay.q + g * kChunk, tq, bar.q_full(), row0 < p.sq ? row0 : 0, head0 + hh, bi);
     }
   };
   auto load_k = [&](int hh, int j) {
     hopper::mbar_arrive_expect_tx(bar.k_full(j), kChunk);
-    load_rows(tk, base + lay.k + j * kChunk, bar.k_full(j), j * kChunkRows, head0 + hh);
+    hopper::load_chunk<D>(base + lay.k + j * kChunk, tk, bar.k_full(j), j * kChunkRows, head0 + hh, bi);
   };
   auto load_v = [&](int t) {
     const int s = t % kVStages;
     hopper::mbar_arrive_expect_tx(bar.v_full(s), kChunk);
-    load_rows(tv, base + lay.v + s * kChunk, bar.v_full(s), (t % n) * kChunkRows, head0 + t / n);
+    hopper::load_chunk<D>(base + lay.v + s * kChunk, tv, bar.v_full(s), (t % n) * kChunkRows, head0 + t / n, bi);
   };
 
   load_q(0);
@@ -394,10 +254,10 @@ __device__ void single_producer(const CUtensorMap* tq, const CUtensorMap* tk, co
 }
 
 // The row max of one chunk's logits, keys at or past sk excluded.
-__device__ __forceinline__ void chunk_max(float (&m)[2], const float (&s)[kTileN / 8][4], int col0, int sk) {
+__device__ __forceinline__ void chunk_max(float (&m)[2], const float (&s)[kChunkRows / 8][4], int col0, int sk) {
   const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int nn = 0; nn < kTileN / 8; ++nn) {
+  for (int nn = 0; nn < kChunkRows / 8; ++nn) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (col0 + nn * 8 + 2 * t + (e & 1) < sk) m[e >> 1] = fmaxf(m[e >> 1], s[nn][e]);
@@ -408,11 +268,11 @@ __device__ __forceinline__ void chunk_max(float (&m)[2], const float (&s)[kTileN
 // p = exp_mode(s - m) of one chunk in place, 0 at or past sk, and the f32 p
 // into the row sums l.
 template <int kMode>
-__device__ __forceinline__ void chunk_softmax(float (&s)[kTileN / 8][4], float (&l)[2], const float (&m)[2], int col0,
-                                              int sk) {
+__device__ __forceinline__ void chunk_softmax(float (&s)[kChunkRows / 8][4], float (&l)[2], const float (&m)[2],
+                                              int col0, int sk) {
   const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int nn = 0; nn < kTileN / 8; ++nn) {
+  for (int nn = 0; nn < kChunkRows / 8; ++nn) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = col0 + nn * 8 + 2 * t + (e & 1);
@@ -432,28 +292,15 @@ __device__ void single_consumer(const Params& p, uint32_t base, const SingleLayo
                                 int head0, int n_heads, int q0) {
   constexpr uint32_t kChunk = chunk_bytes(D);
   const int n = bar.n;
-  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
   const int row0 = q0 + wg * kChunkRows + warp * 16;  // this warp's 16 rows
   const uint32_t q_tile = base + lay.q + wg * kChunk;
   auto k_chunk = [&](int j) { return base + lay.k + j * kChunk; };
-  float sa[kTileN / 8][4] = {}, sb[kTileN / 8][4] = {};
+  float sa[kChunkRows / 8][4] = {}, sb[kChunkRows / 8][4] = {};
   for (int hh = 0; hh < n_heads; ++hh) {
-    // Q as A fragments, pre-scaled in f32 and rounded to bf16 as the JAX fn
-    // does before its kernel; rows past sq arrived as zeros
     hopper::mbar_wait(bar.q_full(), hh & 1);
     uint32_t qa[D / 16][4];
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = warp * 16 + g + (i & 1) * 8;
-        const int c = ks * 16 + 2 * t + (i >> 1) * 8;
-        const uint32_t raw = hopper::ld_chunk_pair(q_tile, r, c);
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
-        qa[ks][i] = pack_bf16x2(__fmul_rn(f.x, p.scale), __fmul_rn(f.y, p.scale));
-      }
-    }
+    scaled_q<D>(qa, q_tile, p.scale);
     hopper::fence_proxy_async();  // these reads come before the next Q's TMA write
     hopper::warp_arrive(bar.q_empty());
 
@@ -467,9 +314,9 @@ __device__ void single_consumer(const Params& p, uint32_t base, const SingleLayo
       hopper::mbar_wait(bar.k_full(j1), hh & 1);
       qk_issue<D>(sb, qa, k_chunk(j1));
       hopper::wgmma_wait<1>();
-      chunk_max(m, sa, j * kTileN, p.sk);
+      chunk_max(m, sa, j * kChunkRows, p.sk);
       hopper::wgmma_wait<0>();
-      chunk_max(m, sb, j1 * kTileN, p.sk);
+      chunk_max(m, sb, j1 * kChunkRows, p.sk);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -482,7 +329,7 @@ __device__ void single_consumer(const Params& p, uint32_t base, const SingleLayo
 #pragma unroll
     for (int nn = 0; nn < D / 8; ++nn) acc[nn][0] = acc[nn][1] = acc[nn][2] = acc[nn][3] = 0.f;
     float l[2] = {0.f, 0.f};
-    uint32_t pa[kTileN / 16][4];
+    uint32_t pa[kChunkRows / 16][4];
     const int item0 = hh * n;  // chunk 0's place in the block's V stream
     auto pv = [&](int j) {     // issue P V of chunk j, P in pa
       const int item = item0 + j;
@@ -499,7 +346,7 @@ __device__ void single_consumer(const Params& p, uint32_t base, const SingleLayo
       pv(j - 1);
       hopper::wgmma_wait<1>();  // Q K^T of chunk j is done
       hopper::warp_arrive(bar.k_empty(j));
-      chunk_softmax<kMode>(sa, l, m, j * kTileN, p.sk);
+      chunk_softmax<kMode>(sa, l, m, j * kChunkRows, p.sk);
       hopper::wgmma_wait<0>();  // P V of chunk j - 1 is done with pa and V
       hopper::warp_arrive(bar.v_empty((item0 + j - 1) % kVStages));
       pack_p(pa, sa);
@@ -519,13 +366,13 @@ __device__ void single_consumer(const Params& p, uint32_t base, const SingleLayo
 }
 
 template <int D, int kMode, bool kHeadLoop>
-__global__ void __launch_bounds__(kSingleThreads, 1)
+__global__ void __launch_bounds__(kProbeThreads, 1)
     single_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const Params p, int groups) {
   extern __shared__ __align__(1024) unsigned char single_smem[];
   const uint32_t base = hopper::smem_u32(single_smem);
   const SingleLayout lay = single_layout(D, p.sk, groups);
-  const SingleBars bar{base + static_cast<uint32_t>(lay.bars), single_chunks(p.sk)};
+  const SingleBars bar{base + static_cast<uint32_t>(lay.bars), key_chunks(p.sk)};
   const int consumers = 128 * groups;
   if (threadIdx.x == 0) {
     if (base % 1024 != 0) __trap();  // the swizzled tiles need the pattern's alignment
@@ -556,118 +403,225 @@ __global__ void __launch_bounds__(kSingleThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// fastsm and kt: replace tools/pallas_tune.py::make_fastsm's `kernel` (:173)
-// and make_kt's `kernel` (:252). The max-free clamped softmax:
-// s = clip(q k^T, -80, 80) + bias (0 on keys, -200 on padding),
+// maxfree (fastsm and kt): replaces tools/pallas_tune.py::make_fastsm's
+// `kernel` (:173) and make_kt's `kernel` (:252). The max-free clamped
+// softmax: s = clip(q k^T, -80, 80) + bias (0 on keys, -200 on padding),
 // p = bf16(exp_mode(s)), l = sum of f32(p) ("lane" on the vector unit, "mxu"
 // as p @ ones on the matrix unit), o = (p V) / l. kt reads K pre-transposed,
 // [b, h, d, sk]; its dots-only probe takes p = bf16(s) with no clamp and no
 // bias, and l = 1.
 //
-// Bound: as above. Design: with no running max nothing is ever rescaled, so
-// the TPU's whole-K residency buys nothing; K (or K^T) and V stream through
-// shared memory in 64-key tiles on a two-stage cp.async ring, as in
-// flash_attention.cu, and each K/V byte is read once per block_q queries.
-// "mxu" takes the row sum on the tensor cores, an mma of the bf16 p fragment
-// with a B fragment of ones (the TPU's p @ ones), whose every column then
-// holds the row sum; "lane" adds the f32 values and reduces across the quad.
-// The two differ only in summation order. For kt, K^T's tile [d, 64] is the
-// transposed layout for mma's B operand, so it is read with ldmatrix.trans.
+// Bound: as above, bytes at both probe shapes (0.0677 ms at
+// [64, 12, 577, 577, 64], 0.0085 ms at batch 8), with the tensor-core time
+// (0.0662 ms) and the sk exponentials per row on the SFU close behind.
+//
+// Design (Hopper): with no running max nothing is ever rescaled, so the
+// TPU's whole-K residency buys nothing and K and V stream, as in
+// flash_attention.cu's flash_wgmma_kernel with the max and the rescale taken
+// out. A block is one producer warp and block_q / 64 consumer warpgroups
+// (block_q 64 or 128), which share every K and V chunk.
+//   - The producer's one thread loads with TMA: the block's Q rows once, then
+//     every 64-key chunk of K (or K^T) and of V through a ring of
+//     kMaxfreeStages stages with full and empty mbarriers, K and V apart so
+//     that Q K^T starts before V lands. q, k and v are tensor maps over the
+//     caller's strided [b, h, s, d] views with s's extent sq or sk; K^T is a
+//     map {sk, d, h, b} read in boxes of 32 keys by d dims. Keys past sk
+//     arrive as zeros.
+//   - Consumers read Q once into wgmma A fragments. Each iteration issues
+//     S_j = Q K_j^T (K-major K, or MN-major K^T through qkt_issue) and
+//     P_{j-1} V_{j-1} together, waits for S_j, and takes chunk j's clamp,
+//     exponential, bf16 rounding and lane sum while P V runs. The zero keys
+//     past sk would give s = 0 and p = 1, so p is zeroed at column >= sk. No
+//     wgmma group stays in flight across an iteration.
+//   - "mxu" keeps the row sum on the tensor cores, as the TPU's p @ ones: a
+//     wgmma m64n8k16 of each bf16 P fragment against a ones tile in shared
+//     memory, issued in P V's group, whose every column holds the row sum.
+//     "lane" adds the rounded f32 p and reduces across the quad at the end.
+//     The two differ only in summation order.
+//   - The virtual padded keys of the JAX layout are counted into l after the
+//     loop.
+//   - Shared memory: Q + 4 K stages + 4 V stages (16 KB each at d 64, 24 KB
+//     at d 96) + the ones tile, 74-83 KB at d 64 and 109-121 KB at d 96.
 // ---------------------------------------------------------------------------
 
-template <int D, bool kKT>
-__host__ __device__ constexpr int maxfree_k_tile() {  // elements of one K stage
-  return kKT ? D * row_stride(kTileN) : kTileN * row_stride(D);
+constexpr int kMaxfreeStages = 4;  // K/V ring depth
+
+// Byte offsets into a maxfree block's dynamic shared memory (mirrored by
+// ops/attention_probes.py::maxfree_smem_layout): `groups` Q chunks,
+// kMaxfreeStages K chunks, kMaxfreeStages V chunks, every one a multiple of
+// 4 KB from the 1 KB-aligned base; the ones tile; then the mbarriers q_full,
+// k_full[S], k_empty[S], v_full[S], v_empty[S].
+struct MaxfreeLayout {
+  int q, k, v, ones, bars, total;
+};
+
+__host__ __device__ constexpr MaxfreeLayout maxfree_layout(int d, int groups) {
+  const int c = chunk_bytes(d);
+  const int k = groups * c, v = k + kMaxfreeStages * c, ones = v + kMaxfreeStages * c;
+  const int bars = ones + hopper::kOnesBytes;
+  return MaxfreeLayout{0, k, v, ones, bars, bars + (1 + 4 * kMaxfreeStages) * 8};
 }
 
-template <int D, bool kKT>
-__host__ __device__ constexpr int maxfree_smem_bytes() {
-  return 2 * (maxfree_k_tile<D, kKT>() + kTileN * row_stride(D)) * static_cast<int>(sizeof(bf16));
+struct MaxfreeBars {
+  uint32_t base;
+  __device__ uint32_t q_full() const { return base; }
+  __device__ uint32_t k_full(int s) const { return base + 8 * (1 + s); }
+  __device__ uint32_t k_empty(int s) const { return base + 8 * (1 + kMaxfreeStages + s); }
+  __device__ uint32_t v_full(int s) const { return base + 8 * (1 + 2 * kMaxfreeStages + s); }
+  __device__ uint32_t v_empty(int s) const { return base + 8 * (1 + 3 * kMaxfreeStages + s); }
+};
+
+// The tensor map of K^T [b, h, d, >= sk] as rank 4 {sk, d, h, b} with its
+// (batch, head, dim-row) strides in elements, in boxes of 32 keys by d dims
+// with the 64-byte swizzle: a 64-key chunk is two boxes, as qkt_issue reads
+// it. Keys past sk arrive as zeros.
+int kt_map(CUtensorMap* map, const void* kt, int b, int h, int sk, int d, const long long* strides) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(sk), static_cast<uint64_t>(d), static_cast<uint64_t>(h),
+                            static_cast<uint64_t>(b)};
+  const uint64_t bytes[3] = {static_cast<uint64_t>(strides[2]) * 2, static_cast<uint64_t>(strides[1]) * 2,
+                             static_cast<uint64_t>(strides[0]) * 2};
+  const uint32_t box[4] = {hopper::kBoxCols, static_cast<uint32_t>(d), 1, 1};
+  return hopper::encode_bf16_4d(map, kt, dims, bytes, box, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
-template <int D, int kMode, int kSum, bool kKT, bool kDotsOnly>
-__global__ void __launch_bounds__(kMaxThreads) maxfree_kernel(const Params p) {
-  constexpr int kKTile = maxfree_k_tile<D, kKT>();
-  constexpr int kVTile = kTileN * row_stride(D);
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_k = reinterpret_cast<bf16*>(smem);  // two stages
-  bf16* s_v = s_k + 2 * kKTile;               // two stages
-
-  const int bi = blockIdx.z, hi = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int row0 = blockIdx.x * (blockDim.x / 32) * 16 + warp * 16;
-  const bf16* q = p.q + bi * p.q_sb + hi * p.q_sh;
-  const bf16* k = p.k + bi * p.k_sb + hi * p.k_sh;
-  const bf16* v = p.v + bi * p.v_sb + hi * p.v_sh;
-  bf16* o = p.o + bi * p.o_sb + hi * p.o_sh;
-  const int n_tiles = (p.sk + kTileN - 1) / kTileN;
-
-  auto prefetch = [&](int j) {
-    const int stage = j & 1;
+// The producer: one thread issues every TMA load of the block.
+template <int D, bool kKT>
+__device__ void maxfree_producer(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+                                 const Params& p, uint32_t base, const MaxfreeLayout& lay, const MaxfreeBars& bar,
+                                 int groups, int bi, int hi, int q0) {
+  constexpr uint32_t kChunk = chunk_bytes(D);
+  const int n = key_chunks(p.sk);
+  hopper::prefetch_tensormap(tq);
+  hopper::prefetch_tensormap(tk);
+  hopper::prefetch_tensormap(tv);
+  hopper::mbar_arrive_expect_tx(bar.q_full(), groups * kChunk);
+  for (int g = 0; g < groups; ++g) {
+    const int row0 = q0 + g * kChunkRows;
+    // a warpgroup whose rows all lie past sq loads some valid rows instead
+    // (its results are never stored)
+    hopper::load_chunk<D>(base + lay.q + g * kChunk, tq, bar.q_full(), row0 < p.sq ? row0 : 0, hi, bi);
+  }
+  for (int j = 0; j < n; ++j) {
+    const int s = j % kMaxfreeStages;
+    const uint32_t parity = ((j / kMaxfreeStages) + 1) & 1;  // the release of chunk j - kMaxfreeStages
+    const uint32_t k_dst = base + lay.k + s * kChunk;
+    if (j >= kMaxfreeStages) hopper::mbar_wait(bar.k_empty(s), parity);
+    hopper::mbar_arrive_expect_tx(bar.k_full(s), kChunk);
     if constexpr (kKT) {
-      load_kt_tile<D>(s_k + stage * kKTile, k, p.k_ss, j * kTileN, p.sk);
+      for (int y = 0; y < kChunkRows / hopper::kBoxCols; ++y) {
+        hopper::tma_load_4d(k_dst + y * D * hopper::kRowStrideBytes, tk, bar.k_full(s),
+                            j * kChunkRows + y * hopper::kBoxCols, 0, hi, bi);
+      }
     } else {
-      load_rows<D>(s_k + stage * kKTile, k, p.k_ss, j * kTileN, kTileN, p.sk);
+      hopper::load_chunk<D>(k_dst, tk, bar.k_full(s), j * kChunkRows, hi, bi);
     }
-    load_rows<D>(s_v + stage * kVTile, v, p.v_ss, j * kTileN, kTileN, p.sk);
-  };
+    if (j >= kMaxfreeStages) hopper::mbar_wait(bar.v_empty(s), parity);
+    hopper::mbar_arrive_expect_tx(bar.v_full(s), kChunk);
+    hopper::load_chunk<D>(base + lay.v + s * kChunk, tv, bar.v_full(s), j * kChunkRows, hi, bi);
+  }
+}
 
-  prefetch(0);
-  cp_async_commit();
+// p of one chunk in place of its logits s (keys col0..col0+63):
+// exp_mode(clip(s, -80, 80)), or s for dots-only, and 0 at or past sk;
+// pack_p rounds it to bf16 later. The lane sum rounds each pair of p with
+// one conversion and adds the rounded values into l.
+template <int kMode, int kSum, bool kDotsOnly>
+__device__ __forceinline__ void maxfree_p(float (&s)[kChunkRows / 8][4], float (&l)[2], int col0, int sk) {
+  const int t = threadIdx.x & 3;
+  const bool edge = col0 + kChunkRows > sk;  // the chunk holds keys past sk
+#pragma unroll
+  for (int nn = 0; nn < kChunkRows / 8; ++nn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = kDotsOnly ? s[nn][e] : probe_exp<kMode>(fminf(fmaxf(s[nn][e], -80.f), 80.f));
+      if (edge && col0 + nn * 8 + 2 * t + (e & 1) >= sk) x = 0.f;
+      s[nn][e] = x;
+    }
+    if constexpr (kSum == kLane && !kDotsOnly) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // rows g and g + 8
+        const uint32_t pair = pack_bf16x2(s[nn][2 * r], s[nn][2 * r + 1]);
+        s[nn][2 * r] = __uint_as_float(pair << 16);
+        s[nn][2 * r + 1] = __uint_as_float(pair & 0xffff0000u);
+        l[r] += s[nn][2 * r];
+        l[r] += s[nn][2 * r + 1];
+      }
+    }
+  }
+}
+
+// A consumer warpgroup: its 64 query rows against every key chunk.
+template <int D, int kMode, int kSum, bool kKT, bool kDotsOnly>
+__device__ void maxfree_consumer(const Params& p, uint32_t base, const MaxfreeLayout& lay, const MaxfreeBars& bar,
+                                 int bi, int hi, int q0) {
+  constexpr uint32_t kChunk = chunk_bytes(D);
+  constexpr bool kRowSumMma = kSum == kMxu && !kDotsOnly;
+  const int n = key_chunks(p.sk);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  auto k_chunk = [&](int j) { return base + lay.k + (j % kMaxfreeStages) * kChunk; };
+  auto v_chunk = [&](int j) { return base + lay.v + (j % kMaxfreeStages) * kChunk; };
+  auto parity = [](int j) { return static_cast<uint32_t>((j / kMaxfreeStages) & 1); };
+
+  hopper::mbar_wait(bar.q_full(), 0);
   uint32_t qa[D / 16][4];
-  load_q<D>(qa, q, p.q_ss, row0, p.sq, p.scale);
+  scaled_q<D>(qa, base + lay.q + wg * kChunk, p.scale);
 
-  const uint32_t ones = pack_bf16x2(1.f, 1.f);
   float acc[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int nn = 0; nn < D / 8; ++nn) acc[nn][0] = acc[nn][1] = acc[nn][2] = acc[nn][3] = 0.f;
+  float rowsum[1][4] = {{0.f, 0.f, 0.f, 0.f}};
   float l[2] = {0.f, 0.f};
-  float l_mma[4] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) prefetch(j + 1);
-    cp_async_commit();  // possibly empty, so that wait<1> always means "tile j landed"
-    cp_async_wait<1>();
-    __syncthreads();
-    const int stage = j & 1;
-
-    float s[kTileN / 8][4];
-    qk_tile<D, kKT>(s, qa, s_k + stage * kKTile);
-#pragma unroll
-    for (int n = 0; n < kTileN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * kTileN + n * 8 + 2 * t + (e & 1);
-        float pe;
-        if constexpr (kDotsOnly) {
-          pe = round_bf16(s[n][e]);
-        } else {
-          pe = round_bf16(probe_exp<kMode>(fminf(fmaxf(s[n][e], -80.f), 80.f)));
-        }
-        pe = col < p.sk ? pe : 0.f;  // padded keys are counted after the loop
-        s[n][e] = pe;
-        if constexpr (kSum == kLane) l[e >> 1] = __fadd_rn(l[e >> 1], pe);
-      }
+  float s[kChunkRows / 8][4] = {};
+  uint32_t pa[kChunkRows / 16][4];
+  auto qk = [&](int j) {
+    hopper::mbar_wait(bar.k_full(j % kMaxfreeStages), parity(j));
+    if constexpr (kKT) {
+      hopper::qkt_issue<D>(s, qa, k_chunk(j));
+    } else {
+      hopper::qk_issue<D>(s, qa, k_chunk(j));
     }
-    if constexpr (kSum == kMxu && !kDotsOnly) {
-#pragma unroll
-      for (int c = 0; c < kTileN / 16; ++c) {
-        const uint32_t pa[4] = {pack_bf16x2(s[2 * c][0], s[2 * c][1]), pack_bf16x2(s[2 * c][2], s[2 * c][3]),
-                                pack_bf16x2(s[2 * c + 1][0], s[2 * c + 1][1]),
-                                pack_bf16x2(s[2 * c + 1][2], s[2 * c + 1][3])};
-        mma(l_mma, pa, ones, ones);
-      }
+  };
+  auto pv = [&](int j) {  // P of chunk j is in pa
+    hopper::mbar_wait(bar.v_full(j % kMaxfreeStages), parity(j));
+    if constexpr (kRowSumMma) {
+      hopper::pv_rowsum_issue<D>(acc, rowsum, pa, v_chunk(j), base + lay.ones);
+    } else {
+      hopper::pv_issue<D>(acc, pa, v_chunk(j));
     }
-    pv_tile<D>(acc, s, s_v + stage * kVTile);
-    __syncthreads();  // the next iteration's prefetch refills this stage
+  };
+  auto pv_done = [&](int j) {
+    hopper::wgmma_wait<0>();  // P V of chunk j is done with pa and V
+    hopper::fence_operands(acc);
+    if constexpr (kRowSumMma) hopper::fence_operands(rowsum);
+    hopper::warp_arrive(bar.v_empty(j % kMaxfreeStages));
+  };
+
+  // chunk 0: O is still zero, so it needs no P V beside it. P is packed
+  // only once the previous P V is done with pa: writing it while that
+  // wgmma runs would serialise every wgmma of the kernel
+  qk(0);
+  hopper::wgmma_wait<0>();
+  hopper::warp_arrive(bar.k_empty(0));
+  maxfree_p<kMode, kSum, kDotsOnly>(s, l, 0, p.sk);
+  pack_p(pa, s);
+  for (int j = 1; j < n; ++j) {
+    qk(j);
+    pv(j - 1);
+    hopper::wgmma_wait<1>();  // Q K^T of chunk j is done
+    hopper::warp_arrive(bar.k_empty(j % kMaxfreeStages));
+    maxfree_p<kMode, kSum, kDotsOnly>(s, l, j * kChunkRows, p.sk);
+    pv_done(j - 1);
+    pack_p(pa, s);
   }
+  pv(n - 1);
+  pv_done(n - 1);
 
   if constexpr (kDotsOnly) {
     l[0] = l[1] = 1.f;
   } else {
-    if constexpr (kSum == kMxu) {
-      l[0] = l_mma[0];  // every column of the product holds the row sum
-      l[1] = l_mma[2];
+    if constexpr (kRowSumMma) {
+      l[0] = rowsum[0][0];  // every column of P ones holds the row sum
+      l[1] = rowsum[0][2];
     } else {
       quad_sum(l);
     }
@@ -676,7 +630,43 @@ __global__ void __launch_bounds__(kMaxThreads) maxfree_kernel(const Params p) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = __fadd_rn(l[r], __fmul_rn(static_cast<float>(p.n_pad), p_pad));
   }
-  store_rows<D>(o, p.o_ss, row0, p.sq, acc, l);
+  const int row0 = q0 + wg * kChunkRows + warp * 16;  // this warp's 16 rows
+  store_rows<D>(p.o + bi * p.o_sb + hi * p.o_sh, p.o_ss, row0, p.sq, acc, l);
+}
+
+template <int D, int kMode, int kSum, bool kKT, bool kDotsOnly>
+__global__ void __launch_bounds__(kProbeThreads, 1)
+    maxfree_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Params p, int groups) {
+  extern __shared__ __align__(1024) unsigned char maxfree_smem[];
+  const uint32_t base = hopper::smem_u32(maxfree_smem);
+  const MaxfreeLayout lay = maxfree_layout(D, groups);
+  const MaxfreeBars bar{base + static_cast<uint32_t>(lay.bars)};
+  const int consumers = 128 * groups;
+  if constexpr (kSum == kMxu && !kDotsOnly) {
+    if (threadIdx.x < hopper::kOnesBytes / 8) {
+      hopper::st_shared_u64(base + lay.ones + 8 * threadIdx.x, 0x3F803F803F803F80ull);  // bf16 1.0 x 4
+      hopper::fence_proxy_async();  // before wgmma reads the tile
+    }
+  }
+  if (threadIdx.x == 0) {
+    if (base % 1024 != 0) __trap();  // the swizzled tiles need the pattern's alignment
+    hopper::mbar_init(bar.q_full(), 1);
+    for (int s = 0; s < kMaxfreeStages; ++s) {
+      hopper::mbar_init(bar.k_full(s), 1);
+      hopper::mbar_init(bar.k_empty(s), 4 * groups);  // one arrive per consumer warp
+      hopper::mbar_init(bar.v_full(s), 1);
+      hopper::mbar_init(bar.v_empty(s), 4 * groups);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int bi = blockIdx.z, hi = blockIdx.y, q0 = blockIdx.x * kChunkRows * groups;
+  if (threadIdx.x >= consumers) {  // the producer warp; one thread issues
+    if (threadIdx.x == consumers) maxfree_producer<D, kKT>(&tq, &tk, &tv, p, base, lay, bar, groups, bi, hi, q0);
+  } else {
+    maxfree_consumer<D, kMode, kSum, kKT, kDotsOnly>(p, base, lay, bar, bi, hi, q0);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -707,6 +697,32 @@ cudaError_t with_single_kernel(int head_loop, int exp_mode, Fn&& fn) {
   return cudaErrorInvalidValue;
 }
 
+// The maxfree kernel of one (exp mode, sum mode, K layout, dots-only),
+// passed to `fn` as compile-time constants: fastsm (kt 0) takes every exp
+// and sum mode, kt the lane sum with every exp mode or dots-only;
+// cudaErrorInvalidValue otherwise.
+template <typename Fn>
+cudaError_t with_maxfree_kernel(int kt, int sum_mode, int exp_mode, int dots_only, Fn&& fn) {
+  using std::integral_constant;
+  auto modes = [&](auto sum, auto is_kt) -> cudaError_t {
+    if (exp_mode == kExp) return fn(integral_constant<int, kExp>(), sum, is_kt, std::false_type());
+    if (exp_mode == kMul) return fn(integral_constant<int, kMul>(), sum, is_kt, std::false_type());
+    if (exp_mode == kBf16) return fn(integral_constant<int, kBf16>(), sum, is_kt, std::false_type());
+    return cudaErrorInvalidValue;
+  };
+  if (kt) {
+    if (sum_mode != kLane) return cudaErrorInvalidValue;
+    if (dots_only) {
+      return fn(integral_constant<int, kExp>(), integral_constant<int, kLane>(), std::true_type(), std::true_type());
+    }
+    return modes(integral_constant<int, kLane>(), std::true_type());
+  }
+  if (dots_only) return cudaErrorInvalidValue;
+  if (sum_mode == kLane) return modes(integral_constant<int, kLane>(), std::false_type());
+  if (sum_mode == kMxu) return modes(integral_constant<int, kMxu>(), std::false_type());
+  return cudaErrorInvalidValue;
+}
+
 template <int D, int kMode, bool kHeadLoop>
 cudaError_t launch_single(const CUtensorMap (&maps)[3], const Params& p, int b, int groups, cudaStream_t stream) {
   static const cudaError_t configured = allow_smem(single_kernel<D, kMode, kHeadLoop>);
@@ -721,25 +737,19 @@ cudaError_t launch_single(const CUtensorMap (&maps)[3], const Params& p, int b, 
 }
 
 template <int D, int kMode, int kSum, bool kKT, bool kDotsOnly>
-cudaError_t launch_maxfree(const Params& p, int b, int block_q, cudaStream_t stream) {
-  constexpr int kSmem = maxfree_smem_bytes<D, kKT>();
+cudaError_t launch_maxfree(const CUtensorMap (&maps)[3], const Params& p, int b, int groups, cudaStream_t stream) {
   static const cudaError_t configured = allow_smem(maxfree_kernel<D, kMode, kSum, kKT, kDotsOnly>);
   if (configured != cudaSuccess) return configured;
+  const int block_q = kChunkRows * groups;
   const dim3 grid((p.sq + block_q - 1) / block_q, p.h, b);
-  maxfree_kernel<D, kMode, kSum, kKT, kDotsOnly><<<grid, block_q * 2, kSmem, stream>>>(p);
+  maxfree_kernel<D, kMode, kSum, kKT, kDotsOnly>
+      <<<grid, 128 * groups + 32, maxfree_layout(D, groups).total, stream>>>(maps[0], maps[1], maps[2], p, groups);
   return cudaGetLastError();
 }
 
-Params make_params(const void* q, const void* k, const void* v, void* o, int h, int sq, int sk,
-                   const long long* strides, float scale) {
+Params make_params(void* o, int h, int sq, int sk, const long long* strides, float scale) {
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
   p.o = static_cast<bf16*>(o);
-  p.q_sb = strides[0], p.q_sh = strides[1], p.q_ss = strides[2];
-  p.k_sb = strides[3], p.k_sh = strides[4], p.k_ss = strides[5];
-  p.v_sb = strides[6], p.v_sh = strides[7], p.v_ss = strides[8];
   p.o_sb = strides[9], p.o_sh = strides[10], p.o_ss = strides[11];
   p.h = h;
   p.sq = sq;
@@ -748,8 +758,6 @@ Params make_params(const void* q, const void* k, const void* v, void* o, int h, 
   p.scale = scale;
   return p;
 }
-
-bool block_q_ok(int block_q) { return block_q >= 16 && block_q <= 128 && block_q % 16 == 0; }
 
 template <int D>
 cudaError_t single_d(const CUtensorMap (&maps)[3], const Params& p, int b, int groups, int head_loop, int exp_mode,
@@ -770,21 +778,46 @@ cudaError_t single_occupancy_d(int sk, int groups, int head_loop, int exp_mode, 
   });
 }
 
-template <int D, int kSum>
-cudaError_t fastsm_d(const Params& p, int b, int block_q, int exp_mode, cudaStream_t s) {
-  if (exp_mode == kExp) return launch_maxfree<D, kExp, kSum, false, false>(p, b, block_q, s);
-  if (exp_mode == kMul) return launch_maxfree<D, kMul, kSum, false, false>(p, b, block_q, s);
-  if (exp_mode == kBf16) return launch_maxfree<D, kBf16, kSum, false, false>(p, b, block_q, s);
-  return cudaErrorInvalidValue;
+template <int D>
+cudaError_t maxfree_d(const CUtensorMap (&maps)[3], const Params& p, int b, int groups, int kt, int sum_mode,
+                      int exp_mode, int dots_only, cudaStream_t s) {
+  return with_maxfree_kernel(kt, sum_mode, exp_mode, dots_only, [&](auto mode, auto sum, auto is_kt, auto dots) {
+    return launch_maxfree<D, decltype(mode)::value, decltype(sum)::value, decltype(is_kt)::value,
+                          decltype(dots)::value>(maps, p, b, groups, s);
+  });
 }
 
 template <int D>
-cudaError_t kt_d(const Params& p, int b, int block_q, int exp_mode, int dots_only, cudaStream_t s) {
-  if (dots_only) return launch_maxfree<D, kExp, kLane, true, true>(p, b, block_q, s);
-  if (exp_mode == kExp) return launch_maxfree<D, kExp, kLane, true, false>(p, b, block_q, s);
-  if (exp_mode == kMul) return launch_maxfree<D, kMul, kLane, true, false>(p, b, block_q, s);
-  if (exp_mode == kBf16) return launch_maxfree<D, kBf16, kLane, true, false>(p, b, block_q, s);
-  return cudaErrorInvalidValue;
+cudaError_t maxfree_occupancy_d(int groups, int kt, int sum_mode, int exp_mode, int dots_only, int* smem,
+                                int* blocks) {
+  return with_maxfree_kernel(kt, sum_mode, exp_mode, dots_only, [&](auto mode, auto sum, auto is_kt, auto dots) {
+    const auto kernel = maxfree_kernel<D, decltype(mode)::value, decltype(sum)::value, decltype(is_kt)::value,
+                                       decltype(dots)::value>;
+    const cudaError_t err = allow_smem(kernel);
+    if (err != cudaSuccess) return err;
+    *smem = maxfree_layout(D, groups).total;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, 128 * groups + 32, *smem);
+  });
+}
+
+// fastsm (kt 0) and kt: the tensor maps, then the launch.
+int launch_maxfree_entry(const void* q, const void* k, const void* v, void* o, int b, int h, int sq, int sk, int d,
+                         const long long* strides, float scale, int block_q, int kt, int sum_mode, int exp_mode,
+                         int dots_only, void* stream) {
+  if (block_q != 64 && block_q != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if ((d != 64 && d != 96) || sk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[3];
+  int err = hopper::rows_map(&maps[0], q, b, h, sq, d, strides);
+  if (err == 0) {
+    err = kt ? kt_map(&maps[1], k, b, h, sk, d, strides + 3) : hopper::rows_map(&maps[1], k, b, h, sk, d, strides + 3);
+  }
+  if (err == 0) err = hopper::rows_map(&maps[2], v, b, h, sk, d, strides + 6);
+  if (err != 0) return err;
+  const Params p = make_params(o, h, sq, sk, strides, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int groups = block_q / kChunkRows;
+  if (d == 64) return maxfree_d<64>(maps, p, b, groups, kt, sum_mode, exp_mode, dots_only, s);
+  return maxfree_d<96>(maps, p, b, groups, kt, sum_mode, exp_mode, dots_only, s);
 }
 
 }  // namespace
@@ -793,19 +826,19 @@ extern "C" {
 
 // Common arguments: q, k (K^T for kt), v and o are bf16 with a contiguous last
 // dim; strides holds 12 values, the (batch, head, row) strides in elements of
-// q, k, v and o in that order (a row of K^T is one of its d rows). scale is
-// d^-1/2 as f32. exp_mode: 0 = exp, 1 = mul, 2 = bf16. block_q is a multiple
-// of 16 up to 128; the block has block_q / 16 warps. Each returns a
-// cudaError_t (0 on success), or cudaErrorInvalidValue for a mode, head dim,
-// block_q or size this library does not take. Each launches on `stream`,
-// allocates nothing and does not synchronise.
+// q, k, v and o in that order (a row of K^T is one of its d rows), each a
+// multiple of 8 (16 bytes), and the four addresses 16-byte aligned. scale is
+// d^-1/2 as f32. exp_mode: 0 = exp, 1 = mul, 2 = bf16. block_q is 64 or 128:
+// the block has one or two consumer warpgroups of 64 query rows. q, k and v
+// are read through tensor maps; a map the driver will not encode returns
+// hopper::kErrTensorMapEncode. Each returns a cudaError_t (0 on success), or
+// cudaErrorInvalidValue for a mode, head dim, block_q or size this library
+// does not take. Each launches on `stream`, allocates nothing and does not
+// synchronise. A pipeline wait that never completes traps the kernel, which
+// fails the launch at the next synchronisation.
 
-// single: block_q is 64 or 128 (one or two consumer warpgroups); head_loop
-// 1 = blocks own (batch, q tile) and walk the heads ("unroll", "batched");
-// 0 = blocks own (batch, head, q tile) ("grid"). q, k and v are read through
-// tensor maps; a map the driver will not encode returns
-// hopper::kErrTensorMapEncode. A pipeline wait that never completes traps the
-// kernel, which fails the launch at the next synchronisation.
+// single: head_loop 1 = blocks own (batch, q tile) and walk the heads
+// ("unroll", "batched"); 0 = blocks own (batch, head, q tile) ("grid").
 int zutis_probe_single(const void* q, const void* k, const void* v, void* o, int b, int h, int sq, int sk, int d,
                        const long long* strides, float scale, int block_q, int head_loop, int exp_mode,
                        void* stream) {
@@ -814,7 +847,7 @@ int zutis_probe_single(const void* q, const void* k, const void* v, void* o, int
   CUtensorMap maps[3];
   const int err = hopper::attention_maps(maps, q, k, v, b, h, sq, sk, d, strides);
   if (err != 0) return err;
-  const Params p = make_params(q, k, v, o, h, sq, sk, strides, scale);
+  const Params p = make_params(o, h, sq, sk, strides, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return single_d<64>(maps, p, b, block_q / kChunkRows, head_loop, exp_mode, s);
   return single_d<96>(maps, p, b, block_q / kChunkRows, head_loop, exp_mode, s);
@@ -835,26 +868,27 @@ int zutis_probe_single_occupancy(int d, int sk, int block_q, int head_loop, int 
 int zutis_probe_fastsm(const void* q, const void* k, const void* v, void* o, int b, int h, int sq, int sk, int d,
                        const long long* strides, float scale, int block_q, int sum_mode, int exp_mode,
                        void* stream) {
-  if (!block_q_ok(block_q)) return static_cast<int>(cudaErrorInvalidValue);
-  const Params p = make_params(q, k, v, o, h, sq, sk, strides, scale);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && sum_mode == kLane) return fastsm_d<64, kLane>(p, b, block_q, exp_mode, s);
-  if (d == 64 && sum_mode == kMxu) return fastsm_d<64, kMxu>(p, b, block_q, exp_mode, s);
-  if (d == 96 && sum_mode == kLane) return fastsm_d<96, kLane>(p, b, block_q, exp_mode, s);
-  if (d == 96 && sum_mode == kMxu) return fastsm_d<96, kMxu>(p, b, block_q, exp_mode, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_maxfree_entry(q, k, v, o, b, h, sq, sk, d, strides, scale, block_q, 0, sum_mode, exp_mode, 0,
+                              stream);
 }
 
-// kt: kt is K^T [b, h, d, >= round_up(sk, 8)] with 16-byte aligned rows;
-// dots_only 1 = p = bf16(s), l = 1 (exp_mode ignored).
+// kt: kt is K^T [b, h, d, >= sk]; dots_only 1 = p = bf16(s), l = 1
+// (exp_mode ignored).
 int zutis_probe_kt(const void* q, const void* kt, const void* v, void* o, int b, int h, int sq, int sk, int d,
                    const long long* strides, float scale, int block_q, int exp_mode, int dots_only,
                    void* stream) {
-  if (!block_q_ok(block_q)) return static_cast<int>(cudaErrorInvalidValue);
-  const Params p = make_params(q, kt, v, o, h, sq, sk, strides, scale);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return kt_d<64>(p, b, block_q, exp_mode, dots_only, s);
-  if (d == 96) return kt_d<96>(p, b, block_q, exp_mode, dots_only, s);
+  return launch_maxfree_entry(q, kt, v, o, b, h, sq, sk, d, strides, scale, block_q, 1, kLane, exp_mode, dots_only,
+                              stream);
+}
+
+// The dynamic shared memory of one fastsm (kt 0) or kt block, and the blocks
+// of that kernel an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int zutis_probe_maxfree_occupancy(int d, int block_q, int kt, int sum_mode, int exp_mode, int dots_only,
+                                  int* smem_bytes, int* blocks_per_sm) {
+  if (block_q != 64 && block_q != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = block_q / kChunkRows;
+  if (d == 64) return maxfree_occupancy_d<64>(groups, kt, sum_mode, exp_mode, dots_only, smem_bytes, blocks_per_sm);
+  if (d == 96) return maxfree_occupancy_d<96>(groups, kt, sum_mode, exp_mode, dots_only, smem_bytes, blocks_per_sm);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

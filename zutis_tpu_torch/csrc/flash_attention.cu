@@ -411,18 +411,12 @@ __device__ void flash_producer(const CUtensorMap* tq, const CUtensorMap* tk, con
   const int lane = threadIdx.x & 31;
   const int n = flash_chunks(p.sk);
   const int* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(bi) * p.sk;
-  auto load_rows = [&](const CUtensorMap* map, uint32_t dst, uint32_t full, int row0) {
-#pragma unroll
-    for (int x = 0; x < D / hopper::kBoxCols; ++x) {
-      hopper::tma_load_4d(dst + x * hopper::kBoxBytes, map, full, x * hopper::kBoxCols, row0, hi, bi);
-    }
-  };
   if (lane == 0) {
     hopper::prefetch_tensormap(tq);
     hopper::prefetch_tensormap(tk);
     hopper::prefetch_tensormap(tv);
     hopper::mbar_arrive_expect_tx(bar.q_full(), kChunk);
-    load_rows(tq, base + lay.q, bar.q_full(), q0);
+    hopper::load_chunk<D>(base + lay.q, tq, bar.q_full(), q0, hi, bi);
   }
   for (int j = 0; j < n; ++j) {
     const int s = j % kFlashStages;
@@ -437,10 +431,10 @@ __device__ void flash_producer(const CUtensorMap* tq, const CUtensorMap* tk, con
       // released with the arrive below, acquired by the consumers' k_full wait
       hopper::st_shared_u64(base + lay.valid + 8 * s, valid);
       hopper::mbar_arrive_expect_tx(bar.k_full(s), kChunk);
-      load_rows(tk, base + lay.k + s * kChunk, bar.k_full(s), j * kChunkRows);
+      hopper::load_chunk<D>(base + lay.k + s * kChunk, tk, bar.k_full(s), j * kChunkRows, hi, bi);
       if (j >= kFlashStages) hopper::mbar_wait(bar.v_empty(s), parity);
       hopper::mbar_arrive_expect_tx(bar.v_full(s), kChunk);
-      load_rows(tv, base + lay.v + s * kChunk, bar.v_full(s), j * kChunkRows);
+      hopper::load_chunk<D>(base + lay.v + s * kChunk, tv, bar.v_full(s), j * kChunkRows, hi, bi);
     }
     __syncwarp();
   }

@@ -1,8 +1,8 @@
 // PTX helpers for Hopper (sm_90a) kernels: mbarriers, TMA tensor loads,
 // wgmma with A from registers, shared-memory matrix descriptors, and the
 // host side of a tensor map; then the 64-row attention chunks that the
-// `single` probe (attention_probes.cu) and the bf16 flash forward
-// (flash_attention.cu) both load with TMA and feed to wgmma.
+// `single` and max-free probes (attention_probes.cu) and the bf16 flash
+// forward (flash_attention.cu) load with TMA and feed to wgmma.
 //
 // Conventions:
 //   - shared-memory addresses are 32-bit `.shared` addresses (smem_u32);
@@ -229,6 +229,19 @@ template <int N>
 struct WgmmaRS;
 
 template <>
+struct WgmmaRS<8> {
+  template <int kTransB>
+  static __device__ __forceinline__ void mma(float (&d)[1][4], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %9;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(scale_d));
+  }
+};
+
+template <>
 struct WgmmaRS<64> {
   template <int kTransB>
   static __device__ __forceinline__ void mma(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
@@ -293,25 +306,41 @@ constexpr uint32_t kGroupStrideBytes = 8 * kRowStrideBytes; // an 8-row group: t
 
 __host__ __device__ constexpr int chunk_bytes(int d) { return d * kChunkRows * 2; }  // d / 32 boxes
 
-// Tensor maps of q, k, v as rank 4 {d, s, h, b} with the caller's (batch,
-// head, row) strides in elements (strides[3i..3i+2] for q, k, v), s's extent
-// sq for q and sk for k and v, so that rows past the edge arrive as zeros; in
-// boxes of one chunk's 64 rows by 32 columns with a 64-byte swizzle. Returns
-// 0 or an error code of encode_bf16_4d.
+// The tensor map of one [b, h, rows, d] bf16 tensor as rank 4 {d, rows, h,
+// b} with its (batch, head, row) strides in elements (strides[0..2]), so
+// that rows past the edge arrive as zeros; in boxes of one chunk's 64 rows by
+// 32 columns with a 64-byte swizzle. Returns 0 or an error code of
+// encode_bf16_4d.
+inline int rows_map(CUtensorMap* map, const void* ptr, int b, int h, int rows, int d, const long long* strides) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(d), static_cast<uint64_t>(rows), static_cast<uint64_t>(h),
+                            static_cast<uint64_t>(b)};
+  const uint64_t bytes[3] = {static_cast<uint64_t>(strides[2]) * 2, static_cast<uint64_t>(strides[1]) * 2,
+                             static_cast<uint64_t>(strides[0]) * 2};
+  const uint32_t box[4] = {kBoxCols, kChunkRows, 1, 1};
+  return encode_bf16_4d(map, ptr, dims, bytes, box, CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// rows_map of q, k and v (strides[3i..3i+2] for q, k, v), rows sq for q and
+// sk for k and v.
 inline int attention_maps(CUtensorMap (&maps)[3], const void* q, const void* k, const void* v, int b, int h, int sq,
                           int sk, int d, const long long* strides) {
   const void* ptrs[3] = {q, k, v};
   const int rows[3] = {sq, sk, sk};
   for (int i = 0; i < 3; ++i) {
-    const uint64_t dims[4] = {static_cast<uint64_t>(d), static_cast<uint64_t>(rows[i]), static_cast<uint64_t>(h),
-                              static_cast<uint64_t>(b)};
-    const uint64_t bytes[3] = {static_cast<uint64_t>(strides[3 * i + 2]) * 2,
-                               static_cast<uint64_t>(strides[3 * i + 1]) * 2, static_cast<uint64_t>(strides[3 * i]) * 2};
-    const uint32_t box[4] = {kBoxCols, kChunkRows, 1, 1};
-    const int err = encode_bf16_4d(&maps[i], ptrs[i], dims, bytes, box, CU_TENSOR_MAP_SWIZZLE_64B);
+    const int err = rows_map(&maps[i], ptrs[i], b, h, rows[i], d, strides + 3 * i);
     if (err != 0) return err;
   }
   return 0;
+}
+
+// One chunk of a rows_map tensor, 64 rows from row0 and all D columns, into
+// `dst` as D / 32 boxes, completing on mbarrier `bar`; a block's one
+// producer thread issues it.
+template <int D>
+__device__ __forceinline__ void load_chunk(uint32_t dst, const CUtensorMap* map, uint32_t bar, int row0, int hi,
+                                           int bi) {
+#pragma unroll
+  for (int x = 0; x < D / kBoxCols; ++x) tma_load_4d(dst + x * kBoxBytes, map, bar, x * kBoxCols, row0, hi, bi);
 }
 
 // The bf16 pair (row r, columns c and c + 1; c even) of a chunk, as a thread
@@ -336,18 +365,62 @@ __device__ __forceinline__ void qk_issue(float (&s)[kChunkRows / 8][4], const ui
   wgmma_commit();
 }
 
+// Issue S[64 x 64] = Q K^T as one wgmma group, from a chunk of K^T: 64 keys
+// by D dims, loaded as two boxes of [D dims, 32 keys] with the 64-byte
+// swizzle (a box row is one dim of 32 keys). That is to Q K^T what V's chunk
+// is to P V, an MN-major B: a K step of 16 dims is 16 rows further, LBO the
+// D * 64-byte step between the two 32-key boxes.
+template <int D>
+__device__ __forceinline__ void qkt_issue(float (&s)[kChunkRows / 8][4], const uint32_t (&qa)[D / 16][4],
+                                          uint32_t kt_chunk) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t addr = kt_chunk + ks * 16 * kRowStrideBytes;
+    const uint64_t desc = smem_desc(addr, D * kRowStrideBytes, kGroupStrideBytes, kSwizzle64B);
+    WgmmaRS<kChunkRows>::template mma<1>(s, qa[ks], desc, ks > 0);
+  }
+  wgmma_commit();
+}
+
+// acc[64 x D] += P[64 x 16] V[16 x D] of K step c (16 keys). V's chunk is
+// MN-major: a K step of 16 keys is 16 rows further, LBO the 4 KB step
+// between 32-column boxes.
+template <int D>
+__device__ __forceinline__ void pv_step(float (&acc)[D / 8][4], const uint32_t (&pa)[4], uint32_t v_chunk, int c) {
+  const uint32_t addr = v_chunk + c * 16 * kRowStrideBytes;
+  WgmmaRS<D>::template mma<1>(acc, pa, smem_desc(addr, kBoxBytes, kGroupStrideBytes, kSwizzle64B), 1);
+}
+
 // Issue acc[64 x D] += P[64 x 64] V[64 x D] as one wgmma group, P as bf16 A
-// fragments; the caller waits for it. V's chunk is MN-major: a K step of 16
-// keys is 16 rows further, LBO the 4 KB step between 32-column boxes.
+// fragments; the caller waits for it.
 template <int D>
 __device__ __forceinline__ void pv_issue(float (&acc)[D / 8][4], const uint32_t (&pa)[kChunkRows / 16][4],
                                          uint32_t v_chunk) {
   wgmma_fence();
 #pragma unroll
+  for (int c = 0; c < kChunkRows / 16; ++c) pv_step<D>(acc, pa[c], v_chunk, c);
+  wgmma_commit();
+}
+
+// Bytes of a shared-memory area of bf16 ones, 512-byte aligned: a wgmma B
+// operand whose every element is 1, whatever descriptor reads it from there.
+constexpr int kOnesBytes = 512;
+
+// pv_issue, and in the same wgmma group rowsum[64 x 8] += P[64 x 64]
+// ones[64 x 8]: every column of rowsum gathers P's row sums on the tensor
+// cores. `ones` is a kOnesBytes area of ones; its descriptor (K-major, 64-byte
+// swizzle, one 8-row group) stays inside it.
+template <int D>
+__device__ __forceinline__ void pv_rowsum_issue(float (&acc)[D / 8][4], float (&rowsum)[1][4],
+                                                const uint32_t (&pa)[kChunkRows / 16][4], uint32_t v_chunk,
+                                                uint32_t ones) {
+  const uint64_t ones_desc = smem_desc(ones, 16, kGroupStrideBytes, kSwizzle64B);
+  wgmma_fence();
+#pragma unroll
   for (int c = 0; c < kChunkRows / 16; ++c) {
-    const uint32_t addr = v_chunk + c * 16 * kRowStrideBytes;
-    const uint64_t desc = smem_desc(addr, kBoxBytes, kGroupStrideBytes, kSwizzle64B);
-    WgmmaRS<D>::template mma<1>(acc, pa[c], desc, 1);
+    pv_step<D>(acc, pa[c], v_chunk, c);
+    WgmmaRS<8>::template mma<0>(rowsum, pa[c], ones_desc, 1);
   }
   wgmma_commit();
 }

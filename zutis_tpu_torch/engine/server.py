@@ -7,10 +7,14 @@ request (the padded outputs are dropped). The step runs on the device under
 `torch.inference_mode()`: the ZUTIS forward, the semantic argmax map, and the
 instance decode (threshold -> classify -> per-category NMS). Only the
 semantic map, scores, categories, keep flags and binary masks come back to
-the host, where the kept masks are RLE-encoded.
+the host, where the kept masks are RLE-encoded (numpy codec), or, with
+`encode_rle=False`, returned as boolean [h, w] arrays.
 
 `infer(images)` is synchronous; `start()` / `submit(image)` / `stop()` is the
-queued API, returning a Future per request.
+queued API, returning a Future per request. A request whose Future the
+client cancels while it is queued is dropped from its batch; a batch whose
+every request was cancelled runs no step. (The JAX server instead hands the
+batch-mates of a cancelled request an `InvalidStateError`.)
 """
 from __future__ import annotations
 
@@ -41,12 +45,15 @@ class InferenceServer:
         nms_type: str = "hard",
         nms_threshold: float = 0.3,
         max_wait_ms: float = 5.0,
+        encode_rle: bool = True,
         uint8_transport: bool = False,
         device="cuda",
     ):
-        """`model` is moved to `device`. `uint8_transport=True`: requests are
-        raw [3, S, S] uint8 RGB and ImageNet normalisation runs on the
-        device (4x less host-to-device traffic than f32 requests)."""
+        """`model` is moved to `device`. `encode_rle=False`: each instance
+        carries its boolean [h, w] `"mask"` instead of an RLE
+        `"segmentation"`. `uint8_transport=True`: requests are raw [3, S, S]
+        uint8 RGB and ImageNet normalisation runs on the device (4x less
+        host-to-device traffic than f32 requests)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.image_size = image_size
@@ -55,6 +62,7 @@ class InferenceServer:
         self.temperature = temperature
         self.nms_type = nms_type
         self.nms_threshold = nms_threshold
+        self.encode_rle = encode_rle
         self.uint8_transport = uint8_transport
         self.batches = 0  # batch forwards run, padded ones included
         self._text = torch.as_tensor(
@@ -120,11 +128,13 @@ class InferenceServer:
             m = masks[qi].astype(np.uint8)
             if m.sum() == 0:
                 continue
-            instances.append({
-                "category_id": int(out["category_ids"][j, qi]),
-                "score": float(out["scores"][j, qi]),
-                "segmentation": rle_ops.encode(m),
-            })
+            inst = {"category_id": int(out["category_ids"][j, qi]),
+                    "score": float(out["scores"][j, qi])}
+            if self.encode_rle:
+                inst["segmentation"] = rle_ops.encode(m)
+            else:
+                inst["mask"] = m.astype(bool)
+            instances.append(inst)
         return {"semantic": out["semantic"][j], "instances": instances}
 
     # ---------------- async (queued) API ----------------
@@ -176,11 +186,17 @@ class InferenceServer:
                 if nxt is None:
                     break
                 pending.append(nxt)
+            # a Future cancelled while queued drops out here; the rest can no
+            # longer be cancelled, so setting their results cannot raise
+            pending = [p for p in pending if p[1].set_running_or_notify_cancel()]
+            if not pending:
+                continue
             try:
                 results = self.infer([p[0] for p in pending])
             except Exception as exc:  # the worker must outlive a failed batch
                 for _, fut in pending:
-                    fut.set_exception(exc)
+                    if not fut.done():
+                        fut.set_exception(exc)
                 continue
             for (_, fut), res in zip(pending, results):
                 fut.set_result(res)

@@ -1,4 +1,4 @@
-"""Attention-tuning probes: three hand-written Hopper kernel families
+"""Attention-tuning probes: hand-written Hopper kernels
 (csrc/attention_probes.cu) and their plain PyTorch versions.
 
 They replace the Pallas probes of tools/pallas_tune.py, and each computes its
@@ -26,16 +26,18 @@ rounded to bf16, rounded to bf16.
 
 Each wrapper takes the plain version only for tensors that lie on the CPU.
 For a CUDA tensor it launches its kernel or raises: the kernels take bf16 at
-head dims 64 and 96. `fastsm` and `kt` take `block_q` a multiple of 16 up to
-128. `single` runs on Hopper's TMA and wgmma: it takes `block_q` 64 or 128
-(one or two 64-row warpgroups), reads q, k and v through tensor maps, and
-keeps one head's K resident in shared memory beside its Q tile and a
-two-stage V ring, so its sk is at most 1,536 at d = 64 and 896 at d = 96
-with `block_q` 128 (1,600 and 960 with 64; `single_smem_bytes`).
-`single_occupancy` reports a `single` kernel's shared memory and blocks per
-SM on the card. `block_q` sets the query rows a block owns and does not
-change the result. The plain versions also take f32. Launch counts are the
-wrappers' `.launches`.
+head dims 64 and 96, and `block_q` 64 or 128 (one or two consumer
+warpgroups of 64 query rows). Both kernels run on Hopper's TMA, mbarriers
+and wgmma and read q, k (or K^T) and v through tensor maps. `single` keeps
+one head's K resident in shared memory beside its Q tile and a two-stage V
+ring, so its sk is at most 1,536 at d = 64 and 896 at d = 96 with `block_q`
+128 (1,600 and 960 with 64; `single_smem_bytes`). `fastsm` and `kt` share
+one max-free kernel that streams K (or K^T) and V through a four-stage
+ring (`maxfree_smem_layout`) and takes any sk >= 1. `single_occupancy` and
+`maxfree_occupancy` report a kernel's shared memory and blocks per SM on
+the card. `block_q` sets the query rows a block owns and does not change the
+result. The plain versions also take f32. Launch counts are the wrappers'
+`.launches`.
 """
 from __future__ import annotations
 
@@ -53,10 +55,12 @@ EXP_MODES = ("exp", "mul", "bf16")
 HEADS_PER_CELL = ("unroll", "batched", "grid")
 SUM_MODES = ("lane", "mxu")
 KEY_PAD = 128      # the JAX fns pad sk to a multiple of this
-KEY_TILE = 64      # keys per shared-memory tile in the kernels
+KEY_TILE = 64      # keys per K/V chunk, and query rows per warpgroup
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
-SINGLE_BLOCK_Q = (64, 128)  # one or two consumer warpgroups of 64 rows
+BLOCK_Q = (64, 128)  # one or two consumer warpgroups of 64 rows
 SINGLE_V_STAGES = 2  # V chunks in `single`'s ring
+MAXFREE_STAGES = 4   # K and V chunks each in the max-free kernel's ring
+ONES_BYTES = 512     # the max-free kernel's tile of bf16 ones ("mxu" sum)
 
 
 def build():
@@ -77,6 +81,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.zutis_probe_single_occupancy
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn = lib.zutis_probe_maxfree_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2
 
 
 def _check_mode(value: str, allowed: tuple, what: str) -> None:
@@ -166,34 +173,46 @@ def single_smem_bytes(sk: int, d: int, block_q: int = 128) -> int:
     return tiles * KEY_TILE * d * 2 + (2 * chunks + 2 + 2 * SINGLE_V_STAGES) * 8
 
 
+def maxfree_smem_layout(d: int, block_q: int = 128) -> dict:
+    """Byte offsets into one `fastsm` or `kt` block's dynamic shared memory,
+    as the kernel lays it out (maxfree_layout in csrc/attention_probes.cu):
+    block_q / 64 Q chunks, MAXFREE_STAGES K chunks and MAXFREE_STAGES V
+    chunks (each 64 rows, or keys, of d bf16 columns with no padding), the
+    ONES_BYTES tile of ones, then the mbarriers: q_full and a full and an
+    empty one per K and V stage. `total` is the block's size, whatever sk."""
+    chunk = KEY_TILE * d * 2
+    k = block_q // KEY_TILE * chunk
+    v = k + MAXFREE_STAGES * chunk
+    ones = v + MAXFREE_STAGES * chunk
+    bars = ones + ONES_BYTES
+    return dict(q=0, k=k, v=v, ones=ones, bars=bars,
+                total=bars + (1 + 4 * MAXFREE_STAGES) * 8)
+
+
 def check_kernel_inputs(q, k, v, block_q: int, family: str) -> None:
     """Raise on anything the probe kernels do not take: what
     `flash_attention.check_kernel_inputs` refuses (rank, shapes, head dims,
     devices, grid size, a head dim that is not contiguous, strides or
-    addresses not 16-byte aligned), and a dtype other than bf16, no keys;
-    for `single` a `block_q` other than 64 or 128, or a block over the
-    shared-memory limit; for the others a `block_q` that is not a multiple
-    of 16 in [16, 128]."""
+    addresses not 16-byte aligned), and a dtype other than bf16, no keys, a
+    `block_q` other than 64 or 128; for `single` also a block over the
+    shared-memory limit (`fastsm` and `kt` stream K and V, so any sk
+    fits)."""
     fa.check_kernel_inputs(q, k, v, None)
     if q.dtype != torch.bfloat16:
         raise TypeError(f"dtype {q.dtype}: the probe kernels take bfloat16")
     sk, d = k.shape[2], k.shape[3]
     if sk == 0:
         raise ValueError("the probes need at least one key")
-    if family == "single":
-        if block_q not in SINGLE_BLOCK_Q:
-            raise ValueError(
-                f"block_q {block_q!r}: single takes {SINGLE_BLOCK_Q} (one or "
-                "two 64-row warpgroups)")
-        if single_smem_bytes(sk, d, block_q) > SMEM_LIMIT:
-            raise ValueError(
-                f"single keeps one head's K in shared memory: sk {sk} at d {d} "
-                f"and block_q {block_q} needs {single_smem_bytes(sk, d, block_q)}"
-                f" bytes, over {SMEM_LIMIT} (with block_q 128, sk <= 1536 at "
-                "d 64 and <= 896 at d 96)")
-    elif not (isinstance(block_q, int) and 16 <= block_q <= 128
-              and block_q % 16 == 0):
-        raise ValueError(f"block_q {block_q!r}: a multiple of 16 in [16, 128]")
+    if block_q not in BLOCK_Q:
+        raise ValueError(
+            f"block_q {block_q!r}: {family} takes {BLOCK_Q} (one or two "
+            "64-row warpgroups)")
+    if family == "single" and single_smem_bytes(sk, d, block_q) > SMEM_LIMIT:
+        raise ValueError(
+            f"single keeps one head's K in shared memory: sk {sk} at d {d} "
+            f"and block_q {block_q} needs {single_smem_bytes(sk, d, block_q)}"
+            f" bytes, over {SMEM_LIMIT} (with block_q 128, sk <= 1536 at "
+            "d 64 and <= 896 at d 96)")
 
 
 def _on_cpu(q: torch.Tensor, what: str) -> bool:
@@ -257,6 +276,27 @@ def single_occupancy(d: int, sk: int, block_q: int = 128,
         d, sk, block_q, int(heads_per_cell != "grid"),
         EXP_MODES.index(exp_mode), ctypes.byref(smem), ctypes.byref(blocks))
     _build.check_launch(lib, err, "single occupancy")
+    return smem.value, blocks.value
+
+
+def maxfree_occupancy(d: int, block_q: int = 128, family: str = "fastsm",
+                      sum_mode: str = "lane", exp_mode: str = "exp",
+                      dots_only: bool = False) -> tuple[int, int]:
+    """(dynamic shared memory bytes, blocks per SM) of the `fastsm` or `kt`
+    kernel that these arguments launch (`kt` takes the lane sum), from the
+    current card's occupancy calculator."""
+    _check_mode(family, ("fastsm", "kt"), "family")
+    _check_mode(sum_mode, SUM_MODES, "sum_mode")
+    _check_mode(exp_mode, EXP_MODES, "exp_mode")
+    if family == "kt":
+        sum_mode = "lane"
+    lib = _build.load(SOURCE, STEM, _bind)
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.zutis_probe_maxfree_occupancy(
+        d, block_q, int(family == "kt"), SUM_MODES.index(sum_mode),
+        EXP_MODES.index(exp_mode), int(dots_only and family == "kt"),
+        ctypes.byref(smem), ctypes.byref(blocks))
+    _build.check_launch(lib, err, f"{family} occupancy")
     return smem.value, blocks.value
 
 

@@ -19,9 +19,9 @@ Variants:
   sdpa        F.scaled_dot_product_attention: a yardstick only, no path of
               the port calls it
 
-`block_q` (default 128) is the query rows a probe's block owns: 64 or 128 for
-`single`, `batched` and `headgrid` (one or two warpgroups), a multiple of 16
-up to 128 for `fastsm-*` and `kt`. `--exp` picks
+`block_q` (default 128) is the query rows a probe's block owns: 64 or 128
+(one or two 64-row warpgroups) for every probe on the card; the CPU's plain
+versions take any value. `--exp` picks
 the probes' exponential and `--dots-only` makes `kt` skip the softmax (p =
 bf16(s), l = 1); the other variants ignore both.
 
