@@ -41,8 +41,21 @@ PyTorch built for CUDA. It imports torch, numpy and zutis_tpu_torch only.
      times and no probe kernel, the kernel path against the "torch"
      attention path, and the instance decode against a CPU rerun; reports
      the serving rate.
+  6. The bucketed eval at full width (ViT-B/16, batch 32, 512 x 640 bucket,
+     the JAX bench's native sizes): flash at its three shapes under the
+     bench's window masks against the plain version, timed beside the bound
+     of the valid keys and SDPA given the mask; the f32 padded forward
+     against each image's own forward, and the instance step's keep and
+     categories against predict_instances_device; 64 images through
+     evaluate_instances with every launch count set to 0 before and read
+     after (24 flash launches per padded forward, 18 masked, no probe); one
+     batch's decode on the card against its CPU rerun, bit for bit down to
+     the COCO list and its stats; one dispatch with no host-device
+     synchronisation; the step's spans, device busy and peak memory, and
+     the eval tool's img/s at depth 1 and 2.
 
-Prints the kernel record and the card on lines of their own, then, as the
+Prints the kernel record (flash's launches on both main paths, and its
+eval shapes) and the card on lines of their own, then, as the
 last line, {"ok": true, "device": {...}}. Exits non-zero, with no result
 line, on any failure or without a card.
 """
@@ -64,6 +77,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from zutis_tpu_torch.engine import batched_eval as BE
+from zutis_tpu_torch.engine.coco_eval import COCOEvaluator
 from zutis_tpu_torch.engine.server import InferenceServer
 from zutis_tpu_torch.models.layers import MultiHeadAttention
 from zutis_tpu_torch.models.zutis import ZUTIS
@@ -71,17 +86,21 @@ from zutis_tpu_torch.ops import _build
 from zutis_tpu_torch.ops import attention_probes as ap
 from zutis_tpu_torch.ops import flash_attention as fa
 from zutis_tpu_torch.ops import rle
+from zutis_tpu_torch.ops.dynamic_shapes import token_valid_mask
 from zutis_tpu_torch.ops.nms import mask_nms
-from zutis_tpu_torch.postproc.instance import classify_proposals
+from zutis_tpu_torch.postproc.instance import (
+    classify_proposals,
+    instances_to_coco_counts,
+    predict_instances_device,
+)
+from zutis_tpu_torch.tools import instance_eval_bench as eval_bench
 from zutis_tpu_torch.tools import kernel_tune
+from zutis_tpu_torch.tools.instance_eval_bench import VIT_B16, build_model
 from zutis_tpu_torch.tools.kernel_tune import bound
 
 BATCH = 8
 IMAGE_SIZE = 384
 N_CATEGORIES = 919
-VIT_B16 = dict(width=768, encoder_layers=12, encoder_heads=12, patch_size=16,
-               text_dim=512, input_resolution=224, n_queries=100,
-               n_decoder_layers=6, n_heads=8)
 # (name, [b, h, sq, sk, d], launches per batch forward) at 384 px, batch 8
 MAIN_SHAPES = [
     ("encoder self", (BATCH, 12, 577, 577, 64), 12),
@@ -144,6 +163,23 @@ TOL_FLASH_BF16 = 8e-3
 TOL_F32 = 1e-4   # f32 inputs take hi/lo bf16 splits (~16 mantissa bits)
 MIN_SEMANTIC_AGREEMENT = 0.985
 SEMANTIC_SLACK = 0.002  # 0.2 points: ~37 of the 18,432 pixels of a batch
+# the bucketed eval: the JAX bench's batch and bucket, two batches through
+# evaluate_instances
+EVAL_BATCH = 32
+EVAL_SHAPE = eval_bench.SHAPE
+EVAL_IMAGES = 2 * EVAL_BATCH
+# (name, [b, h, sq, sk, d], launches per padded forward, its kv_mask)
+EVAL_FLASH_SHAPES = [
+    ("eval encoder self", (EVAL_BATCH, 12, 1281, 1281, 64), 12, "encoder"),
+    ("eval decoder self", (EVAL_BATCH, 8, 100, 100, 96), 6, None),
+    ("eval decoder cross", (EVAL_BATCH, 8, 100, 5120, 96), 6, "memory"),
+]
+EVAL_LAUNCHES = sum(n for _, _, n, _ in EVAL_FLASH_SHAPES)
+EVAL_MASKED_LAUNCHES = sum(n for _, _, n, m in EVAL_FLASH_SHAPES if m)
+# padded against per-image f32 forwards, relative to the largest |output|:
+# the f32 kernel's hi/lo splits carry ~16 mantissa bits, and the two
+# programs sum keys in different chunks
+TOL_PADDED_F32 = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -639,18 +675,6 @@ def set_attn_impl(model: torch.nn.Module, impl: str) -> None:
             m.attn_impl = impl
 
 
-def build_model(cfg: dict, device) -> ZUTIS:
-    """Seeded random ZUTIS; matrices in bf16 and 1-D parameters in f32, as
-    bench.py casts its inference weights."""
-    model = ZUTIS(**cfg, dtype=torch.bfloat16, device=device)
-    model.init_params(torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        for p in model.parameters():
-            if p.dim() > 1:
-                p.data = p.data.to(torch.bfloat16)
-    return model.eval()
-
-
 def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
                   n_categories: int = N_CATEGORIES, n_requests: int = 20,
                   device="cuda") -> dict:
@@ -798,6 +822,298 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     return stats
 
 
+def eval_masks(sizes, patch: int = 16) -> dict:
+    """The padded forward's kv masks for images of `sizes` in the eval
+    bucket: the encoder's [b, 1 + hp * wp] (CLS and the native window) and
+    the cross-attention's [b, 4 hp wp] (the upsampled window)."""
+    grid = torch.tensor([(h // patch, w // patch) for h, w in sizes])
+    hp, wp = EVAL_SHAPE[0] // patch, EVAL_SHAPE[1] // patch
+    cls = torch.ones(len(sizes), 1, dtype=torch.int32)
+    return {"encoder": torch.cat([cls, token_valid_mask(grid, hp, wp)], 1),
+            "memory": token_valid_mask(grid * 2, 2 * hp, 2 * wp)}
+
+
+def phase_eval_flash():
+    """Flash at the three eval shapes, as the padded forward calls it
+    ([b, s, h, d] views, the bench's window masks), against its plain
+    version; times beside the bound of this data (the valid keys) and SDPA
+    given the same mask as booleans."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    masks = {k: v.cuda() for k, v in
+             eval_masks(eval_bench.bench_sizes(EVAL_BATCH)).items()}
+    rows, max_err = [], 0.0
+    for name, (b, h, sq, sk, d), per_forward, which in EVAL_FLASH_SHAPES:
+        q, k, v = _inputs(gen, b, h, sq, sk, d, torch.bfloat16, strided=True)
+        mask = None if which is None else masks[which]
+        before = fa.flash_attention.launches
+        got = fa.flash_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        check(fa.flash_attention.launches == before + 1, f"{name}: no launch")
+        want = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask)
+        err = (got.float() - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        del got, want
+        print(f"kernel check {name} {[b, h, sq, sk, d]} mask {which}: "
+              f"max_abs_err {err:.3e} max_rel_err {rel:.3e} "
+              f"(tol {TOL_FLASH_BF16} rel)", flush=True)
+        check(rel <= TOL_FLASH_BF16, f"{name}: kernel disagrees with its plain version")
+        max_err = max(max_err, err)
+        valid = None if mask is None else int(mask.sum())
+        bound_ms, bound_by = bound(b, h, sq, sk, d, valid_keys=valid)
+        attn_mask = None if mask is None else mask.bool()[:, None, None, :]
+        row = dict(name=name, shape=[b, h, sq, sk, d], per_forward=per_forward,
+                   mask=which, valid_keys=valid,
+                   ms=cuda_ms(lambda: fa.flash_attention(q, k, v, mask)),
+                   plain_ms=cuda_ms(
+                       lambda: fa.flash_attention_reference(q, k, v, mask),
+                       calls=3, reps=5, warmup=1),
+                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=attn_mask)),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        rows.append(row)
+        print(f"kernel time {name} {[b, h, sq, sk, d]}: kernel {row['ms']:.4f} "
+              f"ms, plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / row['ms']:.1%} of bound", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows, max_err
+
+
+def _threshold(proposals: torch.Tensor) -> float:
+    """A threshold at which a tenth of the random model's proposal pixels
+    binarise, so that the decode has masks to work on."""
+    return float(torch.quantile(proposals.flatten()[::97].float(), 0.9))
+
+
+def _gt_from(preds, sizes_by_id) -> dict:
+    """A COCO ground truth of one box-filled mask per prediction."""
+    anns = []
+    for i, p in enumerate(preds):
+        h, w = sizes_by_id[p["image_id"]]
+        m = np.zeros((h, w), np.uint8)
+        x0, y0, x1, y1 = (int(v) for v in p["bbox"])
+        m[y0:y1 + 1, x0:x1 + 1] = 1
+        anns.append({"id": i + 1, "image_id": p["image_id"], "iscrowd": 0,
+                     "category_id": p["category_id"],
+                     "segmentation": rle.encode(m), "area": int(m.sum())})
+    cats = sorted({p["category_id"] for p in preds})
+    return {"images": [{"id": k, "height": h, "width": w}
+                       for k, (h, w) in sizes_by_id.items()],
+            "annotations": anns, "categories": [{"id": c} for c in cats]}
+
+
+def _padded_equals_per_image(cfg, text, sizes, device) -> dict:
+    """f32 forward_padded of three images in the eval bucket against each
+    image's dense f32 forward at its native size (the f32 kernel on both),
+    and the instance step's keep and categories against
+    predict_instances_device per image."""
+    f32 = build_model(cfg, device, torch.float32)
+    rng = np.random.RandomState(3)
+    images = [rng.randn(3, h, w).astype(np.float32) for h, w in sizes]
+    padded, grid, pix = BE.pad_batch(images, EVAL_SHAPE, len(images), 16)
+    text_d = torch.from_numpy(text).to(device)
+    worst = {"patch_tokens": 0.0, "mask_proposals": 0.0}
+    with torch.inference_mode():
+        out_b = f32.forward_padded(torch.from_numpy(padded).to(device), grid)
+        thr = _threshold(out_b["mask_proposals"][:, -1])
+        res_b = BE.make_instance_step(f32, text, EVAL_SHAPE, threshold=thr,
+                                      semantic_mode="none", device=device)(
+            padded, grid, pix)
+        n_kept = 0
+        for i, (img, (H, W)) in enumerate(zip(images, sizes)):
+            out_1 = f32(torch.from_numpy(img[None]).to(device), inference=True)
+            h, w = out_b["native_grid"][i].tolist()
+            for key, a, b in (
+                    ("patch_tokens", out_b["patch_tokens"][i, :h, :w],
+                     out_1["patch_tokens"][0]),
+                    ("mask_proposals", out_b["mask_proposals"][i, -1, :, :h, :w],
+                     out_1["mask_proposals"][0, -1])):
+                rel = ((a - b).abs().max() / b.abs().max()).item()
+                worst[key] = max(worst[key], rel)
+                check(rel <= TOL_PADDED_F32,
+                      f"padded {key} of image {i} differ from its per-image "
+                      f"forward by {rel:.3e} of the largest |output|")
+            one = predict_instances_device(
+                out_1["mask_proposals"], out_1["patch_tokens"], text_d,
+                size=(H, W), threshold=thr)
+            check(torch.equal(res_b["keep"][i], one["keep"][0]),
+                  f"image {i}: the instance step keeps other queries than "
+                  "predict_instances_device")
+            check(torch.equal(res_b["category_ids"][i], one["category_ids"][0]),
+                  f"image {i}: categories differ from predict_instances_device")
+            n_kept += int(one["keep"].sum())
+    print(f"eval: padded vs per-image f32 (3 images {sizes}): max rel diff "
+          f"{json.dumps(worst)}; keep and categories equal, {n_kept} kept",
+          flush=True)
+    return dict(worst, kept=n_kept)
+
+
+def _decode_equals_cpu(model, text, u8, ids, sizes, thr, device) -> dict:
+    """The instance decode of one batch on the card against its rerun on
+    the CPU from the card's forward outputs: keep, categories, scores,
+    masks, the device RLE, the COCO list and its stats must be equal."""
+    padded, grid, pix = BE.pad_batch(u8, EVAL_SHAPE, EVAL_BATCH, 16, np.uint8)
+    text_d = torch.from_numpy(text).to(device)
+    with torch.inference_mode():
+        x = BE._normalise_u8(torch.from_numpy(padded).to(device))
+        out = model.forward_padded(x, grid)
+        res_d = BE.decode_instances(out, text_d, pix, EVAL_SHAPE, thr)
+        out_c = {k: v.cpu() for k, v in out.items()}
+        t0 = time.perf_counter()
+        res_c = BE.decode_instances(out_c, text_d.cpu(), pix, EVAL_SHAPE, thr)
+        cpu_s = time.perf_counter() - t0
+    for key in ("keep", "category_ids", "scores", "masks"):
+        check(torch.equal(res_d[key].cpu(), res_c[key]),
+              f"decode: {key} differ between the card and the CPU")
+    for key, value in res_d["rle"].items():
+        check(torch.equal(value.cpu(), res_c["rle"][key]),
+              f"decode: device RLE {key} differ between the card and the CPU")
+    preds = []
+    for res in (res_d, res_c):
+        host = {k: res[k].cpu().numpy() for k in BE.HOST_KEYS}
+        host.update({k: v.cpu().numpy() for k, v in res["rle"].items()})
+        preds.append(instances_to_coco_counts(host, ids, sizes,
+                                              dev_masks=res["masks"]))
+    check(json.dumps(preds[0]) == json.dumps(preds[1]),
+          "decode: the COCO lists differ between the card and the CPU")
+    gt = _gt_from(preds[1], dict(zip(ids, sizes)))
+    stats = [COCOEvaluator(gt).evaluate(p) for p in preds]
+    check(stats[0] == stats[1], "decode: COCO stats differ")
+    n = len(preds[0])
+    print(f"eval: decode on the card equals the CPU rerun bit for bit: "
+          f"{int(res_d['keep'].sum())} kept, {n} COCO predictions, "
+          f"{int((res_d['rle']['overflow'] & res_d['rle']['valid']).sum())} "
+          f"cap overflows, stats "
+          f"{json.dumps(stats[0])} (CPU decode {cpu_s:.1f} s)", flush=True)
+    check(n > 0, "decode: no prediction to compare")
+    return dict(kept=int(res_d["keep"].sum()), predictions=n, stats=stats[0])
+
+
+def check_no_sync(dispatch) -> None:
+    """Fail if `dispatch` makes the host wait for the card (a copy from
+    pageable memory, a read of a device value): pipelined's depth 2 could
+    then overlap nothing but the host's assembly with the next batch."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fetch = dispatch()
+    except RuntimeError as exc:
+        fail(f"the eval's dispatch waits for the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    fetch.result()
+    print("eval: the dispatch of a batch (upload, forward, decode, fetch "
+          "start) makes no host-device synchronisation", flush=True)
+
+
+def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
+    """The bucketed eval slice at full width: flash at the eval shapes;
+    padded equals per-image in f32; evaluate_instances over two batches of
+    32 images in the 512 x 640 bucket (24 flash launches per padded
+    forward, 18 of them masked); the card's decode against a CPU rerun; and
+    the times (the tool's img/s at depth 1 and 2, forward, decode, NMS and
+    host assembly, device busy, peak memory)."""
+    device = torch.device(device)
+    flash_rows, flash_err = phase_eval_flash()
+    sizes = eval_bench.bench_sizes(EVAL_BATCH)
+    text = eval_bench.text_embeddings(eval_bench.N_CATEGORIES, cfg["text_dim"])
+    padded_check = _padded_equals_per_image(cfg, text, sizes[:3], device)
+    torch.cuda.empty_cache()
+
+    model = build_model(cfg, device)
+    rng = np.random.RandomState(4)
+    u8 = [rng.randint(0, 256, (3, h, w)).astype(np.uint8)
+          for h, w in sizes + sizes]
+    ids = list(range(1, EVAL_IMAGES + 1))
+    padded, grid, pix = BE.pad_batch(u8[:EVAL_BATCH], EVAL_SHAPE, EVAL_BATCH,
+                                     16, np.uint8)
+    with torch.inference_mode():
+        x = BE._normalise_u8(torch.from_numpy(padded).to(device))
+        thr = _threshold(model.forward_padded(x, grid)["mask_proposals"][:, -1])
+    print(f"eval: threshold {thr:.6f}", flush=True)
+
+    counted = (fa.flash_attention, *(w for w, _, _ in PROBES.values()))
+    for w in counted:
+        w.launches = 0
+    fa.flash_attention.masked_launches = 0
+    t0 = time.perf_counter()
+    preds = BE.evaluate_instances(model, text, u8, ids, batch_images=EVAL_BATCH,
+                                  depth=2, threshold=thr, device=device)
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    masked = fa.flash_attention.masked_launches
+    probe_launches = sum(w.launches for w, _, _ in PROBES.values())
+    batches = EVAL_IMAGES // EVAL_BATCH
+    print(f"eval: evaluate_instances on {EVAL_IMAGES} images: {len(preds)} "
+          f"predictions in {wall:.2f} s, {launches} flash launches "
+          f"({masked} masked) for {batches} padded forwards", flush=True)
+    check(launches == EVAL_LAUNCHES * batches,
+          f"{launches} flash launches for {batches} padded forwards, expected "
+          f"{EVAL_LAUNCHES} each")
+    check(masked == EVAL_MASKED_LAUNCHES * batches,
+          f"{masked} masked flash launches, expected {EVAL_MASKED_LAUNCHES} "
+          "a forward (12 encoder, 6 cross)")
+    check(probe_launches == 0, "the eval launched a probe kernel")
+    size_of = dict(zip(ids, sizes + sizes))
+    for p in preds:
+        h, w = size_of[p["image_id"]]
+        check(rle.decode(p["segmentation"]).shape == (h, w)
+              and tuple(p["image_size"]) == (h, w), "prediction not at its image's size")
+        check(0 <= p["category_id"] < eval_bench.N_CATEGORIES, "bad category id")
+        check(0.0 < p["score"] <= 1.0 and np.isfinite(p["score"]), "bad score")
+        x0, y0, x1, y1 = p["bbox"]
+        check(0 <= x0 <= x1 < w and 0 <= y0 <= y1 < h, "box outside its image")
+    check(len(preds) > 0, "evaluate_instances returned no prediction")
+
+    decode_check = _decode_equals_cpu(model, text, u8[:EVAL_BATCH],
+                                      ids[:EVAL_BATCH], sizes, thr, device)
+
+    # where a batch's time goes, and the rates
+    step = BE.make_instance_step(model, text, EVAL_SHAPE, threshold=thr,
+                                 uint8_input=True, semantic_mode="none",
+                                 device=device)
+    text_d = torch.from_numpy(text).to(device)
+    stream = torch.cuda.Stream(device)
+    with torch.inference_mode():
+        out = model.forward_padded(x, grid)
+        res = BE.decode_instances(out, text_d, pix, EVAL_SHAPE, thr)
+        forward_ms = host_ms(lambda: model.forward_padded(x, grid), device, reps=5)
+        decode_ms = host_ms(lambda: BE.decode_instances(
+            out, text_d, pix, EVAL_SHAPE, thr), device, reps=5)
+        nms_ms = host_ms(lambda: mask_nms(res["masks"], res["scores"],
+                                          res["category_ids"]), device, reps=5)
+    assembly_ms = host_ms(lambda: instances_to_coco_counts(
+        BE.fetch_to_host(res, stream).result(), ids[:EVAL_BATCH], sizes,
+        dev_masks=BE.SideStreamView(res["masks"], stream)), device, reps=5)
+    step_ms = host_ms(lambda: step(padded, grid, pix), device, reps=5)
+    del out, res
+    check_no_sync(lambda: BE.fetch_to_host(step(padded, grid, pix), stream))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    step(padded, grid, pix)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    busy_ms, kernels = profile_device(lambda: step(padded, grid, pix), device)
+    rates = {f"depth {d}": eval_bench.run(
+        EVAL_BATCH, "counts", 12, d, device, model=model, threshold=thr)["value"]
+        for d in (1, 2)}
+    stats = dict(img_per_s=rates, forward_ms=forward_ms, decode_ms=decode_ms,
+                 nms_ms=nms_ms, assembly_ms=assembly_ms, step_ms=step_ms,
+                 step_device_busy_ms=busy_ms, step_top_kernels=kernels,
+                 peak_memory_gib=peak_gib, threshold=thr, launches=launches,
+                 masked_launches=masked, batches=batches,
+                 predictions=len(preds), padded_check=padded_check,
+                 decode_check=decode_check, flash_rows=flash_rows,
+                 flash_max_abs_err=flash_err)
+    print(f"eval rate: {json.dumps(rates)} img/s (counts path, batch "
+          f"{EVAL_BATCH}, 12 batches); per batch: step {step_ms:.3f} ms = "
+          f"forward {forward_ms:.3f} + decode {decode_ms:.3f} (NMS "
+          f"{nms_ms:.3f}); host assembly {assembly_ms:.3f} ms; device busy "
+          f"{busy_ms} ms; peak memory {peak_gib:.2f} GiB", flush=True)
+    return stats
+
+
 def main() -> None:
     card, libs = phase_card()
     sass = sass_check(libs)
@@ -806,6 +1122,9 @@ def main() -> None:
     tune_launches, tune_results = phase_tune()
     stats = phase_serving()
     print(f"serving on {card}: {json.dumps(stats)}", flush=True)
+    ev = phase_eval()
+    print(f"eval on {card}: " + json.dumps(
+        {k: v for k, v in ev.items() if k != "flash_rows"}), flush=True)
 
     def per_forward(key):
         return sum(r[key] * r["per_forward"] for r in rows)
@@ -814,13 +1133,23 @@ def main() -> None:
     bytes_ms = sum(r["bound_ms"] * r["per_forward"] for r in rows
                    if r["bound_by"] == "bytes")
     ops_ms = per_forward("bound_ms") - bytes_ms
+    eval_rows = ev["flash_rows"]
+
+    def eval_forward(key):
+        return sum(r[key] * r["per_forward"] for r in eval_rows)
+
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "zutis_tpu_torch/csrc/flash_attention.cu",
         "replaces": "zutis_tpu/ops/flash_attention.py:53",
-        "launches": stats["launches"],
-        "max_abs_err": max_err,
+        # both main paths, each counted from 0: the serving forwards and the
+        # eval's padded forwards
+        "launches": stats["launches"] + ev["launches"],
+        "launches_by_path": {"serving": stats["launches"],
+                             "eval": ev["launches"],
+                             "eval_masked": ev["masked_launches"]},
+        "max_abs_err": max(max_err, ev["flash_max_abs_err"]),
         # times and bound: the 24 calls of one batch-8 forward at 384 px
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -835,6 +1164,10 @@ def main() -> None:
         "occupancy": flash_occ,
         "sass": {k: c for k, c in sass.items() if k.startswith("flash")},
         "shapes": rows,
+        # the 24 calls of one padded forward, batch 32, 512 x 640 bucket
+        "eval_forward": {k: eval_forward(k) for k in
+                         ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "eval_shapes": eval_rows,
     }]
     tool = next(r for r in probe_rows if r["name"] == "tool")
     headline = {"single_attention": "single unroll",

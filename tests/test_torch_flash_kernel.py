@@ -100,6 +100,68 @@ def test_cuda_kernel_matches_reference_on_the_card(shape, dtype, masked,
     _check(shape, dtype, masked, strided)
 
 
+# The bucketed eval's shapes at batch 32 in the 512 x 640 bucket: encoder
+# self-attention over CLS + 32 x 40 patch tokens, decoder self-attention, and
+# the cross-attention into the 64 x 80 upsampled memory. The masks are the
+# eval's windows: each native grid top-left in the padded one, so that every
+# padded row ends in masked keys and the padded bottom rows hold whole
+# 64-key chunks with no valid key.
+EVAL_NATIVE = [((480 + 8 * (i % 5)) // 16, (640 - 16 * (i % 3)) // 16)
+               for i in range(32)]
+
+
+def _window_mask(grids, hp, wp, cls):
+    m = np.zeros((len(grids), hp, wp), np.int32)
+    for i, (h, w) in enumerate(grids):
+        m[i, :h, :w] = 1
+    m = m.reshape(len(grids), hp * wp)
+    if cls:
+        m = np.concatenate([np.ones((len(grids), 1), np.int32), m], axis=1)
+    return torch.from_numpy(m)
+
+
+def _check_mask(shape, mask):
+    _needs_card()
+    q, k, v = (x.cuda().to(torch.bfloat16) for x in _qkv(9, *shape, strided=True))
+    mask = mask.cuda()
+    before = fa.flash_attention.masked_launches
+    got = fa.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.masked_launches == before + 1
+    want = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask)
+    tol = TOL_BF16 * want.abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["encoder", "cross"])
+def test_cuda_eval_shapes_under_window_masks(name):
+    if name == "encoder":
+        shape, mask = (32, 12, 1281, 1281, 64), _window_mask(EVAL_NATIVE, 32, 40, True)
+    else:
+        grids = [(2 * h, 2 * w) for h, w in EVAL_NATIVE]
+        shape, mask = (32, 8, 100, 5120, 96), _window_mask(grids, 64, 80, False)
+    # at least one 64-key chunk of a padded row holds no valid key
+    chunks = mask[:, :mask.shape[1] // 64 * 64].reshape(32, -1, 64)
+    assert (chunks.sum(-1) == 0).any()
+    _check_mask(shape, mask)
+
+
+@pytest.mark.cuda
+def test_cuda_eval_decoder_self_attention():
+    _check((32, 8, 100, 100, 96), strided=True)
+
+
+@pytest.mark.cuda
+def test_cuda_one_valid_key_besides_cls():
+    """sk 1281 with CLS and one other valid key per item, the key moving
+    across chunks: every other chunk of the row is wholly masked."""
+    mask = torch.zeros(32, 1281, dtype=torch.int32)
+    mask[:, 0] = 1
+    mask[torch.arange(32), 1 + 40 * torch.arange(32)] = 1
+    _check_mask((32, 4, 130, 1281, 64), mask)
+
+
 # the last chunk holds 1 key and 63 rows that TMA fills with zeros: only the
 # per-chunk validity keeps them out of the softmax
 @pytest.mark.cuda

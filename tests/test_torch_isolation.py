@@ -1,5 +1,6 @@
 """zutis_tpu_torch stands alone: in a fresh interpreter where importing jax,
-flax, PIL or zutis_tpu fails, the package and every submodule import."""
+flax, PIL, yaml or zutis_tpu fails, the package and every submodule
+import."""
 import subprocess
 import sys
 from pathlib import Path
@@ -38,11 +39,22 @@ def _run(code):
                           capture_output=True, text=True, timeout=300)
 
 
+# the eval slice's modules, which the walk above must reach
+EVAL_SLICE = ("zutis_tpu_torch.ops.dynamic_shapes",
+              "zutis_tpu_torch.ops.rle_device",
+              "zutis_tpu_torch.engine.batched_eval",
+              "zutis_tpu_torch.engine.coco_eval",
+              "zutis_tpu_torch.data.coco_api",
+              "zutis_tpu_torch.tools.instance_eval_bench")
+
+
 def test_port_imports_without_jax_flax_pil_or_zutis_tpu():
-    proc = _run(_PROBE)
+    proc = _run(_PROBE.replace('print("imported", len(names))',
+                               'print(*names)\nprint("imported", len(names))'))
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 15, proc.stdout
+    assert n >= 21, proc.stdout
+    assert set(EVAL_SLICE) <= set(proc.stdout.split()), proc.stdout
 
 
 def test_blocker_really_blocks():

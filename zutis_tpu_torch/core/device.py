@@ -17,3 +17,13 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
             "False; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Copy a host tensor to `device`. To a card the copy goes through pinned
+    memory and does not block: a plain copy from pageable memory waits for
+    every kernel queued on the stream, which would stall a pipelined loop."""
+    device = torch.device(device)
+    if device.type != "cuda" or x.device.type != "cpu":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)

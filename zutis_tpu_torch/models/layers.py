@@ -11,6 +11,7 @@ torch's 1e-5) and casts back.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -110,15 +111,18 @@ class MultiHeadAttention(nn.Module):
         q_in: torch.Tensor,  # [b, sq, dim]
         k: torch.Tensor,  # [b, sk, dim], already projected by k_proj
         v: torch.Tensor,  # [b, sk, dim], already projected by v_proj
+        kv_mask: Optional[torch.Tensor] = None,  # [b, sk], nonzero = valid key
     ) -> torch.Tensor:
         q = self.q_proj(q_in)
         out = dot_product_attention_bshd(
-            self._split(q), self._split(k), self._split(v), impl=self.attn_impl)
+            self._split(q), self._split(k), self._split(v), kv_mask=kv_mask,
+            impl=self.attn_impl)
         b, sq = out.shape[:2]
         return self.out_proj(out.reshape(b, sq, self.dim), self.dtype)
 
-    def forward(self, q_in, k_in, v_in) -> torch.Tensor:
-        return self.attend_kv(q_in, self.k_proj(k_in), self.v_proj(v_in))
+    def forward(self, q_in, k_in, v_in, kv_mask=None) -> torch.Tensor:
+        return self.attend_kv(q_in, self.k_proj(k_in), self.v_proj(v_in),
+                              kv_mask=kv_mask)
 
     def init_params(self, generator: torch.Generator) -> None:
         fill_normal_(self.in_proj_weight, 1.0 / math.sqrt(self.dim), generator)

@@ -10,11 +10,12 @@ parameter here but is applied by ZUTIS, not in `forward`.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from zutis_tpu_torch.core.device import to_device
 from zutis_tpu_torch.models.layers import (
     Dense,
     LayerNorm32,
@@ -22,6 +23,10 @@ from zutis_tpu_torch.models.layers import (
     empty_param,
     fill_normal_,
     quick_gelu,
+)
+from zutis_tpu_torch.ops.dynamic_shapes import (
+    interpolate_pos_embed_batched,
+    token_valid_mask,
 )
 from zutis_tpu_torch.ops.resize import resize_2d
 
@@ -40,9 +45,10 @@ class ResidualAttentionBlock(nn.Module):
             "c_proj": Dense(width * 4, width, device=device),
         })
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         y = self.ln_1(x)
-        x = x + self.attn(y, y, y)
+        x = x + self.attn(y, y, y, kv_mask=kv_mask)
         y = self.ln_2(x)
         y = quick_gelu(self.mlp["c_fc"](y, self.dtype))
         return x + self.mlp["c_proj"](y, self.dtype)
@@ -119,15 +125,43 @@ class CLIPViT(nn.Module):
         kernel = self.conv1.weight.to(self.dtype).reshape(self.width, -1)
         return x @ kernel.t(), h, w
 
+    def _with_cls(self, tokens: torch.Tensor) -> torch.Tensor:
+        cls_tok = self.class_embedding.to(self.dtype)[None, None].expand(
+            tokens.shape[0], 1, self.width)
+        return torch.cat([cls_tok, tokens], dim=1)
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
         """x [b, 3, H, W] -> (patch tokens [b, h*w, width] after ln_post, h, w)."""
         tokens, h, w = self._patchify(x)
-        b = tokens.shape[0]
-        cls_tok = self.class_embedding.to(self.dtype)[None, None].expand(
-            b, 1, self.width)
-        tokens = torch.cat([cls_tok, tokens], dim=1)
+        tokens = self._with_cls(tokens)
         pe = interpolate_pos_embed(self.positional_embedding, (h, w))
         tokens = self.ln_pre(tokens + pe.to(self.dtype)[None])
         for block in self.transformer.resblocks:
             tokens = block(tokens)
         return self.ln_post(tokens[:, 1:, :]), h, w
+
+    def forward_padded(
+        self,
+        x: torch.Tensor,  # [b, 3, H_pad, W_pad], padded bottom/right
+        native_grid: torch.Tensor,  # [b, 2] native token grids, on the host
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Variable-resolution forward under one padded shape: each sample's
+        positional embedding is interpolated to its native grid, and every
+        attention layer masks the keys to the sample's CLS and valid patch
+        tokens, so valid tokens never see padding. -> (patch tokens
+        [b, hp*wp, width], of which each sample's top-left [h_i, w_i] window
+        is meaningful; the [b, hp*wp] int32 validity mask). The token-merging
+        branch of the JAX package is not ported."""
+        tokens, hp, wp = self._patchify(x)
+        b = tokens.shape[0]
+        tokens = self._with_cls(tokens)
+        pe = interpolate_pos_embed_batched(
+            self.positional_embedding, native_grid, (hp, wp))
+        tokens = self.ln_pre(tokens + pe.to(self.dtype))
+        patch_valid = token_valid_mask(to_device(native_grid, x.device), hp, wp)
+        # one int32 mask, CLS always valid, shared by every layer's launch
+        kv_mask = torch.cat([torch.ones(b, 1, dtype=torch.int32,
+                                        device=x.device), patch_valid], dim=1)
+        for block in self.transformer.resblocks:
+            tokens = block(tokens, kv_mask=kv_mask)
+        return self.ln_post(tokens[:, 1:, :]), patch_valid

@@ -23,11 +23,16 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from zutis_tpu_torch.core.device import resolve_device
+from zutis_tpu_torch.core.device import resolve_device, to_device
 from zutis_tpu_torch.models.decoder import QueryDecoder
 from zutis_tpu_torch.models.layers import MLP, fill_normal_
 from zutis_tpu_torch.models.pos_embed import sine_pos_embed
 from zutis_tpu_torch.models.vit import CLIPViT
+from zutis_tpu_torch.ops.dynamic_shapes import (
+    replicate_edges,
+    sine_pos_embed_dynamic,
+    token_valid_mask,
+)
 from zutis_tpu_torch.ops.resize import interpolate
 
 
@@ -37,6 +42,23 @@ def full_map_layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
     mean = x32.mean(dim=dims, keepdim=True)
     var = x32.var(dim=dims, keepdim=True, unbiased=False)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def masked_full_map_layer_norm(
+    x: torch.Tensor,  # [b, h, w, c]
+    valid: torch.Tensor,  # [b, h, w], 1 inside each sample's native window
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """`full_map_layer_norm` with statistics over each sample's valid window
+    only, so that the padded program equals the per-image one there. Values
+    outside the window are meaningless."""
+    x32 = x.float()
+    m = valid.float()[..., None]
+    dims = (1, 2, 3)
+    count = m.sum(dim=dims, keepdim=True) * x.shape[-1]
+    mean = (x32 * m).sum(dim=dims, keepdim=True) / count
+    var = ((x32 - mean) ** 2 * m).sum(dim=dims, keepdim=True) / count
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
@@ -109,9 +131,21 @@ class ZUTIS(nn.Module):
         pos = sine_pos_embed(h, w, width // 2).reshape(width, -1).T
         pos = torch.from_numpy(pos).to(device=x.device, dtype=dt)[None]
 
-        query_pos = self.query_embed.to(dt)[None].expand(b, self.n_queries, width)
-        tgt = torch.zeros_like(query_pos)
+        tgt, query_pos = self._queries(b)
         queries = self.decoder(tgt, memory, pos=pos, query_pos=query_pos)
+        return self._heads(queries, memory, patch_tokens, h, w, inference,
+                           full_map_layer_norm)
+
+    def _queries(self, b: int):
+        """(tgt, query_pos) for the decoder: zeros and the learned queries."""
+        query_pos = self.query_embed.to(self.dtype)[None].expand(
+            b, self.n_queries, self.width)
+        return torch.zeros_like(query_pos), query_pos
+
+    def _heads(self, queries, memory, patch_tokens, h, w, inference, norm):
+        """Steps 6-8: the mask proposals and the text-space tokens; `norm` is
+        the full-map LayerNorm (masked on the padded path)."""
+        b, width = memory.shape[0], self.width
         if inference:
             queries = queries[-1:]  # last decoder layer only
         queries = self.ffn2(queries.permute(1, 0, 2, 3))  # [b, L, Q, d]
@@ -125,9 +159,56 @@ class ZUTIS(nn.Module):
 
         token_grid = patch_tokens.reshape(b, h, w, width)
         text_tokens = torch.einsum("bhwn,nc->bhwc", token_grid.float(),
-                                   self.encoder.proj.to(dt).float())
-        text_tokens = full_map_layer_norm(text_tokens)
+                                   self.encoder.proj.to(self.dtype).float())
+        text_tokens = norm(text_tokens)
         text_tokens = text_tokens / (
             torch.linalg.vector_norm(text_tokens, dim=-1, keepdim=True) + 1e-7)
         return {"mask_proposals": mask_proposals.float(),
                 "patch_tokens": text_tokens.float()}
+
+    def forward_padded(
+        self,
+        x: torch.Tensor,  # [b, 3, H_pad, W_pad], padded bottom/right
+        native_grid,  # [b, 2] native token grids (H // p, W // p), on the host
+        inference: bool = True,
+    ) -> Dict[str, torch.Tensor]:
+        """Batched variable-resolution forward for the bucketed evaluator
+        (decoder_pool = 1, no token merging). Each sample's valid window
+        equals, up to summation order, what `forward` computes at its native
+        size:
+          - encoder: per-sample positional embedding and key-masked
+            attention (`CLIPViT.forward_padded`);
+          - the x2 upsample reads an edge-replicated grid, which reproduces
+            the native program's clamped border taps;
+          - decoder: the sine embedding normalised by the native extent, and
+            the memory's padding masked out of the cross-attention;
+          - text-space tokens: the full-map LayerNorm over the valid window.
+        Returns the forward's outputs plus "valid" [b, h, w] int32 on the
+        device and "native_grid" [b, 2], the upsampled native grids on the
+        host."""
+        b, width = x.shape[0], self.width
+        native_grid = torch.as_tensor(native_grid).to("cpu", torch.int64)
+        patch_tokens, _ = self.encoder.forward_padded(x, native_grid)
+        p = self.encoder.patch_size
+        hp, wp = x.shape[-2] // p, x.shape[-1] // p
+
+        grid_d = to_device(native_grid, x.device)
+        grid = replicate_edges(patch_tokens.reshape(b, hp, wp, width), grid_d)
+        grid = interpolate(grid.permute(0, 3, 1, 2), scale_factor=2,
+                           mode="bilinear")
+        hp, wp = hp * 2, wp * 2
+        native_grid, grid_d = native_grid * 2, grid_d * 2
+        patch_tokens = grid.permute(0, 2, 3, 1).reshape(b, hp * wp, width)
+        valid = token_valid_mask(grid_d, hp, wp)  # [b, hp*wp] int32
+
+        memory = self.ffn1(patch_tokens.detach())
+        pos = sine_pos_embed_dynamic(hp, wp, width // 2, native_grid,
+                                     device=x.device).to(self.dtype)
+        tgt, query_pos = self._queries(b)
+        queries = self.decoder(tgt, memory, pos=pos, query_pos=query_pos,
+                               memory_mask=valid)
+        valid_grid = valid.reshape(b, hp, wp)
+        out = self._heads(
+            queries, memory, patch_tokens, hp, wp, inference,
+            lambda t: masked_full_map_layer_norm(t, valid_grid))
+        return dict(out, valid=valid_grid, native_grid=native_grid)

@@ -161,7 +161,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """softmax(q k^T / sqrt(d), keys masked by kv_mask) v -> [b, h, sq, d].
 
-    The kernel launch count is `flash_attention.launches`."""
+    The kernel launch count is `flash_attention.launches`, and of those the
+    launches given a mask `flash_attention.masked_launches`."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_mask)
     if q.device.type != "cuda":
@@ -175,7 +176,11 @@ def flash_attention(
         return o
     mask = None
     if kv_mask is not None:
-        mask = (kv_mask > 0).to(torch.int32).contiguous()
+        # an int32 mask is read as it is (nonzero = valid), so a caller that
+        # masks many calls converts it once
+        mask = kv_mask
+        if mask.dtype != torch.int32 or not mask.is_contiguous():
+            mask = (kv_mask > 0).to(torch.int32).contiguous()
     lib = _build.load(SOURCE, STEM, _bind)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
@@ -189,7 +194,9 @@ def flash_attention(
         )
     _build.check_launch(lib, err, "flash attention")
     flash_attention.launches += 1
+    flash_attention.masked_launches += mask is not None
     return o
 
 
 flash_attention.launches = 0
+flash_attention.masked_launches = 0  # the launches given a kv_mask

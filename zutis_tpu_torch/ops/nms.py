@@ -53,9 +53,8 @@ def mask_nms(
     keep = torch.zeros(b, q, dtype=torch.bool, device=masks.device)
     cur = scores.float().clone()
     candidate = eligible.clone()
-    neg_inf = torch.tensor(-float("inf"), device=masks.device)
     for _ in range(q):
-        live = torch.where(candidate & eligible, cur, neg_inf)
+        live = torch.where(candidate & eligible, cur, -float("inf"))
         i = live.argmax(dim=1)  # the first maximum, as jnp.argmax
         selected = live[rows, i] > -float("inf")  # False once none remain
         keep[rows, i] |= selected

@@ -17,6 +17,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from zutis_tpu_torch.core.device import to_device
+
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
     ax = np.abs(x)
@@ -69,8 +71,8 @@ def resize_2d(
     if (h_in, w_in) == (h_out, w_out) and scales is None:
         return x
     sh, sw = (None, None) if scales is None else scales
-    wh = torch.from_numpy(_resize_matrix(h_in, h_out, mode, sh)).to(x.device)
-    ww = torch.from_numpy(_resize_matrix(w_in, w_out, mode, sw)).to(x.device)
+    wh = to_device(torch.from_numpy(_resize_matrix(h_in, h_out, mode, sh)), x.device)
+    ww = to_device(torch.from_numpy(_resize_matrix(w_in, w_out, mode, sw)), x.device)
     y = torch.einsum("oh,...hw->...ow", wh, x.float())
     y = torch.einsum("ow,...hw->...ho", ww, y)
     return y.to(x.dtype)

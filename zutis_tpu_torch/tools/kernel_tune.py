@@ -57,11 +57,13 @@ TOL_BF16 = 2e-2  # bf16 outputs (8-bit mantissa) against an f32 softmax
 TIMED_CALLS = 20
 
 
-def bound(b, h, sq, sk, d, itemsize=2):
+def bound(b, h, sq, sk, d, itemsize=2, valid_keys=None):
     """(least ms on an H100, "bytes" or "operations") for one attention
     call: each of q, k, v read once and o written once, against
-    4*b*h*sq*sk*d operations at the bf16 tensor-core peak."""
-    flops = 4 * b * h * sq * sk * d
+    4*h*sq*d operations per valid key at the bf16 tensor-core peak;
+    `valid_keys` is the count of unmasked keys summed over the batch (all
+    b * sk without a mask)."""
+    flops = 4 * h * sq * d * (b * sk if valid_keys is None else valid_keys)
     nbytes = itemsize * (2 * b * h * sq * d + 2 * b * h * sk * d)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
