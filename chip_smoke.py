@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card, `nvcc` and
-PyTorch built for CUDA. It imports torch, numpy and zutis_tpu_torch only.
+PyTorch built for CUDA. It imports torch, numpy and zutis_tpu_torch, and
+scipy for the matcher's host yardstick (`linear_sum_assignment`).
 
   1. Card and build: requires CUDA, prints the card's name and power limit,
-     builds the flash-attention and attention-probe kernels from
+     builds the flash-attention, attention-probe and matcher kernels from
      zutis_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source, started
      together), prints ptxas's registers and spills, fails if ptxas
      serialised any kernel's wgmma, and turns TF32 off for matmuls and cuDNN.
@@ -54,8 +55,26 @@ PyTorch built for CUDA. It imports torch, numpy and zutis_tpu_torch only.
      synchronisation; the step's spans, device busy and peak memory, and
      the eval tool's img/s at depth 1 and 2.
 
-Prints the kernel record (flash's launches on both main paths, and its
-eval shapes) and the card on lines of their own, then, as the
+  7. The training step at full width (bench.py:174-201: ViT-B/16, 384 px,
+     batch 8, n_max 10 with 4 valid, 919 classes, bf16 compute with f32
+     parameters, AdamW + PolyLR at 5e-5 over 80,000 iterations): a warm-up
+     step and 10 timed ones with every launch count set to 0 before and
+     read per step (24 flash launches and one matcher launch each, no
+     probe); finite losses that fall after the first update and end below
+     the first; bench.py:207-213's rate (10 steps queued back to back, one
+     synchronise); one step's dispatch from host arrays (pinned uploads)
+     with no host-device synchronisation;
+     the flash Function's dQ, dK, dV against autograd through the plain
+     version at the three shapes in bf16 and f32; one f32 step on the
+     kernel path and on the "torch" attention path (matchings equal up to
+     near-ties of their costs, then on one matching the loss and every
+     parameter's gradient); the matcher kernel bit-equal to its plain version on the
+     step's own costs and seeded sets, NaN included; the step's time,
+     spans, device busy and peak memory, and the matcher's time beside its
+     bound, its plain version's and scipy's.
+
+Prints the kernel record (flash's launches on the three main paths, its
+eval shapes, the matcher) and the card on lines of their own, then, as the
 last line, {"ok": true, "device": {...}}. Exits non-zero, with no result
 line, on any failure or without a card.
 """
@@ -80,11 +99,15 @@ import torch.nn.functional as F
 from zutis_tpu_torch.engine import batched_eval as BE
 from zutis_tpu_torch.engine.coco_eval import COCOEvaluator
 from zutis_tpu_torch.engine.server import InferenceServer
+from zutis_tpu_torch.engine.train_step import (TrainState, make_train_step,
+                                               upload_batch)
+from zutis_tpu_torch.losses import criterion as crit
 from zutis_tpu_torch.models.layers import MultiHeadAttention
 from zutis_tpu_torch.models.zutis import ZUTIS
 from zutis_tpu_torch.ops import _build
 from zutis_tpu_torch.ops import attention_probes as ap
 from zutis_tpu_torch.ops import flash_attention as fa
+from zutis_tpu_torch.ops import hungarian as hg
 from zutis_tpu_torch.ops import rle
 from zutis_tpu_torch.ops.dynamic_shapes import token_valid_mask
 from zutis_tpu_torch.ops.nms import mask_nms
@@ -285,10 +308,10 @@ def phase_card() -> tuple[str, list]:
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        builds = [pool.submit(m.build) for m in (fa, ap)]
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
+        builds = [pool.submit(m.build) for m in (fa, ap, hg)]
         results = [b.result() for b in builds]
-    print(f"build: both libraries in {time.perf_counter() - t0:.1f} s",
+    print(f"build: all three libraries in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for path, seconds, log in results:
         print(f"build: {path.name} in {seconds:.1f} s", flush=True)
@@ -638,15 +661,13 @@ def phase_tune():
     return launches, results
 
 
-def profile_device(fn, device: torch.device, top: int = 12):
-    """Device busy ms of one call of `fn` (sum of kernel durations seen by
-    torch.profiler) and the `top` kernels by device time, as
-    [name, ms, count]. (None, []) where the profiler sees no device time."""
-    if device.type != "cuda":
-        return None, []
+def device_kernels(fn, grad: bool = False) -> dict:
+    """{kernel name: (device ms, launches)} of one call of `fn` as
+    torch.profiler sees them; `fn` runs under inference mode unless
+    `grad`. Empty where the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    with contextlib.nullcontext() if grad else torch.inference_mode():
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -657,16 +678,27 @@ def profile_device(fn, device: torch.device, top: int = 12):
         if str(e.device_type).endswith("CUDA"):
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return by_name
+
+
+def profile_device(fn, device: torch.device, top: int = 12, grad: bool = False):
+    """Device busy ms of one call of `fn` (sum of kernel durations seen by
+    torch.profiler), the `top` kernels by device time, as [name, ms, count],
+    and device_kernels' whole table; `fn` runs under inference mode unless
+    `grad`. (None, [], {}) where the profiler sees no device time."""
+    if device.type != "cuda":
+        return None, [], {}
+    by_name = device_kernels(fn, grad)
     if not by_name:
         print("profile: the profiler saw no device time", flush=True)
-        return None, []
+        return None, [], {}
     busy = sum(ms for ms, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     for name, (ms, n) in ranked:
         print(f"profile: {ms:9.4f} ms {n:5d}x {name[:110]}", flush=True)
     print(f"profile: device busy {busy:.4f} ms in {sum(n for _, n in by_name.values())}"
           " kernels for one step", flush=True)
-    return busy, [[name[:80], ms, n] for name, (ms, n) in ranked]
+    return busy, [[name[:80], ms, n] for name, (ms, n) in ranked], by_name
 
 
 def set_attn_impl(model: torch.nn.Module, impl: str) -> None:
@@ -808,7 +840,7 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
         fwd_torch_ms = host_ms(lambda: model(x, inference=True), device)
         set_attn_impl(model, "auto")
     per_batch = infer_ms / 2
-    busy_ms, kernels = profile_device(lambda: server.step(x), device)
+    busy_ms, kernels, _ = profile_device(lambda: server.step(x), device)
     stats = dict(img_per_s=len(rate_images) / (infer_ms / 1e3),
                  ms_per_batch=per_batch, forward_ms=fwd_ms, step_ms=step_ms,
                  forward_torch_attention_ms=fwd_torch_ms, launches=launches,
@@ -1094,7 +1126,7 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     step(padded, grid, pix)
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    busy_ms, kernels = profile_device(lambda: step(padded, grid, pix), device)
+    busy_ms, kernels, _ = profile_device(lambda: step(padded, grid, pix), device)
     rates = {f"depth {d}": eval_bench.run(
         EVAL_BATCH, "counts", 12, d, device, model=model, threshold=thr)["value"]
         for d in (1, 2)}
@@ -1114,6 +1146,397 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     return stats
 
 
+# the training step: bench.py's measure_train (bench.py:174-201): ViT-B/16
+# at input_resolution 224, 384 px images, batch 8, n_max 10 with the first 4
+# valid, 919 text embeddings, ignore_index 1000, base_lr 5e-5 over an
+# 80,000-iteration schedule; bf16 compute with f32 parameters
+TRAIN_BATCH, TRAIN_N_MAX, TRAIN_VALID = 8, 10, 4
+TRAIN_IGNORE, TRAIN_LR, TRAIN_ITERS = 1000, 5e-5, 80_000
+TRAIN_STEPS = 10  # timed, after one warm-up step
+# the Function's gradients against autograd through the plain version on f32
+# copies of the same inputs, relative to each gradient's largest |value|:
+# the backward recomputes in f32 and rounds each bf16 gradient once (2^-9)
+TOL_GRAD_BF16 = 8e-3
+TOL_GRAD_F32 = 1e-4
+# one f32 step on the kernel path against the "torch" attention path: the
+# f32 kernel's hi/lo splits carry ~16 mantissa bits, and the difference
+# goes through 18 attention layers into every gradient
+TOL_STEP_LOSS = 1e-4  # relative
+TOL_STEP_GRAD = 2e-3  # of each parameter's largest |gradient|
+# decoder layer 0's self-attention reads tgt = 0, so these get no gradient
+# on any path (v = 0, and softmax rows sum to 1); tests/test_torch_train_step.py
+ZERO_GRAD_PARAMS = ("decoder.layers.0.self_attn.in_proj_weight",
+                    "decoder.layers.0.self_attn.out_proj.weight",
+                    "decoder.layers.0.norm1.weight")
+
+
+def train_batch(cfg: dict, image_size: int, batch: int, n_max: int,
+                n_valid: int, n_categories: int):
+    """bench.py:181-201's inputs from np.random.RandomState(0), drawn in its
+    order (the flax init's input first): unit-norm text embeddings and the
+    batch dict of host arrays."""
+    rng = np.random.RandomState(0)
+    rng.randn(1, 3, image_size, image_size)  # the bench's init input
+    text = rng.randn(n_categories, cfg["text_dim"]).astype(np.float32)
+    text /= np.linalg.norm(text, axis=1, keepdims=True)
+    sem = rng.randint(0, n_categories, (batch, image_size, image_size))
+    masks = rng.rand(batch, n_max, image_size, image_size) > 0.7
+    data = {
+        "image": rng.randn(batch, 3, image_size, image_size).astype(np.float32),
+        "instance_masks": masks.astype(np.float32),
+        "instance_valid": np.repeat(np.arange(n_max)[None] < n_valid, batch, 0),
+        "semantic_mask": sem.astype(np.int32),
+    }
+    return text, data
+
+
+@contextlib.contextmanager
+def matcher_inputs(replay=None):
+    """Records every (cost, col4row) of the matcher the criterion calls;
+    the criterion gets `replay` instead of col4row where one is given."""
+    real, seen = crit.batched_hungarian, []
+
+    def capture(cost):
+        seen.append((cost.clone(), real(cost)))
+        return seen[-1][1] if replay is None else replay
+
+    crit.batched_hungarian = capture
+    try:
+        yield seen
+    finally:
+        crit.batched_hungarian = real
+
+
+def matcher_sets(costs: torch.Tensor) -> dict:
+    """The step's own [P, R, C] costs and seeded sets of the same shape:
+    random, integer-valued (ties), padded rows at a constant, and NaN."""
+    P, R, C = costs.shape
+    rng = np.random.RandomState(5)
+    rand = (rng.rand(P, R, C) * 3).astype(np.float32)
+    ties = rng.randint(0, 4, (P, R, C)).astype(np.float32)
+    padded = rand.copy()
+    padded[:, R // 2:] = 0.0
+    padded[::5] = 0.0
+    nan = rand.copy()
+    nan[0] = np.nan
+    nan[1, 2, 3] = np.nan
+    sets = {"step": costs}
+    for name, a in (("random", rand), ("ties", ties), ("padded rows", padded),
+                    ("nan", nan)):
+        sets[name] = torch.from_numpy(a).to(costs.device)
+    return sets
+
+
+def check_matcher(costs: torch.Tensor) -> dict:
+    """The matcher kernel bit-equal to its plain version on the step's
+    costs and the seeded sets (a NaN set must terminate); its time beside
+    its bound, the plain version's and scipy's over the same problems."""
+    from scipy.optimize import linear_sum_assignment
+
+    for name, cost in matcher_sets(costs).items():
+        got = hg.batched_hungarian(cost)
+        torch.cuda.synchronize()
+        want = hg.batched_hungarian_reference(cost.cpu())
+        check(torch.equal(got.cpu(), want),
+              f"matcher kernel differs from its plain version on {name}")
+        print(f"train: matcher kernel equals its plain version bit for bit on "
+              f"{name} {list(cost.shape)}", flush=True)
+    P, R, C = costs.shape
+    ms = cuda_ms(lambda: hg.batched_hungarian(costs))
+    plain_ms = host_ms(lambda: hg.batched_hungarian_reference(costs),
+                       costs.device, reps=3, warmup=1)
+    host = costs.cpu().numpy()
+    scipy_times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for p in range(P):
+            linear_sum_assignment(host[p])
+        scipy_times.append((time.perf_counter() - t0) * 1e3)
+    # bytes: the costs read once, col4row written once; the operations (at
+    # most R (R + 1) / 2 Dijkstra steps of ~5 C flops a problem) take less
+    # at the f32 rate, so bytes bound it
+    bound_ms = (costs.numel() * 4 + P * R * 4) / 3.35e12 * 1e3
+    row = dict(shape=[P, R, C], ms=ms, plain_ms=plain_ms,
+               scipy_ms=statistics.median(scipy_times), bound_ms=bound_ms,
+               bound_by="bytes")
+    print(f"train: matcher kernel {list(costs.shape)}: {ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms (bytes), plain version on the card "
+          f"{plain_ms:.3f} ms, scipy linear_sum_assignment on the host "
+          f"{row['scipy_ms']:.3f} ms", flush=True)
+    return row
+
+
+def check_flash_gradients() -> float:
+    """The Function's dQ, dK, dV (kernel forward, recomputing backward) at
+    the three training shapes in bf16 and f32, against autograd through the
+    plain version on f32 copies; returns the largest relative error."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    for name, (b, h, sq, sk, d), _ in MAIN_SHAPES:
+        for dtype, tol in ((torch.bfloat16, TOL_GRAD_BF16),
+                           (torch.float32, TOL_GRAD_F32)):
+            q, k, v = (t.requires_grad_() for t in
+                       _inputs(gen, b, h, sq, sk, d, dtype, strided=True))
+            g = torch.randn(b, h, sq, d, generator=gen, device="cuda").to(dtype)
+            before = fa.flash_attention.launches
+            fa.flash_attention(q, k, v).backward(g)
+            check(fa.flash_attention.launches == before + 1,
+                  f"{name}: the Function did not launch the kernel")
+            refs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            fa.flash_attention_reference(*refs).backward(g.float())
+            errs = []
+            for t, r in zip((q, k, v), refs):
+                check(t.grad.dtype == dtype and t.grad.shape == t.shape,
+                      f"{name}: gradient dtype or shape")
+                errs.append(((t.grad.float() - r.grad).abs().max()
+                             / r.grad.abs().max()).item())
+            print(f"train: flash gradients {name} {[b, h, sq, sk, d]} "
+                  f"{str(dtype)[6:]}: dQ {errs[0]:.2e} dK {errs[1]:.2e} dV "
+                  f"{errs[2]:.2e} of the largest |gradient| (tol {tol})",
+                  flush=True)
+            check(max(errs) <= tol, f"{name}: Function gradients disagree")
+            worst = max(worst, *errs)
+            del q, k, v, g, refs
+    torch.cuda.empty_cache()
+    return worst
+
+
+def f32_paths_agree(cfg, text, data, n_categories, device) -> dict:
+    """One f32 step on the kernel path and on the "torch" attention path,
+    from the same seeded weights. Each path's matching is compared on both
+    paths' costs: where the two differ, each must be optimal on the other
+    path's costs to within what the costs themselves differ by (a near-tie;
+    bench.py's GT masks are random noise, so every query costs nearly the
+    same against them). The torch path then replays the kernel path's
+    matching, so that the loss and every parameter's gradient compare the
+    attention paths alone. Every parameter gets a nonzero gradient, except
+    ZERO_GRAD_PARAMS (zero on both paths): the check that catches a graph
+    cut at the kernel."""
+    model = ZUTIS(**cfg, dtype=torch.float32, device=device).init_params(
+        torch.Generator().manual_seed(0))
+    text_d = torch.from_numpy(text).to(device)
+    runs, seen = {}, {}
+    for impl in ("auto", "torch"):
+        set_attn_impl(model, impl)
+        model.zero_grad(set_to_none=True)
+        # the torch path replays the kernel path's matching
+        with matcher_inputs(seen.get("auto", (None, None))[1]) as calls:
+            out = model(data["image"])
+            loss = crit.criterion_loss(
+                out["mask_proposals"], data["instance_masks"],
+                data["instance_valid"], out["patch_tokens"],
+                data["semantic_mask"], text_d, ignore_index=TRAIN_IGNORE)
+            loss["loss"].backward()
+        seen[impl] = calls[-1]
+        runs[impl] = (loss["loss"].item(),
+                      {n: None if p.grad is None else p.grad.clone()
+                       for n, p in model.named_parameters()})
+        del out, loss
+
+    (ck, mk), (ct, mt) = seen["auto"], seen["torch"]
+    mk, mt = mk.long(), mt.long()
+
+    def total(c, m):
+        return c.gather(-1, m[..., None])[..., 0].sum(-1)  # [P]
+
+    cost_diff = (ck - ct).abs().max().item()
+    n_differ = int((mk != mt).any(-1).sum())
+    gap = max((total(ct, mk) - total(ct, mt)).max().item(),
+              (total(ck, mt) - total(ck, mk)).max().item())
+    allowed = 2 * ck.shape[1] * cost_diff + 1e-5
+    print(f"train: f32 matchings: {n_differ} of {ck.shape[0]} problems differ "
+          f"between the kernel and torch paths; costs differ by up to "
+          f"{cost_diff:.3e}, and each path's matching is within {gap:.3e} of "
+          f"the optimum on the other's costs (allowed {allowed:.3e})",
+          flush=True)
+    check(gap <= allowed, "a path's matching is not optimal on the other "
+          "path's costs: more than a near-tie")
+
+    (lk, gk), (lt, gt) = runs["auto"], runs["torch"]
+    loss_rel = abs(lk - lt) / abs(lt)
+    check(loss_rel <= TOL_STEP_LOSS,
+          f"f32 losses differ by {loss_rel:.2e} (kernel {lk}, torch {lt})")
+    worst = 0.0
+    for name in gt:
+        a, b = gk[name], gt[name]
+        a_zero = a is None or not bool(a.abs().max() > 0)
+        b_zero = b is None or not bool(b.abs().max() > 0)
+        if name in ZERO_GRAD_PARAMS:
+            check(a_zero and b_zero, f"{name} got a gradient")
+            continue
+        check(not a_zero, f"{name} gets no gradient on the kernel path")
+        check(not b_zero, f"{name} gets no gradient on the torch path")
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        worst = max(worst, err)
+        check(err <= TOL_STEP_GRAD, f"{name}: f32 gradients differ by {err:.2e}")
+    n = len(gt) - len(ZERO_GRAD_PARAMS)
+    print(f"train: f32 kernel path vs torch attention on one matching: loss "
+          f"{lk:.6f} vs {lt:.6f} ({loss_rel:.2e} rel), {n} parameters with "
+          f"nonzero gradients on both, largest gradient difference {worst:.2e}"
+          f" of the parameter's largest |gradient| (tol {TOL_STEP_GRAD})",
+          flush=True)
+    del model
+    return dict(loss_kernel=lk, loss_torch=lt, loss_rel=loss_rel,
+                grad_rel=worst, params_checked=n, matchings_differ=n_differ,
+                cost_diff=cost_diff, matching_gap=gap)
+
+
+def phase_train(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
+                batch: int = TRAIN_BATCH, n_categories: int = N_CATEGORIES,
+                n_max: int = TRAIN_N_MAX, n_valid: int = TRAIN_VALID,
+                steps: int = TRAIN_STEPS, base_lr: float = TRAIN_LR,
+                device="cuda") -> dict:
+    """The training step at full width (bench.py:174-201): a warm-up step
+    and `steps` timed ones on one batch, every launch count set to 0 before
+    and read per step (24 flash launches and one matcher launch a step, no
+    probe); a finite loss that falls after the first update; bench.py's
+    window rate; one step's dispatch from host arrays without a host sync;
+    the Function's gradients; the matcher
+    kernel against its plain version; the step's times, spans, device busy
+    and peak memory; an f32 step on both attention paths."""
+    t_phase = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    text, host = train_batch(cfg, image_size, batch, n_max, n_valid,
+                             n_categories)
+    data = upload_batch(host, device)
+    model = ZUTIS(**cfg, dtype=torch.bfloat16, device=device).init_params(
+        torch.Generator().manual_seed(0))
+    state = TrainState.create(model, base_lr=base_lr, n_iters=TRAIN_ITERS)
+    step = make_train_step(model, text, n_categories,
+                           ignore_index=TRAIN_IGNORE, device=device)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    counted = {"flash_attention": fa.flash_attention,
+               "batched_hungarian": hg.batched_hungarian,
+               **{name: w for name, (w, _, _) in PROBES.items()}}
+    for w in counted.values():
+        w.launches = 0
+    losses, step_ms, per_step = [], [], []
+    for _ in range(steps + 1):  # the first warms up
+        before = {n: w.launches for n, w in counted.items()}
+        sync()
+        t0 = time.perf_counter()
+        m = step(state, data)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        per_step.append({n: w.launches - before[n] for n, w in counted.items()})
+    launches = {n: w.launches for n, w in counted.items()}
+    print(f"train: {steps + 1} steps, losses {json.dumps(losses)}", flush=True)
+    print(f"train: launches in {steps + 1} steps: {json.dumps(launches)}",
+          flush=True)
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    check(m["confusion"].sum().item() == data["semantic_mask"].lt(
+        n_categories).sum().item(), "the confusion histogram misses pixels")
+    if on_card:
+        for n in per_step:
+            check(n["flash_attention"] == LAUNCHES_PER_FORWARD,
+                  f"{n['flash_attention']} flash launches in a step, expected "
+                  f"{LAUNCHES_PER_FORWARD}")
+            check(n["batched_hungarian"] == 1,
+                  f"{n['batched_hungarian']} matcher launches in a step")
+            check(sum(n[p] for p in PROBES) == 0, "a step launched a probe")
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            m = step(state, host)
+        except RuntimeError as exc:
+            fail(f"a training step's dispatch waits for the card: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        m["loss"].item()
+        print("train: a step's dispatch from host arrays (pinned uploads, "
+              "forward, criterion with the matcher, backward, AdamW, PolyLR, "
+              "confusion) makes no host-device synchronisation", flush=True)
+
+    # bench.py:207-213's rate: `steps` steps queued back to back on the
+    # batch already on the device, one read of the loss at the end
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        m = step(state, data)
+    m["loss"].item()
+    window_s = time.perf_counter() - t0
+
+    # spans of one step, each ended by a synchronise (median of 3)
+    text_d = torch.from_numpy(text).to(device)
+    spans = {k: [] for k in ("forward", "criterion", "backward", "optimiser")}
+    with matcher_inputs() as calls:
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            out = model(data["image"])
+            sync()
+            t1 = time.perf_counter()
+            loss = crit.criterion_loss(
+                out["mask_proposals"], data["instance_masks"],
+                data["instance_valid"], out["patch_tokens"],
+                data["semantic_mask"], text_d, ignore_index=TRAIN_IGNORE)
+            sync()
+            t2 = time.perf_counter()
+            state.optimizer.zero_grad(set_to_none=True)
+            loss["loss"].backward()
+            sync()
+            t3 = time.perf_counter()
+            state.optimizer.step()
+            state.scheduler.step()
+            sync()
+            t4 = time.perf_counter()
+            for key, a, b in (("forward", t0, t1), ("criterion", t1, t2),
+                              ("backward", t2, t3), ("optimiser", t3, t4)):
+                spans[key].append((b - a) * 1e3)
+            del out, loss
+    spans = {k: statistics.median(v) for k, v in spans.items()}
+    costs = calls[-1][0]
+    check(tuple(costs.shape) == (cfg["n_decoder_layers"] * batch, n_max,
+                                 cfg["n_queries"]),
+          f"the matcher got {tuple(costs.shape)} in one call")
+
+    stats = dict(losses=losses, launches=launches, spans_ms=spans,
+                 step_ms=statistics.median(step_ms[1:]),
+                 step_ms_all=step_ms, train_step_its_per_sec=steps / window_s)
+    stats["iters_per_s"] = 1e3 / stats["step_ms"]
+    if on_card:
+        stats["flash_grad_max_rel_err"] = check_flash_gradients()
+        stats["matcher"] = check_matcher(costs)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        step(state, data)
+        torch.cuda.synchronize()
+        stats["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        busy, top, by_name = profile_device(lambda: step(state, data), device,
+                                            grad=True)
+        stats.update(step_device_busy_ms=busy, step_top_kernels=top,
+                     flash_in_step_ms=sum(ms for k, (ms, _) in by_name.items()
+                                          if "flash" in k),
+                     matcher_in_step_ms=sum(ms for k, (ms, _) in by_name.items()
+                                            if "hungarian" in k))
+    stats["f32_check"] = f32_paths_agree(cfg, text, data, n_categories, device)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    # the first AdamW step (sign-like, every parameter at once) can raise
+    # the loss; from there it must fall over the next four steps, and the
+    # last step must end below the first
+    check(losses[5] < losses[1] and losses[-1] < losses[0],
+          f"the loss did not fall: {losses}")
+    print(f"train rate: train_step_its_per_sec "
+          f"{stats['train_step_its_per_sec']:.3f} ({steps} steps back to back, "
+          f"one synchronise, as bench.py); {stats['iters_per_s']:.3f} iters/s "
+          f"from the step's {stats['step_ms']:.3f} ms (host clock + sync each "
+          f"step, median of {steps}); "
+          f"spans {json.dumps(spans)} ms; device busy "
+          f"{stats.get('step_device_busy_ms')} ms (flash "
+          f"{stats.get('flash_in_step_ms')} ms, matcher "
+          f"{stats.get('matcher_in_step_ms')} ms); peak memory "
+          f"{stats.get('peak_memory_gib')} GiB; phase {stats['phase_s']:.1f} s",
+          flush=True)
+    return stats
+
+
 def main() -> None:
     card, libs = phase_card()
     sass = sass_check(libs)
@@ -1125,6 +1548,8 @@ def main() -> None:
     ev = phase_eval()
     print(f"eval on {card}: " + json.dumps(
         {k: v for k, v in ev.items() if k != "flash_rows"}), flush=True)
+    tr = phase_train()
+    print(f"train on {card}: {json.dumps(tr)}", flush=True)
 
     def per_forward(key):
         return sum(r[key] * r["per_forward"] for r in rows)
@@ -1143,12 +1568,14 @@ def main() -> None:
         "route": "cuda",
         "source": "zutis_tpu_torch/csrc/flash_attention.cu",
         "replaces": "zutis_tpu/ops/flash_attention.py:53",
-        # both main paths, each counted from 0: the serving forwards and the
-        # eval's padded forwards
-        "launches": stats["launches"] + ev["launches"],
+        # the three main paths, each counted from 0: the serving forwards,
+        # the eval's padded forwards and the training steps
+        "launches": (stats["launches"] + ev["launches"]
+                     + tr["launches"]["flash_attention"]),
         "launches_by_path": {"serving": stats["launches"],
                              "eval": ev["launches"],
-                             "eval_masked": ev["masked_launches"]},
+                             "eval_masked": ev["masked_launches"],
+                             "train": tr["launches"]["flash_attention"]},
         "max_abs_err": max(max_err, ev["flash_max_abs_err"]),
         # times and bound: the 24 calls of one batch-8 forward at 384 px
         "ms": per_forward("ms"),
@@ -1168,6 +1595,10 @@ def main() -> None:
         "eval_forward": {k: eval_forward(k) for k in
                          ("ms", "plain_ms", "bound_ms", "library_ms")},
         "eval_shapes": eval_rows,
+        # device time of the 24 flash kernels inside one training step
+        # (torch.profiler), and the Function's gradient check
+        "train_forward_ms": tr["flash_in_step_ms"],
+        "train_grad_max_rel_err": tr["flash_grad_max_rel_err"],
     }]
     tool = next(r for r in probe_rows if r["name"] == "tool")
     headline = {"single_attention": "single unroll",
@@ -1203,6 +1634,24 @@ def main() -> None:
             occupancy={k: o for k, o in occupancy.items()
                        if k.split()[0] == family},
             sass={k: c for k, c in sass.items() if k.startswith(kernel_name)})
+    matcher = tr["matcher"]
+    kernels.append({
+        "name": "batched_hungarian",
+        "route": "cuda",
+        "source": "zutis_tpu_torch/csrc/hungarian.cu",
+        "replaces": "zutis_tpu/ops/hungarian.py:34",
+        "launches": tr["launches"]["batched_hungarian"],
+        "max_abs_err": 0.0,  # col4row bit-equal to the plain version
+        # one call on a training step's [48, 10, 100] costs
+        "ms": matcher["ms"],
+        "plain_ms": matcher["plain_ms"],
+        "bound_ms": matcher["bound_ms"],
+        "bound_by": matcher["bound_by"],
+        "library_ms": None,  # no PyTorch call solves an assignment
+        "host_yardstick_ms": matcher["scipy_ms"],  # scipy, 48 problems
+        "in_step_ms": tr["matcher_in_step_ms"],
+        "shape": matcher["shape"],
+    })
     print("tune runs: " + json.dumps(
         [{k: r[k] for k in ("variant", "exp_mode", "dots_only", "max_err", "ms")}
          for r in tune_results]), flush=True)

@@ -189,7 +189,7 @@ def test_semantic_step_matches_jax(setup):
 
 def test_instance_step_refusals(setup):
     model, text = setup[2], setup[4]
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="n_classes"):
         BE.make_instance_step(model, text, BUCKET, semantic_mode="confusion",
                               device="cpu")
     with pytest.raises(ValueError, match="semantic_mode"):

@@ -5,7 +5,8 @@ pack_masks_fortran.
 
 Strings, boxes and masks must be equal; stats equal to 1e-12 (the same
 float64 arithmetic in the same order). Polygons are held against OpenCV's
-fillPoly, which the JAX package calls, for vertices inside the image."""
+fillPoly, which the JAX package calls, for vertices inside the image and
+outside it."""
 import json
 import os
 
@@ -125,6 +126,25 @@ def test_polygons_match_opencv_inside_the_image(seed):
         polys = [np.stack([rng.uniform(0, w - 0.51, n), rng.uniform(0, h - 0.51, n)],
                           1).reshape(-1).tolist()
                  for n in rng.randint(3, 9, rng.randint(1, 4))]
+        np.testing.assert_array_equal(rle.polygons_to_mask(polys, h, w),
+                                      jrle.polygons_to_mask(polys, h, w))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_polygons_match_opencv_across_the_border(seed):
+    """Vertices up to 8 px outside the image, a third of them rounding to
+    exactly w or h (where a COCO polygon meets the border): the sides that
+    OpenCV clips fill the border row or column as it does."""
+    rng = np.random.RandomState(seed)
+    for _ in range(250):
+        h, w = rng.randint(1, 48, 2)
+        polys = []
+        for n in rng.randint(3, 9, rng.randint(1, 4)):
+            xs, ys = rng.uniform(-8, w + 8, n), rng.uniform(-8, h + 8, n)
+            at_w, at_h = rng.rand(n) < 1 / 3, rng.rand(n) < 1 / 3
+            xs[at_w] = w + rng.uniform(-0.49, 0.49, at_w.sum())
+            ys[at_h] = h + rng.uniform(-0.49, 0.49, at_h.sum())
+            polys.append(np.stack([xs, ys], 1).reshape(-1).tolist())
         np.testing.assert_array_equal(rle.polygons_to_mask(polys, h, w),
                                       jrle.polygons_to_mask(polys, h, w))
 

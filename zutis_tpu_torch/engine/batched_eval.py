@@ -36,6 +36,7 @@ import torch
 
 from zutis_tpu_torch.core.device import resolve_device, to_device
 from zutis_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from zutis_tpu_torch.engine.metrics import confusion_update
 from zutis_tpu_torch.ops.dynamic_shapes import dynamic_resize_matrix
 from zutis_tpu_torch.ops.nms import mask_nms
 from zutis_tpu_torch.ops.rle_device import rle_encode_masks_device
@@ -44,7 +45,7 @@ from zutis_tpu_torch.postproc.instance import (
     instances_to_coco_counts,
 )
 
-SEMANTIC_MODES = ("map", "none")
+SEMANTIC_MODES = ("map", "confusion", "none")
 # what the host reads of an instance step on the counts path
 HOST_KEYS = ("scores", "category_ids", "keep")
 
@@ -240,30 +241,49 @@ def make_semantic_step(model, text_embeddings, out_hw: Tuple[int, int],
     return step
 
 
+def make_semantic_confusion_step(model, text_embeddings,
+                                 out_hw: Tuple[int, int], n_classes: int,
+                                 device="cuda"):
+    """-> step(images, native_grid, native_pixels, gt): the [n_classes,
+    n_classes] confusion histogram of the semantic argmax against gt
+    [B, Hb, Wb] (-1 outside each sample's target window and in filler
+    slots), on the device, so that the dense map never reaches the host."""
+    device, text = _prepare(model, text_embeddings, device)
+
+    def step(images, native_grid, native_pixels, gt):
+        with torch.inference_mode():
+            out = model.forward_padded(_inputs(images, device), native_grid)
+            sem = _semantic_argmax(out, text, native_pixels, out_hw)
+            return confusion_update(_inputs(gt, device), sem, n_classes)
+
+    return step
+
+
 def make_instance_step(
     model, text_embeddings, out_hw: Tuple[int, int],
     threshold: float = 0.5, temperature: float = 5.0,
     nms_type: str = "hard", nms_threshold: float = 0.3,
     uint8_input: bool = False,
-    semantic_mode: str = "map",  # "map" | "none"
+    semantic_mode: str = "map",  # "map" | "confusion" | "none"
+    n_classes: int = 0,  # required for semantic_mode="confusion"
     device="cuda",
 ):
-    """-> step(images, native_grid, native_pixels): forward_padded plus the
-    instance decode (decode_instances) on `device` (the model's), and with
-    semantic_mode="map" the semantic argmax under "semantic". Outputs stay
-    on the device; `fetch_to_host` brings back what the COCO assembly
-    reads. uint8_input=True takes raw [B, 3, Hb, Wb] uint8 RGB and
-    normalises on the device (a quarter of the f32 transfer). Raises on a
-    host without a card unless device="cpu"."""
-    if semantic_mode == "confusion":
-        raise NotImplementedError(
-            'semantic_mode="confusion" needs engine/metrics.py::'
-            "confusion_update, which comes with the training slice of the port")
+    """-> step(images, native_grid, native_pixels, gt=None): forward_padded
+    plus the instance decode (decode_instances) on `device` (the model's).
+    semantic_mode="map" adds the semantic argmax under "semantic";
+    "confusion" takes gt [B, Hb, Wb] (-1 outside each target window) and
+    adds the [n_classes, n_classes] histogram under "confusion"; "none"
+    skips the semantic decode. Outputs stay on the device; `fetch_to_host`
+    brings back what the COCO assembly reads. uint8_input=True takes raw
+    [B, 3, Hb, Wb] uint8 RGB and normalises on the device (a quarter of the
+    f32 transfer). Raises on a host without a card unless device="cpu"."""
     if semantic_mode not in SEMANTIC_MODES:
         raise ValueError(f"semantic_mode {semantic_mode!r} not in {SEMANTIC_MODES}")
+    if semantic_mode == "confusion" and n_classes <= 0:
+        raise ValueError('semantic_mode="confusion" needs n_classes')
     device, text = _prepare(model, text_embeddings, device)
 
-    def step(images, native_grid, native_pixels):
+    def step(images, native_grid, native_pixels, gt=None):
         with torch.inference_mode():
             x = _inputs(images, device)
             if uint8_input:
@@ -272,9 +292,13 @@ def make_instance_step(
             res = decode_instances(out, text, native_pixels, out_hw,
                                    threshold, temperature, nms_type,
                                    nms_threshold)
-            if semantic_mode == "map":
-                res["semantic"] = _semantic_argmax(out, text, native_pixels,
-                                                   out_hw)
+            if semantic_mode != "none":
+                sem = _semantic_argmax(out, text, native_pixels, out_hw)
+                if semantic_mode == "confusion":
+                    res["confusion"] = confusion_update(
+                        _inputs(gt, device), sem, n_classes)
+                else:
+                    res["semantic"] = sem
         return res
 
     return step

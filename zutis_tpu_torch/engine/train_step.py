@@ -1,0 +1,122 @@
+"""Training and evaluation steps (the port of
+zutis_tpu/engine/train_step.py).
+
+One training iteration: forward, criterion (with the batched matcher on the
+device), backward, AdamW, PolyLR, and the in-training semantic confusion
+histogram. Nothing in a step's dispatch waits for the card: the losses and
+the histogram stay on the device, and only reading them waits.
+
+Batches are dicts of host arrays or tensors:
+  image:          [b, 3, H, W] float32 (normalised)
+  instance_masks: [b, N_max, H, W] float {0, 1} (padded)
+  instance_valid: [b, N_max] bool
+  semantic_mask:  [b, H, W] int32 (ignore_index outside labels)
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from zutis_tpu_torch.core.device import resolve_device, to_device
+from zutis_tpu_torch.engine.metrics import confusion_update
+from zutis_tpu_torch.engine.optim import make_optimizer
+from zutis_tpu_torch.losses.criterion import criterion_loss
+
+BATCH_KEYS = ("image", "instance_masks", "instance_valid", "semantic_mask")
+
+
+@dataclass
+class TrainState:
+    """The model, its optimiser and schedule, and the steps taken."""
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: torch.nn.Module, **optimizer_kw) -> "TrainState":
+        """A fresh state; `optimizer_kw` go to `make_optimizer`."""
+        optimizer, scheduler = make_optimizer(model, **optimizer_kw)
+        return cls(model=model, optimizer=optimizer, scheduler=scheduler)
+
+
+def upload_batch(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The batch's four arrays as tensors on `device` (pinned, non-blocking
+    copies from the host; a tensor already there stays as it is)."""
+    return {k: to_device(torch.as_tensor(np.asarray(batch[k]))
+                         if not torch.is_tensor(batch[k]) else batch[k], device)
+            for k in BATCH_KEYS}
+
+
+def make_train_step(
+    model: torch.nn.Module,
+    text_embeddings,  # [n_cat, text_dim]
+    n_categories: int,
+    ignore_index: int = 255,
+    weight_ce_loss: float = 1.0,
+    weight_mask_loss: float = 1.0,
+    weight_dice_loss: float = 1.0,
+    weight_bce_loss: float = 1.0,
+    device="cuda",
+):
+    """-> step(state, batch, confusion_acc=None) -> metrics, which trains
+    `state.model` (which must lie on `device`) one iteration in place.
+    metrics: "loss", "ce_loss", "mask_loss" (device scalars, no gradient)
+    and "confusion", this step's [n_cat, n_cat] histogram, added to
+    `confusion_acc` when one is given. Raises on a host without a card
+    unless device="cpu"."""
+    device = resolve_device(device)
+    param = next(model.parameters())
+    if param.device.type != device.type:
+        raise ValueError(f"the model lies on {param.device}, not on {device}")
+    text = to_device(torch.as_tensor(np.asarray(text_embeddings),
+                                     dtype=torch.float32), device)
+
+    def step(state: TrainState, batch: Dict,
+             confusion_acc: Optional[torch.Tensor] = None
+             ) -> Dict[str, torch.Tensor]:
+        b = upload_batch(batch, device)
+        out = state.model(b["image"])
+        losses = criterion_loss(
+            out["mask_proposals"], b["instance_masks"], b["instance_valid"],
+            out["patch_tokens"], b["semantic_mask"], text,
+            weight_ce_loss=weight_ce_loss, weight_mask_loss=weight_mask_loss,
+            weight_dice_loss=weight_dice_loss, weight_bce_loss=weight_bce_loss,
+            ignore_index=ignore_index)
+        del out
+        state.optimizer.zero_grad(set_to_none=True)
+        losses["loss"].backward()
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        # the criterion's logits give the semantic prediction (no second
+        # full-resolution resize)
+        confusion = confusion_update(b["semantic_mask"], losses["sem_pred"],
+                                     n_categories)
+        if confusion_acc is not None:
+            confusion = confusion_acc + confusion
+        return {"loss": losses["loss"].detach(),
+                "ce_loss": losses["ce_loss"].detach(),
+                "mask_loss": losses["mask_loss"].detach(),
+                "confusion": confusion}
+
+    return step
+
+
+def make_eval_step(model: torch.nn.Module, text_embeddings, device="cuda"):
+    """-> eval_step(image) -> (forward outputs, text logits [b, n_cat, h, w]
+    at the token grid); the resize to each image's size is the caller's."""
+    device = resolve_device(device)
+    text = to_device(torch.as_tensor(np.asarray(text_embeddings),
+                                     dtype=torch.float32), device)
+
+    def eval_step(image):
+        with torch.inference_mode():
+            out = model(to_device(torch.as_tensor(image), device))
+            logits = torch.einsum("nc,bhwc->bnhw", text, out["patch_tokens"])
+        return out, logits
+
+    return eval_step

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -129,7 +130,8 @@ class ZUTIS(nn.Module):
 
         memory = self.ffn1(patch_tokens.detach())  # [b, hw, width]
         pos = sine_pos_embed(h, w, width // 2).reshape(width, -1).T
-        pos = torch.from_numpy(pos).to(device=x.device, dtype=dt)[None]
+        # pinned and non-blocking: a pageable copy would wait for the card
+        pos = to_device(torch.from_numpy(np.ascontiguousarray(pos)), x.device).to(dt)[None]
 
         tgt, query_pos = self._queries(b)
         queries = self.decoder(tgt, memory, pos=pos, query_pos=query_pos)

@@ -21,8 +21,10 @@ missing `nvcc` or a failed build is an error, never a fallback.
 The kernels are built at first use with `nvcc` for sm_90a (`_build.py`) and
 bound through their plain C interface with ctypes.
 
-The backward pass (a recomputing `torch.autograd.Function`, as the JAX
-package's `_flash_bwd`) belongs to the training path and is not here yet.
+Under autograd the forward runs inside `FlashAttention`, a
+`torch.autograd.Function` whose backward is the JAX package's `_flash_bwd`:
+it recomputes the softmax weights in f32 with the plain einsums and forms
+dV, dP, dS, dQ and dK in f32, as XLA does there outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -72,17 +74,27 @@ def flash_attention_reference(
     statistics, masked keys at -1e30, P cast to v's dtype before P V, and
     all-masked items zeroed (zutis_tpu/ops/flash_attention.py::_xla_reference
     plus the wrapper's zeroing)."""
-    scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if kv_mask is not None:
-        valid = kv_mask > 0
-        s = s.masked_fill(~valid[:, None, None, :], _NEG_INF)
-    w = torch.softmax(s, dim=-1)
+    w = softmax_weights_f32(q, k, kv_mask)
     out = torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype), v)
+    return _zero_all_masked(out, kv_mask).to(q.dtype)
+
+
+def softmax_weights_f32(q, k, kv_mask) -> torch.Tensor:
+    """W = softmax(q k^T / sqrt(d)) in f32, masked keys at -1e30
+    (zutis_tpu/ops/flash_attention.py::_xla_reference); an all-masked row
+    is uniform."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
     if kv_mask is not None:
-        any_valid = valid.any(dim=-1)
-        out = out * any_valid[:, None, None, None].to(out.dtype)
-    return out.to(q.dtype)
+        s = s.masked_fill(~(kv_mask > 0)[:, None, None, :], _NEG_INF)
+    return torch.softmax(s, dim=-1)
+
+
+def _zero_all_masked(out: torch.Tensor, kv_mask) -> torch.Tensor:
+    """`out` with the items that have no valid key set to zero."""
+    if kv_mask is None:
+        return out
+    any_valid = (kv_mask > 0).any(dim=-1)
+    return out * any_valid[:, None, None, None].to(out.dtype)
 
 
 def smem_layout(d: int) -> dict:
@@ -153,6 +165,33 @@ def occupancy(d: int) -> tuple[int, int]:
     return smem.value, blocks.value
 
 
+class FlashAttention(torch.autograd.Function):
+    """The flash forward with the JAX package's recomputing backward
+    (`_flash_fwd` / `_flash_bwd`): the residuals are q, k, v and the mask;
+    the gradients come back in each input's dtype and shape, so strided
+    [b, s, h, d] views get theirs through the view."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        return _flash_forward(q, k, v, kv_mask)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, kv_mask = ctx.saved_tensors
+        scale = q.shape[-1] ** -0.5
+        w = softmax_weights_f32(q, k, kv_mask)
+        g32 = g.float()
+        dv = torch.einsum("bhqk,bhqd->bhkd", w, g32)
+        dp = torch.einsum("bhqd,bhkd->bhqk", g32, v.float())
+        ds = w * (dp - (w * dp).sum(dim=-1, keepdim=True))
+        del w, dp
+        dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+        dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
 def flash_attention(
     q: torch.Tensor,  # [b, h, sq, d]
     k: torch.Tensor,  # [b, h, sk, d]
@@ -161,8 +200,19 @@ def flash_attention(
 ) -> torch.Tensor:
     """softmax(q k^T / sqrt(d), keys masked by kv_mask) v -> [b, h, sq, d].
 
-    The kernel launch count is `flash_attention.launches`, and of those the
-    launches given a mask `flash_attention.masked_launches`."""
+    Differentiable in q, k and v (`FlashAttention`). The kernel launch
+    count is `flash_attention.launches`, and of those the launches given a
+    mask `flash_attention.masked_launches`."""
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return _flash_forward(q, k, v, kv_mask)
+    # items with no valid key: zero, and no gradient through them (the JAX
+    # wrapper's zeroing, outside the custom VJP)
+    return _zero_all_masked(FlashAttention.apply(q, k, v, kv_mask), kv_mask)
+
+
+def _flash_forward(q, k, v, kv_mask) -> torch.Tensor:
+    """The forward: the plain version on the CPU, a kernel on a card."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_mask)
     if q.device.type != "cuda":

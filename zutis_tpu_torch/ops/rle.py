@@ -271,7 +271,10 @@ def _draw_line(mask: np.ndarray, x1: int, y1: int, x2: int, y2: int) -> None:
 def _poly_edges(mask: np.ndarray, pts: np.ndarray, edges: list) -> None:
     """CollectPolyEdges for one polygon (shift 0): draws its outline and
     appends (y0, y1, x at y0, dx) fixed-point edges of its non-horizontal
-    sides."""
+    sides. A side that leaves the image takes its x from clipLine's end
+    points: the clipped segment itself where they lie on two rows, else the
+    side's own rows at the clipped x, so that a side which only grazes the
+    image fills the border column it is clipped to."""
     h, w = mask.shape
     n = len(pts)
     for i in range(n):
@@ -280,12 +283,12 @@ def _poly_edges(mask: np.ndarray, pts: np.ndarray, edges: list) -> None:
         t0x = (x0 + (_XY_ONE >> 1)) >> _XY_SHIFT
         t1x = (x1 + (_XY_ONE >> 1)) >> _XY_SHIFT
         _draw_line(mask, t0x, y0, t1x, y1)
-        # an edge leaving the image starts from its clipped end points
         c0x, c0y, c1x, c1y = x0, y0, x1, y1
         if not (0 <= t0x < w and 0 <= t1x < w and 0 <= y0 < h and 0 <= y1 < h):
             _, t0x, t0y, t1x, t1y = _clip_line(w, h, t0x, y0, t1x, y1)
+            c0x, c1x = t0x << _XY_SHIFT, t1x << _XY_SHIFT
             if t0y != t1y:
-                c0x, c0y, c1x, c1y = t0x << _XY_SHIFT, t0y, t1x << _XY_SHIFT, t1y
+                c0y, c1y = t0y, t1y
         if y0 == y1:
             continue
         dx = _trunc_div(c1x - c0x, c1y - c0y)
@@ -320,10 +323,8 @@ def polygons_to_mask(polygons: List[Sequence[float]], h: int, w: int) -> np.ndar
     """COCO polygon segmentation -> [h, w] uint8 mask, as cv2.fillPoly
     fills the rounded vertices of all polygons in one call (even-odd across
     polygons, outlines included). Polygons of fewer than 3 points are
-    dropped. Equal to OpenCV 5.0's mask where every rounded vertex lies in
-    the image; a side that leaves the image may differ from it on the
-    border pixels it is clipped to (OpenCV clips those lines in a way this
-    copy does not reproduce)."""
+    dropped. Equal to OpenCV 5.0's mask, also where sides leave the
+    image."""
     mask = np.zeros((h, w), np.uint8)
     pts = [np.asarray(p, np.float64).reshape(-1, 2).round().astype(np.int32)
            for p in polygons if len(p) >= 6]
