@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py
 
-Run from the repository root on a machine with a CUDA card, `nvcc` and
-PyTorch built for CUDA. It imports torch, numpy and zutis_tpu_torch, and
+Run from the repository root on a machine with a CUDA card, `nvcc`, `g++`
+and PyTorch built for CUDA. It imports torch, numpy and zutis_tpu_torch, and
 scipy for the matcher's host yardstick (`linear_sum_assignment`).
 
   1. Card and build: requires CUDA, prints the card's name and power limit,
      builds the flash-attention, attention-probe and matcher kernels from
-     zutis_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source, started
-     together), prints ptxas's registers and spills, fails if ptxas
+     zutis_tpu_torch/csrc with nvcc for sm_90a and the RLE codec
+     (zutis_tpu_torch/native/rle.cc) with g++ (one compiler per source,
+     started together), prints ptxas's registers and spills, fails if ptxas
      serialised any kernel's wgmma, and turns TF32 off for matmuls and cuDNN.
   2. Flash kernels against their plain version on the card, at the three
      attention shapes of the serving path (batch 8, bf16), also as strided
@@ -53,7 +54,9 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
      batch's decode on the card against its CPU rerun, bit for bit down to
      the COCO list and its stats; one dispatch with no host-device
      synchronisation; the step's spans, device busy and peak memory, and
-     the eval tool's img/s at depth 1 and 2.
+     the eval tool's img/s at depth 1 and 2; one batch's host COCO
+     assembly on the numpy codec and on the C++ one (median of 5 each, in
+     turns, equal byte for byte), and the COCO strings alone both ways.
 
   7. The training step at full width (bench.py:174-201: ViT-B/16, 384 px,
      batch 8, n_max 10 with 4 valid, 919 classes, bf16 compute with f32
@@ -72,22 +75,41 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
      step's own costs and seeded sets, NaN included; the step's time,
      spans, device busy and peak memory, and the matcher's time beside its
      bound, its plain version's and scipy's.
+  8. The Trainer at the shipped config
+     (configs/coco2017_val_imagenet_pass_n500_vit_b_16.yaml through the
+     port's Config.load: ViT-B/16, 384 px, batch 8, 81 categories,
+     ignore_index 255, bf16; mesh_axes dropped) over 6 iterations of
+     seeded batches, logging at 2, 4, 6 and evaluating and checkpointing
+     the full state at 3 and 6 (16 in-memory coco2017 images at the eval
+     bench's native sizes, COCO scoring against their box annotations),
+     every launch count set to 0 before and read after (24 flash launches
+     a step and a padded forward, one matcher launch a step, no probe), its
+     quiet iterations after the first under the sync debug mode "error";
+     the artifacts the JAX Trainer writes; a second straight run for the
+     spread of the backward's atomics, and the run resumed from the step-3
+     checkpoint in a fresh model held to 4 x that spread (bit-equal where
+     the straight runs are); fit's iterations/s beside phase_train's step
+     rate, the eval's img/s, a checkpoint's bytes and write and restore
+     seconds, peak memory.
 
-Prints the kernel record (flash's launches on the three main paths, its
-eval shapes, the matcher) and the card on lines of their own, then, as the
-last line, {"ok": true, "device": {...}}. Exits non-zero, with no result
-line, on any failure or without a card.
+Prints the kernel record (flash's launches on the four main paths, its
+eval shapes, the matcher's on two) and the card on lines of their own,
+then, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
+no result line, on any failure or without a card.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -96,11 +118,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from zutis_tpu_torch import native
+from zutis_tpu_torch.core.checkpoint import (restore_train_state,
+                                             save_train_state)
+from zutis_tpu_torch.core.config import Config
+from zutis_tpu_torch.data.label_maps import new_label_id_to_old_label_id
 from zutis_tpu_torch.engine import batched_eval as BE
 from zutis_tpu_torch.engine.coco_eval import COCOEvaluator
 from zutis_tpu_torch.engine.server import InferenceServer
 from zutis_tpu_torch.engine.train_step import (TrainState, make_train_step,
                                                upload_batch)
+from zutis_tpu_torch.engine.trainer import Trainer
 from zutis_tpu_torch.losses import criterion as crit
 from zutis_tpu_torch.models.layers import MultiHeadAttention
 from zutis_tpu_torch.models.zutis import ZUTIS
@@ -111,6 +139,7 @@ from zutis_tpu_torch.ops import hungarian as hg
 from zutis_tpu_torch.ops import rle
 from zutis_tpu_torch.ops.dynamic_shapes import token_valid_mask
 from zutis_tpu_torch.ops.nms import mask_nms
+from zutis_tpu_torch.postproc import instance
 from zutis_tpu_torch.postproc.instance import (
     classify_proposals,
     instances_to_coco_counts,
@@ -308,10 +337,12 @@ def phase_card() -> tuple[str, list]:
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
-        builds = [pool.submit(m.build) for m in (fa, ap, hg)]
+    # one compiler per source, together: nvcc for the three kernel
+    # libraries, g++ for the RLE codec
+    with ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(m.build) for m in (fa, ap, hg, native)]
         results = [b.result() for b in builds]
-    print(f"build: all three libraries in {time.perf_counter() - t0:.1f} s",
+    print(f"build: all four libraries in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for path, seconds, log in results:
         print(f"build: {path.name} in {seconds:.1f} s", flush=True)
@@ -327,7 +358,7 @@ def phase_card() -> tuple[str, list]:
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
-    return card, [path for path, _, _ in results]
+    return card, [path for path, _, _ in results[:3]]  # the CUDA libraries
 
 
 SASS_OPS = ("UTMALDG", "HGMMA", "HMMA", "LDGSTS")  # TMA, wgmma, mma.sync, cp.async
@@ -1022,6 +1053,65 @@ def _decode_equals_cpu(model, text, u8, ids, sizes, thr, device) -> dict:
     return dict(kept=int(res_d["keep"].sum()), predictions=n, stats=stats[0])
 
 
+@contextlib.contextmanager
+def numpy_codec():
+    """instances_to_coco_counts on the port's numpy codec (the COCO strings
+    and the dense fallback's encode), as it ran before the C++ codec."""
+    saved = instance.counts_to_strings, instance.native_encode
+    instance.counts_to_strings = lambda counts, n: [
+        rle._compress_counts(c[:k]) for c, k in zip(counts, n)]
+    instance.native_encode = lambda m: rle.encode(m)["counts"]
+    try:
+        yield
+    finally:
+        instance.counts_to_strings, instance.native_encode = saved
+
+
+def time_codecs(res, ids, sizes, stream, reps: int = 5) -> dict:
+    """The host COCO assembly of one eval batch, its fetch done, on the
+    numpy codec and on the C++ one, in turns, host clock, median of `reps`;
+    the two lists must be equal byte for byte. Then the COCO strings alone
+    from the batch's device RLE counts, both ways."""
+    host = BE.fetch_to_host(res, stream).result()
+    masks = BE.SideStreamView(res["masks"], stream)
+    times = {"numpy": [], "native": []}
+    preds = {}
+    for _ in range(reps):
+        for name in times:
+            with numpy_codec() if name == "numpy" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                preds[name] = instances_to_coco_counts(host, ids, sizes,
+                                                       dev_masks=masks)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    check(json.dumps(preds["numpy"]) == json.dumps(preds["native"]),
+          "the COCO lists of the numpy and the C++ codec differ")
+    slots = host["valid"] & ~host["overflow"]
+    counts, n = host["counts"][slots], host["n_runs"][slots] + 1
+    strings = {"numpy": [], "native": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        by_numpy = [rle._compress_counts(c[:k]) for c, k in zip(counts, n)]
+        strings["numpy"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        by_native = native.counts_to_strings(counts, n)
+        strings["native"].append((time.perf_counter() - t0) * 1e3)
+        check(by_numpy == by_native, "the codecs' COCO strings differ")
+    out = dict(assembly_numpy_ms=statistics.median(times["numpy"]),
+               assembly_native_ms=statistics.median(times["native"]),
+               strings_numpy_ms=statistics.median(strings["numpy"]),
+               strings_native_ms=statistics.median(strings["native"]),
+               n_strings=len(by_native), n_predictions=len(preds["native"]),
+               chars=sum(map(len, by_native)))
+    print(f"eval: COCO assembly of one batch of {len(ids)} (fetch done), "
+          f"{out['n_predictions']} predictions: numpy codec "
+          f"{out['assembly_numpy_ms']:.3f} ms, C++ codec "
+          f"{out['assembly_native_ms']:.3f} ms (median of {reps}, in turns), "
+          f"equal byte for byte; the {out['n_strings']} strings alone "
+          f"({out['chars']} chars): numpy {out['strings_numpy_ms']:.3f} ms, "
+          f"C++ {out['strings_native_ms']:.3f} ms", flush=True)
+    return out
+
+
 def check_no_sync(dispatch) -> None:
     """Fail if `dispatch` makes the host wait for the card (a copy from
     pageable memory, a read of a device value): pipelined's depth 2 could
@@ -1118,6 +1208,7 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     assembly_ms = host_ms(lambda: instances_to_coco_counts(
         BE.fetch_to_host(res, stream).result(), ids[:EVAL_BATCH], sizes,
         dev_masks=BE.SideStreamView(res["masks"], stream)), device, reps=5)
+    codec = time_codecs(res, ids[:EVAL_BATCH], sizes, stream)
     step_ms = host_ms(lambda: step(padded, grid, pix), device, reps=5)
     del out, res
     check_no_sync(lambda: BE.fetch_to_host(step(padded, grid, pix), stream))
@@ -1137,7 +1228,7 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
                  masked_launches=masked, batches=batches,
                  predictions=len(preds), padded_check=padded_check,
                  decode_check=decode_check, flash_rows=flash_rows,
-                 flash_max_abs_err=flash_err)
+                 flash_max_abs_err=flash_err, codec=codec)
     print(f"eval rate: {json.dumps(rates)} img/s (counts path, batch "
           f"{EVAL_BATCH}, 12 batches); per batch: step {step_ms:.3f} ms = "
           f"forward {forward_ms:.3f} + decode {decode_ms:.3f} (NMS "
@@ -1171,11 +1262,11 @@ ZERO_GRAD_PARAMS = ("decoder.layers.0.self_attn.in_proj_weight",
 
 
 def train_batch(cfg: dict, image_size: int, batch: int, n_max: int,
-                n_valid: int, n_categories: int):
-    """bench.py:181-201's inputs from np.random.RandomState(0), drawn in its
-    order (the flax init's input first): unit-norm text embeddings and the
-    batch dict of host arrays."""
-    rng = np.random.RandomState(0)
+                n_valid: int, n_categories: int, seed: int = 0):
+    """bench.py:181-201's inputs from np.random.RandomState(seed) (0 in the
+    bench), drawn in its order (the flax init's input first): unit-norm text
+    embeddings and the batch dict of host arrays."""
+    rng = np.random.RandomState(seed)
     rng.randn(1, 3, image_size, image_size)  # the bench's init input
     text = rng.randn(n_categories, cfg["text_dim"]).astype(np.float32)
     text /= np.linalg.norm(text, axis=1, keepdims=True)
@@ -1537,6 +1628,294 @@ def phase_train(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     return stats
 
 
+# the Trainer at the shipped config configs/coco2017_val_imagenet_pass_n500_
+# vit_b_16.yaml (ViT-B/16, 384 px, batch 8, coco81, ignore_index 255, bf16),
+# with a 6-iteration schedule that logs, evaluates and checkpoints twice;
+# mesh_axes dropped (ROADMAP.md, queue 1, item 6)
+TRAINER_CONFIG = Path(__file__).resolve().parent / "configs" / (
+    "coco2017_val_imagenet_pass_n500_vit_b_16.yaml")
+TRAINER_SCHEDULE = dict(n_iters=6, iter_log=2, iter_eval=3,
+                        checkpoint_every=3)
+TRAINER_VAL_IMAGES = 16
+TRAINER_SEED = 1000  # batch t is train_batch(..., seed=TRAINER_SEED + t)
+# the resumed run against the straight one, as a multiple of the largest
+# parameter difference between two straight runs (atomics in the backward);
+# equal to the bit where the straight runs are
+RESUME_SPREAD_FACTOR = 4.0
+
+
+class _CocoVal:
+    """coco2017 validation samples in memory at the eval bench's native
+    sizes: normalised random images, two or three boxes each with COCO
+    categories as the semantic mask and as GT instances, whose annotations
+    go to a JSON file under `root`."""
+    name = "coco2017"
+
+    def __init__(self, root: str, n: int, n_categories: int):
+        self.n_categories = n_categories
+        rng = np.random.RandomState(8)
+        self.samples, images, anns = [], [], []
+        for i, (h, w) in enumerate(eval_bench.bench_sizes(n)):
+            sem = np.zeros((h, w), np.int32)
+            for _ in range(2 + i % 2):
+                cat = int(rng.randint(1, n_categories))
+                y0, x0 = rng.randint(0, h - 64), rng.randint(0, w - 64)
+                y1, x1 = y0 + rng.randint(32, 200), x0 + rng.randint(32, 200)
+                m = np.zeros((h, w), np.uint8)
+                m[y0:y1, x0:x1] = 1
+                sem[m > 0] = cat
+                anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                             "category_id": new_label_id_to_old_label_id[cat],
+                             "iscrowd": 0, "segmentation": rle.encode(m),
+                             "area": int(m.sum())})
+            self.samples.append({
+                "image": rng.randn(3, h, w).astype(np.float32),
+                "semantic_mask": sem, "image_id": i + 1})
+            images.append({"id": i + 1, "height": h, "width": w})
+        self.p_annotations = os.path.join(root, "instances_val2017.json")
+        with open(self.p_annotations, "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": [{"id": new_label_id_to_old_label_id[c]}
+                                      for c in range(1, n_categories)]}, f)
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+
+def _read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f.read().split("\n")]
+
+
+def _max_param_diff(a: torch.nn.Module, b: torch.nn.Module) -> float:
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(a.state_dict().values(),
+                               b.state_dict().values()))
+
+
+def phase_trainer(train_stats: dict, model_cfg: dict = VIT_B16,
+                  image_size: int = 0, val_images: int = TRAINER_VAL_IMAGES,
+                  device="cuda") -> dict:
+    """Trainer.fit and evaluate at the shipped config's widths: the main
+    run (6 iterations; logs at 2, 4, 6; evaluations and full-state
+    checkpoints at 3 and 6, each evaluation 16 images through the bucketed
+    eval and COCO scoring) with every launch count set to 0 before and
+    read after, its quiet iterations after the first under the sync debug
+    mode "error";
+    a second straight run for the spread; the run resumed from the main
+    run's step-3 checkpoint in a fresh model, held to that spread; a
+    checkpoint's write and restore seconds and bytes, and an .npz
+    export's; peak memory.
+    `model_cfg` and `image_size` (0: the config's) shrink it for a
+    rehearsal on the CPU, where the card's checks are left out."""
+    t_phase = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    cfg = Config.load(str(TRAINER_CONFIG), skip_pretrained=True)
+    cfg = dataclasses.replace(cfg, mesh_axes={}, **TRAINER_SCHEDULE)
+    batch = cfg.train_dataloader_kwargs["batch_size"]
+    check((cfg.clip_arch, cfg.train_image_size, batch, cfg.n_categories,
+           len(cfg.categories), cfg.ignore_index, cfg.compute_dtype)
+          == ("ViT-B/16", 384, 8, 81, 81, 255, "bfloat16")
+          and cfg.extras == {"skip_pretrained": True},
+          f"the shipped config loaded as {cfg}")
+    dtype = getattr(torch, cfg.compute_dtype)
+    text = eval_bench.text_embeddings(cfg.n_categories,
+                                      model_cfg["text_dim"], seed=5)
+    batches = [train_batch(model_cfg, image_size or cfg.train_image_size,
+                           batch, TRAIN_N_MAX, TRAIN_VALID, cfg.n_categories,
+                           seed=TRAINER_SEED + t)[1]
+               for t in range(cfg.n_iters)]
+    fit_kw = dict(n_iters=cfg.n_iters, n_categories=cfg.n_categories,
+                  ignore_index=cfg.ignore_index,
+                  weight_ce_loss=cfg.weight_ce_loss, iter_log=cfg.iter_log)
+
+    def quiet(k):  # an iteration with no log, evaluation or checkpoint
+        return k <= cfg.n_iters and all(
+            k % e for e in (cfg.iter_log, cfg.iter_eval, cfg.checkpoint_every))
+
+    def sync_mode(next_iter):
+        """The next iteration runs under the sync debug mode "error" if it
+        is quiet: its step and the lag-2 loss read must not sync."""
+        if on_card:
+            torch.cuda.set_sync_debug_mode("error" if quiet(next_iter)
+                                           else "default")
+
+    def fresh():
+        model = ZUTIS(**model_cfg, dtype=dtype, device=device).init_params(
+            torch.Generator().manual_seed(0))
+        return model, TrainState.create(model, base_lr=TRAIN_LR,
+                                        n_iters=cfg.n_iters)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def fit(trainer, state, **kw):
+        """`trainer.fit` with the quiet iterations after the first under
+        the sync debug mode "error" (the first initialises AdamW's state)."""
+        sync()
+        try:
+            return trainer.fit(state, iter(batches[state.step:]),
+                               eval_every_cb=lambda k, _: sync_mode(k + 1),
+                               **fit_kw, **kw)
+        except RuntimeError as exc:
+            if "synchroniz" in str(exc):
+                fail(f"a quiet iteration of Trainer.fit waits for the card: "
+                     f"{exc}")
+            raise
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+
+    counted = {"flash_attention": fa.flash_attention,
+               "batched_hungarian": hg.batched_hungarian,
+               **{name: w for name, (w, _, _) in PROBES.items()}}
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        dir_ckpt, ckpt = os.path.join(root, "run"), os.path.join(root, "ckpt")
+        os.makedirs(dir_ckpt)
+        val = _CocoVal(root, val_images, cfg.n_categories)
+        model_a, state_a = fresh()
+        trainer = Trainer(model_a, text, dir_ckpt=dir_ckpt, device=device)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        for w in counted.values():
+            w.launches = 0
+        fa.flash_attention.masked_launches = 0
+        t0 = time.perf_counter()
+        fit(trainer, state_a, iter_eval=cfg.iter_eval, val_dataset=val,
+            checkpoint_every=cfg.checkpoint_every, checkpoint_dir=ckpt)
+        sync()
+        fit_s = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in counted.items()}
+        masked = fa.flash_attention.masked_launches
+        peak_gib = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                    if on_card else None)
+        n_evals = cfg.n_iters // cfg.iter_eval
+        print(f"trainer: fit of {cfg.n_iters} iterations in {fit_s:.3f} s; "
+              f"launches {json.dumps(launches)} ({masked} masked flash)",
+              flush=True)
+        if on_card:
+            check(launches["flash_attention"] == LAUNCHES_PER_FORWARD * (
+                cfg.n_iters + n_evals), f"{launches['flash_attention']} "
+                f"flash launches: expected {LAUNCHES_PER_FORWARD} a step and "
+                "a padded forward")
+            check(masked == EVAL_MASKED_LAUNCHES * n_evals,
+                  f"{masked} masked flash launches in {n_evals} evaluations")
+            check(launches["batched_hungarian"] == cfg.n_iters,
+                  "one matcher launch a step")
+            check(sum(launches[p] for p in PROBES) == 0,
+                  "fit launched a probe")
+
+        # the artifacts, as the JAX Trainer writes them
+        names = sorted(os.listdir(dir_ckpt))
+        check(names == sorted(
+            ["best_model.npz", "eval_coco_style_metrics.json",
+             "eval_metrics.json", "final_model.npz", "latest_model.npz",
+             "training_metrics.json"] + [
+                f"instance_predictions_{k:05d}.json"
+                for k in range(cfg.iter_eval, cfg.n_iters + 1, cfg.iter_eval)]),
+              f"the run wrote {names}")
+        logs = _read_jsonl(os.path.join(dir_ckpt, "training_metrics.json"))
+        check([r["num_iter"] for r in logs] == list(
+            range(cfg.iter_log, cfg.n_iters + 1, cfg.iter_log)),
+            "training_metrics.json's iterations")
+        for r in logs:
+            check(all(np.isfinite(r[k]) for k in ("loss", "ce_loss",
+                                                   "mask_loss")),
+                  f"a logged loss is not finite: {r}")
+            check({"Mean IoU", "Pixel Acc", "0", "80"} <= set(r),
+                  "training_metrics.json lacks a score")
+        evals = _read_jsonl(os.path.join(dir_ckpt, "eval_metrics.json"))
+        coco = _read_jsonl(os.path.join(dir_ckpt,
+                                        "eval_coco_style_metrics.json"))
+        check(len(evals) == len(coco) == n_evals
+              and all("index error" not in c for c in coco),
+              f"evaluations: {evals} {coco}")
+        n_preds = []
+        for k in range(cfg.iter_eval, cfg.n_iters + 1, cfg.iter_eval):
+            with open(os.path.join(
+                    dir_ckpt, f"instance_predictions_{k:05d}.json")) as f:
+                n_preds.append(len(json.load(f)))
+        with np.load(os.path.join(dir_ckpt, "final_model.npz")) as final:
+            check(sorted(final.files) == sorted(model_a.state_dict()),
+                  "final_model.npz keys")
+            for k in ("encoder.proj", "query_embed"):
+                check(np.array_equal(final[k], model_a.state_dict()[k].cpu()
+                                     .float().numpy()), f"final_model.npz {k}")
+
+        # a checkpoint's write and restore
+        t0 = time.perf_counter()
+        save_train_state(os.path.join(root, "timed"), state_a)
+        write_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(os.path.join(root, "timed", "state.pt"))
+        shutil.rmtree(os.path.join(root, "timed"))
+        # and one reference-layout export, as fit writes latest_model.npz
+        t0 = time.perf_counter()
+        trainer.save_checkpoint(state_a, "timed_export")
+        export_s = time.perf_counter() - t0
+        export = os.path.join(dir_ckpt, "timed_export.npz")
+        export_bytes = os.path.getsize(export)
+        os.remove(export)
+
+        # the spread of two straight runs, then the resumed one
+        model_b, state_b = fresh()
+        fit(Trainer(model_b, text, device=device), state_b)
+        spread = _max_param_diff(model_a, model_b)
+        del model_b, state_b
+        model_r, state_r = fresh()
+        sync()
+        t0 = time.perf_counter()
+        check(restore_train_state(os.path.join(ckpt, "step_3"), state_r)
+              is state_r and state_r.step == 3, "restore from step_3")
+        sync()
+        restore_s = time.perf_counter() - t0
+        fit(Trainer(model_r, text, device=device), state_r)
+        diff = _max_param_diff(model_a, model_r)
+        bound = RESUME_SPREAD_FACTOR * spread
+        print(f"trainer: resume: the run restored from step 3 differs from "
+              f"the straight run by {diff:.3e} at most (parameters after "
+              f"{cfg.n_iters} steps); two straight runs differ by "
+              f"{spread:.3e}; bound {'0 (bit-equal)' if spread == 0 else f'{RESUME_SPREAD_FACTOR} x spread = {bound:.3e}'}",
+              flush=True)
+        check(diff <= bound if spread > 0 else diff == 0.0,
+              "the resumed run left the straight runs' spread")
+        del model_r, state_r
+
+    rate = logs[-1]["iters_per_sec"]
+    out = dict(config=str(TRAINER_CONFIG.name), fit_s=fit_s,
+               fit_iters_per_sec=rate,
+               train_step_its_per_sec=train_stats["train_step_its_per_sec"],
+               step_iters_per_s=train_stats["iters_per_s"],
+               eval_images_per_sec=[e["eval_images_per_sec"] for e in evals],
+               eval_predictions=n_preds, coco=coco[-1],
+               losses=[r["loss"] for r in logs],
+               checkpoint_write_s=write_s, checkpoint_restore_s=restore_s,
+               checkpoint_bytes=ckpt_bytes, export_s=export_s,
+               export_bytes=export_bytes, resume_max_diff=diff,
+               straight_spread=spread, resume_bound=bound,
+               launches=launches, masked_launches=masked,
+               peak_memory_gib=peak_gib,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"trainer rate: fit {rate:.3f} iters/s over {cfg.n_iters} "
+          f"iterations with {len(logs)} logs, {n_evals} evaluations and "
+          f"{n_evals} checkpoints (phase_train: "
+          f"{out['train_step_its_per_sec']:.3f} steps/s back to back, "
+          f"{out['step_iters_per_s']:.3f} synchronised); eval "
+          f"{json.dumps(out['eval_images_per_sec'])} img/s; checkpoint "
+          f"{ckpt_bytes} bytes, write {write_s:.3f} s, restore "
+          f"{restore_s:.3f} s; an .npz export {export_bytes} bytes, "
+          f"{export_s:.3f} s; peak memory {peak_gib} GiB; phase "
+          f"{out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     card, libs = phase_card()
     sass = sass_check(libs)
@@ -1550,6 +1929,8 @@ def main() -> None:
         {k: v for k, v in ev.items() if k != "flash_rows"}), flush=True)
     tr = phase_train()
     print(f"train on {card}: {json.dumps(tr)}", flush=True)
+    trainer = phase_trainer(tr)
+    print(f"trainer on {card}: {json.dumps(trainer)}", flush=True)
 
     def per_forward(key):
         return sum(r[key] * r["per_forward"] for r in rows)
@@ -1568,14 +1949,18 @@ def main() -> None:
         "route": "cuda",
         "source": "zutis_tpu_torch/csrc/flash_attention.cu",
         "replaces": "zutis_tpu/ops/flash_attention.py:53",
-        # the three main paths, each counted from 0: the serving forwards,
-        # the eval's padded forwards and the training steps
+        # the four main paths, each counted from 0: the serving forwards,
+        # the eval's padded forwards, the training steps and Trainer.fit
+        # (its steps and its evaluations' padded forwards)
         "launches": (stats["launches"] + ev["launches"]
-                     + tr["launches"]["flash_attention"]),
+                     + tr["launches"]["flash_attention"]
+                     + trainer["launches"]["flash_attention"]),
         "launches_by_path": {"serving": stats["launches"],
                              "eval": ev["launches"],
                              "eval_masked": ev["masked_launches"],
-                             "train": tr["launches"]["flash_attention"]},
+                             "train": tr["launches"]["flash_attention"],
+                             "trainer": trainer["launches"]["flash_attention"],
+                             "trainer_masked": trainer["masked_launches"]},
         "max_abs_err": max(max_err, ev["flash_max_abs_err"]),
         # times and bound: the 24 calls of one batch-8 forward at 384 px
         "ms": per_forward("ms"),
@@ -1640,7 +2025,12 @@ def main() -> None:
         "route": "cuda",
         "source": "zutis_tpu_torch/csrc/hungarian.cu",
         "replaces": "zutis_tpu/ops/hungarian.py:34",
-        "launches": tr["launches"]["batched_hungarian"],
+        # the training steps and Trainer.fit's, each counted from 0
+        "launches": (tr["launches"]["batched_hungarian"]
+                     + trainer["launches"]["batched_hungarian"]),
+        "launches_by_path": {
+            "train": tr["launches"]["batched_hungarian"],
+            "trainer": trainer["launches"]["batched_hungarian"]},
         "max_abs_err": 0.0,  # col4row bit-equal to the plain version
         # one call on a training step's [48, 10, 100] costs
         "ms": matcher["ms"],

@@ -1,16 +1,19 @@
 """zutis_tpu_torch stands alone: in a fresh interpreter where importing jax,
-flax, PIL, yaml or zutis_tpu fails, the package and every submodule
-import."""
+flax, PIL, yaml, cv2, matplotlib or zutis_tpu fails (the card's machine has
+none of them), the package and every submodule import."""
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "PIL", "yaml", "zutis_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "PIL", "yaml", "cv2",
+           "matplotlib", "zutis_tpu")
 
 
 class Blocker:
@@ -48,13 +51,33 @@ EVAL_SLICE = ("zutis_tpu_torch.ops.dynamic_shapes",
               "zutis_tpu_torch.tools.instance_eval_bench")
 
 
+# the trainer slice's modules: the codec, the config with its YAML parser,
+# checkpoints, profiling, the data tables and the Trainer
+TRAINER_SLICE = ("zutis_tpu_torch.native",
+                 "zutis_tpu_torch.core.config",
+                 "zutis_tpu_torch.core.checkpoint",
+                 "zutis_tpu_torch.core.profiling",
+                 "zutis_tpu_torch.data.label_maps",
+                 "zutis_tpu_torch.data.category_lists",
+                 "zutis_tpu_torch.engine.trainer")
+
+
 def test_port_imports_without_jax_flax_pil_or_zutis_tpu():
     proc = _run(_PROBE.replace('print("imported", len(names))',
                                'print(*names)\nprint("imported", len(names))'))
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 21, proc.stdout
+    assert n >= 28, proc.stdout
     assert set(EVAL_SLICE) <= set(proc.stdout.split()), proc.stdout
+    assert set(TRAINER_SLICE) <= set(proc.stdout.split()), proc.stdout
+
+
+@pytest.mark.parametrize("name", ["cv2", "matplotlib", "yaml"])
+def test_blocker_blocks_what_the_card_lacks(name):
+    proc = _run(_PROBE.replace("import zutis_tpu_torch\n",
+                               f"import zutis_tpu_torch\nimport {name}\n"))
+    assert proc.returncode != 0
+    assert f"blocked import of {name}" in proc.stderr
 
 
 def test_blocker_really_blocks():

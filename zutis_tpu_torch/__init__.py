@@ -2,15 +2,17 @@
 
 A package beside the JAX one, which stays the reference. It imports torch,
 numpy and the standard library only, never JAX or anything of zutis_tpu; the
-JAX-free helpers it needs are its own copies. The attention kernel is
-hand-written CUDA C++ for sm_90a (csrc/), built at first use.
+JAX-free helpers it needs are its own copies. Its kernels are hand-written
+CUDA C++ for sm_90a (csrc/), and its RLE codec host C++ (native/), each
+built at first use.
 
-Entry points (`ZUTIS`, `InferenceServer`, `evaluate_instances`) run on
-device="cuda" unless the caller passes device="cpu"; without a card, asking
-for CUDA raises.
+Entry points (`ZUTIS`, `InferenceServer`, `evaluate_instances`, `Trainer`)
+run on device="cuda" unless the caller passes device="cpu"; without a card,
+asking for CUDA raises.
 """
 from zutis_tpu_torch.engine.batched_eval import evaluate_instances
 from zutis_tpu_torch.engine.server import InferenceServer
+from zutis_tpu_torch.engine.trainer import Trainer
 from zutis_tpu_torch.models.zutis import ZUTIS
 
-__all__ = ["InferenceServer", "ZUTIS", "evaluate_instances"]
+__all__ = ["InferenceServer", "Trainer", "ZUTIS", "evaluate_instances"]

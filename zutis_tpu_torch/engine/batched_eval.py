@@ -373,7 +373,8 @@ def evaluate_instances(
     text_embeddings,  # [n_cat, text_dim]
     images: Sequence[np.ndarray],  # each [3, H_i, W_i] uint8 RGB
     image_ids: Sequence[int],
-    label_map=None,  # model category id -> dataset category id
+    label_map=None,  # model category id -> dataset category id, e.g.
+    # data.label_maps.new_label_id_to_old_label_id for COCO
     batch_images: int = 16,
     depth: int = 2,
     threshold: float = 0.5,

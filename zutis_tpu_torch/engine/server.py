@@ -7,7 +7,7 @@ request (the padded outputs are dropped). The step runs on the device under
 `torch.inference_mode()`: the ZUTIS forward, the semantic argmax map, and the
 instance decode (threshold -> classify -> per-category NMS). Only the
 semantic map, scores, categories, keep flags and binary masks come back to
-the host, where the kept masks are RLE-encoded (numpy codec), or, with
+the host, where the kept masks are RLE-encoded (the C++ codec), or, with
 `encode_rle=False`, returned as boolean [h, w] arrays.
 
 `infer(images)` is synchronous; `start()` / `submit(image)` / `stop()` is the
@@ -28,7 +28,7 @@ import torch
 
 from zutis_tpu_torch.core.device import resolve_device
 from zutis_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
-from zutis_tpu_torch.ops import rle as rle_ops
+from zutis_tpu_torch.native import native_encode
 from zutis_tpu_torch.ops.nms import mask_nms
 from zutis_tpu_torch.postproc.instance import classify_proposals, predict_semantic
 
@@ -131,7 +131,8 @@ class InferenceServer:
             inst = {"category_id": int(out["category_ids"][j, qi]),
                     "score": float(out["scores"][j, qi])}
             if self.encode_rle:
-                inst["segmentation"] = rle_ops.encode(m)
+                inst["segmentation"] = {"size": list(m.shape),
+                                        "counts": native_encode(m)}
             else:
                 inst["mask"] = m.astype(bool)
             instances.append(inst)

@@ -1,5 +1,6 @@
 """Parameter bridge: a flax ZUTIS parameter tree (nested dicts of numpy
-arrays, ViT encoder) -> a state_dict in the reference torch layout.
+arrays, ViT encoder) -> a state_dict in the reference torch layout, and the
+port's model -> that layout as numpy (`export_params`).
 
 The port's own copy of the ViT branch of
 zutis_tpu/models/weights.py::export_zutis: flax Dense kernels [in, out] are
@@ -85,3 +86,13 @@ def load_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     """Load a flax ZUTIS parameter tree into the port's ZUTIS (strict)."""
     module.load_state_dict(params_from_jax(params), strict=True)
     return module
+
+
+def export_params(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The port's ZUTIS -> its reference-layout state dict as float32 numpy
+    arrays on the host (the counterpart of the JAX package's
+    `export_zutis`, with the same keys): what `Trainer` writes to
+    `latest_model.npz`, `best_model.npz` and `final_model.npz`. The port's
+    modules already carry the reference's names and layouts."""
+    return {k: v.detach().to("cpu", torch.float32, copy=True).numpy()
+            for k, v in model.state_dict().items()}

@@ -1,10 +1,13 @@
-"""Build and load the port's CUDA kernel libraries.
+"""Build and load the port's native libraries.
 
-Each source under `csrc/` holds kernels behind a plain C interface. It is
-compiled at first use with `nvcc` for sm_90a into `build/zutis_tpu_torch/`
-beside the package (a directory git ignores), keyed by a hash of the source,
-the headers beside it and the flags, and loaded with ctypes. A missing `nvcc`
-or a failed build raises.
+Each CUDA source under `csrc/` holds kernels behind a plain C interface. It
+is compiled at first use with `nvcc` for sm_90a; a host C++ source (`.cc`,
+`.cpp`, such as the RLE codec in `native/`) with `g++ -O2 -shared -fPIC`.
+Both go into `build/zutis_tpu_torch/` beside the package (a directory git
+ignores), keyed by a hash of the source, the headers beside it and the
+flags, and are loaded with ctypes. Each build writes a name of its own and
+renames it into place, so that processes building the same library at once
+never load half of one. A missing compiler or a failed build raises.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # report registers, shared memory and spills
 )
+HOST_FLAGS = ("-O2", "-shared", "-fPIC")
 
 _loaded: dict[Path, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -44,38 +48,55 @@ def _nvcc() -> str:
     )
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found on PATH: the host C++ library "
+                           "cannot be built")
+    return found
+
+
+def _is_cuda(source: Path) -> bool:
+    return source.suffix == ".cu"
+
+
 def _digest(source: Path) -> str:
-    """Hash of what a build of `source` compiles: the source, every `*.cuh`
-    header in its directory and below (names and contents, so that an edit
-    to a header alone rebuilds), and the flags."""
+    """Hash of what a build of `source` compiles: the source, every header
+    in its directory and below (`*.cuh` for a CUDA source, `*.h` for a host
+    one; names and contents, so that an edit to a header alone rebuilds),
+    and the flags."""
+    cuda = _is_cuda(source)
     h = hashlib.sha256(source.read_bytes())
-    for header in sorted(source.parent.rglob("*.cuh")):
+    for header in sorted(source.parent.rglob("*.cuh" if cuda else "*.h")):
         h.update(header.relative_to(source.parent).as_posix().encode() + b"\0")
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS if cuda else HOST_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
 def build(source: Path, stem: str) -> tuple[Path, float, str]:
-    """Compile `source` into `BUILD_DIR/<stem>_<digest>.so` if this source,
-    its headers and these flags have not been built yet. Returns (library
-    path, seconds spent compiling, compiler output with ptxas's per-kernel
-    resource report; empty when no build was needed)."""
+    """Compile `source` (nvcc for `.cu`, g++ otherwise) into
+    `BUILD_DIR/<stem>_<digest>.so` if this source, its headers and these
+    flags have not been built yet. Returns (library path, seconds spent
+    compiling, compiler output, with ptxas's per-kernel resource report for
+    a CUDA source; empty when no build was needed)."""
     lib_path = BUILD_DIR / f"{stem}_{_digest(source)}.so"
     if lib_path.exists():
         return lib_path, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    if _is_cuda(source):
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    else:
+        cmd = [_gxx(), *HOST_FLAGS, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-        capture_output=True, text=True,
-    )
+    proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed to build {source} (exit {proc.returncode}):\n"
-            f"{proc.stderr}{proc.stdout}"
+            f"{Path(cmd[0]).name} failed to build {source} (exit "
+            f"{proc.returncode}):\n{proc.stderr}{proc.stdout}"
         )
     os.replace(tmp, lib_path)  # atomic: a reader never sees half a library
     return lib_path, seconds, proc.stderr + proc.stdout
@@ -90,8 +111,9 @@ def load(source: Path, stem: str,
         if lib is None:
             path, _, _ = build(source, stem)
             lib = ctypes.CDLL(str(path))
-            lib.zutis_cuda_error_string.restype = ctypes.c_char_p
-            lib.zutis_cuda_error_string.argtypes = [ctypes.c_int]
+            if _is_cuda(source):
+                lib.zutis_cuda_error_string.restype = ctypes.c_char_p
+                lib.zutis_cuda_error_string.argtypes = [ctypes.c_int]
             bind(lib)
             _loaded[source] = lib
         return lib

@@ -1,6 +1,9 @@
 """COCO run-length-encoding codec, byte-compatible with the pycocotools JSON
-format, and the host helpers of COCO JSON I/O (the port's copy of the numpy
-paths of zutis_tpu/ops/rle.py; the JAX package's C++ codec is not ported).
+format, and the host helpers of COCO JSON I/O (the port's copy of
+zutis_tpu/ops/rle.py). The numpy codec here is the plain version of the C++
+one in `native/`: `counts_iou` and `counts_of` run on the C++ codec, as the
+JAX package's do, and `counts_iou_reference` and `_decompress_counts` are
+what the tests hold it against.
 
 Masks are flattened in Fortran (column-major) order; counts alternate runs
 of 0s and 1s starting with zeros. The compressed string packs each count
@@ -12,6 +15,8 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Union
 
 import numpy as np
+
+from zutis_tpu_torch.native import native_rle_iou, native_string_to_counts
 
 RLE = Dict[str, Union[List[int], str]]
 
@@ -98,12 +103,13 @@ def decode(rle: RLE) -> np.ndarray:
 
 
 def counts_of(rle: RLE) -> np.ndarray:
-    """The run-length sequence of a COCO RLE dict (compressed or not)."""
+    """The run-length sequence of a COCO RLE dict (compressed or not); a
+    string is parsed by the C++ codec."""
     counts = rle["counts"]
     if isinstance(counts, (bytes, str)):
         if isinstance(counts, bytes):
             counts = counts.decode("ascii")
-        return _decompress_counts(counts)
+        return native_string_to_counts(counts)
     return np.asarray(counts, np.int64)
 
 
@@ -145,10 +151,22 @@ def counts_iou(
     iscrowd: Sequence[bool] | None = None,
 ) -> np.ndarray:
     """Pairwise mask IoU [n_dt, n_gt] on run-length sequences, never
-    densifying a mask. Integer arithmetic up to the one division, so the
-    result equals `mask_iou` of the decoded masks bit for bit. Each
-    detection's runs are measured against the GT's cumulative coverage
-    (O(n_dt_runs * log n_gt_runs) per pair)."""
+    densifying a mask: the C++ codec's two-pointer merge of the runs.
+    Integer arithmetic up to the one division, so the result equals
+    `mask_iou` of the decoded masks bit for bit."""
+    crowd = (np.zeros(len(gt_counts), bool) if iscrowd is None
+             else np.asarray(iscrowd, bool))
+    return native_rle_iou(list(dt_counts), list(gt_counts), list(crowd))
+
+
+def counts_iou_reference(
+    dt_counts: List[np.ndarray],
+    gt_counts: List[np.ndarray],
+    iscrowd: Sequence[bool] | None = None,
+) -> np.ndarray:
+    """Plain version of `counts_iou` in numpy: each detection's runs are
+    measured against the GT's cumulative coverage (O(n_dt_runs *
+    log n_gt_runs) per pair)."""
     nd, ng = len(dt_counts), len(gt_counts)
     crowd = (np.zeros(ng, bool) if iscrowd is None
              else np.asarray(iscrowd, bool))

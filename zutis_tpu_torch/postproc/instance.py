@@ -11,8 +11,11 @@ prediction list (the port of zutis_tpu/postproc/instance.py).
     image size and binarised again; per-category NMS.
 
 Everything up to NMS, and the device RLE, runs on the tensors' device; the
-COCO assembly (`instances_to_coco*`) runs on the host with the port's numpy
-codec, whose strings equal the JAX package's native codec's (same format).
+COCO assembly (`instances_to_coco*`) runs on the host. Its strings come from
+the C++ codec (`native/`) where the JAX package calls its own: the device
+RLE's counts, the masks of cap overflows and packed masks; the dense
+`instances_to_coco` encodes with the numpy codec, as JAX's does. Both codecs
+give the same bytes.
 """
 from __future__ import annotations
 
@@ -21,6 +24,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from zutis_tpu_torch.native import (
+    counts_to_strings,
+    native_encode,
+    native_encode_packed,
+)
 from zutis_tpu_torch.ops import rle as rle_ops
 from zutis_tpu_torch.ops.nms import mask_nms
 from zutis_tpu_torch.ops.resize import resize_2d
@@ -170,16 +178,17 @@ def instances_to_coco_counts(
 ) -> List[dict]:
     """COCO prediction dicts from device RLE counts (`res` holds scores,
     category_ids, keep and the rle_encode_masks_device outputs, on the
-    host). A kept mask that overflowed a device cap (more than k_cap kept,
-    or more runs than max_runs) is recovered exactly from one mask of
-    `dev_packed` or `dev_masks`, which may stay on the device. Same order
-    and contents as instances_to_coco."""
+    host). The counts of every kept mask go to the C++ codec in one call. A
+    kept mask that overflowed a device cap (more than k_cap kept, or more
+    runs than max_runs) is recovered exactly from one mask of `dev_packed`
+    or `dev_masks`, which may stay on the device. Same order and contents
+    as instances_to_coco."""
     scores, cats, keep = (_host(res[k]) for k in ("scores", "category_ids",
                                                    "keep"))
     q_index, valid, counts, n_runs, overflow, bbox, area = (
         _host(res[k]) for k in ("q_index", "valid", "counts", "n_runs",
                                 "overflow", "bbox", "area"))
-    preds: List[dict] = []
+    entries = []  # (bi, qi, image_id, hw, slot or None for a cap overflow)
     for bi, image_id in enumerate(image_ids):
         hw = (int(sizes[bi][0]), int(sizes[bi][1]))
         slot_of = {int(q): si for si, q in enumerate(q_index[bi])
@@ -190,25 +199,41 @@ def instances_to_coco_counts(
             if si is not None and not overflow[bi, si]:
                 if area[bi, si] == 0:
                     continue
-                seg = {"size": [hw[0], hw[1]], "counts": rle_ops._compress_counts(
-                    counts[bi, si, :n_runs[bi, si] + 1])}
-                box = [float(v) for v in bbox[bi, si]]
-            else:  # a cap overflowed: one mask crosses to the host
-                if dev_packed is not None:
-                    m = _unpack_mask_fortran(_host(dev_packed[bi, qi]),
-                                             col_stride_bits_packed, *hw)
-                else:
-                    if dev_masks is None:
-                        raise ValueError("a device RLE cap overflowed: pass "
-                                         "dev_packed or dev_masks")
-                    m = _host(dev_masks[bi, qi])[: hw[0], : hw[1]]
-                m = m.astype(np.uint8)
-                if m.sum() == 0:
-                    continue
-                seg, box = rle_ops.encode(m), rle_ops.to_bbox(m)
-            preds.append(_pred(int(cats[bi, qi]), seg, scores[bi, qi],
-                               image_id, hw, box, label_id_to_category,
-                               new_label_id_to_old_label_id))
+                entries.append((bi, qi, image_id, hw, si))
+            else:
+                entries.append((bi, qi, image_id, hw, None))
+
+    slots = [(bi, si) for bi, _, _, _, si in entries if si is not None]
+    strings = iter(counts_to_strings(
+        np.stack([counts[bi, si] for bi, si in slots]),
+        np.asarray([n_runs[bi, si] + 1 for bi, si in slots]))
+        if slots else [])
+    preds: List[dict] = []
+    for bi, qi, image_id, hw, si in entries:
+        if si is not None:
+            seg = {"size": [hw[0], hw[1]], "counts": next(strings)}
+            box = [float(v) for v in bbox[bi, si]]
+        elif dev_packed is not None:  # a cap overflowed: one mask's bits
+            (s,), boxes, areas = native_encode_packed(
+                _host(dev_packed[bi, qi])[None], np.zeros(1),
+                col_stride_bits_packed, np.asarray([hw[0]]),
+                np.asarray([hw[1]]))
+            if areas[0] == 0:
+                continue
+            seg = {"size": [hw[0], hw[1]], "counts": s}
+            box = [float(v) for v in boxes[0]]
+        else:  # a cap overflowed: one dense mask crosses to the host
+            if dev_masks is None:
+                raise ValueError("a device RLE cap overflowed: pass "
+                                 "dev_packed or dev_masks")
+            m = _host(dev_masks[bi, qi])[: hw[0], : hw[1]].astype(np.uint8)
+            if m.sum() == 0:
+                continue
+            seg = {"size": [hw[0], hw[1]], "counts": native_encode(m)}
+            box = rle_ops.to_bbox(m)
+        preds.append(_pred(int(cats[bi, qi]), seg, scores[bi, qi],
+                           image_id, hw, box, label_id_to_category,
+                           new_label_id_to_old_label_id))
     return preds
 
 
@@ -220,24 +245,33 @@ def instances_to_coco_packed(
     new_label_id_to_old_label_id: Optional[Dict[int, int]] = None,
 ) -> List[dict]:
     """COCO prediction dicts from packed-bit masks (`masks_packed`
-    [b, Q, nbytes] uint8, `col_stride_bits`), each image's native (H, W)
-    window unpacked and encoded on the host. Same contract as
+    [b, Q, nbytes] uint8, `col_stride_bits`): every kept mask's native
+    (H, W) window encoded by the C++ codec in one call. Same contract as
     instances_to_coco."""
     packed = _host(device_out["masks_packed"])
     scores, cats, keep = (_host(device_out[k]) for k in (
         "scores", "category_ids", "keep"))
-    stride = int(device_out["col_stride_bits"])
+    b, q = keep.shape
+    meta = [(bi, int(qi), image_id, (int(sizes[bi][0]), int(sizes[bi][1])))
+            for bi, image_id in enumerate(image_ids)
+            for qi in np.flatnonzero(keep[bi])]
+    if not meta:
+        return []
+    strings, boxes, areas = native_encode_packed(
+        packed.reshape(b * q, -1), np.asarray([bi * q + qi for bi, qi, _, _
+                                               in meta]),
+        int(device_out["col_stride_bits"]),
+        np.asarray([hw[0] for *_, hw in meta]),
+        np.asarray([hw[1] for *_, hw in meta]))
     preds: List[dict] = []
-    for bi, image_id in enumerate(image_ids):
-        hw = (int(sizes[bi][0]), int(sizes[bi][1]))
-        for qi in np.flatnonzero(keep[bi]):
-            m = _unpack_mask_fortran(packed[bi, qi], stride, *hw)
-            if m.sum() == 0:
-                continue
-            preds.append(_pred(int(cats[bi, qi]), rle_ops.encode(m),
-                               scores[bi, qi], image_id, hw, rle_ops.to_bbox(m),
-                               label_id_to_category,
-                               new_label_id_to_old_label_id))
+    for i, (bi, qi, image_id, hw) in enumerate(meta):
+        if areas[i] == 0:
+            continue
+        preds.append(_pred(int(cats[bi, qi]),
+                           {"size": [hw[0], hw[1]], "counts": strings[i]},
+                           scores[bi, qi], image_id, hw,
+                           [float(v) for v in boxes[i]], label_id_to_category,
+                           new_label_id_to_old_label_id))
     return preds
 
 

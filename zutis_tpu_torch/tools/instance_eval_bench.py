@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from zutis_tpu_torch.core.device import resolve_device, to_device
+from zutis_tpu_torch.data.label_maps import new_label_id_to_old_label_id
 from zutis_tpu_torch.engine import batched_eval as BE
 from zutis_tpu_torch.models.zutis import ZUTIS
 from zutis_tpu_torch.postproc.instance import (
@@ -91,7 +92,7 @@ def run(batch: int = 32, path: str = "counts", iters: int = 12,
                                      model.encoder.patch_size)
     padded_d = to_device(torch.from_numpy(padded), device)
     ids = list(range(batch))
-    label_map = {i: i for i in range(n_categories)}
+    label_map = new_label_id_to_old_label_id  # COCO's ids, as the CLI's
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def dispatch(_=None):
