@@ -92,18 +92,44 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
      rate, the eval's img/s, a checkpoint's bytes and write and restore
      seconds, peak memory.
 
-Prints the kernel record (flash's launches on the four main paths, its
-eval shapes, the matcher's on two) and the card on lines of their own,
+  9. The two CLIs on images from disk (`phase_cli`): every committed
+     fixture image (tests/torch_fixtures) through the port's JPEG/PNG
+     decoder, held to Pillow's pinned SHA-256; a fixture dataset built in
+     a temporary directory from the committed JPEGs (24 training images
+     of 500 x 375 over 4 categories with RLE pseudo-masks and the
+     category_to_p_images JSON, a coco2017-layout val set of 16 images
+     with polygon annotations, an 81 x 512 text-embedding .npz); the
+     loader's IndexDataset.sample ms and batch_iterator samples/s at 1, 2
+     and os.cpu_count() threads, and a COCO2017Dataset item's ms;
+     `zutis_tpu_torch.cli.main.main` on the
+     shipped config with the Trainer's cuts, skip_pretrained and the
+     embeddings (6 iterations of batch 8 at 384 px from the JPEGs, logs at
+     2, 4, 6, evaluations of the 16 val JPEGs and full checkpoints at 3
+     and 6), every launch count set to 0 before and read after (24 flash
+     launches a step and a padded forward, 18 of those masked, one
+     matcher launch a step, no probe) and the seconds it waited for
+     batches, its artifacts, the same evaluation again with no loader
+     thread running, and the run resumed from step 3 against the straight
+     one; `cli.coco20k_eval.main` on the
+     trained final_model.npz, batched at depth 1 and 2. Prints the decode
+     ms, the loader's rates, fit's iters/s beside phase_trainer's, the
+     eval CLI's img/s and peak memory.
+
+Prints the kernel record (flash's launches on the main paths, its eval
+shapes, the matcher's) and the card on lines of their own,
 then, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
 no result line, on any failure or without a card.
 """
 from __future__ import annotations
 
 import contextlib
+import cProfile
 import dataclasses
+import hashlib
 import io
 import json
 import os
+import pstats
 import re
 import shutil
 import statistics
@@ -119,7 +145,8 @@ import torch
 import torch.nn.functional as F
 
 from zutis_tpu_torch import native
-from zutis_tpu_torch.core.checkpoint import (restore_train_state,
+from zutis_tpu_torch.core.checkpoint import (load_params_any,
+                                             restore_train_state,
                                              save_train_state)
 from zutis_tpu_torch.core.config import Config
 from zutis_tpu_torch.data.label_maps import new_label_id_to_old_label_id
@@ -132,6 +159,7 @@ from zutis_tpu_torch.engine.trainer import Trainer
 from zutis_tpu_torch.losses import criterion as crit
 from zutis_tpu_torch.models.layers import MultiHeadAttention
 from zutis_tpu_torch.models.zutis import ZUTIS
+from zutis_tpu_torch.native import image as native_image
 from zutis_tpu_torch.ops import _build
 from zutis_tpu_torch.ops import attention_probes as ap
 from zutis_tpu_torch.ops import flash_attention as fa
@@ -338,11 +366,12 @@ def phase_card() -> tuple[str, list]:
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
     # one compiler per source, together: nvcc for the three kernel
-    # libraries, g++ for the RLE codec
-    with ThreadPoolExecutor(4) as pool:
-        builds = [pool.submit(m.build) for m in (fa, ap, hg, native)]
+    # libraries, g++ for the RLE codec and the image library
+    with ThreadPoolExecutor(5) as pool:
+        builds = [pool.submit(m.build)
+                  for m in (fa, ap, hg, native, native_image)]
         results = [b.result() for b in builds]
-    print(f"build: all four libraries in {time.perf_counter() - t0:.1f} s",
+    print(f"build: all five libraries in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for path, seconds, log in results:
         print(f"build: {path.name} in {seconds:.1f} s", flush=True)
@@ -1916,6 +1945,470 @@ def phase_trainer(train_stats: dict, model_cfg: dict = VIT_B16,
     return out
 
 
+# the two CLIs on images from disk: a fixture dataset built from the
+# committed JPEGs (tests/torch_fixtures), the shipped config's model and
+# Trainer schedule (TRAINER_SCHEDULE), its categories through a text-
+# embedding .npz and no CLIP weights (skip_pretrained)
+FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_fixtures"
+CLI_CATEGORIES = ("person", "dog", "kite", "cup")  # of the config's coco81
+CLI_PER_CATEGORY = 6  # 24 training images at ImageNet's 500 x 375
+CLI_VAL_IMAGES = 16  # every fourth the 640 x 480 fixture, the rest 500 x 375
+CLI_BATCH_IMAGES = 16  # the eval CLI's batch, as Trainer.evaluate's
+LOADER_SAMPLES = 12  # IndexDataset.sample timed one at a time
+LOADER_PARTS = {  # a sample's parts: (file, function) under cProfile
+    "resample": ("transforms.py", "_pass"),
+    "decode": ("image.py", "decode_jpeg_rgb"),
+    "hue": ("image.py", "hue_shift"),
+    "blur": ("image.py", "gaussian_blur"),
+    "pseudo-mask RLE": ("rle.py", "decode"),
+    "crop": ("augment.py", "random_crop"),
+    "copy_paste": ("augment.py", "copy_paste"),
+}
+
+
+def check_fixture_decodes(reps: int = 20) -> dict:
+    """Every committed fixture image through the port's decoder, held to
+    Pillow's pinned SHA-256 (tests/torch_fixtures/expected.json); the decode
+    time of the 500 x 375 4:2:0 JPEG and of the largest fixture."""
+    from zutis_tpu_torch.data.image_io import read_png, read_rgb
+
+    expected = json.loads((FIXTURES / "expected.json").read_text())
+    for name, want in sorted(expected.items()):
+        path = FIXTURES / name
+        arr = np.ascontiguousarray(
+            read_png(path) if path.suffix == ".png" else read_rgb(path))
+        got = (list(arr.shape), str(arr.dtype),
+               hashlib.sha256(arr.tobytes()).hexdigest())
+        check(got == (want["shape"], want["dtype"], want["sha256"]),
+              f"the decoder disagrees with Pillow on {name}: {got[:2]} "
+              f"against {want['shape']} {want['dtype']}")
+    jpegs = [n for n in expected if n.endswith(".jpg")]
+    largest = max(jpegs, key=lambda n: expected[n]["shape"][0]
+                  * expected[n]["shape"][1])
+    timed = {}
+    for name in ("photo_0_420_q75.jpg", largest):
+        path = FIXTURES / name
+        read_rgb(path)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            read_rgb(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+        timed[name] = statistics.median(times)
+    print(f"cli: decoder: {len(expected)} fixtures equal Pillow's pinned "
+          f"hashes; decode ms (median of {reps}): {json.dumps(timed)}",
+          flush=True)
+    return {"fixtures": len(expected), "decode_ms": timed}
+
+
+def _ellipse(rng, h: int, w: int) -> np.ndarray:
+    yy, xx = np.mgrid[0:h, 0:w]
+    cy, cx = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w
+    ry, rx = rng.uniform(0.15, 0.4) * h, rng.uniform(0.15, 0.4) * w
+    return (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1).astype(np.uint8)
+
+
+def _polygon(rng, h: int, w: int) -> list:
+    cy, cx = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w
+    r = rng.uniform(0.08, 0.3) * min(h, w)
+    angles = np.sort(rng.uniform(0, 2 * np.pi, 9))
+    radii = r * rng.uniform(0.6, 1.0, 9)
+    xs = np.clip(cx + radii * np.cos(angles), 0, w - 1)
+    ys = np.clip(cy + radii * np.sin(angles), 0, h - 1)
+    return [float(v) for xy in zip(xs, ys) for v in xy]
+
+
+def build_cli_fixture(root: Path) -> dict:
+    """On disk under `root`, from the committed JPEGs: the training archive
+    (24 images over 4 categories, ImageNet-sized), their RLE pseudo-masks
+    and category_to_p_images JSON; a coco2017-layout val set of 16 images
+    with polygon annotations and the same images in the coco20k layout; an
+    81 x 512 text-embedding .npz."""
+    from zutis_tpu_torch.data.pseudo_masks import pseudo_mask_path
+
+    rng = np.random.default_rng(2026)
+    photos = sorted(FIXTURES.glob("photo_*_420_q75.jpg"))
+    largest = FIXTURES / "largest_640x480_422_q80_progressive.jpg"
+    dir_train = root / "archive" / "train"
+    dir_cache = root / "index_dataset"
+    dir_pm = dir_cache / "pseudo_masks"
+    dir_pm.mkdir(parents=True)
+    cat_to_paths = {}
+    for ci, cat in enumerate(CLI_CATEGORIES):
+        (dir_train / cat).mkdir(parents=True)
+        cat_to_paths[cat] = []
+        for i in range(CLI_PER_CATEGORY):
+            p = dir_train / cat / f"{cat}_{i}.jpg"
+            shutil.copyfile(photos[(ci * CLI_PER_CATEGORY + i) % len(photos)], p)
+            with open(pseudo_mask_path(str(dir_pm), str(p)), "w") as f:
+                json.dump(rle.encode(_ellipse(rng, 375, 500)), f)
+            cat_to_paths[cat].append(str(p))
+    cat_fp = dir_cache / "category_to_p_images.json"
+    cat_fp.write_text(json.dumps(cat_to_paths))
+
+    dir_val, dir_20k = root / "coco2017", root / "coco20k"
+    for d in (dir_val / "val2017", dir_val / "annotations",
+              dir_20k / "train2014", dir_20k / "annotations"):
+        d.mkdir(parents=True)
+    images, anns = [], []
+    for i in range(CLI_VAL_IMAGES):
+        src, (h, w) = ((largest, (480, 640)) if i % 4 == 3
+                       else (photos[i % len(photos)], (375, 500)))
+        name = f"{i + 1:012d}.jpg"
+        shutil.copyfile(src, dir_val / "val2017" / name)
+        shutil.copyfile(src, dir_20k / "train2014" / name)
+        images.append({"id": i + 1, "height": h, "width": w,
+                       "file_name": name})
+        for _ in range(2 + i % 2):
+            poly = _polygon(rng, h, w)
+            mask = rle.polygons_to_mask([poly], h, w)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": new_label_id_to_old_label_id[
+                             int(rng.integers(1, 81))],
+                         "segmentation": [poly], "iscrowd": 0,
+                         "area": float(mask.sum()),
+                         "bbox": rle.to_bbox(mask)})
+    gt = {"images": images, "annotations": anns,
+          "categories": [{"id": new_label_id_to_old_label_id[c]}
+                         for c in range(1, 81)]}
+    (dir_val / "annotations" / "instances_val2017.json").write_text(
+        json.dumps(gt))
+    (dir_20k / "annotations" / "instances_train2014_sel20k.json").write_text(
+        json.dumps(gt))
+    emb_fp = root / "text_embeddings.npz"
+    np.savez(emb_fp, embeddings=eval_bench.text_embeddings(81, 512, seed=6))
+    return {"cat_fp": cat_fp, "dir_train": dir_train, "dir_val": dir_val,
+            "dir_20k": dir_20k, "emb_fp": emb_fp,
+            "val_sizes": [(im["height"], im["width"]) for im in images]}
+
+
+def cli_config(root: Path, paths: dict, model_kwargs=None,
+               image_size: int = 0) -> Path:
+    """The shipped config with the Trainer cell's cuts (TRAINER_SCHEDULE,
+    mesh_axes dropped), skip_pretrained and the embeddings .npz, pointed at
+    the fixture; `model_kwargs` and `image_size` shrink it for a rehearsal
+    on the CPU."""
+    from zutis_tpu_torch.core.config import parse_yaml
+
+    raw = parse_yaml(TRAINER_CONFIG.read_text())
+    raw.pop("mesh_axes")
+    raw.update(dir_ckpt=str(root / "ckpt"),
+               dir_train_dataset=[str(paths["dir_train"])],
+               dir_val_dataset=str(paths["dir_val"]),
+               category_to_p_images_fp=str(paths["cat_fp"]),
+               skip_pretrained=True, text_embeddings_npz=str(paths["emb_fp"]),
+               **TRAINER_SCHEDULE)
+    if model_kwargs:
+        raw.update(model_kwargs=model_kwargs, train_image_size=image_size)
+    fp = root / "cli.yaml"
+    fp.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in raw.items()))
+    check(parse_yaml(fp.read_text()) == raw, "the derived YAML reads back")
+    return fp
+
+
+def time_loader(dataset, batch: int, device) -> dict:
+    """IndexDataset.sample one at a time on this thread, then the batch
+    iterator's samples/s at 1, 2 and os.cpu_count() threads, each timed
+    from its start over 2 x threads batches (3 at least)."""
+    from zutis_tpu_torch.data.index_dataset import batch_iterator
+
+    times, objects = [], []
+    for i in range(LOADER_SAMPLES):
+        t0 = time.perf_counter()
+        sample = dataset.sample(i, epoch=1)
+        times.append((time.perf_counter() - t0) * 1e3)
+        objects.append(int(sample["instance_valid"].sum()))
+    # the same samples again under cProfile: each part's share of the time
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for i in range(LOADER_SAMPLES):
+        dataset.sample(i, epoch=1)
+    prof.disable()
+    wall = time.perf_counter() - t0
+    cumulative = {}
+    for (path, _, func), (_, _, _, ct, _) in pstats.Stats(prof).stats.items():
+        cumulative[(Path(path).name, func)] = ct
+    split = {part: cumulative.get(key, 0.0) / wall
+             for part, key in LOADER_PARTS.items()}
+    rates = {}
+    for threads in sorted({1, 2, os.cpu_count() or 1}):
+        n_batches = max(3, 2 * threads)
+        t0 = time.perf_counter()
+        it = batch_iterator(dataset, batch, seed=77, num_threads=threads,
+                            device=device)
+        for _ in range(n_batches):
+            next(it)
+        rates[threads] = n_batches * batch / (time.perf_counter() - t0)
+        it.close()
+    return {"sample_ms": statistics.median(times), "sample_ms_all": times,
+            "split": split,
+            "objects_per_sample": float(np.mean(objects)),
+            "loader_samples_per_s": rates, "cpu_count": os.cpu_count()}
+
+
+@contextlib.contextmanager
+def loader_waits():
+    """While open, every `batch_iterator` the CLI makes records the
+    seconds its consumer waits for each batch into the yielded list."""
+    from zutis_tpu_torch.data import index_dataset
+
+    waits, real = [], index_dataset.batch_iterator
+
+    def timed(*args, **kwargs):
+        it = real(*args, **kwargs)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it)
+                waits.append(time.perf_counter() - t0)
+                yield batch
+        finally:
+            it.close()
+
+    index_dataset.batch_iterator = timed
+    try:
+        yield waits
+    finally:
+        index_dataset.batch_iterator = real
+
+
+def phase_cli(trainer_stats: dict, device="cuda", model_kwargs=None,
+              image_size: int = 0) -> dict:
+    """The two CLIs on images from disk. The decoder against Pillow's
+    pinned hashes; the loader's rates; `cli.main.main` training 6
+    iterations of the shipped config (logs at 2, 4, 6; evaluations of the
+    16 val JPEGs and full checkpoints at 3 and 6) with every launch count
+    set to 0 before and read after, its artifacts, and the run resumed from
+    step 3 against the straight one; `cli.coco20k_eval.main` on the trained
+    final_model.npz, batched at depth 1 and 2. `model_kwargs` and
+    `image_size` shrink the model for a rehearsal on the CPU, where the
+    card's checks are left out."""
+    from zutis_tpu_torch.cli import coco20k_eval as cli_eval
+    from zutis_tpu_torch.cli import main as cli_main
+    from zutis_tpu_torch.core.config import checkpoint_dir
+    from zutis_tpu_torch.data.datasets import get_eval_dataset
+
+    t_phase = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    decoder = check_fixture_decodes()
+    counted = {"flash_attention": fa.flash_attention,
+               "batched_hungarian": hg.batched_hungarian,
+               **{name: w for name, (w, _, _) in PROBES.items()}}
+
+    def zero_counts():
+        for w in counted.values():
+            w.launches = 0
+        fa.flash_attention.masked_launches = 0
+
+    def read_counts():
+        return ({n: w.launches for n, w in counted.items()},
+                fa.flash_attention.masked_launches)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = Path(tmp)
+        paths = build_cli_fixture(root)
+        cfg_fp = cli_config(root, paths, model_kwargs, image_size)
+        cfg = Config.load(str(cfg_fp))
+        check(cfg.extras.get("skip_pretrained") and not cfg.mesh_axes
+              and cfg.n_iters == TRAINER_SCHEDULE["n_iters"],
+              f"the derived config: {cfg}")
+        batch = cfg.train_dataloader_kwargs["batch_size"]
+        loader = time_loader(cli_main.build_index_dataset(cfg, 0), batch,
+                             device)
+        print(f"cli: loader: IndexDataset.sample {loader['sample_ms']:.1f} "
+              f"ms (median of {LOADER_SAMPLES}, "
+              f"{loader['objects_per_sample']:.2f} objects a sample; "
+              f"shares under cProfile {json.dumps(loader['split'])}); "
+              f"batch_iterator samples/s by threads "
+              f"{json.dumps(loader['loader_samples_per_s'])} on "
+              f"os.cpu_count() = {loader['cpu_count']}", flush=True)
+
+        # what an evaluation pays on the host for each val item: decode,
+        # normalise, the semantic mask and the instance masks rendered
+        # from the polygons
+        val = get_eval_dataset(cfg.dataset_name, cfg.dir_val_dataset)
+        item_ms = []
+        for i in range(len(val)):
+            t0 = time.perf_counter()
+            val[i]
+            item_ms.append((time.perf_counter() - t0) * 1e3)
+        loader["val_item_ms"] = statistics.median(item_ms)
+        print(f"cli: val: COCO2017Dataset item {loader['val_item_ms']:.1f} "
+              f"ms (median of {len(val)})", flush=True)
+
+        # the buckets of the val images: one padded forward each per
+        # evaluation (16 images a batch)
+        forwards = len({BE.bucket_shape(h, w) for h, w in paths["val_sizes"]})
+        n_evals = cfg.n_iters // cfg.iter_eval
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        args = ["--p_config", str(cfg_fp), "--device", str(device)]
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        with loader_waits() as waits:
+            cli_main.main(args)
+        sync()
+        fit_s = time.perf_counter() - t0
+        launches, masked = read_counts()
+        peak_gib = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                    if on_card else None)
+        print(f"cli: train: {cfg.n_iters} iterations in {fit_s:.3f} s "
+              f"(model build and loader start included), of which "
+              f"{sum(waits):.3f} s waiting for batches (by step: "
+              f"{json.dumps([round(w, 4) for w in waits])}); launches "
+              f"{json.dumps(launches)} ({masked} masked flash)", flush=True)
+        if on_card:
+            check(launches["flash_attention"] == LAUNCHES_PER_FORWARD * (
+                cfg.n_iters + forwards * n_evals),
+                f"{launches['flash_attention']} flash launches: expected "
+                f"{LAUNCHES_PER_FORWARD} a step and a padded forward")
+            check(masked == EVAL_MASKED_LAUNCHES * forwards * n_evals,
+                  f"{masked} masked flash launches")
+            check(launches["batched_hungarian"] == cfg.n_iters,
+                  "one matcher launch a step")
+            check(sum(launches[p] for p in PROBES) == 0, "the CLI launched "
+                  "a probe")
+        run = checkpoint_dir(cfg)
+        names = sorted(os.listdir(run))
+        check(names == sorted(
+            ["best_model.npz", "checkpoints", "config.json",
+             "eval_coco_style_metrics.json", "eval_metrics.json",
+             "final_model.npz", "latest_model.npz", "training_metrics.json"]
+            + [f"instance_predictions_{k:05d}.json"
+               for k in range(cfg.iter_eval, cfg.n_iters + 1,
+                              cfg.iter_eval)]),
+            f"the CLI wrote {names}")
+        check(sorted(os.listdir(os.path.join(run, "checkpoints"))) == [
+            f"step_{k}" for k in range(cfg.checkpoint_every, cfg.n_iters + 1,
+                                       cfg.checkpoint_every)],
+            "full checkpoints at 3 and 6")
+        logs = _read_jsonl(os.path.join(run, "training_metrics.json"))
+        check([r["num_iter"] for r in logs] == list(
+            range(cfg.iter_log, cfg.n_iters + 1, cfg.iter_log)),
+            "training_metrics.json's iterations")
+        check(all(np.isfinite(r["loss"]) for r in logs), f"losses {logs}")
+        evals = _read_jsonl(os.path.join(run, "eval_metrics.json"))
+        coco = _read_jsonl(os.path.join(run, "eval_coco_style_metrics.json"))
+        check(len(evals) == len(coco) == n_evals
+              and all("index error" not in c for c in coco),
+              f"evaluations: {evals} {coco}")
+        final = os.path.join(run, "final_model.npz")
+        with np.load(final) as f:
+            straight = {k: f[k] for k in f.files}
+        check(all(np.isfinite(v).all() for v in straight.values()),
+              "final_model.npz holds a non-finite parameter")
+
+        # the same evaluation with no loader thread beside it
+        model = cli_main.build_model(cfg, device, init=False)
+        model.load_state_dict(load_params_any(final), strict=True)
+        quiet_eval = Trainer(model, cli_main.build_text_embeddings(cfg),
+                             device=device).evaluate(model, val)
+        del model
+        print(f"cli: val: evaluation of the {len(val)} val JPEGs inside fit "
+              f"{json.dumps([e['eval_images_per_sec'] for e in evals])} "
+              f"img/s, after it with no loader thread running "
+              f"{quiet_eval['eval_images_per_sec']:.2f}", flush=True)
+
+        # the resumed run: drop step 6 and the final model, run again
+        os.remove(final)
+        shutil.rmtree(os.path.join(run, "checkpoints", f"step_{cfg.n_iters}"))
+        zero_counts()
+        t0 = time.perf_counter()
+        cli_main.main(args)
+        sync()
+        resume_s = time.perf_counter() - t0
+        resumed_launches, _ = read_counts()
+        resumed_steps = cfg.n_iters - cfg.checkpoint_every
+        if on_card:
+            check(resumed_launches["batched_hungarian"] == resumed_steps,
+                  f"the resumed run took {resumed_launches} launches")
+        logs_after = _read_jsonl(os.path.join(run, "training_metrics.json"))
+        check([r["num_iter"] for r in logs_after] == [
+            r["num_iter"] for r in logs] + [
+                k for k in range(cfg.checkpoint_every + 1, cfg.n_iters + 1)
+                if k % cfg.iter_log == 0],
+            f"the resumed run's logs: {[r['num_iter'] for r in logs_after]}")
+        with np.load(final) as f:
+            diff = max(float(np.abs(f[k] - v).max())
+                       for k, v in straight.items())
+        spread = trainer_stats.get("straight_spread", 0.0)
+        bound = RESUME_SPREAD_FACTOR * spread
+        print(f"cli: resume: restored from step {cfg.checkpoint_every}, "
+              f"{resumed_steps} steps in {resume_s:.3f} s; final parameters "
+              f"differ from the straight run's by {diff:.3e} (phase_trainer's "
+              f"straight runs: {spread:.3e})", flush=True)
+        check(diff <= bound if spread > 0 else diff == 0.0,
+              "the resumed CLI run left the straight runs' spread")
+
+        # the eval CLI on the trained weights, batched, depth 1 and 2
+        eval_rates, eval_launches = {}, {}
+        for depth in (1, 2):
+            zero_counts()
+            res = cli_eval.main([
+                "--p_config", str(cfg_fp), "--p_state_dict", final,
+                "--dir_dataset", str(paths["dir_20k"]),
+                "--dir_ckpt", str(root / f"eval_d{depth}"),
+                "--batch_images", str(CLI_BATCH_IMAGES),
+                "--pipeline_depth", str(depth), "--suffix", f"d{depth}",
+                "--device", str(device)])
+            sync()
+            eval_launches[depth], eval_masked = read_counts()
+            eval_rates[depth] = res["eval_images_per_sec"]
+            written = [os.path.join(dp, fn) for dp, _, fns in
+                       os.walk(root / f"eval_d{depth}") for fn in fns]
+            check(len(written) == 1 and written[0].endswith(
+                f"coco20k_metrics_vit_b_16_nms_hard_d{depth}.json"),
+                f"the eval CLI wrote {written}")
+            check(all(np.isfinite(res[k]) for k in ("AP", "AR_100")),
+                  f"the eval CLI's metrics: {res}")
+            if on_card:
+                check(eval_launches[depth]["flash_attention"]
+                      == LAUNCHES_PER_FORWARD * forwards
+                      and eval_masked == EVAL_MASKED_LAUNCHES * forwards,
+                      f"the eval CLI launched {eval_launches[depth]}")
+        print(f"cli: eval: coco20k_eval on {CLI_VAL_IMAGES} JPEGs, "
+              f"{json.dumps({f'depth {d}': r for d, r in eval_rates.items()})}"
+              f" img/s; AP {res['AP']:.4f}", flush=True)
+
+    rate = logs[-1]["iters_per_sec"]
+    out = dict(decoder=decoder, loader=loader, fit_s=fit_s,
+               loader_wait_s=waits,
+               fit_iters_per_sec=rate,
+               trainer_fit_iters_per_sec=trainer_stats.get(
+                   "fit_iters_per_sec"),
+               trainer_fit_s=trainer_stats.get("fit_s"),
+               train_step_its_per_sec=trainer_stats.get(
+                   "train_step_its_per_sec"),
+               fit_eval_images_per_sec=[e["eval_images_per_sec"]
+                                        for e in evals],
+               quiet_eval_images_per_sec=quiet_eval["eval_images_per_sec"],
+               eval_images_per_sec=eval_rates, launches=launches,
+               masked_launches=masked, resumed_launches=resumed_launches,
+               eval_launches=eval_launches, resume_max_diff=diff,
+               resume_s=resume_s, losses=[r["loss"] for r in logs],
+               peak_memory_gib=peak_gib, val_forwards_per_eval=forwards,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"cli rate: fit {rate:.3f} iters/s on batches from disk against "
+          f"{out['trainer_fit_iters_per_sec']} on synthetic batches "
+          f"(phase_trainer, same schedule; bare step "
+          f"{out['train_step_its_per_sec']} steps/s); loader "
+          f"{json.dumps(loader['loader_samples_per_s'])} samples/s by "
+          f"threads (a step takes {batch} samples); eval CLI "
+          f"{json.dumps(eval_rates)} img/s by depth; peak memory {peak_gib} "
+          f"GiB; phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     card, libs = phase_card()
     sass = sass_check(libs)
@@ -1931,6 +2424,8 @@ def main() -> None:
     print(f"train on {card}: {json.dumps(tr)}", flush=True)
     trainer = phase_trainer(tr)
     print(f"trainer on {card}: {json.dumps(trainer)}", flush=True)
+    cli = phase_cli(trainer)
+    print(f"cli on {card}: {json.dumps(cli)}", flush=True)
 
     def per_forward(key):
         return sum(r[key] * r["per_forward"] for r in rows)
@@ -1949,18 +2444,30 @@ def main() -> None:
         "route": "cuda",
         "source": "zutis_tpu_torch/csrc/flash_attention.cu",
         "replaces": "zutis_tpu/ops/flash_attention.py:53",
-        # the four main paths, each counted from 0: the serving forwards,
-        # the eval's padded forwards, the training steps and Trainer.fit
-        # (its steps and its evaluations' padded forwards)
+        # the main paths, each counted from 0: the serving forwards, the
+        # eval's padded forwards, the training steps, Trainer.fit (its
+        # steps and its evaluations' padded forwards), and the two CLIs on
+        # images from disk (the training CLI, its resumed run and the eval
+        # CLI at depth 1 and 2)
         "launches": (stats["launches"] + ev["launches"]
                      + tr["launches"]["flash_attention"]
-                     + trainer["launches"]["flash_attention"]),
+                     + trainer["launches"]["flash_attention"]
+                     + cli["launches"]["flash_attention"]
+                     + cli["resumed_launches"]["flash_attention"]
+                     + sum(e["flash_attention"]
+                           for e in cli["eval_launches"].values())),
         "launches_by_path": {"serving": stats["launches"],
                              "eval": ev["launches"],
                              "eval_masked": ev["masked_launches"],
                              "train": tr["launches"]["flash_attention"],
                              "trainer": trainer["launches"]["flash_attention"],
-                             "trainer_masked": trainer["masked_launches"]},
+                             "trainer_masked": trainer["masked_launches"],
+                             "cli_train": cli["launches"]["flash_attention"],
+                             "cli_train_masked": cli["masked_launches"],
+                             "cli_resumed": cli["resumed_launches"][
+                                 "flash_attention"],
+                             "cli_eval": {d: e["flash_attention"] for d, e in
+                                          cli["eval_launches"].items()}},
         "max_abs_err": max(max_err, ev["flash_max_abs_err"]),
         # times and bound: the 24 calls of one batch-8 forward at 384 px
         "ms": per_forward("ms"),
@@ -2025,12 +2532,17 @@ def main() -> None:
         "route": "cuda",
         "source": "zutis_tpu_torch/csrc/hungarian.cu",
         "replaces": "zutis_tpu/ops/hungarian.py:34",
-        # the training steps and Trainer.fit's, each counted from 0
+        # the training steps, Trainer.fit's and the training CLI's (and
+        # its resumed run's), each counted from 0
         "launches": (tr["launches"]["batched_hungarian"]
-                     + trainer["launches"]["batched_hungarian"]),
+                     + trainer["launches"]["batched_hungarian"]
+                     + cli["launches"]["batched_hungarian"]
+                     + cli["resumed_launches"]["batched_hungarian"]),
         "launches_by_path": {
             "train": tr["launches"]["batched_hungarian"],
-            "trainer": trainer["launches"]["batched_hungarian"]},
+            "trainer": trainer["launches"]["batched_hungarian"],
+            "cli_train": cli["launches"]["batched_hungarian"],
+            "cli_resumed": cli["resumed_launches"]["batched_hungarian"]},
         "max_abs_err": 0.0,  # col4row bit-equal to the plain version
         # one call on a training step's [48, 10, 100] costs
         "ms": matcher["ms"],

@@ -1,0 +1,422 @@
+"""The port's two CLIs (zutis_tpu_torch/cli/main.py, cli/coco20k_eval.py)
+and its model factory on the CPU, against the JAX package's on the tiny
+fixture of tests/fixture_helpers.py: training writes the JAX CLI's
+artifacts (no figures: the port does not visualise) and resumes from its
+newest full checkpoint; evaluating a JAX-written `.npz` gives the JAX CLI's
+`eval_metrics.json` and `eval_coco_style_metrics.json` (every score within
+1e-6, NaNs where JAX has NaNs); `coco20k_eval` gives the JAX CLI's
+predictions and metrics; `load_clip_visual` gives `load_clip_params`'s
+encoder on a synthetic CLIP-layout checkpoint; the refusals name their
+ROADMAP item."""
+import json
+import math
+import os
+
+import numpy as np
+import pytest
+import torch
+import yaml
+from PIL import Image
+
+from fixture_helpers import base_cli_cfg, dump_cfg, write_cli_fixture
+from zutis_tpu.cli import coco20k_eval as jax_coco20k
+from zutis_tpu.cli import main as jax_main
+from zutis_tpu.ops import rle as jax_rle
+from zutis_tpu_torch.cli import coco20k_eval, main as port_main
+from zutis_tpu_torch.core.config import Config
+from zutis_tpu_torch.models import factory
+
+SCORE_TOL = 1e-6
+TIMING_KEYS = {"timestamp", "eval_images_per_sec", "iters_per_sec",
+               "eval_images_per_sec_warm", "compile_seconds"}
+ARTIFACTS = {"config.json", "training_metrics.json", "eval_metrics.json",
+             "eval_coco_style_metrics.json", "instance_predictions_00003.json",
+             "latest_model.npz", "best_model.npz", "final_model.npz"}
+
+
+@pytest.fixture(scope="module")
+def fixture(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cli")
+    parts = write_cli_fixture(root, n_val_images=3)
+    return root, parts
+
+
+def _cfg(fixture, name, **overrides):
+    root, parts = fixture
+    cfg = base_cli_cfg(*parts, root / f"ckpt_{name}", **overrides)
+    return cfg, dump_cfg(cfg, root / f"{name}.yaml")
+
+
+def _run_dir(base):
+    found = [dp for dp, _, fns in os.walk(base) if "config.json" in fns]
+    assert len(found) == 1, found
+    return found[0]
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f.read().splitlines()]
+
+
+def _close(a, b):
+    if isinstance(a, float) and math.isnan(a):
+        return isinstance(b, float) and math.isnan(b)
+    return abs(a - b) <= SCORE_TOL
+
+
+def _assert_scores_close(got, want):
+    assert set(got) == set(want)
+    for k in set(want) - TIMING_KEYS:
+        assert _close(got[k], want[k]), (k, got[k], want[k])
+
+
+def test_train_three_iterations_writes_the_artifacts(fixture):
+    _, cfg_fp = _cfg(fixture, "train")
+    port_main.main(["--p_config", cfg_fp, "--device", "cpu"])
+    run = _run_dir(fixture[0] / "ckpt_train")
+    names = set(os.listdir(run))
+    assert names == ARTIFACTS, names  # no figures
+    logs = _jsonl(f"{run}/training_metrics.json")
+    assert [r["num_iter"] for r in logs] == [1, 2, 3]
+    assert {"num_iter", "loss", "Mean IoU", "Pixel Acc"} <= set(logs[0])
+    assert all(np.isfinite(r["loss"]) for r in logs)
+    assert _jsonl(f"{run}/eval_metrics.json")[0]["eval_images_per_sec"] > 0
+    with open(f"{run}/config.json") as f:
+        assert json.load(f)["n_iters"] == 3
+    # a second call finds final_model.npz and returns
+    assert port_main.main(["--p_config", cfg_fp, "--device", "cpu"]) is None
+
+
+def test_training_resumes_from_the_newest_checkpoint(fixture):
+    _, cfg_fp = _cfg(fixture, "resume", n_iters=4, iter_eval=4,
+                     checkpoint_every=2)
+    port_main.main(["--p_config", cfg_fp, "--device", "cpu"])
+    run = _run_dir(fixture[0] / "ckpt_resume")
+    with np.load(f"{run}/final_model.npz") as f:
+        straight = {k: f[k] for k in f.files}
+    assert sorted(os.listdir(f"{run}/checkpoints")) == ["step_2", "step_4"]
+    os.remove(f"{run}/final_model.npz")
+    os.remove(f"{run}/checkpoints/step_4/state.pt")
+    port_main.main(["--p_config", cfg_fp, "--device", "cpu"])
+    with np.load(f"{run}/final_model.npz") as f:
+        for k, v in straight.items():
+            np.testing.assert_array_equal(f[k], v, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def jax_npz(fixture):
+    import jax
+    import jax.numpy as jnp
+
+    from zutis_tpu.models.weights import export_zutis
+    from zutis_tpu.models.zutis import ZUTIS
+
+    cfg, _ = _cfg(fixture, "npz")
+    model = ZUTIS(**cfg["model_kwargs"])
+    params = jax.jit(model.init)(jax.random.PRNGKey(3),
+                                 jnp.zeros((1, 3, 32, 32)))["params"]
+    path = fixture[0] / "jax_model.npz"
+    np.savez(path, **export_zutis(params))
+    return str(path)
+
+
+def test_eval_from_a_jax_npz_gives_the_jax_clis_metrics(fixture, jax_npz):
+    _, cfg_jax = _cfg(fixture, "eval_jax")
+    _, cfg_port = _cfg(fixture, "eval_port")
+    jax_main.main(["--p_config", cfg_jax, "--p_state_dict", jax_npz])
+    port_main.main(["--p_config", cfg_port, "--p_state_dict", jax_npz,
+                    "--device", "cpu"])
+    run_jax = _run_dir(fixture[0] / "ckpt_eval_jax")
+    run_port = _run_dir(fixture[0] / "ckpt_eval_port")
+    for name in ("eval_metrics.json", "eval_coco_style_metrics.json"):
+        want, got = _jsonl(f"{run_jax}/{name}"), _jsonl(f"{run_port}/{name}")
+        assert len(got) == len(want) == 1
+        _assert_scores_close(got[0], want[0])
+
+
+@pytest.fixture(scope="module")
+def coco20k(fixture):
+    root = fixture[0] / "coco20k"
+    (root / "train2014").mkdir(parents=True)
+    (root / "annotations").mkdir()
+    rng = np.random.RandomState(3)
+    images, annotations = [], []
+    for img_id, (h, w) in zip((1, 2, 3, 4, 5),
+                              ((40, 40), (40, 40), (33, 47), (64, 48),
+                               (40, 40))):
+        arr = rng.randint(0, 255, (h, w, 3)).astype(np.uint8)
+        Image.fromarray(arr).save(root / "train2014" / f"{img_id:012d}.jpg")
+        m = np.zeros((h, w), np.uint8)
+        m[4:20, 5:25] = 1
+        images.append({"id": img_id, "height": h, "width": w,
+                       "file_name": f"{img_id:012d}.jpg"})
+        annotations.append({
+            "id": img_id, "image_id": img_id, "category_id": 1,
+            "segmentation": jax_rle.encode(m), "area": int(m.sum()),
+            "iscrowd": 0, "bbox": jax_rle.to_bbox(m)})
+    with open(root / "annotations" / "instances_train2014_sel20k.json",
+              "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": 1}, {"id": 2}]}, f)
+    return root
+
+
+def _sorted_preds(preds):
+    keyed = [(p["image_id"], -p["score"], p["category_id"],
+              p["segmentation"]["counts"]) for p in preds]
+    return sorted(keyed)
+
+
+@pytest.mark.parametrize("batch_images,depth", [(4, 1), (4, 2), (1, 1)])
+def test_coco20k_eval_gives_the_jax_clis_predictions(
+        fixture, jax_npz, coco20k, monkeypatch, tmp_path, batch_images,
+        depth):
+    from zutis_tpu.engine import coco_eval as jax_coco_eval
+    from zutis_tpu_torch.engine import coco_eval as port_coco_eval
+
+    _, cfg_fp = _cfg(fixture, "c20k")
+    seen_jax, seen_port = [], []
+
+    def recorder(cls, seen):
+        class Recording(cls):
+            def evaluate(self, predictions):
+                seen.extend(predictions)
+                return super().evaluate(predictions)
+        return Recording
+
+    monkeypatch.setattr(jax_coco_eval, "COCOEvaluator",
+                        recorder(jax_coco_eval.COCOEvaluator, seen_jax))
+    monkeypatch.setattr(port_coco_eval, "COCOEvaluator",
+                        recorder(port_coco_eval.COCOEvaluator, seen_port))
+    args = ["--p_config", cfg_fp, "--p_state_dict", jax_npz,
+            "--dir_dataset", str(coco20k), "--threshold", "0.3",
+            "--batch_images", str(batch_images)]
+    jax_coco20k.main(args + ["--dir_ckpt", str(tmp_path / "jax")])
+    got = coco20k_eval.main(args + ["--dir_ckpt", str(tmp_path / "port"),
+                                    "--pipeline_depth", str(depth),
+                                    "--device", "cpu"])
+    assert len(seen_port) == len(seen_jax) > 0
+    got_p, want_p = _sorted_preds(seen_port), _sorted_preds(seen_jax)
+    for (gi, gs, gc, gm), (wi, ws, wc, wm) in zip(got_p, want_p):
+        assert (gi, gc, gm) == (wi, wc, wm)
+        assert abs(gs - ws) <= SCORE_TOL
+    out = {}
+    for side in ("jax", "port"):
+        files = [os.path.join(dp, fn) for dp, _, fns in
+                 os.walk(tmp_path / side) for fn in fns]
+        assert len(files) == 1 and files[0].endswith(
+            "coco20k_metrics_vit_b_16_nms_hard.json"), files
+        with open(files[0]) as f:
+            out[side] = json.load(f)
+    assert set(out["port"]) == set(out["jax"])
+    _assert_scores_close(out["port"], out["jax"])
+    assert got["eval_images_per_sec"] > 0
+
+
+def test_coco20k_eval_refuses_visualise(fixture, jax_npz, coco20k):
+    _, cfg_fp = _cfg(fixture, "c20k_vis")
+    with pytest.raises(NotImplementedError, match="matplotlib"):
+        coco20k_eval.main(["--p_config", cfg_fp, "--p_state_dict", jax_npz,
+                           "--dir_dataset", str(coco20k),
+                           "--visualise_first", "1", "--device", "cpu"])
+
+
+# ------------------------------------------------------------ factory
+
+def _synthetic_clip(width=32, layers=2, patch=16, res=32, text_layers=1):
+    """A CLIP-layout state dict: the visual tower from a port encoder's
+    random parameters under `visual.`, and a small text tower."""
+    from zutis_tpu_torch.models.vit import CLIPViT
+
+    enc = CLIPViT(width=width, layers=layers, heads=2, patch_size=patch,
+                  output_dim=16, input_resolution=res, device="cpu")
+    enc.init_params(torch.Generator().manual_seed(11))
+    sd = {f"visual.{k}": v.clone().half() for k, v in
+          enc.state_dict().items()}
+    g = torch.Generator().manual_seed(12)
+    text = CLIPViT(width=width, layers=text_layers, heads=2,
+                   patch_size=patch, output_dim=16, input_resolution=res,
+                   device="cpu")
+    text.init_params(g)
+    for k, v in text.state_dict().items():
+        if k.startswith("transformer."):
+            sd[k] = v.clone().half()
+    sd["token_embedding.weight"] = torch.randn(50, width, generator=g).half()
+    sd["positional_embedding"] = torch.randn(8, width, generator=g).half()
+    sd["ln_final.weight"] = torch.ones(width).half()
+    sd["ln_final.bias"] = torch.zeros(width).half()
+    sd["text_projection"] = torch.randn(width, 16, generator=g).half()
+    sd["logit_scale"] = torch.tensor(4.6)
+    return sd
+
+
+class _Holder(torch.nn.Module):
+    """A scriptable module whose state dict is `sd` (as OpenAI's archives)."""
+
+    def __init__(self, sd):
+        super().__init__()
+        for key, v in sd.items():
+            mod = self
+            *path, leaf = key.split(".")
+            for part in path:
+                if not hasattr(mod, part):
+                    mod.add_module(part, torch.nn.Module())
+                mod = getattr(mod, part)
+            mod.register_parameter(leaf, torch.nn.Parameter(v,
+                                                            requires_grad=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+@pytest.mark.parametrize("archive", ["torchscript", "state_dict"])
+def test_load_clip_visual_equals_load_clip_params(tmp_path, archive):
+    import jax
+
+    from zutis_tpu.models.factory import load_clip_params
+    from zutis_tpu.models.zutis import ZUTIS as JaxZUTIS
+    from zutis_tpu_torch.models.weights import params_from_jax
+    from zutis_tpu_torch.models.zutis import ZUTIS
+
+    sd = _synthetic_clip()
+    path = tmp_path / "ViT-B-16.pt"
+    if archive == "torchscript":
+        torch.jit.save(torch.jit.script(_Holder(sd)), str(path))
+    else:
+        torch.save(sd, path)
+    kw = dict(width=32, encoder_layers=2, encoder_heads=2, patch_size=16,
+              text_dim=16, n_queries=4, n_decoder_layers=1, n_heads=2,
+              input_resolution=32)
+    model = ZUTIS(**kw, device="cpu")
+    assert factory.load_clip_visual(model, str(path)) is model
+    visual, _ = load_clip_params("ViT-B/16", str(tmp_path))
+    params = jax.jit(JaxZUTIS(**kw).init)(
+        jax.random.PRNGKey(0), np.zeros((1, 3, 32, 32), np.float32))["params"]
+    params = dict(params, encoder=visual)
+    want = {k: v for k, v in params_from_jax(params).items()
+            if k.startswith("encoder.")}
+    got = {f"encoder.{k}": v for k, v in model.encoder.state_dict().items()}
+    assert sorted(got) == sorted(want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
+def test_load_clip_visual_refuses_a_resnet_checkpoint(tmp_path):
+    path = tmp_path / "RN50.pt"
+    torch.save({"visual.conv1.weight": torch.zeros(2, 3, 3, 3)}, path)
+    model = factory.build_zutis("ViT-B/32", n_queries=2, n_decoder_layers=1,
+                                device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        factory.load_clip_visual(model, str(path))
+
+
+@pytest.mark.parametrize("arch", ["ViT-B/32", "ViT-B/16", "ViT-L/14",
+                                  "ViT-L/14@336px"])
+def test_factory_equals_jax(arch):
+    from zutis_tpu.models import factory as jax_factory
+
+    assert factory.normalize_clip_arch(arch) == \
+        jax_factory.normalize_clip_arch(arch)
+    assert factory.clip_spec(arch).__dict__ == \
+        jax_factory.clip_spec(arch).__dict__
+    for assets in ("assets", "/x/y"):
+        assert factory.clip_checkpoint_path(arch, assets) == \
+            jax_factory.clip_checkpoint_path(arch, assets)
+    spec = factory.clip_spec(arch)
+    with torch.device("meta"):
+        model = factory.build_zutis(arch, device="cpu")
+    assert model.width == spec.width
+    assert len(model.encoder.transformer.resblocks) == spec.layers
+    assert model.encoder.proj.shape == (spec.width, spec.embed_dim)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(clip_arch="RN50"), "item 7"),
+    (dict(clip_arch="dilatedRN101"), "item 7"),
+    (dict(encoder_type="dino"), "item 7"),
+    (dict(tome_r=8), "item 5"),
+    (dict(decoder_pool=2), "item 5"),
+    (dict(stop_gradient=False), "stop"),
+])
+def test_factory_refusals(kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        factory.build_zutis(**{"device": "cpu", **kw})
+
+
+# ------------------------------------------------- text embeddings, refusals
+
+def test_text_embeddings_from_the_npz_and_the_jax_cache(fixture, tmp_path):
+    cfg, cfg_fp = _cfg(fixture, "text")
+    port_cfg = Config.load(cfg_fp)
+    with np.load(cfg["text_embeddings_npz"]) as f:
+        want = f["embeddings"]
+    np.testing.assert_array_equal(port_main.build_text_embeddings(port_cfg),
+                                  want)
+    # the JAX CLI's cache file, with no override
+    cfg2 = dict(cfg, clip_assets_dir=str(tmp_path))
+    cfg2.pop("text_embeddings_npz")
+    fp = dump_cfg(cfg2, tmp_path / "cache.yaml")
+    port_cfg = Config.load(fp)
+    cache = port_main.text_embeddings_cache_path(port_cfg)
+    assert os.path.basename(cache).startswith("text_emb_ViT-B_16_3cat_")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        port_main.build_text_embeddings(port_cfg)
+    emb = np.random.default_rng(0).normal(size=(3, 16)).astype(np.float32)
+    np.savez(cache, embeddings=emb,
+             categories=np.array(cfg2["categories"], dtype=object))
+    from zutis_tpu.core.config import Config as JaxConfig
+
+    np.testing.assert_array_equal(
+        port_main.build_text_embeddings(port_cfg),
+        np.asarray(jax_main.build_text_embeddings(JaxConfig.load(fp))))
+
+
+@pytest.mark.parametrize("overrides,match", [
+    (dict(mesh_axes={"data": 2, "model": 1}), "item 6"),
+    (dict(visualise=True), "matplotlib"),
+    (dict(category_to_p_images_fp="MISSING_PM"), "item 8"),
+    (dict(clip_arch="RN50", model_kwargs=None), "item 7"),
+])
+def test_cli_refusals(fixture, tmp_path, overrides, match):
+    if overrides.get("category_to_p_images_fp") == "MISSING_PM":
+        # the category cache names an image with no pseudo-mask
+        fp = tmp_path / "cats" / "category_to_p_images.json"
+        fp.parent.mkdir()
+        fp.write_text(json.dumps({"square": [str(tmp_path / "new.jpg")]}))
+        overrides = dict(overrides, category_to_p_images_fp=str(fp))
+    cfg, _ = _cfg(fixture, "refuse", **overrides)
+    cfg = {k: v for k, v in cfg.items() if v is not None}
+    cfg["dir_ckpt"] = str(tmp_path / "ckpt")
+    fp = dump_cfg(cfg, tmp_path / "refuse.yaml")
+    with pytest.raises(NotImplementedError, match=match):
+        port_main.main(["--p_config", fp, "--device", "cpu"])
+
+
+def test_mesh_axes_of_one_device_train(fixture):
+    _, cfg_fp = _cfg(fixture, "mesh1", mesh_axes={"data": 1, "model": 1},
+                     n_iters=1, iter_eval=1)
+    port_main.main(["--p_config", cfg_fp, "--device", "cpu"])
+    assert "final_model.npz" in os.listdir(
+        _run_dir(fixture[0] / "ckpt_mesh1"))
+
+
+@pytest.mark.parametrize("name,want", [("highest", "highest"),
+                                       ("float32", "highest"),
+                                       ("high", "high"),
+                                       ("default", "medium")])
+def test_matmul_precision_extra(fixture, tmp_path, name, want):
+    cfg, _ = _cfg(fixture, "prec", matmul_precision=name)
+    fp = dump_cfg(cfg, tmp_path / "prec.yaml")
+    before = torch.get_float32_matmul_precision()
+    try:
+        port_main.set_matmul_precision(Config.load(fp))
+        assert torch.get_float32_matmul_precision() == want
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
+def test_yaml_of_the_fixture_reads_the_same_in_both_configs(fixture):
+    cfg, fp = _cfg(fixture, "yaml")
+    with open(fp) as f:
+        assert yaml.safe_load(f) == cfg
+    assert Config.load(fp).extras["model_kwargs"] == cfg["model_kwargs"]

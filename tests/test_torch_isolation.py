@@ -62,14 +62,31 @@ TRAINER_SLICE = ("zutis_tpu_torch.native",
                  "zutis_tpu_torch.engine.trainer")
 
 
+# the data slice's modules: the image library and decoder, the resampler,
+# augmentations, datasets, the ViT factory and the two CLIs
+DATA_SLICE = ("zutis_tpu_torch.native.image",
+              "zutis_tpu_torch.data.image_io",
+              "zutis_tpu_torch.data.transforms",
+              "zutis_tpu_torch.data.augment",
+              "zutis_tpu_torch.data.advanced_copy_paste",
+              "zutis_tpu_torch.data.index_dataset",
+              "zutis_tpu_torch.data.imagenet_index",
+              "zutis_tpu_torch.data.pseudo_masks",
+              "zutis_tpu_torch.data.datasets",
+              "zutis_tpu_torch.models.factory",
+              "zutis_tpu_torch.cli.main",
+              "zutis_tpu_torch.cli.coco20k_eval")
+
+
 def test_port_imports_without_jax_flax_pil_or_zutis_tpu():
     proc = _run(_PROBE.replace('print("imported", len(names))',
                                'print(*names)\nprint("imported", len(names))'))
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 28, proc.stdout
+    assert n >= 40, proc.stdout
     assert set(EVAL_SLICE) <= set(proc.stdout.split()), proc.stdout
     assert set(TRAINER_SLICE) <= set(proc.stdout.split()), proc.stdout
+    assert set(DATA_SLICE) <= set(proc.stdout.split()), proc.stdout
 
 
 @pytest.mark.parametrize("name", ["cv2", "matplotlib", "yaml"])

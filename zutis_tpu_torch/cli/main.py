@@ -1,0 +1,285 @@
+"""Train/eval entry point (the port of zutis_tpu/cli/main.py).
+
+  python -m zutis_tpu_torch.cli.main --p_config configs/<cfg>.yaml \
+      [--p_state_dict weights.{npz,pt}] [--debug] [--seed N] \
+      [--weight_ce_loss W] [--suffix S] [--device cuda]
+
+With --p_state_dict: evaluate on the config's validation dataset. Without:
+train on the index dataset (retrieved images + pseudo-masks + copy-paste
+synthesis) with periodic evaluation, as the JAX CLI does, on one card. The
+checkpoint directory, `config.json`, the artifacts and the resume from the
+newest full-state checkpoint (`checkpoint_every`) are the JAX CLI's.
+
+What the port does not do yet, and raises on:
+  - text embeddings without the `text_embeddings_npz` extra or the JAX
+    package's cache file (`text_emb_<arch>_<n>cat_<hash>.npz` in
+    `clip_assets_dir`): the tokenizer and the text tower are ROADMAP.md,
+    queue 1, item 7, as are the RN archs and the DINO encoder;
+  - missing pseudo-masks: SelfMask and the bilateral solver are item 8,
+    as is retrieval without the category_to_p_images cache;
+  - `mesh_axes` over more than one device: the parallel layer is item 6;
+  - `visualise`: the JAX CLI defaults it to True and renders figures with
+    matplotlib, which the port does not use; here it defaults to False and
+    a config that sets it raises.
+The `matmul_precision` extra ("highest", "high", "default", and JAX's
+other names) sets `torch.set_float32_matmul_precision` for the process:
+"highest" keeps float32 matrix products in full float32 (TF32 off, the
+port's default), "high" allows TF32, "default" allows bf16 passes. It acts
+on float32 products only; a bfloat16 `compute_dtype` is unaffected.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+from argparse import ArgumentParser
+
+import numpy as np
+
+# JAX's precision names -> torch.set_float32_matmul_precision's
+MATMUL_PRECISION = {"highest": "highest", "float32": "highest",
+                    "high": "high", "tensorfloat32": "high",
+                    "bfloat16_3x": "high", "default": "medium",
+                    "bfloat16": "medium", "fastest": "medium"}
+
+
+def set_matmul_precision(cfg) -> None:
+    name = cfg.extras.get("matmul_precision")
+    if not name:
+        return
+    import torch
+
+    if name not in MATMUL_PRECISION:
+        raise ValueError(f"matmul_precision {name!r} not in "
+                         f"{sorted(MATMUL_PRECISION)}")
+    torch.set_float32_matmul_precision(MATMUL_PRECISION[name])
+
+
+def text_embeddings_cache_path(cfg) -> str:
+    """The JAX CLI's cache file for the config's category list."""
+    cat_hash = hashlib.sha1(
+        "\x00".join(cfg.categories).encode()).hexdigest()[:10]
+    return os.path.join(
+        cfg.clip_assets_dir or ".",
+        f"text_emb_{cfg.clip_arch.replace('/', '_')}_"
+        f"{len(cfg.categories)}cat_{cat_hash}.npz")
+
+
+def build_text_embeddings(cfg) -> np.ndarray:
+    """Per-category CLIP text embeddings [n_categories, text_dim] float32:
+    from the `text_embeddings_npz` extra ("embeddings"), else from the JAX
+    CLI's cache file when it holds this category list. Computing them needs
+    the tokenizer and the text tower, which are not ported yet."""
+    override = cfg.extras.get("text_embeddings_npz")
+    if override:
+        with np.load(override) as f:
+            return np.asarray(f["embeddings"], np.float32)
+    cache_fp = text_embeddings_cache_path(cfg)
+    if os.path.exists(cache_fp):
+        with np.load(cache_fp, allow_pickle=True) as f:
+            if list(f["categories"]) == list(cfg.categories):
+                return np.asarray(f["embeddings"], np.float32)
+    raise NotImplementedError(
+        f"no text embeddings: set the text_embeddings_npz extra or write "
+        f"{cache_fp} with the JAX package; the CLIP tokenizer and text "
+        "tower are not ported yet (ROADMAP.md, queue 1, item 7)")
+
+
+def build_model(cfg, device, seed: int = 0, init: bool = True):
+    """The config's ZUTIS on `device`, with seeded random parameters if
+    `init` (the `model_kwargs` extra builds an explicit architecture)."""
+    import torch
+
+    from zutis_tpu_torch.models.factory import build_zutis
+    from zutis_tpu_torch.models.zutis import ZUTIS
+
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    model_kwargs = cfg.extras.get("model_kwargs")
+    if model_kwargs:
+        # explicit architecture override (tiny models in tests)
+        model = ZUTIS(dtype=dtype, device=device, **model_kwargs)
+    else:
+        model = build_zutis(cfg.clip_arch, stop_gradient=cfg.stop_gradient,
+                            dtype=dtype, encoder_type=cfg.encoder_type,
+                            tome_r=int(cfg.extras.get("tome_r", 0)),
+                            decoder_pool=int(cfg.extras.get("decoder_pool", 1)),
+                            device=device)
+    if init:
+        model.init_params(torch.Generator().manual_seed(seed))
+    return model
+
+
+def check_single_device(cfg) -> None:
+    n_mesh = 1
+    for size in (cfg.mesh_axes or {}).values():
+        n_mesh *= int(size)
+    if n_mesh > 1:
+        raise NotImplementedError(
+            f"mesh_axes {cfg.mesh_axes} spans {n_mesh} devices: the parallel "
+            "layer is not ported yet (ROADMAP.md, queue 1, item 6); drop "
+            "mesh_axes to train on one card")
+
+
+def ensure_pseudo_masks(missing) -> None:
+    """The JAX CLI generates missing pseudo-masks with SelfMask; the port
+    cannot yet."""
+    if missing:
+        raise NotImplementedError(
+            f"{len(missing)} pseudo-masks missing (first: {missing[0]}): "
+            "SelfMask and the bilateral solver are not ported yet "
+            "(ROADMAP.md, queue 1, item 8); generate them with the JAX "
+            "package")
+
+
+def build_index_dataset(cfg, seed: int):
+    from zutis_tpu_torch.data.index_dataset import (
+        IndexDataset,
+        load_category_to_p_images,
+    )
+    from zutis_tpu_torch.data.pseudo_masks import pseudo_mask_path
+
+    if cfg.index_dataset_name == "imagenet":
+        from zutis_tpu_torch.data.imagenet_index import ImageNet1KDataset
+
+        dataset = ImageNet1KDataset(
+            dir_dataset=cfg.dir_train_dataset[0],
+            categories=cfg.categories,
+            ignore_index=cfg.ignore_index,
+            category_to_p_images_fp=cfg.category_to_p_images_fp,
+            n_images=cfg.n_images,
+            image_size=cfg.train_image_size,
+            use_advanced_copy_paste=cfg.use_advanced_copy_paste,
+            seed=seed,
+        )
+        ensure_pseudo_masks(dataset.missing_pseudo_masks())
+        return dataset
+    category_to_p_images = load_category_to_p_images(
+        cfg.category_to_p_images_fp)
+    dir_pseudo = os.path.join(
+        os.path.dirname(cfg.category_to_p_images_fp) or ".", "pseudo_masks")
+    all_images = [p for ps in category_to_p_images.values() for p in ps]
+    p_image_to_p_pseudo_mask = {
+        p: pseudo_mask_path(dir_pseudo, p) for p in all_images}
+    ensure_pseudo_masks([p for p, pm in p_image_to_p_pseudo_mask.items()
+                         if not os.path.exists(pm)])
+    return IndexDataset(
+        categories=cfg.categories,
+        category_to_p_images=category_to_p_images,
+        p_image_to_p_pseudo_mask=p_image_to_p_pseudo_mask,
+        image_size=cfg.train_image_size,
+        ignore_index=cfg.ignore_index,
+        scale_range=cfg.scale_range,
+        random_duplicate=cfg.random_duplicate,
+        seed=seed,
+        use_advanced_copy_paste=cfg.use_advanced_copy_paste,
+    )
+
+
+def main(argv=None):
+    parser = ArgumentParser("zutis-tpu-torch")
+    parser.add_argument("--p_config", type=str, required=True)
+    parser.add_argument("--p_state_dict", type=str, default="")
+    parser.add_argument("--debug", "-d", action="store_true")
+    parser.add_argument("--seed", "-s", default=0, type=int)
+    parser.add_argument("--weight_ce_loss", type=float, default=1.0)
+    parser.add_argument("--suffix", type=str, default="")
+    parser.add_argument("--max_eval_images", type=int, default=None)
+    parser.add_argument("--profile_dir", type=str, default="",
+                        help="write a torch.profiler trace of train steps "
+                             "10-20 here")
+    parser.add_argument("--device", type=str, default="cuda")
+    args = parser.parse_args(argv)
+
+    from zutis_tpu_torch.core.checkpoint import (
+        latest_step_dir,
+        load_params_any,
+        restore_train_state,
+    )
+    from zutis_tpu_torch.core.config import Config, checkpoint_dir
+    from zutis_tpu_torch.core.device import resolve_device
+    from zutis_tpu_torch.data.datasets import get_eval_dataset
+    from zutis_tpu_torch.data.index_dataset import batch_iterator
+    from zutis_tpu_torch.engine.train_step import TrainState
+    from zutis_tpu_torch.engine.trainer import Trainer
+    from zutis_tpu_torch.models.factory import (
+        clip_checkpoint_path,
+        load_clip_visual,
+    )
+
+    device = resolve_device(args.device)
+    cfg = Config.load(
+        args.p_config, p_state_dict=args.p_state_dict, debug=args.debug,
+        seed=args.seed, weight_ce_loss=args.weight_ce_loss,
+        suffix=args.suffix,
+    )
+    if cfg.extras.get("visualise"):
+        raise NotImplementedError(
+            "visualise: the JAX CLI's figures need matplotlib, which the "
+            "port does not use; drop the key")
+    dir_ckpt = checkpoint_dir(cfg)
+    if (os.path.exists(f"{dir_ckpt}/final_model.npz")
+            and not args.p_state_dict):
+        print(f"final model already exists at {dir_ckpt}/final_model.npz")
+        return
+    os.makedirs(dir_ckpt, exist_ok=True)
+    cfg.to_json(f"{dir_ckpt}/config.json")
+    set_matmul_precision(cfg)
+
+    model = build_model(cfg, device, seed=args.seed,
+                        init=not args.p_state_dict)
+    text_embeddings = build_text_embeddings(cfg)
+    val_dataset = get_eval_dataset(
+        cfg.dataset_name, cfg.dir_val_dataset, split=cfg.split,
+        n_categories=cfg.n_categories
+        if cfg.dataset_name == "imagenet-s" else None,
+    )
+    trainer = Trainer(model, text_embeddings, dir_ckpt=dir_ckpt,
+                      debug=args.debug, device=device)
+
+    if args.p_state_dict:
+        model.load_state_dict(load_params_any(args.p_state_dict), strict=True)
+        scores = trainer.evaluate(model, val_dataset, num_iter=0,
+                                  max_images=args.max_eval_images)
+        print(json.dumps(scores, indent=2))
+        return scores
+
+    # ---- training path ----
+    check_single_device(cfg)
+    dataset = build_index_dataset(cfg, args.seed)
+    batch_size = cfg.train_dataloader_kwargs.get("batch_size", 8)
+    if not cfg.extras.get("skip_pretrained"):
+        load_clip_visual(model, clip_checkpoint_path(cfg.clip_arch,
+                                                     cfg.clip_assets_dir))
+    # reference base lr 5e-5 (utils/utils.py:179-192); test/diagnosis
+    # configs may override through the extras
+    state = TrainState.create(model,
+                              base_lr=float(cfg.extras.get("base_lr", 5e-5)),
+                              n_iters=cfg.n_iters)
+    # preemption resume: restore the newest full-state checkpoint and
+    # fast-forward the deterministic (seed, step) batch pipeline to it
+    ckpt_base = os.path.join(dir_ckpt, "checkpoints")
+    resume_dir = latest_step_dir(ckpt_base)
+    if resume_dir is not None:
+        restore_train_state(resume_dir, state)
+        print(f"resumed train state from {resume_dir} (step {state.step})")
+    batches = batch_iterator(dataset, batch_size, seed=args.seed,
+                             start_step=state.step, device=device)
+    try:
+        trainer.fit(
+            state, batches, n_iters=cfg.n_iters,
+            n_categories=val_dataset.n_categories,
+            ignore_index=cfg.ignore_index,
+            weight_ce_loss=args.weight_ce_loss,
+            iter_eval=cfg.iter_eval, iter_log=cfg.iter_log,
+            val_dataset=val_dataset,
+            checkpoint_every=cfg.checkpoint_every or None,
+            checkpoint_dir=ckpt_base,
+            profile_dir=args.profile_dir or None,
+        )
+    finally:
+        batches.close()  # stops the producer thread
+    return state
+
+
+if __name__ == "__main__":
+    main()

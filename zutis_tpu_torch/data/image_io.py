@@ -1,0 +1,140 @@
+"""Image files to numpy arrays without Pillow: the port's counterpart of
+`Image.open(p).convert("RGB")` and of `np.array(Image.open(png))`.
+
+JPEG decoding and PNG unfiltering run in the native library
+(`native/image.cc`), inflate in `zlib`; both give Pillow's pixels bit for
+bit (tests/test_torch_image_io.py, tests/test_torch_image_fixtures.py).
+
+Supported:
+  JPEG: Huffman-coded, 8-bit; baseline, extended sequential and
+    progressive; restart intervals; grayscale, YCbCr (any integral
+    sampling; h2v1, h1v2 and h2v2 upsampled as libjpeg-turbo's "fancy"
+    filter), RGB (Adobe transform 0) and Adobe CMYK.
+  PNG: non-interlaced; bit depth 8 for gray, gray + alpha, RGB, RGBA and
+    palette; bit depth 1 for gray (returned as bool, as Pillow's mode "1")
+    and palette (returned as indices).
+Everything else (arithmetic coding, lossless, 12-bit, YCCK, truncated
+streams; Adam7, 16-bit and 2- or 4-bit PNGs; other formats) raises
+ValueError naming the file.
+"""
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+from typing import Union
+
+import numpy as np
+
+from zutis_tpu_torch.native import image as native_image
+
+PathLike = Union[str, os.PathLike]
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _read(path: PathLike) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _png_chunks(data: bytes, path):
+    pos = len(PNG_SIGNATURE)
+    while pos < len(data):
+        if pos + 8 > len(data):
+            raise ValueError(f"{path}: truncated PNG chunk header")
+        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise ValueError(f"{path}: truncated PNG chunk {ctype!r}")
+        if zlib.crc32(ctype + body) != struct.unpack(">I", crc)[0]:
+            raise ValueError(f"{path}: broken PNG chunk {ctype!r} (CRC)")
+        yield ctype, body
+        pos += 12 + length
+        if ctype == b"IEND":
+            return
+    raise ValueError(f"{path}: truncated PNG stream (no IEND)")
+
+
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def decode_png(data: bytes, path="<bytes>", rgb: bool = False) -> np.ndarray:
+    """A PNG stream -> np.array(Image.open(f)) (rgb=False: uint8 [H, W] for
+    gray and palette indices, bool for 1-bit gray, [H, W, C] otherwise) or
+    Image.open(f).convert("RGB") (rgb=True)."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError(f"{path}: not a PNG file")
+    header, palette, idat = None, None, []
+    for ctype, body in _png_chunks(data, path):
+        if ctype == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif ctype == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = header
+    if interlace:
+        raise ValueError(f"{path}: interlaced (Adam7) PNG is not supported")
+    if ctype not in _PNG_CHANNELS:
+        raise ValueError(f"{path}: PNG colour type {ctype} is invalid")
+    if depth == 16:
+        raise ValueError(f"{path}: 16-bit PNG is not supported")
+    if depth != 8 and not (depth == 1 and ctype in (0, 3)):
+        raise ValueError(f"{path}: PNG bit depth {depth} with colour type "
+                         f"{ctype} is not supported")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{path}: palette PNG without PLTE")
+    try:
+        native_image.check_pixels(h, w)
+    except ValueError as exc:
+        raise ValueError(f"{path}: {exc}") from None
+    channels = _PNG_CHANNELS[ctype]
+    rowbytes = (w * channels * depth + 7) // 8
+    try:
+        raw = zlib.decompress(b"".join(idat))
+        rows = native_image.png_unfilter(raw, h, rowbytes,
+                                         channels * depth // 8)
+    except (zlib.error, ValueError) as exc:
+        raise ValueError(f"{path}: corrupt or truncated PNG data: {exc}") \
+            from None
+    if depth == 1:
+        px = np.unpackbits(rows, axis=1)[:, :w]
+        arr = px.astype(bool) if ctype == 0 else px
+    elif channels == 1:
+        arr = rows
+    else:
+        arr = rows.reshape(h, w, channels)
+    if not rgb:
+        return arr
+    if ctype == 3:
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(palette)] = palette[:256]
+        return lut[arr]
+    if ctype == 0:
+        gray = arr.astype(np.uint8) * 255 if depth == 1 else arr
+        return np.repeat(gray[..., None], 3, axis=2)
+    if ctype == 4:
+        return np.repeat(arr[..., :1], 3, axis=2)
+    return np.ascontiguousarray(arr[..., :3])
+
+
+def read_rgb(path: PathLike) -> np.ndarray:
+    """`np.asarray(Image.open(path).convert("RGB"))` for a JPEG or PNG
+    file: [H, W, 3] uint8."""
+    data = _read(path)
+    if data[:2] == b"\xff\xd8":
+        try:
+            return native_image.decode_jpeg_rgb(data)
+        except ValueError as exc:
+            raise ValueError(f"{path}: {exc}") from None
+    if data.startswith(PNG_SIGNATURE):
+        return decode_png(data, path, rgb=True)
+    raise ValueError(f"{path}: neither a JPEG nor a PNG file")
+
+
+def read_png(path: PathLike) -> np.ndarray:
+    """`np.array(Image.open(path))` for a PNG file."""
+    return decode_png(_read(path), path)

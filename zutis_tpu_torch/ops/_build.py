@@ -28,7 +28,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # report registers, shared memory and spills
 )
-HOST_FLAGS = ("-O2", "-shared", "-fPIC")
+# no fused multiply-add: the image library reproduces other libraries'
+# float arithmetic operation by operation
+HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-ffp-contract=off")
 
 _loaded: dict[Path, ctypes.CDLL] = {}
 _lock = threading.Lock()
