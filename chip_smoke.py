@@ -92,31 +92,53 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
      rate, the eval's img/s, a checkpoint's bytes and write and restore
      seconds, peak memory.
 
-  9. The two CLIs on images from disk (`phase_cli`): every committed
-     fixture image (tests/torch_fixtures) through the port's JPEG/PNG
-     decoder, held to Pillow's pinned SHA-256; a fixture dataset built in
-     a temporary directory from the committed JPEGs (24 training images
-     of 500 x 375 over 4 categories with RLE pseudo-masks and the
-     category_to_p_images JSON, a coco2017-layout val set of 16 images
-     with polygon annotations, an 81 x 512 text-embedding .npz); the
-     loader's IndexDataset.sample ms and batch_iterator samples/s at 1, 2
-     and os.cpu_count() threads, and a COCO2017Dataset item's ms;
-     `zutis_tpu_torch.cli.main.main` on the
-     shipped config with the Trainer's cuts, skip_pretrained and the
-     embeddings (6 iterations of batch 8 at 384 px from the JPEGs, logs at
-     2, 4, 6, evaluations of the 16 val JPEGs and full checkpoints at 3
-     and 6), every launch count set to 0 before and read after (24 flash
-     launches a step and a padded forward, 18 of those masked, one
-     matcher launch a step, no probe) and the seconds it waited for
-     batches, its artifacts, the same evaluation again with no loader
-     thread running, and the run resumed from step 3 against the straight
-     one; `cli.coco20k_eval.main` on the
+  9. Retrieval at full width (`phase_retrieval`): a synthetic merges
+     file of CLIP's size (48,894 merges learned from the 80 COCO names and
+     the 85 templates, then padded; vocabulary 49,408, EOT 49,407) and the
+     6,800 COCO prompts tokenized on the host; prompt_engineered_embeddings
+     from the ViT-L/14@336px text tower (f32, 27 batches of 256, no flash
+     launch: the causal mask takes the "torch" path), its first and last
+     batch against a CPU rerun; plain_category_embeddings of the 81
+     training categories from the ViT-B/16 tower, saved as a synthetic
+     OpenAI-layout checkpoint; extract_image_embeddings at ViT-L/14@336px
+     over the committed fixtures (92 images, batch 32) in f32 and bf16, 24
+     flash launches a batch, f32 against the "torch" path,
+     decode + preprocess per image on the host against encode per batch on
+     the card, projected to ImageNet-train + PASS; flash at
+     [32,16,577,577,64] f32 and bf16 against its plain version, timed
+     beside SDPA and its bound; an ImageNet-layout and a PASS archive of
+     fixture photos with their banks (PASS.ensure_bank), combined_retrieval
+     and ImageNet1KDataset with no cache, each JSON read back equal; top-500
+     at full bank size on seeded banks made on the card (80 categories over
+     2,721,167 x 768, 919 over 1,281,167 x 768), ms, peak memory and both
+     bounds, 4 categories of each against a CPU rerun. Every launch count
+     is set to 0 before the text tower, each bank and the library path's
+     banks, and read after: flash as stated, the probes and the matcher 0.
+ 10. The two CLIs on images from disk (`phase_cli`), fed by phase 9:
+     every committed fixture image (tests/torch_fixtures) through the
+     port's JPEG/PNG decoder, held to Pillow's pinned SHA-256; pseudo-masks
+     for every bank image beside the category_to_p_images JSON that
+     combined_retrieval wrote, and a coco2017-layout val set of 16
+     committed JPEGs with polygon annotations; the loader's
+     IndexDataset.sample ms and batch_iterator samples/s at 1, 2 and
+     os.cpu_count() threads, and a COCO2017Dataset item's ms;
+     `zutis_tpu_torch.cli.main.main` on the shipped config with the
+     Trainer's cuts and skip_pretrained, its text embeddings computed from
+     the synthetic checkpoint and merges file into the JAX CLI's cache file
+     (equal to phase 9's), 6 iterations of batch 8 at 384 px from the
+     JPEGs, logs at 2, 4, 6, evaluations of the 16 val JPEGs and full
+     checkpoints at 3 and 6, every launch count set to 0 before and read
+     after (24 flash launches a step and a padded forward, 18 of those
+     masked, one matcher launch a step, no probe) and the seconds it
+     waited for batches, its artifacts, the same evaluation again with no
+     loader thread running, and the run resumed from step 3 (which reads
+     the cache) against the straight one; `cli.coco20k_eval.main` on the
      trained final_model.npz, batched at depth 1 and 2. Prints the decode
      ms, the loader's rates, fit's iters/s beside phase_trainer's, the
      eval CLI's img/s and peak memory.
 
 Prints the kernel record (flash's launches on the main paths, its eval
-shapes, the matcher's) and the card on lines of their own,
+and retrieval shapes, the matcher's) and the card on lines of their own,
 then, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
 no result line, on any failure or without a card.
 """
@@ -129,6 +151,7 @@ import hashlib
 import io
 import json
 import os
+import pickle
 import pstats
 import re
 import shutil
@@ -265,6 +288,26 @@ TOL_PADDED_F32 = 1e-4
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def counted_wrappers() -> dict:
+    """Every wrapper that counts its kernel's launches, by kernel name."""
+    return {"flash_attention": fa.flash_attention,
+            "batched_hungarian": hg.batched_hungarian,
+            **{name: w for name, (w, _, _) in PROBES.items()}}
+
+
+def zero_counts() -> None:
+    """Every wrapper's launch count, and flash's masked count, set to 0."""
+    for w in counted_wrappers().values():
+        w.launches = 0
+    fa.flash_attention.masked_launches = 0
+
+
+def read_counts() -> tuple:
+    """({kernel name: launches since zero_counts}, flash's masked ones)."""
+    return ({n: w.launches for n, w in counted_wrappers().items()},
+            fa.flash_attention.masked_launches)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1530,11 +1573,8 @@ def phase_train(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
         if on_card:
             torch.cuda.synchronize()
 
-    counted = {"flash_attention": fa.flash_attention,
-               "batched_hungarian": hg.batched_hungarian,
-               **{name: w for name, (w, _, _) in PROBES.items()}}
-    for w in counted.values():
-        w.launches = 0
+    counted = counted_wrappers()
+    zero_counts()
     losses, step_ms, per_step = [], [], []
     for _ in range(steps + 1):  # the first warms up
         before = {n: w.launches for n, w in counted.items()}
@@ -1800,9 +1840,6 @@ def phase_trainer(train_stats: dict, model_cfg: dict = VIT_B16,
             if on_card:
                 torch.cuda.set_sync_debug_mode("default")
 
-    counted = {"flash_attention": fa.flash_attention,
-               "batched_hungarian": hg.batched_hungarian,
-               **{name: w for name, (w, _, _) in PROBES.items()}}
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as root:
@@ -1814,16 +1851,13 @@ def phase_trainer(train_stats: dict, model_cfg: dict = VIT_B16,
         if on_card:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(device)
-        for w in counted.values():
-            w.launches = 0
-        fa.flash_attention.masked_launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         fit(trainer, state_a, iter_eval=cfg.iter_eval, val_dataset=val,
             checkpoint_every=cfg.checkpoint_every, checkpoint_dir=ckpt)
         sync()
         fit_s = time.perf_counter() - t0
-        launches = {n: w.launches for n, w in counted.items()}
-        masked = fa.flash_attention.masked_launches
+        launches, masked = read_counts()
         peak_gib = (torch.cuda.max_memory_allocated(device) / 2 ** 30
                     if on_card else None)
         n_evals = cfg.n_iters // cfg.iter_eval
@@ -2018,33 +2052,26 @@ def _polygon(rng, h: int, w: int) -> list:
     return [float(v) for xy in zip(xs, ys) for v in xy]
 
 
-def build_cli_fixture(root: Path) -> dict:
-    """On disk under `root`, from the committed JPEGs: the training archive
-    (24 images over 4 categories, ImageNet-sized), their RLE pseudo-masks
-    and category_to_p_images JSON; a coco2017-layout val set of 16 images
-    with polygon annotations and the same images in the coco20k layout; an
-    81 x 512 text-embedding .npz."""
+def build_cli_fixture(root: Path, retrieval: dict) -> dict:
+    """On disk under `root`, beside phase_retrieval's files: RLE
+    pseudo-masks for every image of the retrieval banks, where the
+    training CLI looks for them (beside the category_to_p_images JSON that
+    combined_retrieval wrote); a coco2017-layout val set of 16 committed
+    JPEGs with polygon annotations and the same images in the coco20k
+    layout."""
+    from zutis_tpu_torch.data.image_io import read_rgb
     from zutis_tpu_torch.data.pseudo_masks import pseudo_mask_path
 
     rng = np.random.default_rng(2026)
     photos = sorted(FIXTURES.glob("photo_*_420_q75.jpg"))
     largest = FIXTURES / "largest_640x480_422_q80_progressive.jpg"
-    dir_train = root / "archive" / "train"
-    dir_cache = root / "index_dataset"
-    dir_pm = dir_cache / "pseudo_masks"
-    dir_pm.mkdir(parents=True)
-    cat_to_paths = {}
-    for ci, cat in enumerate(CLI_CATEGORIES):
-        (dir_train / cat).mkdir(parents=True)
-        cat_to_paths[cat] = []
-        for i in range(CLI_PER_CATEGORY):
-            p = dir_train / cat / f"{cat}_{i}.jpg"
-            shutil.copyfile(photos[(ci * CLI_PER_CATEGORY + i) % len(photos)], p)
-            with open(pseudo_mask_path(str(dir_pm), str(p)), "w") as f:
-                json.dump(rle.encode(_ellipse(rng, 375, 500)), f)
-            cat_to_paths[cat].append(str(p))
-    cat_fp = dir_cache / "category_to_p_images.json"
-    cat_fp.write_text(json.dumps(cat_to_paths))
+    library = retrieval["library"]
+    dir_pm = library["cat_fp"].parent / "pseudo_masks"
+    dir_pm.mkdir()
+    for p in library["images"]:
+        h, w = read_rgb(p).shape[:2]
+        with open(pseudo_mask_path(str(dir_pm), p), "w") as f:
+            json.dump(rle.encode(_ellipse(rng, h, w)), f)
 
     dir_val, dir_20k = root / "coco2017", root / "coco20k"
     for d in (dir_val / "val2017", dir_val / "annotations",
@@ -2075,29 +2102,31 @@ def build_cli_fixture(root: Path) -> dict:
         json.dumps(gt))
     (dir_20k / "annotations" / "instances_train2014_sel20k.json").write_text(
         json.dumps(gt))
-    emb_fp = root / "text_embeddings.npz"
-    np.savez(emb_fp, embeddings=eval_bench.text_embeddings(81, 512, seed=6))
-    return {"cat_fp": cat_fp, "dir_train": dir_train, "dir_val": dir_val,
-            "dir_20k": dir_20k, "emb_fp": emb_fp,
+    return {"cat_fp": library["cat_fp"], "dir_train": library["dir_train"],
+            "banks": library["banks"], "assets_dir": retrieval["assets_dir"],
+            "dir_val": dir_val, "dir_20k": dir_20k,
             "val_sizes": [(im["height"], im["width"]) for im in images]}
 
 
 def cli_config(root: Path, paths: dict, model_kwargs=None,
                image_size: int = 0) -> Path:
     """The shipped config with the Trainer cell's cuts (TRAINER_SCHEDULE,
-    mesh_axes dropped), skip_pretrained and the embeddings .npz, pointed at
-    the fixture; `model_kwargs` and `image_size` shrink it for a rehearsal
+    mesh_axes dropped) and skip_pretrained, pointed at the fixture: the
+    retrieval's banks and category JSON, and its assets directory (the
+    synthetic ViT-B/16 checkpoint and merges file) for the text
+    embeddings; `model_kwargs` and `image_size` shrink it for a rehearsal
     on the CPU."""
     from zutis_tpu_torch.core.config import parse_yaml
 
     raw = parse_yaml(TRAINER_CONFIG.read_text())
     raw.pop("mesh_axes")
     raw.update(dir_ckpt=str(root / "ckpt"),
-               dir_train_dataset=[str(paths["dir_train"])],
+               dir_train_dataset=[str(d) for d in paths["dir_train"]],
+               p_filename_to_image_embedding=paths["banks"],
                dir_val_dataset=str(paths["dir_val"]),
                category_to_p_images_fp=str(paths["cat_fp"]),
-               skip_pretrained=True, text_embeddings_npz=str(paths["emb_fp"]),
-               **TRAINER_SCHEDULE)
+               clip_assets_dir=str(paths["assets_dir"]),
+               skip_pretrained=True, **TRAINER_SCHEDULE)
     if model_kwargs:
         raw.update(model_kwargs=model_kwargs, train_image_size=image_size)
     fp = root / "cli.yaml"
@@ -2173,17 +2202,20 @@ def loader_waits():
         index_dataset.batch_iterator = real
 
 
-def phase_cli(trainer_stats: dict, device="cuda", model_kwargs=None,
-              image_size: int = 0) -> dict:
-    """The two CLIs on images from disk. The decoder against Pillow's
-    pinned hashes; the loader's rates; `cli.main.main` training 6
-    iterations of the shipped config (logs at 2, 4, 6; evaluations of the
-    16 val JPEGs and full checkpoints at 3 and 6) with every launch count
-    set to 0 before and read after, its artifacts, and the run resumed from
-    step 3 against the straight one; `cli.coco20k_eval.main` on the trained
-    final_model.npz, batched at depth 1 and 2. `model_kwargs` and
-    `image_size` shrink the model for a rehearsal on the CPU, where the
-    card's checks are left out."""
+def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
+              model_kwargs=None, image_size: int = 0) -> dict:
+    """The two CLIs on images from disk, fed by phase_retrieval. The
+    decoder against Pillow's pinned hashes; the loader's rates over the
+    images combined_retrieval chose; `cli.main.main` training 6 iterations
+    of the shipped config (logs at 2, 4, 6; evaluations of the 16 val JPEGs
+    and full checkpoints at 3 and 6) with every launch count set to 0
+    before and read after, its text embeddings computed from the synthetic
+    ViT-B/16 checkpoint into the JAX CLI's cache file (equal to
+    phase_retrieval's), its artifacts, and the run resumed from step 3
+    (which reads the cache) against the straight one;
+    `cli.coco20k_eval.main` on the trained final_model.npz, batched at
+    depth 1 and 2. `model_kwargs` and `image_size` shrink the model for a
+    rehearsal on the CPU, where the card's checks are left out."""
     from zutis_tpu_torch.cli import coco20k_eval as cli_eval
     from zutis_tpu_torch.cli import main as cli_main
     from zutis_tpu_torch.core.config import checkpoint_dir
@@ -2193,18 +2225,6 @@ def phase_cli(trainer_stats: dict, device="cuda", model_kwargs=None,
     device = torch.device(device)
     on_card = device.type == "cuda"
     decoder = check_fixture_decodes()
-    counted = {"flash_attention": fa.flash_attention,
-               "batched_hungarian": hg.batched_hungarian,
-               **{name: w for name, (w, _, _) in PROBES.items()}}
-
-    def zero_counts():
-        for w in counted.values():
-            w.launches = 0
-        fa.flash_attention.masked_launches = 0
-
-    def read_counts():
-        return ({n: w.launches for n, w in counted.items()},
-                fa.flash_attention.masked_launches)
 
     def sync():
         if on_card:
@@ -2214,7 +2234,7 @@ def phase_cli(trainer_stats: dict, device="cuda", model_kwargs=None,
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         root = Path(tmp)
-        paths = build_cli_fixture(root)
+        paths = build_cli_fixture(root, retrieval)
         cfg_fp = cli_config(root, paths, model_kwargs, image_size)
         cfg = Config.load(str(cfg_fp))
         check(cfg.extras.get("skip_pretrained") and not cfg.mesh_axes
@@ -2262,6 +2282,20 @@ def phase_cli(trainer_stats: dict, device="cuda", model_kwargs=None,
         launches, masked = read_counts()
         peak_gib = (torch.cuda.max_memory_allocated(device) / 2 ** 30
                     if on_card else None)
+        # the text embeddings the CLI computed and cached
+        cache_fp = cli_main.text_embeddings_cache_path(cfg)
+        check(os.path.exists(cache_fp), f"the CLI wrote no {cache_fp}")
+        cache_mtime = os.stat(cache_fp).st_mtime_ns
+        with np.load(cache_fp, allow_pickle=True) as f:
+            check(list(f["categories"]) == list(cfg.categories),
+                  "the cache's categories")
+            text_diff = float(np.abs(f["embeddings"]
+                                     - retrieval["head_embeddings"]).max())
+        print(f"cli: text: {os.path.basename(cache_fp)} written from the "
+              f"synthetic checkpoint; {len(cfg.categories)} embeddings "
+              f"differ from phase_retrieval's by {text_diff:.3e}", flush=True)
+        check(text_diff <= 1e-6, "the CLI's text embeddings differ from the "
+              "same tower's in phase_retrieval")
         print(f"cli: train: {cfg.n_iters} iterations in {fit_s:.3f} s "
               f"(model build and loader start included), of which "
               f"{sum(waits):.3f} s waiting for batches (by step: "
@@ -2311,7 +2345,8 @@ def phase_cli(trainer_stats: dict, device="cuda", model_kwargs=None,
         # the same evaluation with no loader thread beside it
         model = cli_main.build_model(cfg, device, init=False)
         model.load_state_dict(load_params_any(final), strict=True)
-        quiet_eval = Trainer(model, cli_main.build_text_embeddings(cfg),
+        quiet_eval = Trainer(model,
+                             cli_main.build_text_embeddings(cfg, device),
                              device=device).evaluate(model, val)
         del model
         print(f"cli: val: evaluation of the {len(val)} val JPEGs inside fit "
@@ -2328,6 +2363,8 @@ def phase_cli(trainer_stats: dict, device="cuda", model_kwargs=None,
         sync()
         resume_s = time.perf_counter() - t0
         resumed_launches, _ = read_counts()
+        check(os.stat(cache_fp).st_mtime_ns == cache_mtime,
+              "the resumed run rewrote the text-embedding cache")
         resumed_steps = cfg.n_iters - cfg.checkpoint_every
         if on_card:
             check(resumed_launches["batched_hungarian"] == resumed_steps,
@@ -2409,6 +2446,567 @@ def phase_cli(trainer_stats: dict, device="cuda", model_kwargs=None,
     return out
 
 
+# ------------------------------------------------------------- retrieval
+
+CLIP_MERGES = 48894  # CLIP's merges: 512 byte units + 48,894 + SOT, EOT
+CLIP_VOCAB = 49408
+
+
+def synthetic_merges(texts, n_merges: int = CLIP_MERGES) -> list:
+    """A deterministic BPE merges table: the merges learned from `texts`
+    (byte units split by CLIP's regex, the most frequent pair first, ties
+    by the pair), then padded with unique merges of the non-ASCII byte
+    units up to `n_merges`, so that the vocabulary has CLIP's size."""
+    from itertools import count, product
+
+    from zutis_tpu_torch.data import tokenizer as T
+
+    units = T.bytes_to_unicode()
+    words = {}
+    for text in texts:
+        clean = T.whitespace_clean(T.basic_clean(text)).lower()
+        for tok in re.findall(T._PAT, clean):
+            w = [units[b] for b in tok.encode("utf-8")]
+            key = tuple(w[:-1] + [w[-1] + "</w>"])
+            words[key] = words.get(key, 0) + 1
+    merges = []
+    while len(merges) < n_merges:
+        pairs = {}
+        for w, c in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] = pairs.get(pair, 0) + c
+        if not pairs:
+            break
+        best = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))[0]
+        merges.append(best)
+        merged = {}
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i < len(w) - 1 and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] = merged.get(tuple(out), 0) + c
+        words = merged
+    seen = set(merges)
+    tokens = {a + b for a, b in merges}
+    high = [units[b] for b in range(128, 256)]
+
+    def pads():
+        for a, b in product(high, high):
+            yield a, b
+            yield a, b + "</w>"
+        for n in count():
+            yield high[n % 128] + high[n // 128 % 128], high[n // 16384 % 128]
+    for pair in pads():
+        if len(merges) >= n_merges:
+            break
+        if pair not in seen and "".join(pair) not in tokens:
+            seen.add(pair)
+            tokens.add("".join(pair))
+            merges.append(pair)
+    return merges
+
+
+def write_merges(path, merges) -> None:
+    """`merges` as CLIP's bpe_simple_vocab file: gzip, a version header."""
+    import gzip
+
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+        f.write("".join(f"{a} {b}\n" for a, b in merges))
+
+
+RETRIEVAL_ARCH = "ViT-L/14@336px"  # the retrieval towers (SURVEY step 1)
+HEAD_ARCH = "ViT-B/16"  # the shipped config's clip_arch: the head's text
+BANK_ENCODER = dict(width=1024, layers=24, heads=16, patch_size=14,
+                    output_dim=768, input_resolution=336)
+BANK_BATCH = 32
+BANK_COPIES = 4  # each committed fixture image under 4 names: 92
+BANK_FLASH_SHAPE = (32, 16, 577, 577, 64)  # encode_image's attention
+IMAGENET_TRAIN_ROWS = 1_281_167
+PASS_ROWS = 1_440_000
+TOPK_K = 500  # n_images of the shipped configs
+TOPK_BANKS = {  # name -> (categories, bank rows)
+    "coco": (80, IMAGENET_TRAIN_ROWS + PASS_ROWS),
+    "imagenet-s": (919, IMAGENET_TRAIN_ROWS),
+}
+TOPK_SHARED = 4096  # last rows that copy the first: images both archives hold
+TOPK_CHECKED = 4  # categories of each bank held against a CPU rerun
+TOL_TOPK = 1e-5  # a swap's two scores may differ by this much (f32, d 768)
+TOL_TEXT = 1e-4  # the tower on the card against the CPU, of the largest |x|
+TOL_BANK_TORCH = 1e-3  # unit-norm f32 embeddings, flash against "torch"
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# flash's f32 path: each product is three bf16 tensor-core MMAs on hi/lo
+# splits (csrc/flash_attention.cu), so a third of the bf16 peak
+PEAK_F32_FLASH_FLOPS = kernel_tune.PEAK_BF16_FLOPS / 3
+LIBRARY_IMAGES = 16  # fixture photos in each archive of the library path
+LIBRARY_WNIDS = ("n00000001", "n00000002", "n00000003", "n00000004")
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _seconds(fn, device):
+    """(fn(), host seconds including a device synchronise)."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def flash_only_launches(what: str) -> int:
+    """Flash's launches since zero_counts; fails if any other counted
+    kernel (the probes, the matcher) launched: retrieval runs none."""
+    launches, _ = read_counts()
+    others = {n: c for n, c in launches.items()
+              if n != "flash_attention" and c}
+    check(not others, f"{what} launched {others}: retrieval runs flash only")
+    return launches["flash_attention"]
+
+
+def retrieval_tokenizer(path: Path):
+    """The synthetic CLIP-sized merges file at `path`, learned from the 80
+    COCO names and the 85 templates, and its tokenizer."""
+    from zutis_tpu_torch.data.category_lists import COCO81_CATEGORIES
+    from zutis_tpu_torch.data.tokenizer import CLIPTokenizer
+    from zutis_tpu_torch.retrieval.prompts import PROMPT_TEMPLATES
+
+    write_merges(path, synthetic_merges(list(COCO81_CATEGORIES[1:])
+                                        + PROMPT_TEMPLATES))
+    tok = CLIPTokenizer.from_file(str(path))
+    check(len(tok.encoder) == CLIP_VOCAB and tok.eot_id == CLIP_VOCAB - 1
+          and tok.sot_id == CLIP_VOCAB - 2,
+          f"the synthetic vocabulary: {len(tok.encoder)} entries, EOT "
+          f"{tok.eot_id}")
+    return tok
+
+
+def bank_flash(gen) -> list:
+    """Flash at encode_image's shape as the ViT passes it ([b, s, h, d]
+    views), f32 and bf16, against its plain version (of the largest
+    |output|: 1e-4 f32, 8e-3 bf16); times beside the plain version, SDPA
+    and the bound at the rate of the path the kernel takes (bf16: 989
+    TFLOP/s; f32: 989 / 3, its three bf16 MMAs a product)."""
+    b, h, sq, sk, d = BANK_FLASH_SHAPE
+    rows = []
+    for dtype, tol, peak in ((torch.float32, TOL_F32, PEAK_F32_FLASH_FLOPS),
+                             (torch.bfloat16, TOL_FLASH_BF16,
+                              kernel_tune.PEAK_BF16_FLOPS)):
+        name = str(dtype)[6:]
+        q, k, v = _inputs(gen, b, h, sq, sk, d, dtype, strided=True)
+        before = fa.flash_attention.launches
+        got = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        check(fa.flash_attention.launches == before + 1,
+              "bank flash: no launch")
+        want = fa.flash_attention_reference(q.float(), k.float(), v.float())
+        err = (got.float() - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        del got, want
+        print(f"kernel check bank {[b, h, sq, sk, d]} {name}: max_abs_err "
+              f"{err:.3e} max_rel_err {rel:.3e} (tol {tol} rel)", flush=True)
+        check(rel <= tol, f"bank flash {name} disagrees with its plain "
+              "version")
+        flops = 4 * b * h * sq * sk * d
+        nbytes = q.element_size() * 4 * b * h * sq * d
+        t_ops = flops / peak * 1e3
+        t_bytes = nbytes / kernel_tune.PEAK_BYTES * 1e3
+        row = dict(name=f"bank encoder self {name}", shape=[b, h, sq, sk, d],
+                   dtype=name, per_forward=BANK_ENCODER["layers"],
+                   max_abs_err=err, max_rel_err=rel,
+                   ms=cuda_ms(lambda: fa.flash_attention(q, k, v)),
+                   plain_ms=cuda_ms(
+                       lambda: fa.flash_attention_reference(q, k, v),
+                       calls=3, reps=5, warmup=1),
+                   library_ms=cuda_ms(
+                       lambda: F.scaled_dot_product_attention(q, k, v),
+                       calls=3, reps=5, warmup=1),
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   peak_flops=peak)
+        rows.append(row)
+        print(f"kernel time bank {[b, h, sq, sk, d]} {name}: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}; operations at {peak / 1e12:.1f} "
+              f"TFLOP/s, bytes at {kernel_tune.PEAK_BYTES / 1e12} TB/s), "
+              f"{row['bound_ms'] / row['ms']:.1%} of bound", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _topk_swaps(idx, idx_cpu, vals_cpu, bank_cpu, text_cpu) -> int:
+    """Positions where the card's top-k differs from the CPU's; fails
+    unless each such pair scores within TOL_TOPK of each other (on the
+    CPU) and each index found in one list only scores within TOL_TOPK of
+    the k-th value."""
+    swaps = 0
+    for c in range(len(idx)):
+        a, b = idx[c], idx_cpu[c]
+        sa, sb = bank_cpu[a] @ text_cpu[c], bank_cpu[b] @ text_cpu[c]
+        moved = a != b
+        swaps += int(moved.sum())
+        check(bool(((sa - sb).abs()[moved] <= TOL_TOPK).all()),
+              f"top-k category {c}: a swap across scores more than "
+              f"{TOL_TOPK} apart")
+        only = torch.tensor(sorted(set(a.tolist()) ^ set(b.tolist())),
+                            dtype=torch.int64)
+        if len(only):
+            s = bank_cpu[only] @ text_cpu[c]
+            check(bool(((s - vals_cpu[c, -1]).abs() <= TOL_TOPK).all()),
+                  f"top-k category {c}: an image away from the k-th score "
+                  "in one list only")
+    return swaps
+
+
+def time_topk(name, text, n_rows, device, seed) -> dict:
+    """Top-k over a seeded unit-norm bank of `n_rows` x 768 made on the
+    device, its last TOPK_SHARED rows copies of its first (images both
+    archives hold); ms, peak memory and bounds; the first TOPK_CHECKED
+    categories against a CPU rerun."""
+    from zutis_tpu_torch.retrieval.bank import topk_local
+
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bank = torch.randn(n_rows, text.shape[1], generator=gen, device=device)
+    bank /= torch.linalg.vector_norm(bank, dim=1, keepdim=True)
+    shared = min(TOPK_SHARED, n_rows // 4)
+    bank[n_rows - shared:] = bank[:shared]
+    _sync(device)
+    peak = None
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    vals, idx = topk_local(text, bank, TOPK_K)
+    _sync(device)
+    if on_card:
+        peak = torch.cuda.max_memory_allocated(device) - base
+    ms = host_ms(lambda: topk_local(text, bank, TOPK_K), device, reps=5,
+                 warmup=1)
+    c, dim = text.shape
+    t_bytes = 4 * n_rows * dim / kernel_tune.PEAK_BYTES * 1e3
+    t_ops = 2 * c * n_rows * dim / PEAK_F32_FLOPS * 1e3
+    bank_cpu, text_cpu = bank.cpu(), text[:TOPK_CHECKED].cpu()
+    vals_cpu, idx_cpu = topk_local(text_cpu, bank_cpu, TOPK_K)
+    swaps = _topk_swaps(idx[:TOPK_CHECKED].cpu(), idx_cpu, vals_cpu,
+                        bank_cpu, text_cpu)
+    check(bool(torch.isfinite(vals).all()) and int(idx.min()) >= 0,
+          f"top-k {name}: non-finite scores or missing rows")
+    ties = int((vals[:, 1:] == vals[:, :-1]).sum())
+    out = dict(categories=c, rows=n_rows, k=TOPK_K, ms=ms,
+               bank_bytes=4 * n_rows * dim, sims_bytes=4 * c * n_rows,
+               peak_bytes_over_bank=peak, bound_bytes_ms=t_bytes,
+               bound_f32_ops_ms=t_ops, equal_neighbours=ties,
+               cpu_checked=TOPK_CHECKED, cpu_swaps=swaps)
+    print(f"retrieval: top-{TOPK_K} {name}: {c} categories over {n_rows} x "
+          f"{dim} in {ms:.3f} ms (bounds: bank bytes {t_bytes:.3f} ms, "
+          f"f32 product {t_ops:.3f} ms at 67 TFLOP/s); peak "
+          f"{None if peak is None else round(peak / 2 ** 30, 3)} GiB over "
+          f"the {4 * n_rows * dim / 2 ** 30:.3f} GiB bank; "
+          f"{TOPK_CHECKED} categories against a CPU rerun: {swaps} swaps, "
+          f"each within {TOL_TOPK} of its pair or of the k-th score; "
+          f"{ties} equal neighbours in the lists", flush=True)
+    del bank, bank_cpu
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def library_path(root: Path, encoder, text: dict, device) -> dict:
+    """The retrieval library at a small size: an ImageNet-layout archive
+    and a PASS archive of fixture photos, their banks from the port's
+    encoder (extract_image_embeddings; PASS.ensure_bank on encode_images),
+    combined_retrieval over both with no cache (CLI_PER_CATEGORY images
+    for each CLI category) and ImageNet1KDataset retrieving with no cache;
+    each JSON cache written and read back equal."""
+    from functools import partial
+
+    from zutis_tpu_torch.data.imagenet_index import (
+        PASS,
+        ImageNet1KDataset,
+        combined_retrieval,
+        imagenet_filename_to_path,
+    )
+    from zutis_tpu_torch.retrieval.image_embeddings import (
+        encode_images,
+        extract_image_embeddings,
+    )
+
+    photos = sorted(FIXTURES.glob("photo_*_420_q75.jpg"))
+    dir_in, dir_pass = root / "ImageNet2012", root / "pass"
+    paths = []
+    for i in range(LIBRARY_IMAGES):
+        wnid = LIBRARY_WNIDS[i % len(LIBRARY_WNIDS)]
+        p = dir_in / "train" / wnid / f"{wnid}_{i}.JPEG"
+        p.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(photos[i % len(photos)], p)
+        paths.append(str(p))
+        q = dir_pass / "images" / str(i % 2) / f"pass_{i}.jpg"
+        q.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(photos[(i + 2) % len(photos)], q)
+    zero_counts()
+    bank = extract_image_embeddings(paths, encoder, batch_size=BANK_BATCH)
+    bank_in = dir_in / "filename_to_ViT_L_14_336px_train_img_embedding.pkl"
+    with open(bank_in, "wb") as f:
+        pickle.dump({os.path.basename(p): e for p, e in bank.items()}, f)
+    pass_ = PASS(str(dir_pass))
+    pass_.ensure_bank(partial(encode_images, visual_encoder=encoder),
+                      batch_size=BANK_BATCH)
+    launches = flash_only_launches("the library path's banks")
+    cat_fp = root / "index_dataset" / "category_to_p_images.json"
+    cat_fp.parent.mkdir()
+    wanted = {c: text[c] for c in CLI_CATEGORIES}
+    resolvers = [lambda fn: imagenet_filename_to_path(str(dir_in), fn),
+                 lambda fn: os.path.join(pass_.dir_images, fn)]
+    fps = [str(bank_in), pass_.bank_fp]
+    got = combined_retrieval(wanted, fps, resolvers, CLI_PER_CATEGORY,
+                             cache_fp=str(cat_fp), device=device)
+    check(json.loads(cat_fp.read_text()) == got and combined_retrieval(
+        {}, fps, resolvers, cache_fp=str(cat_fp)) == got,
+        "combined_retrieval's cache JSON reads back unequal")
+    check(all(len(v) == CLI_PER_CATEGORY for v in got.values()),
+          f"combined_retrieval: {got}")
+    in_fp = root / "imagenet_category_to_p_images.json"
+    categories = ["background", *CLI_CATEGORIES]
+    ds = ImageNet1KDataset(str(dir_in), categories,
+                           category_to_p_images_fp=str(in_fp),
+                           cat_to_text_embedding=wanted, n_images=3,
+                           device=device)
+    again = ImageNet1KDataset(str(dir_in), categories,
+                              category_to_p_images_fp=str(in_fp))
+    check(json.loads(in_fp.read_text()) == ds.category_to_p_images
+          == again.category_to_p_images,
+          "ImageNet1KDataset's cache JSON reads back unequal")
+    from_pass = sum(p.startswith(pass_.dir_images) for v in got.values()
+                    for p in v)
+    print(f"retrieval: library: banks of {len(paths)} ImageNet-layout and "
+          f"{len(pass_.image_paths())} PASS fixture photos ({launches} flash "
+          f"launches); combined_retrieval gave {CLI_PER_CATEGORY} images to "
+          f"each of {list(got)} ({from_pass} from PASS); ImageNet1KDataset "
+          f"retrieved {len(ds.p_images)} images; both JSON caches written "
+          f"and read back equal", flush=True)
+    images = sorted(set(paths) | set(pass_.image_paths()))
+    return dict(cat_fp=cat_fp, images=images, launches=launches,
+                dir_train=[dir_in / "train", dir_pass / "images"],
+                banks=fps, from_pass=from_pass)
+
+
+def phase_retrieval(root: Path, device="cuda", text_tower=None,
+                    bank_encoder: dict = BANK_ENCODER,
+                    topk_banks: dict = TOPK_BANKS) -> dict:
+    """The retrieval stage at full width, its files under `root`: the
+    tokenizer on a CLIP-sized synthetic merges file; prompt-engineered
+    embeddings of the 80 COCO categories from the ViT-L/14@336px text
+    tower (27 batches of 256, no flash launch: the causal mask takes the
+    "torch" path), its first and last batch against a CPU rerun; the 81
+    training categories' plain embeddings from the ViT-B/16 tower, whose
+    weights go into a synthetic OpenAI-layout checkpoint for phase_cli;
+    the image bank at ViT-L/14@336px over the committed fixtures (92
+    images, batch 32) in f32 and bf16, 24 flash launches a batch, f32
+    against the "torch" path, the host's and the card's share; flash at
+    [32,16,577,577,64] against its plain version; the library path
+    (`library_path`); top-k at full bank size (`time_topk`). `text_tower`
+    (a CLIPTextEncoder), `bank_encoder` and `topk_banks` shrink it for a
+    rehearsal on the CPU, where the card's checks and times are left
+    out."""
+    from zutis_tpu_torch.data.category_lists import COCO81_CATEGORIES
+    from zutis_tpu_torch.models import factory
+    from zutis_tpu_torch.models.vit import CLIPViT
+    from zutis_tpu_torch.retrieval import image_embeddings as IE
+    from zutis_tpu_torch.retrieval import text_embeddings as TE
+    from zutis_tpu_torch.retrieval.prompts import PROMPT_TEMPLATES
+
+    t_phase = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    out = {}
+    assets = root / "assets"
+    assets.mkdir(parents=True)
+    tok, out["merges_s"] = _seconds(
+        lambda: retrieval_tokenizer(assets / "bpe_simple_vocab_16e6.txt.gz"),
+        "cpu")
+    coco80 = list(COCO81_CATEGORIES[1:])
+    prompts = [t.format(c) for c in coco80 for t in PROMPT_TEMPLATES]
+    ids, out["tokenize_s"] = _seconds(lambda: tok.tokenize(prompts), "cpu")
+    check(ids.shape == (len(prompts), 77) and int(ids.max()) == tok.eot_id,
+          f"tokens {ids.shape}")
+
+    # the retrieval text tower: 6,800 prompts, 27 batches of 256
+    if text_tower is None:
+        text_tower = factory.build_text_encoder(RETRIEVAL_ARCH, device=device)
+    text_tower.init_params(torch.Generator().manual_seed(21))
+    zero_counts()
+    pe, out["prompt_engineered_s"] = _seconds(
+        lambda: TE.prompt_engineered_embeddings(text_tower, tok, coco80),
+        device)
+    check(flash_only_launches("the text tower") == 0,
+          "the text tower launched flash: its causal bias must take the "
+          "torch path")
+    check(list(pe) == coco80 and all(
+        abs(float(np.linalg.norm(e)) - 1.0) < 1e-5 for e in pe.values()),
+        "prompt-engineered embeddings: not 80 unit vectors")
+    n_batches = -(-len(prompts) // 256)
+    batch0 = torch.from_numpy(ids[:256])
+    with torch.no_grad():
+        out["text_batch_ms"] = host_ms(lambda: text_tower(batch0), device,
+                                       reps=5, warmup=1)
+    if on_card:
+        cpu_tower = factory.build_text_encoder(RETRIEVAL_ARCH, device="cpu")
+        cpu_tower.load_state_dict(text_tower.state_dict())
+        errs = []
+        with torch.no_grad():
+            for sl in (slice(0, 256), slice((n_batches - 1) * 256, None)):
+                got = text_tower(ids[sl]).cpu()
+                want = cpu_tower(ids[sl])
+                errs.append(float((got - want).abs().max()
+                                  / want.abs().max()))
+        del cpu_tower
+        out["text_cpu_max_rel_err"] = max(errs)
+        check(max(errs) <= TOL_TEXT, f"the text tower on the card against "
+              f"the CPU: {errs} (tol {TOL_TEXT} of the largest |output|)")
+    print(f"retrieval: text: synthetic merges ({CLIP_MERGES}, vocabulary "
+          f"{len(tok.encoder)}, EOT {tok.eot_id}) in {out['merges_s']:.2f} "
+          f"s; {len(prompts)} prompts tokenized in {out['tokenize_s']:.2f} "
+          f"s; prompt_engineered_embeddings of {len(coco80)} categories "
+          f"({n_batches} batches of 256) in "
+          f"{out['prompt_engineered_s']:.3f} s, {out['text_batch_ms']:.3f} "
+          f"ms a batch of 256 on the tower alone; first and last batch "
+          f"against the CPU: max rel err {out.get('text_cpu_max_rel_err')} "
+          f"(tol {TOL_TEXT}); flash launches 0", flush=True)
+
+    # the head's plain embeddings at ViT-B/16's width, and the checkpoint
+    # that phase_cli's training CLI computes them from
+    head = factory.build_text_encoder(HEAD_ARCH, device=device)
+    head.init_params(torch.Generator().manual_seed(22))
+    with torch.no_grad():
+        for p in head.parameters():  # as the fp16 checkpoint holds them
+            p.copy_(p.half().float())
+    out["head_embeddings"] = TE.plain_category_embeddings(
+        head, tok, list(COCO81_CATEGORIES))
+    check(out["head_embeddings"].shape == (81, 512),
+          f"plain embeddings {out['head_embeddings'].shape}")
+    torch.save({k: v.half().cpu() for k, v in head.state_dict().items()},
+               assets / (HEAD_ARCH.replace("/", "-") + ".pt"))
+    del head
+
+    # the image bank: every fixture under BANK_COPIES names, 3 batches
+    bank_dir = root / "bank_images"
+    bank_dir.mkdir()
+    paths = []
+    for n in range(BANK_COPIES):
+        for src in sorted(FIXTURES.glob("*.*g")):
+            dst = bank_dir / f"{n}_{src.name}"
+            shutil.copyfile(src, dst)
+            paths.append(str(dst))
+    n_bank_batches = -(-len(paths) // BANK_BATCH)
+    enc = CLIPViT(**bank_encoder, device=device)
+    enc.init_params(torch.Generator().manual_seed(23))
+    enc_bf16 = CLIPViT(**bank_encoder, dtype=torch.bfloat16, device=device)
+    enc_bf16.load_state_dict(enc.state_dict())
+    banks, launches = {}, {}
+    for name, e in (("f32", enc), ("bf16", enc_bf16)):
+        zero_counts()
+        banks[name], out[f"bank_{name}_s"] = _seconds(
+            lambda: IE.extract_image_embeddings(paths, e,
+                                                batch_size=BANK_BATCH),
+            device)
+        launches[name] = flash_only_launches(f"the {name} bank")
+        if on_card:
+            check(launches[name] == bank_encoder["layers"] * n_bank_batches,
+                  f"bank {name}: {launches[name]} flash launches, expected "
+                  f"{bank_encoder['layers']} a batch")
+        mat = np.stack(list(banks[name].values()))
+        check(mat.shape == (len(paths), bank_encoder["output_dim"])
+              and np.isfinite(mat).all(), f"bank {name}: {mat.shape}")
+    out["bank_launches"] = launches
+    set_attn_impl(enc, "torch")
+    torch_bank = IE.extract_image_embeddings(paths, enc, batch_size=BANK_BATCH)
+    set_attn_impl(enc, "auto")
+    f32 = np.stack(list(banks["f32"].values()))
+    out["bank_f32_vs_torch"] = float(np.abs(
+        f32 - np.stack(list(torch_bank.values()))).max())
+    check(out["bank_f32_vs_torch"] <= TOL_BANK_TORCH,
+          f"the f32 bank against the torch attention path: "
+          f"{out['bank_f32_vs_torch']} (tol {TOL_BANK_TORCH})")
+    out["bank_bf16_min_cos"] = float(
+        (f32 * np.stack(list(banks["bf16"].values()))).sum(1).min())
+
+    # where a bank image's time goes: the host, and the card's batch
+    photos = sorted(FIXTURES.glob("photo_*_420_q75.jpg"))
+    host = []
+    for _ in range(3):
+        for p in photos:
+            t0 = time.perf_counter()
+            IE.clip_preprocess(p, bank_encoder["input_resolution"])
+            host.append((time.perf_counter() - t0) * 1e3)
+    out["host_ms_per_image"] = statistics.median(host)
+    x = torch.from_numpy(np.stack([
+        IE.clip_preprocess(p, bank_encoder["input_resolution"])
+        for p in paths[:BANK_BATCH]])).to(device)
+    card, busy = {}, {}
+    for name, e in (("f32", enc), ("bf16", enc_bf16)):
+        with torch.no_grad():
+            card[name] = host_ms(lambda: e.encode_image(x), device, reps=5,
+                                 warmup=1)
+        if on_card:
+            by_name = device_kernels(lambda: e.encode_image(x))
+            busy[name] = dict(
+                busy_ms=sum(ms for ms, _ in by_name.values()),
+                flash_ms=sum(ms for k, (ms, _) in by_name.items()
+                             if "flash" in k))
+    out["card_ms_per_batch"], out["card_busy"] = card, busy
+    n_images = IMAGENET_TRAIN_ROWS + PASS_ROWS
+    out["projected_hours"] = {
+        name: dict(serial=n_images * (out["host_ms_per_image"]
+                                      + ms / BANK_BATCH) / 3.6e6,
+                   card_only=n_images * ms / BANK_BATCH / 3.6e6)
+        for name, ms in card.items()}
+    print(f"retrieval: bank: {len(paths)} images ({n_bank_batches} batches "
+          f"of {BANK_BATCH}) in {out['bank_f32_s']:.3f} s f32, "
+          f"{out['bank_bf16_s']:.3f} s bf16; flash launches "
+          f"{json.dumps(launches)}; f32 against the torch path "
+          f"{out['bank_f32_vs_torch']:.3e} (tol {TOL_BANK_TORCH}); bf16 "
+          f"against f32: min cosine {out['bank_bf16_min_cos']:.5f}; decode "
+          f"+ preprocess {out['host_ms_per_image']:.2f} ms a 500 x 375 JPEG "
+          f"on the host; encode_image {json.dumps(card)} ms a batch of "
+          f"{BANK_BATCH} (device busy, flash: {json.dumps(busy)}); "
+          f"{n_images} images would take "
+          f"{json.dumps(out['projected_hours'])} hours", flush=True)
+
+    if on_card:
+        out["flash_rows"] = bank_flash(
+            torch.Generator(device="cuda").manual_seed(24))
+    out["library"] = library_path(root, enc, pe, device)
+    del enc, enc_bf16, x
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # top-k at full bank size: COCO over ImageNet-train + PASS, ImageNet-S
+    # over ImageNet-train
+    text = torch.from_numpy(np.stack([pe[c] for c in coco80])).to(device)
+    out["topk"] = {}
+    for i, (name, (n_cat, rows)) in enumerate(topk_banks.items()):
+        t = text
+        if n_cat != len(coco80):
+            g = torch.Generator(device=device).manual_seed(25)
+            t = torch.randn(n_cat, text.shape[1], generator=g, device=device)
+            t /= torch.linalg.vector_norm(t, dim=1, keepdim=True)
+        out["topk"][name] = time_topk(name, t, rows, device, seed=30 + i)
+    out["assets_dir"] = assets
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"retrieval: phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     card, libs = phase_card()
     sass = sass_check(libs)
@@ -2424,7 +3022,15 @@ def main() -> None:
     print(f"train on {card}: {json.dumps(tr)}", flush=True)
     trainer = phase_trainer(tr)
     print(f"trainer on {card}: {json.dumps(trainer)}", flush=True)
-    cli = phase_cli(trainer)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        ret = phase_retrieval(Path(tmp))
+        print(f"retrieval on {card}: " + json.dumps(
+            {k: v for k, v in ret.items() if k not in (
+                "head_embeddings", "assets_dir", "library", "flash_rows")}),
+            flush=True)
+        cli = phase_cli(trainer, ret)
     print(f"cli on {card}: {json.dumps(cli)}", flush=True)
 
     def per_forward(key):
@@ -2446,12 +3052,15 @@ def main() -> None:
         "replaces": "zutis_tpu/ops/flash_attention.py:53",
         # the main paths, each counted from 0: the serving forwards, the
         # eval's padded forwards, the training steps, Trainer.fit (its
-        # steps and its evaluations' padded forwards), and the two CLIs on
-        # images from disk (the training CLI, its resumed run and the eval
-        # CLI at depth 1 and 2)
+        # steps and its evaluations' padded forwards), the retrieval's
+        # image banks (f32, bf16, and the library path's two archives),
+        # and the two CLIs on images from disk (the training CLI, its
+        # resumed run and the eval CLI at depth 1 and 2)
         "launches": (stats["launches"] + ev["launches"]
                      + tr["launches"]["flash_attention"]
                      + trainer["launches"]["flash_attention"]
+                     + sum(ret["bank_launches"].values())
+                     + ret["library"]["launches"]
                      + cli["launches"]["flash_attention"]
                      + cli["resumed_launches"]["flash_attention"]
                      + sum(e["flash_attention"]
@@ -2462,13 +3071,16 @@ def main() -> None:
                              "train": tr["launches"]["flash_attention"],
                              "trainer": trainer["launches"]["flash_attention"],
                              "trainer_masked": trainer["masked_launches"],
+                             "retrieval_bank": ret["bank_launches"],
+                             "retrieval_library": ret["library"]["launches"],
                              "cli_train": cli["launches"]["flash_attention"],
                              "cli_train_masked": cli["masked_launches"],
                              "cli_resumed": cli["resumed_launches"][
                                  "flash_attention"],
                              "cli_eval": {d: e["flash_attention"] for d, e in
                                           cli["eval_launches"].items()}},
-        "max_abs_err": max(max_err, ev["flash_max_abs_err"]),
+        "max_abs_err": max(max_err, ev["flash_max_abs_err"],
+                           *(r["max_abs_err"] for r in ret["flash_rows"])),
         # times and bound: the 24 calls of one batch-8 forward at 384 px
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -2487,6 +3099,9 @@ def main() -> None:
         "eval_forward": {k: eval_forward(k) for k in
                          ("ms", "plain_ms", "bound_ms", "library_ms")},
         "eval_shapes": eval_rows,
+        # encode_image's 24 calls a bank batch at ViT-L/14@336px, f32 and
+        # bf16, each beside the bound at its dtype's rate
+        "retrieval_shapes": ret["flash_rows"],
         # device time of the 24 flash kernels inside one training step
         # (torch.profiler), and the Function's gradient check
         "train_forward_ms": tr["flash_in_step_ms"],

@@ -228,7 +228,8 @@ def test_imagenet_dataset_equals_jax(archive, advanced):
 
 
 def test_imagenet_dataset_without_a_cache_raises(archive, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # retrieval needs text embeddings (tests/test_torch_retrieval.py)
+    with pytest.raises(ValueError, match="no text embeddings"):
         imagenet_index.ImageNet1KDataset(
             str(archive[0]), CATEGORIES,
             category_to_p_images_fp=str(tmp_path / "none.json"))

@@ -78,6 +78,18 @@ DATA_SLICE = ("zutis_tpu_torch.native.image",
               "zutis_tpu_torch.cli.coco20k_eval")
 
 
+# the retrieval slice's modules: the tokenizer, the text tower, the
+# prompts, the text and image embeddings and the bank's top-k
+RETRIEVAL_SLICE = ("zutis_tpu_torch.data.tokenizer",
+                   "zutis_tpu_torch.models.text",
+                   "zutis_tpu_torch.models.weights",
+                   "zutis_tpu_torch.retrieval",
+                   "zutis_tpu_torch.retrieval.prompts",
+                   "zutis_tpu_torch.retrieval.text_embeddings",
+                   "zutis_tpu_torch.retrieval.image_embeddings",
+                   "zutis_tpu_torch.retrieval.bank")
+
+
 def test_port_imports_without_jax_flax_pil_or_zutis_tpu():
     proc = _run(_PROBE.replace('print("imported", len(names))',
                                'print(*names)\nprint("imported", len(names))'))
@@ -87,6 +99,7 @@ def test_port_imports_without_jax_flax_pil_or_zutis_tpu():
     assert set(EVAL_SLICE) <= set(proc.stdout.split()), proc.stdout
     assert set(TRAINER_SLICE) <= set(proc.stdout.split()), proc.stdout
     assert set(DATA_SLICE) <= set(proc.stdout.split()), proc.stdout
+    assert set(RETRIEVAL_SLICE) <= set(proc.stdout.split()), proc.stdout
 
 
 @pytest.mark.parametrize("name", ["cv2", "matplotlib", "yaml"])

@@ -89,7 +89,7 @@ def main(argv=None):
 
     model = build_model(cfg, device, init=False)
     model.load_state_dict(load_params_any(args.p_state_dict), strict=True)
-    text_embeddings = build_text_embeddings(cfg)
+    text_embeddings = build_text_embeddings(cfg, device)
 
     def load_image_u8(image_id):
         """Raw [3, H, W] uint8: the batched path ships these to the card and

@@ -10,13 +10,15 @@ synthesis) with periodic evaluation, as the JAX CLI does, on one card. The
 checkpoint directory, `config.json`, the artifacts and the resume from the
 newest full-state checkpoint (`checkpoint_every`) are the JAX CLI's.
 
+The category text embeddings come from the `text_embeddings_npz` extra,
+else from the JAX CLI's cache file (`text_emb_<arch>_<n>cat_<hash>.npz` in
+`clip_assets_dir`), else from the config's CLIP text tower
+(`<clip_assets_dir>/<arch>.pt` and the BPE merges file), which writes that
+cache file.
+
 What the port does not do yet, and raises on:
-  - text embeddings without the `text_embeddings_npz` extra or the JAX
-    package's cache file (`text_emb_<arch>_<n>cat_<hash>.npz` in
-    `clip_assets_dir`): the tokenizer and the text tower are ROADMAP.md,
-    queue 1, item 7, as are the RN archs and the DINO encoder;
-  - missing pseudo-masks: SelfMask and the bilateral solver are item 8,
-    as is retrieval without the category_to_p_images cache;
+  - the RN archs and the DINO encoder: ROADMAP.md, queue 1, item 7;
+  - missing pseudo-masks: SelfMask and the bilateral solver are item 8;
   - `mesh_axes` over more than one device: the parallel layer is item 6;
   - `visualise`: the JAX CLI defaults it to True and renders figures with
     matplotlib, which the port does not use; here it defaults to False and
@@ -65,11 +67,12 @@ def text_embeddings_cache_path(cfg) -> str:
         f"{len(cfg.categories)}cat_{cat_hash}.npz")
 
 
-def build_text_embeddings(cfg) -> np.ndarray:
-    """Per-category CLIP text embeddings [n_categories, text_dim] float32:
+def build_text_embeddings(cfg, device="cuda") -> np.ndarray:
+    """Plain (template-free) per-category CLIP text embeddings for the ZUTIS
+    head [n_categories, text_dim] float32 (reference networks/zutis.py:35-38):
     from the `text_embeddings_npz` extra ("embeddings"), else from the JAX
-    CLI's cache file when it holds this category list. Computing them needs
-    the tokenizer and the text tower, which are not ported yet."""
+    CLI's cache file when it holds this category list, else computed by the
+    config's CLIP text tower on `device` and written to that cache file."""
     override = cfg.extras.get("text_embeddings_npz")
     if override:
         with np.load(override) as f:
@@ -79,10 +82,34 @@ def build_text_embeddings(cfg) -> np.ndarray:
         with np.load(cache_fp, allow_pickle=True) as f:
             if list(f["categories"]) == list(cfg.categories):
                 return np.asarray(f["embeddings"], np.float32)
-    raise NotImplementedError(
-        f"no text embeddings: set the text_embeddings_npz extra or write "
-        f"{cache_fp} with the JAX package; the CLIP tokenizer and text "
-        "tower are not ported yet (ROADMAP.md, queue 1, item 7)")
+
+    from zutis_tpu_torch.data.tokenizer import CLIPTokenizer
+    from zutis_tpu_torch.models.factory import (
+        build_text_encoder,
+        clip_checkpoint_path,
+        find_merges_file,
+        load_clip_text,
+    )
+    from zutis_tpu_torch.retrieval.text_embeddings import (
+        plain_category_embeddings,
+    )
+
+    merges = find_merges_file(cfg.clip_assets_dir)
+    if not merges:
+        raise FileNotFoundError(
+            f"BPE merges file not found under {cfg.clip_assets_dir!r}; place "
+            f"bpe_simple_vocab_16e6.txt.gz there (see models/factory.py)")
+    tokenizer = CLIPTokenizer.from_file(merges)
+    encoder = build_text_encoder(cfg.clip_arch, device=device)
+    encoder.load_state_dict(load_clip_text(clip_checkpoint_path(
+        cfg.clip_arch, cfg.clip_assets_dir)), strict=True)
+    emb = plain_category_embeddings(encoder, tokenizer, cfg.categories)
+    try:
+        np.savez(cache_fp, embeddings=emb,
+                 categories=np.array(cfg.categories, dtype=object))
+    except OSError:
+        pass  # a read-only assets directory: the embeddings stand uncached
+    return emb
 
 
 def build_model(cfg, device, seed: int = 0, init: bool = True):
@@ -97,7 +124,8 @@ def build_model(cfg, device, seed: int = 0, init: bool = True):
     model_kwargs = cfg.extras.get("model_kwargs")
     if model_kwargs:
         # explicit architecture override (tiny models in tests)
-        model = ZUTIS(dtype=dtype, device=device, **model_kwargs)
+        model = ZUTIS(stop_gradient=cfg.stop_gradient, dtype=dtype,
+                      device=device, **model_kwargs)
     else:
         model = build_zutis(cfg.clip_arch, stop_gradient=cfg.stop_gradient,
                             dtype=dtype, encoder_type=cfg.encoder_type,
@@ -227,7 +255,7 @@ def main(argv=None):
 
     model = build_model(cfg, device, seed=args.seed,
                         init=not args.p_state_dict)
-    text_embeddings = build_text_embeddings(cfg)
+    text_embeddings = build_text_embeddings(cfg, device)
     val_dataset = get_eval_dataset(
         cfg.dataset_name, cfg.dir_val_dataset, split=cfg.split,
         n_categories=cfg.n_categories

@@ -1,5 +1,8 @@
 """Image files to numpy arrays without Pillow: the port's counterpart of
-`Image.open(p).convert("RGB")` and of `np.array(Image.open(png))`.
+`Image.open(p).convert("RGB")` (`read_rgb`), of `np.array(Image.open(png))`
+(`read_png`), and of `Image.open(p)` in the file's own mode with its
+`.convert("RGB")` (`open_image`, `to_rgb`), which CLIP's preprocessing
+needs: Pillow resizes before it converts.
 
 JPEG decoding and PNG unfiltering run in the native library
 (`native/image.cc`), inflate in `zlib`; both give Pillow's pixels bit for
@@ -22,7 +25,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
@@ -59,10 +62,11 @@ def _png_chunks(data: bytes, path):
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
-def decode_png(data: bytes, path="<bytes>", rgb: bool = False) -> np.ndarray:
-    """A PNG stream -> np.array(Image.open(f)) (rgb=False: uint8 [H, W] for
-    gray and palette indices, bool for 1-bit gray, [H, W, C] otherwise) or
-    Image.open(f).convert("RGB") (rgb=True)."""
+_PNG_MODES = {0: "L", 2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}
+
+
+def _decode_png(data: bytes, path):
+    """-> (np.array(Image.open(f)), IHDR colour type, bit depth, palette)."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     header, palette, idat = None, None, []
@@ -107,18 +111,52 @@ def decode_png(data: bytes, path="<bytes>", rgb: bool = False) -> np.ndarray:
         arr = rows
     else:
         arr = rows.reshape(h, w, channels)
-    if not rgb:
-        return arr
-    if ctype == 3:
+    return arr, ctype, depth, palette
+
+
+def to_rgb(arr: np.ndarray, mode: str, palette=None) -> np.ndarray:
+    """Pillow's `.convert("RGB")` of an image of `mode` ("1", "L", "P" with
+    its [n, 3] `palette`, "LA", "RGB", "RGBA" or "CMYK") whose pixels are
+    `arr`, as `np.asarray` gives them: [H, W, 3] uint8."""
+    if mode == "P":
         lut = np.zeros((256, 3), np.uint8)
         lut[:len(palette)] = palette[:256]
         return lut[arr]
-    if ctype == 0:
-        gray = arr.astype(np.uint8) * 255 if depth == 1 else arr
+    if mode in ("1", "L"):
+        gray = arr.astype(np.uint8) * 255 if mode == "1" else arr
         return np.repeat(gray[..., None], 3, axis=2)
-    if ctype == 4:
+    if mode == "LA":
         return np.repeat(arr[..., :1], 3, axis=2)
-    return np.ascontiguousarray(arr[..., :3])
+    if mode == "CMYK":  # Convert.c's cmyk2rgb: nk - MULDIV255(c, nk)
+        nk = 255 - arr[..., 3:].astype(np.int32)
+        tmp = arr[..., :3].astype(np.int32) * nk + 128
+        return np.clip(nk - (((tmp >> 8) + tmp) >> 8), 0, 255).astype(np.uint8)
+    if mode in ("RGB", "RGBA"):
+        return np.ascontiguousarray(arr[..., :3])
+    raise ValueError(f"no conversion of mode {mode!r} to RGB")
+
+
+def decode_png(data: bytes, path="<bytes>", rgb: bool = False) -> np.ndarray:
+    """A PNG stream -> np.array(Image.open(f)) (rgb=False: uint8 [H, W] for
+    gray and palette indices, bool for 1-bit gray, [H, W, C] otherwise) or
+    Image.open(f).convert("RGB") (rgb=True)."""
+    arr, ctype, depth, palette = _decode_png(data, path)
+    if not rgb:
+        return arr
+    mode = "1" if (ctype, depth) == (0, 1) else _PNG_MODES[ctype]
+    return to_rgb(arr, mode, palette)
+
+
+def _decode_jpeg(data: bytes, path) -> Tuple[np.ndarray, int]:
+    """A JPEG stream -> (its pixels, its component count): [H, W, 3] RGB for
+    one or three components, Pillow's "CMYK" samples [H, W, 4] for four."""
+    try:
+        components = native_image.jpeg_header(data)[2]
+        if components == 4:
+            return native_image.decode_jpeg_cmyk(data), 4
+        return native_image.decode_jpeg_rgb(data), components
+    except ValueError as exc:
+        raise ValueError(f"{path}: {exc}") from None
 
 
 def read_rgb(path: PathLike) -> np.ndarray:
@@ -126,12 +164,29 @@ def read_rgb(path: PathLike) -> np.ndarray:
     file: [H, W, 3] uint8."""
     data = _read(path)
     if data[:2] == b"\xff\xd8":
-        try:
-            return native_image.decode_jpeg_rgb(data)
-        except ValueError as exc:
-            raise ValueError(f"{path}: {exc}") from None
+        arr, components = _decode_jpeg(data, path)
+        return to_rgb(arr, "CMYK") if components == 4 else arr
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data, path, rgb=True)
+    raise ValueError(f"{path}: neither a JPEG nor a PNG file")
+
+
+def open_image(path: PathLike) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
+    """A JPEG or PNG file in Pillow's own mode, before any conversion:
+    (`np.asarray(Image.open(path))`, `Image.open(path).mode`, the [n, 3]
+    uint8 palette of a "P" image or None). JPEGs open as "L", "RGB" or
+    "CMYK"; PNGs as "1", "L", "P", "LA", "RGB" or "RGBA"."""
+    data = _read(path)
+    if data[:2] == b"\xff\xd8":
+        arr, components = _decode_jpeg(data, path)
+        if components == 1:
+            return np.ascontiguousarray(arr[..., 0]), "L", None
+        return arr, ("CMYK" if components == 4 else "RGB"), None
+    if data.startswith(PNG_SIGNATURE):
+        arr, ctype, depth, palette = _decode_png(data, path)
+        if (ctype, depth) == (0, 1):
+            return arr, "1", None
+        return arr, _PNG_MODES[ctype], palette
     raise ValueError(f"{path}: neither a JPEG nor a PNG file")
 
 

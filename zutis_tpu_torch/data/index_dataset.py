@@ -18,9 +18,9 @@ own JPEG/PNG decoder (data/image_io.py) and augmented on HWC uint8 arrays
 (data/augment.py); no Pillow or OpenCV. `batch_iterator` synthesises
 batches on threads (the native decoder and blur release the GIL) and yields
 dicts of CPU torch tensors, in pinned memory when the target is a card.
-Resolving category -> image paths by retrieval and generating missing
-pseudo-masks are not ported (ROADMAP.md, queue 1, item 8): the category
-JSON cache and the pseudo-mask JSONs must exist.
+The category -> image paths JSON comes from retrieval
+(data/imagenet_index.py, retrieval/); generating missing pseudo-masks is
+not ported (ROADMAP.md, queue 1, item 8): the pseudo-mask JSONs must exist.
 """
 from __future__ import annotations
 

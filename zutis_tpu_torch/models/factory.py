@@ -1,26 +1,29 @@
-"""Model factory, ViT half: clip_arch string -> the port's ZUTIS, and the
-OpenAI CLIP visual tower's weights into its encoder (the port of
-zutis_tpu/models/factory.py's `_VIT_SPECS`, `normalize_clip_arch`,
-`clip_spec`, `build_zutis`, `clip_checkpoint_path`, and of the visual half
-of `load_clip_params`).
+"""Model factory: clip_arch string -> the port's ZUTIS and CLIP text tower,
+and the OpenAI CLIP weights into them (the port of
+zutis_tpu/models/factory.py's `_VIT_SPECS`, `_TEXT_SPECS`,
+`normalize_clip_arch`, `clip_spec`, `build_zutis`, `build_text_encoder`,
+`clip_checkpoint_path`, `find_merges_file` and of `load_clip_params`, whose
+visual half is `load_clip_visual` and text half `load_clip_text`).
 
 CLIP checkpoints are the official OpenAI .pt files in a local assets
 directory (no network at run time): <assets>/ViT-B-16.pt, ViT-B-32.pt,
-ViT-L-14.pt, ViT-L-14-336px.pt.
+ViT-L-14.pt, ViT-L-14-336px.pt, and the BPE merges file
+<assets>/bpe_simple_vocab_16e6.txt(.gz).
 
 Not ported yet (each raises NotImplementedError, ROADMAP.md, queue 1,
-item 7): the ResNet archs (RN50 ... RN50x64) and their `dilated` variants,
-`encoder_type="dino"`, the text tower and the tokenizer. The opt-in levers
-`tome_r` and `decoder_pool` are item 5.
+item 7): the ResNet visual encoders (RN50 ... RN50x64) and their `dilated`
+variants, and `encoder_type="dino"`; the text towers of every arch are
+here. The opt-in levers `tome_r` and `decoder_pool` are item 5.
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from zutis_tpu_torch.models.text import CLIPTextEncoder
 from zutis_tpu_torch.models.zutis import ZUTIS
 
 _VIT_SPECS = {
@@ -32,8 +35,25 @@ _VIT_SPECS = {
 }
 
 # the RN archs the JAX package builds (reference utils/utils.py:165); the
-# port names them only to refuse them
+# port builds their text towers and refuses their visual encoders
 _RN_ARCHS = ("RN50", "RN101", "RN50x4", "RN50x16", "RN50x64")
+
+_TEXT_SPECS = {
+    # width, layers, heads, embed_dim
+    "ViT-B/32": (512, 12, 8, 512),
+    "ViT-B/16": (512, 12, 8, 512),
+    "ViT-L/14": (768, 12, 12, 768),
+    "ViT-L/14@336px": (768, 12, 12, 768),
+    "RN50": (512, 12, 8, 1024),
+    "RN101": (512, 12, 8, 512),
+    "RN50x4": (640, 12, 10, 640),
+    "RN50x16": (768, 12, 12, 768),
+    "RN50x64": (1024, 12, 16, 1024),
+}
+
+# the OpenAI checkpoint's text-tower keys, by prefix
+_TEXT_KEYS = ("token_embedding.", "positional_embedding", "transformer.",
+              "ln_final.", "text_projection")
 
 _NOT_PORTED = "not ported yet (ROADMAP.md, queue 1, item 7)"
 
@@ -90,10 +110,6 @@ def build_zutis(
         raise NotImplementedError(f"encoder_type 'dino' is {_NOT_PORTED}")
     if encoder_type != "clip":
         raise ValueError(f"unknown encoder_type {encoder_type!r}")
-    if not stop_gradient:
-        raise NotImplementedError(
-            "stop_gradient=False: the port's ZUTIS always stops the "
-            "gradient into the encoder's tokens before ffn1")
     if tome_r or decoder_pool != 1:
         raise NotImplementedError(
             "tome_r and decoder_pool are not ported yet (ROADMAP.md, queue "
@@ -109,10 +125,22 @@ def build_zutis(
         n_queries=n_queries,
         n_decoder_layers=n_decoder_layers,
         n_heads=n_heads,
+        stop_gradient=stop_gradient,
         dtype=dtype,
         attn_impl=attn_impl,
         device=device,
     )
+
+
+def build_text_encoder(clip_arch: str, dtype: torch.dtype = torch.float32,
+                       device="cuda") -> CLIPTextEncoder:
+    """The arch's CLIP text tower, with uninitialised parameters on
+    `device`. "dilatedRN50" etc. share the base arch's tower (the prefix
+    only disables the visual token upsample, `normalize_clip_arch`)."""
+    base_arch, _ = normalize_clip_arch(clip_arch)
+    width, layers, heads, embed_dim = _TEXT_SPECS[base_arch]
+    return CLIPTextEncoder(width=width, layers=layers, heads=heads,
+                           embed_dim=embed_dim, dtype=dtype, device=device)
 
 
 def clip_checkpoint_path(clip_arch: str, assets_dir: str) -> str:
@@ -146,3 +174,23 @@ def load_clip_visual(model: ZUTIS, path: str) -> ZUTIS:
             f"are {_NOT_PORTED}")
     model.encoder.load_state_dict(visual, strict=True)
     return model
+
+
+def load_clip_text(path: str) -> Dict[str, torch.Tensor]:
+    """The text tower of the OpenAI checkpoint at `path` (its
+    `token_embedding.*`, `positional_embedding`, `transformer.*`,
+    `ln_final.*` and `text_projection`) as a state dict that loads into
+    `build_text_encoder`'s tower with `strict=True`."""
+    sd = load_torch_state_dict(path)
+    text = {k: v for k, v in sd.items() if k.startswith(_TEXT_KEYS)}
+    if "token_embedding.weight" not in text:
+        raise ValueError(f"{path} holds no CLIP text tower")
+    return text
+
+
+def find_merges_file(assets_dir: str) -> Optional[str]:
+    for name in ("bpe_simple_vocab_16e6.txt.gz", "bpe_simple_vocab_16e6.txt"):
+        p = os.path.join(assets_dir, name)
+        if os.path.exists(p):
+            return p
+    return None

@@ -112,17 +112,19 @@ class MultiHeadAttention(nn.Module):
         k: torch.Tensor,  # [b, sk, dim], already projected by k_proj
         v: torch.Tensor,  # [b, sk, dim], already projected by v_proj
         kv_mask: Optional[torch.Tensor] = None,  # [b, sk], nonzero = valid key
+        bias: Optional[torch.Tensor] = None,  # additive, to [b, h, sq, sk]
     ) -> torch.Tensor:
         q = self.q_proj(q_in)
         out = dot_product_attention_bshd(
-            self._split(q), self._split(k), self._split(v), kv_mask=kv_mask,
-            impl=self.attn_impl)
+            self._split(q), self._split(k), self._split(v), bias=bias,
+            kv_mask=kv_mask, impl=self.attn_impl)
         b, sq = out.shape[:2]
         return self.out_proj(out.reshape(b, sq, self.dim), self.dtype)
 
-    def forward(self, q_in, k_in, v_in, kv_mask=None) -> torch.Tensor:
+    def forward(self, q_in, k_in, v_in, kv_mask=None,
+                bias=None) -> torch.Tensor:
         return self.attend_kv(q_in, self.k_proj(k_in), self.v_proj(v_in),
-                              kv_mask=kv_mask)
+                              kv_mask=kv_mask, bias=bias)
 
     def init_params(self, generator: torch.Generator) -> None:
         fill_normal_(self.in_proj_weight, 1.0 / math.sqrt(self.dim), generator)

@@ -5,7 +5,8 @@ Patchify (VALID, no bias) -> prepend the class token -> add the bicubically
 interpolated positional embedding (with the reference's `+0.1` scale-factor
 fudge, applied even at the native grid) -> ln_pre -> pre-LN residual blocks
 with QuickGELU MLPs -> drop CLS -> ln_post over the patch tokens. `proj` is a
-parameter here but is applied by ZUTIS, not in `forward`.
+parameter here but is applied by ZUTIS, not in `forward`; `encode_image`
+gives CLIP's pooled embedding, ln_post(CLS) @ proj, for retrieval.
 """
 from __future__ import annotations
 
@@ -46,9 +47,12 @@ class ResidualAttentionBlock(nn.Module):
         })
 
     def forward(self, x: torch.Tensor,
-                kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kv_mask: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Pre-LN block; an additive attention `bias` (the text tower's
+        causal mask) takes the "torch" attention path."""
         y = self.ln_1(x)
-        x = x + self.attn(y, y, y, kv_mask=kv_mask)
+        x = x + self.attn(y, y, y, kv_mask=kv_mask, bias=bias)
         y = self.ln_2(x)
         y = quick_gelu(self.mlp["c_fc"](y, self.dtype))
         return x + self.mlp["c_proj"](y, self.dtype)
@@ -130,15 +134,28 @@ class CLIPViT(nn.Module):
             tokens.shape[0], 1, self.width)
         return torch.cat([cls_tok, tokens], dim=1)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
-        """x [b, 3, H, W] -> (patch tokens [b, h*w, width] after ln_post, h, w)."""
+    def _forward_tokens(self, x: torch.Tensor
+                        ) -> Tuple[torch.Tensor, int, int]:
+        """x [b, 3, H, W] -> (tokens with CLS [b, 1 + h*w, width], h, w)."""
         tokens, h, w = self._patchify(x)
         tokens = self._with_cls(tokens)
         pe = interpolate_pos_embed(self.positional_embedding, (h, w))
         tokens = self.ln_pre(tokens + pe.to(self.dtype)[None])
         for block in self.transformer.resblocks:
             tokens = block(tokens)
+        return tokens, h, w
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
+        """x [b, 3, H, W] -> (patch tokens [b, h*w, width] after ln_post, h, w)."""
+        tokens, h, w = self._forward_tokens(x)
         return self.ln_post(tokens[:, 1:, :]), h, w
+
+    def encode_image(self, x: torch.Tensor) -> torch.Tensor:
+        """CLIP's pooled embedding: ln_post(CLS) @ proj -> [b, output_dim],
+        on the same token path as `forward` (the retrieval bank's encoder)."""
+        tokens, _, _ = self._forward_tokens(x)
+        pooled = self.ln_post(tokens[:, 0, :])
+        return pooled @ self.proj.to(self.dtype)
 
     def forward_padded(
         self,

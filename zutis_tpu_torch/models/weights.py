@@ -1,9 +1,11 @@
 """Parameter bridge: a flax ZUTIS parameter tree (nested dicts of numpy
-arrays, ViT encoder) -> a state_dict in the reference torch layout, and the
-port's model -> that layout as numpy (`export_params`).
+arrays, ViT encoder) or CLIP text-tower tree -> a state_dict in the
+reference torch layout, and the port's model -> that layout as numpy
+(`export_params`).
 
 The port's own copy of the ViT branch of
-zutis_tpu/models/weights.py::export_zutis: flax Dense kernels [in, out] are
+zutis_tpu/models/weights.py::export_zutis (and the inverse of its
+`convert_clip_text`): flax Dense kernels [in, out] are
 transposed to Linear weights [out, in], the separate q/k/v projections are
 concatenated into nn.MultiheadAttention's `in_proj_weight`/`in_proj_bias`,
 the HWIO patchify kernel becomes OIHW, and LayerNorm scale/bias become
@@ -22,63 +24,93 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))  # a writable copy
 
 
-def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    enc = params["encoder"]
-    if "class_embedding" not in enc:
-        raise ValueError("params_from_jax takes the CLIP ViT encoder family only")
-    sd: Dict[str, torch.Tensor] = {}
+def _put_dense(sd, prefix, d) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(d["kernel"]).T)
+    sd[f"{prefix}.bias"] = _t(d["bias"])
 
-    def put_dense(prefix, d):
-        sd[f"{prefix}.weight"] = _t(np.asarray(d["kernel"]).T)
-        sd[f"{prefix}.bias"] = _t(d["bias"])
 
-    def put_ln(prefix, d):
-        sd[f"{prefix}.weight"] = _t(d["LayerNorm_0"]["scale"])
-        sd[f"{prefix}.bias"] = _t(d["LayerNorm_0"]["bias"])
+def _put_ln(sd, prefix, d) -> None:
+    sd[f"{prefix}.weight"] = _t(d["LayerNorm_0"]["scale"])
+    sd[f"{prefix}.bias"] = _t(d["LayerNorm_0"]["bias"])
 
-    def put_mha(prefix, d):
-        names = ("q_proj", "k_proj", "v_proj")
-        sd[f"{prefix}.in_proj_weight"] = _t(np.concatenate(
-            [np.asarray(d[n]["kernel"]).T for n in names], 0))
-        sd[f"{prefix}.in_proj_bias"] = _t(np.concatenate(
-            [np.asarray(d[n]["bias"]) for n in names], 0))
-        put_dense(f"{prefix}.out_proj", d["out_proj"])
 
-    sd["encoder.conv1.weight"] = _t(
-        np.asarray(enc["conv1"]["kernel"]).transpose(3, 2, 0, 1))
-    sd["encoder.class_embedding"] = _t(enc["class_embedding"])
-    sd["encoder.positional_embedding"] = _t(enc["positional_embedding"])
-    sd["encoder.proj"] = _t(enc["proj"])
-    put_ln("encoder.ln_pre", enc["ln_pre"])
-    put_ln("encoder.ln_post", enc["ln_post"])
+def _put_mha(sd, prefix, d) -> None:
+    names = ("q_proj", "k_proj", "v_proj")
+    sd[f"{prefix}.in_proj_weight"] = _t(np.concatenate(
+        [np.asarray(d[n]["kernel"]).T for n in names], 0))
+    sd[f"{prefix}.in_proj_bias"] = _t(np.concatenate(
+        [np.asarray(d[n]["bias"]) for n in names], 0))
+    _put_dense(sd, f"{prefix}.out_proj", d["out_proj"])
+
+
+def _put_resblocks(sd, prefix, tree) -> None:
+    """Every `resblocks_{i}` of a flax tower -> `{prefix}.{i}.*`."""
     i = 0
-    while f"resblocks_{i}" in enc:
-        rb = enc[f"resblocks_{i}"]
-        p = f"encoder.transformer.resblocks.{i}"
-        put_ln(f"{p}.ln_1", rb["ln_1"])
-        put_ln(f"{p}.ln_2", rb["ln_2"])
-        put_mha(f"{p}.attn", rb["attn"])
-        put_dense(f"{p}.mlp.c_fc", rb["mlp_c_fc"])
-        put_dense(f"{p}.mlp.c_proj", rb["mlp_c_proj"])
+    while f"resblocks_{i}" in tree:
+        rb = tree[f"resblocks_{i}"]
+        p = f"{prefix}.{i}"
+        _put_ln(sd, f"{p}.ln_1", rb["ln_1"])
+        _put_ln(sd, f"{p}.ln_2", rb["ln_2"])
+        _put_mha(sd, f"{p}.attn", rb["attn"])
+        _put_dense(sd, f"{p}.mlp.c_fc", rb["mlp_c_fc"])
+        _put_dense(sd, f"{p}.mlp.c_proj", rb["mlp_c_proj"])
         i += 1
+
+
+def visual_params_from_jax(enc: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax `CLIPViT` tree -> the port's `CLIPViT` state dict, which is
+    OpenAI's `visual.*` layout without the prefix."""
+    if "class_embedding" not in enc:
+        raise ValueError("a CLIP ViT encoder tree only (no class_embedding)")
+    sd: Dict[str, torch.Tensor] = {}
+    sd["conv1.weight"] = _t(
+        np.asarray(enc["conv1"]["kernel"]).transpose(3, 2, 0, 1))
+    sd["class_embedding"] = _t(enc["class_embedding"])
+    sd["positional_embedding"] = _t(enc["positional_embedding"])
+    sd["proj"] = _t(enc["proj"])
+    _put_ln(sd, "ln_pre", enc["ln_pre"])
+    _put_ln(sd, "ln_post", enc["ln_post"])
+    _put_resblocks(sd, "transformer.resblocks", enc)
+    return sd
+
+
+def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    if "class_embedding" not in params["encoder"]:
+        raise ValueError("params_from_jax takes the CLIP ViT encoder family only")
+    sd = {f"encoder.{k}": v
+          for k, v in visual_params_from_jax(params["encoder"]).items()}
     for ffn in ("ffn1", "ffn2"):
         for j in range(3):
-            put_dense(f"{ffn}.layers.{j}", params[ffn][f"layers_{j}"])
+            _put_dense(sd, f"{ffn}.layers.{j}", params[ffn][f"layers_{j}"])
     dec = params["decoder"]
-    put_ln("decoder.norm", dec["norm"])
+    _put_ln(sd, "decoder.norm", dec["norm"])
     i = 0
     while f"layers_{i}" in dec:
         dl = dec[f"layers_{i}"]
         p = f"decoder.layers.{i}"
-        put_mha(f"{p}.self_attn", dl["self_attn"])
-        put_mha(f"{p}.multihead_attn", dl["cross_attn"])
-        put_dense(f"{p}.linear1", dl["linear1"])
-        put_dense(f"{p}.linear2", dl["linear2"])
-        put_ln(f"{p}.norm1", dl["norm1"])
-        put_ln(f"{p}.norm2", dl["norm2"])
-        put_ln(f"{p}.norm3", dl["norm3"])
+        _put_mha(sd, f"{p}.self_attn", dl["self_attn"])
+        _put_mha(sd, f"{p}.multihead_attn", dl["cross_attn"])
+        _put_dense(sd, f"{p}.linear1", dl["linear1"])
+        _put_dense(sd, f"{p}.linear2", dl["linear2"])
+        _put_ln(sd, f"{p}.norm1", dl["norm1"])
+        _put_ln(sd, f"{p}.norm2", dl["norm2"])
+        _put_ln(sd, f"{p}.norm3", dl["norm3"])
         i += 1
     sd["query_embed"] = _t(params["query_embed"])
+    return sd
+
+
+def text_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax `CLIPTextEncoder` tree -> the port's `CLIPTextEncoder` state
+    dict, which is OpenAI's text-tower layout (the inverse of
+    zutis_tpu/models/weights.py::convert_clip_text)."""
+    sd: Dict[str, torch.Tensor] = {
+        "token_embedding.weight": _t(params["token_embedding"]["embedding"]),
+        "positional_embedding": _t(params["positional_embedding"]),
+        "text_projection": _t(params["text_projection"]),
+    }
+    _put_ln(sd, "ln_final", params["ln_final"])
+    _put_resblocks(sd, "transformer.resblocks", params)
     return sd
 
 
@@ -89,10 +121,11 @@ def load_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
 
 
 def export_params(model: nn.Module) -> Dict[str, np.ndarray]:
-    """The port's ZUTIS -> its reference-layout state dict as float32 numpy
-    arrays on the host (the counterpart of the JAX package's
-    `export_zutis`, with the same keys): what `Trainer` writes to
+    """The port's ZUTIS (or `CLIPTextEncoder`) -> its reference-layout state
+    dict as float32 numpy arrays on the host (the counterpart of the JAX
+    package's `export_zutis`, with the same keys): what `Trainer` writes to
     `latest_model.npz`, `best_model.npz` and `final_model.npz`. The port's
-    modules already carry the reference's names and layouts."""
+    modules already carry the reference's names and layouts; the text
+    tower's are OpenAI's."""
     return {k: v.detach().to("cpu", torch.float32, copy=True).numpy()
             for k, v in model.state_dict().items()}

@@ -4,7 +4,8 @@ decoder_pool=1 and tome_r=0).
 
   1. encoder -> patch tokens [b, hw, width]
   2. bilinear x2 upsample of the token grid
-  3. ffn1(detached tokens) -> decoder memory
+  3. ffn1(tokens) -> decoder memory; with `stop_gradient` (the default)
+     the tokens are detached, so the mask loss trains no encoder weight
   4. sine positional embedding over the upsampled grid
   5. query decoder, tgt = 0, query_pos = the learned queries, all layers
      (`inference=True` keeps only the last layer after the decoder)
@@ -83,6 +84,7 @@ class ZUTIS(nn.Module):
         n_queries: int = 100,
         n_decoder_layers: int = 6,
         n_heads: int = 8,
+        stop_gradient: bool = True,
         dtype: torch.dtype = torch.float32,
         attn_impl: str = "auto",
         device="cuda",
@@ -90,6 +92,7 @@ class ZUTIS(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.width, self.n_queries, self.dtype = width, n_queries, dtype
+        self.stop_gradient = stop_gradient
         self.encoder = CLIPViT(
             width=width, layers=encoder_layers, heads=encoder_heads,
             patch_size=patch_size, output_dim=text_dim,
@@ -128,7 +131,7 @@ class ZUTIS(nn.Module):
         h, w = h * 2, w * 2
         patch_tokens = grid.permute(0, 2, 3, 1).reshape(b, h * w, width)
 
-        memory = self.ffn1(patch_tokens.detach())  # [b, hw, width]
+        memory = self.ffn1(self._tokens_in(patch_tokens))  # [b, hw, width]
         pos = sine_pos_embed(h, w, width // 2).reshape(width, -1).T
         # pinned and non-blocking: a pageable copy would wait for the card
         pos = to_device(torch.from_numpy(np.ascontiguousarray(pos)), x.device).to(dt)[None]
@@ -137,6 +140,10 @@ class ZUTIS(nn.Module):
         queries = self.decoder(tgt, memory, pos=pos, query_pos=query_pos)
         return self._heads(queries, memory, patch_tokens, h, w, inference,
                            full_map_layer_norm)
+
+    def _tokens_in(self, patch_tokens: torch.Tensor) -> torch.Tensor:
+        """ffn1's input: the tokens, detached under `stop_gradient`."""
+        return patch_tokens.detach() if self.stop_gradient else patch_tokens
 
     def _queries(self, b: int):
         """(tgt, query_pos) for the decoder: zeros and the learned queries."""
@@ -203,7 +210,7 @@ class ZUTIS(nn.Module):
         patch_tokens = grid.permute(0, 2, 3, 1).reshape(b, hp * wp, width)
         valid = token_valid_mask(grid_d, hp, wp)  # [b, hp*wp] int32
 
-        memory = self.ffn1(patch_tokens.detach())
+        memory = self.ffn1(self._tokens_in(patch_tokens))
         pos = sine_pos_embed_dynamic(hp, wp, width // 2, native_grid,
                                      device=x.device).to(self.dtype)
         tgt, query_pos = self._queries(b)

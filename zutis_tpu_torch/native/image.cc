@@ -13,9 +13,10 @@
 //     components. The integer "islow" IDCT (jidctint.c), "fancy" triangle
 //     upsampling for h2v1, h1v2 and h2v2 (jdsample.c; plain replication
 //     for other integral factors), and the fixed-point YCbCr -> RGB tables
-//     of jdcolor.c. Grayscale comes out replicated to RGB, and Adobe CMYK
-//     through Pillow's inverted CMYK and its cmyk2rgb, as
-//     `Image.open(p).convert("RGB")` gives them. Arithmetic coding,
+//     of jdcolor.c. Grayscale comes out replicated to RGB, as
+//     `Image.open(p).convert("RGB")` gives it, and Adobe CMYK as the
+//     inverted samples of Pillow's "CMYK" mode (its conversion to RGB is
+//     data/image_io.py's `to_rgb`). Arithmetic coding,
 //     lossless and hierarchical frames, 12-bit samples, YCCK and a
 //     truncated or corrupt stream are refused with a message.
 //   * PNG: undoing the five row filters (inflate happens in Python, with
@@ -407,8 +408,11 @@ class JpegDecoder {
 
   int width() const { return width_; }
   int height() const { return height_; }
+  int components() const { return (int)comps_.size(); }
 
-  void decode(uint8_t* rgb) {
+  // Decode into `out`: [H, W, 3] RGB for one or three components, the
+  // [H, W, 4] samples of Pillow's "CMYK" mode for four.
+  void decode(uint8_t* out) {
     while (true) {
       int m = next_marker();
       if (m == 0xD9) break;
@@ -420,7 +424,7 @@ class JpegDecoder {
       }
     }
     if (n_scans_ == 0) throw Error("truncated JPEG stream (no scan)");
-    output(rgb);
+    output(out);
   }
 
  private:
@@ -855,20 +859,12 @@ class JpegDecoder {
     if (saw_adobe_ && adobe_transform_ != 0) {
       throw Error("YCCK JPEG is not supported");
     }
-    for (int64_t y = 0; y < H; ++y) {
+    for (int64_t y = 0; y < H; ++y) {  // Pillow's "CMYK;I" raw mode
       const uint8_t* pc[4];
       for (int i = 0; i < 4; ++i) pc[i] = full[i].row((int)y);
-      uint8_t* o = rgb + y * W * 3;
+      uint8_t* o = rgb + y * W * 4;
       for (int64_t x = 0; x < W; ++x) {
-        // Pillow reads CMYK JPEGs as "CMYK;I" (Adobe's inverted samples),
-        // then Convert.c's cmyk2rgb: nk - MULDIV255(c, nk)
-        int nk = pc[3][x];  // 255 - (255 - k)
-        for (int i = 0; i < 3; ++i) {
-          int c = 255 - pc[i][x];
-          int tmp = c * nk + 128;
-          int v = nk - (((tmp >> 8) + tmp) >> 8);
-          o[3 * x + i] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
-        }
+        for (int i = 0; i < 4; ++i) o[4 * x + i] = (uint8_t)(255 - pc[i][x]);
       }
     }
   }
@@ -935,7 +931,7 @@ inline int reflect101(int p, int len) {
 
 extern "C" {
 
-// Parse a JPEG's headers: dims = {height, width}.
+// Parse a JPEG's headers: dims = {height, width, components}.
 int jpeg_header(const uint8_t* data, int64_t n, int* dims, char* err,
                 int err_cap) {
   try {
@@ -943,19 +939,42 @@ int jpeg_header(const uint8_t* data, int64_t n, int* dims, char* err,
     dec.read_header();
     dims[0] = dec.height();
     dims[1] = dec.width();
+    dims[2] = dec.components();
     return 0;
   } catch (const std::exception& e) {
     return fail(e.what(), err, err_cap);
   }
 }
 
-// Decode a JPEG into out [height, width, 3] RGB (dims from jpeg_header).
+// Decode a one- or three-component JPEG into out [height, width, 3] RGB
+// (dims from jpeg_header).
 int jpeg_decode_rgb(const uint8_t* data, int64_t n, uint8_t* out, int h, int w,
                     char* err, int err_cap) {
   try {
     JpegDecoder dec(data, n);
     dec.read_header();
     if (dec.height() != h || dec.width() != w) throw Error("size mismatch");
+    if (dec.components() == 4) {
+      throw Error("a four-component (CMYK) JPEG decodes with jpeg_decode_cmyk");
+    }
+    dec.decode(out);
+    return 0;
+  } catch (const std::bad_alloc&) {
+    return fail("out of memory decoding the JPEG", err, err_cap);
+  } catch (const std::exception& e) {
+    return fail(e.what(), err, err_cap);
+  }
+}
+
+// Decode a four-component JPEG into out [height, width, 4]: the pixels of
+// Pillow's "CMYK" mode (dims from jpeg_header).
+int jpeg_decode_cmyk(const uint8_t* data, int64_t n, uint8_t* out, int h,
+                     int w, char* err, int err_cap) {
+  try {
+    JpegDecoder dec(data, n);
+    dec.read_header();
+    if (dec.height() != h || dec.width() != w) throw Error("size mismatch");
+    if (dec.components() != 4) throw Error("not a four-component (CMYK) JPEG");
     dec.decode(out);
     return 0;
   } catch (const std::bad_alloc&) {

@@ -1,5 +1,6 @@
 """The host image library (native/image.cc), bound with ctypes: JPEG
-decoding, PNG unfiltering, cv2's Gaussian blur and Pillow's hue round trip.
+decoding (to RGB, or to Pillow's "CMYK" mode), PNG unfiltering, cv2's
+Gaussian blur and Pillow's hue round trip.
 
 Built with g++ at first use by `ops/_build.py` (into `build/zutis_tpu_torch/`,
 keyed by the source and the flags, renamed into place), exactly as the RLE
@@ -35,10 +36,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.jpeg_header.argtypes = [ctypes.c_char_p, ctypes.c_int64,
                                 ctypes.POINTER(ctypes.c_int), ctypes.c_char_p,
                                 ctypes.c_int]
-    lib.jpeg_decode_rgb.restype = ctypes.c_int
-    lib.jpeg_decode_rgb.argtypes = [ctypes.c_char_p, ctypes.c_int64, _u8_p,
-                                    ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_char_p, ctypes.c_int]
+    for name in ("jpeg_decode_rgb", "jpeg_decode_cmyk"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, _u8_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
     lib.png_unfilter.restype = ctypes.c_int
     lib.png_unfilter.argtypes = [ctypes.c_char_p, ctypes.c_int,
                                  ctypes.c_int64, ctypes.c_int, _u8_p,
@@ -67,22 +69,40 @@ def check_pixels(h: int, w: int) -> None:
                          f"{MAX_PIXELS} (as Pillow refuses it)")
 
 
-def decode_jpeg_rgb(data: bytes) -> np.ndarray:
-    """A JPEG stream -> [H, W, 3] uint8 RGB, Pillow's
-    `Image.open(f).convert("RGB")`; raises ValueError on a stream it does
-    not decode (the message says why)."""
-    lib = load_image_lib()
+def jpeg_header(data: bytes) -> tuple:
+    """A JPEG stream's (height, width, components); raises ValueError on
+    headers it does not decode."""
     err = ctypes.create_string_buffer(ERR_CAP)
-    dims = (ctypes.c_int * 2)()
-    if lib.jpeg_header(data, len(data), dims, err, ERR_CAP) != 0:
+    dims = (ctypes.c_int * 3)()
+    if load_image_lib().jpeg_header(data, len(data), dims, err,
+                                    ERR_CAP) != 0:
         raise ValueError(err.value.decode())
-    h, w = dims[0], dims[1]
+    return dims[0], dims[1], dims[2]
+
+
+def _decode_jpeg(data: bytes, channels: int, entry: str) -> np.ndarray:
+    h, w, _ = jpeg_header(data)
     check_pixels(h, w)
-    out = np.empty((h, w, 3), np.uint8)
-    if lib.jpeg_decode_rgb(data, len(data), _ptr(out), h, w, err,
-                           ERR_CAP) != 0:
+    out = np.empty((h, w, channels), np.uint8)
+    err = ctypes.create_string_buffer(ERR_CAP)
+    if getattr(load_image_lib(), entry)(data, len(data), _ptr(out), h, w,
+                                        err, ERR_CAP) != 0:
         raise ValueError(err.value.decode())
     return out
+
+
+def decode_jpeg_rgb(data: bytes) -> np.ndarray:
+    """A one- or three-component JPEG stream -> [H, W, 3] uint8 RGB,
+    Pillow's `Image.open(f).convert("RGB")`; raises ValueError on a stream
+    it does not decode (the message says why), a CMYK one included."""
+    return _decode_jpeg(data, 3, "jpeg_decode_rgb")
+
+
+def decode_jpeg_cmyk(data: bytes) -> np.ndarray:
+    """A four-component JPEG stream -> [H, W, 4] uint8, the pixels of
+    Pillow's "CMYK" mode (`np.asarray(Image.open(f))`: the inverted
+    samples, as Pillow reads Adobe's convention)."""
+    return _decode_jpeg(data, 4, "jpeg_decode_cmyk")
 
 
 def png_unfilter(raw: bytes, h: int, rowbytes: int, bpp: int) -> np.ndarray:
