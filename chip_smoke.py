@@ -8,9 +8,9 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
 
   1. Card and build: requires CUDA, prints the card's name and power limit,
      builds the flash-attention, attention-probe and matcher kernels from
-     zutis_tpu_torch/csrc with nvcc for sm_90a and the RLE codec
-     (zutis_tpu_torch/native/rle.cc) with g++ (one compiler per source,
-     started together), prints ptxas's registers and spills, fails if ptxas
+     zutis_tpu_torch/csrc with nvcc for sm_90a and the host libraries of
+     zutis_tpu_torch/native (RLE codec, image library, hole fill and
+     labelling) with g++ (one compiler per source, started together), prints ptxas's registers and spills, fails if ptxas
      serialised any kernel's wgmma, and turns TF32 off for matmuls and cuDNN.
   2. Flash kernels against their plain version on the card, at the three
      attention shapes of the serving path (batch 8, bf16), also as strided
@@ -114,31 +114,51 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
      bounds, 4 categories of each against a CPU rerun. Every launch count
      is set to 0 before the text tower, each bank and the library path's
      banks, and read after: flash as stated, the probes and the matcher 0.
- 10. The two CLIs on images from disk (`phase_cli`), fed by phase 9:
-     every committed fixture image (tests/torch_fixtures) through the
-     port's JPEG/PNG decoder, held to Pillow's pinned SHA-256; pseudo-masks
-     for every bank image beside the category_to_p_images JSON that
-     combined_retrieval wrote, and a coco2017-layout val set of 16
-     committed JPEGs with polygon annotations; the loader's
+ 10. Pseudo-labelling at full width (`phase_pseudo_masks`), fed by phase
+     9's bank images (the five 500 x 375 photos and the 640 x 480
+     fixture): a seeded SelfMask (DINO DeiT-S/8, 20 queries, 6 decoder
+     layers, f32) saved as a reference-layout selfmask_nq20.pt in phase
+     9's assets directory and loaded back through load_selfmask;
+     generate_pseudo_masks at 512 px with every launch count set to 0
+     before and read after (24 flash launches an image, nothing else),
+     and again into a second directory, byte-equal; per image the
+     SelfMask forward on the kernel path against the "torch" attention
+     path (near-ties of the best query and of mask pixels printed with
+     their margins) and the bilateral solve on the card against a CPU
+     rerun on the same mask (soft output within 1e-9, masks equal); flash
+     f32 at the three SelfMask shapes against its plain version, timed
+     beside SDPA and its bound; per image the host's decode + resize, the
+     SelfMask forward (host clock, device busy and flash's share from
+     torch.profiler), the solve on the card and on the host CPU, the fill
+     + labelling and the RLE, projected to the retrieved sets of the
+     shipped n500 configs; peak memory.
+ 11. The two CLIs on images from disk (`phase_cli`), fed by phases 9 and
+     10: every committed fixture image (tests/torch_fixtures) through the
+     port's JPEG/PNG decoder, held to Pillow's pinned SHA-256; a
+     coco2017-layout val set of 16 committed JPEGs with polygon
+     annotations; `zutis_tpu_torch.cli.main.main` on the shipped config
+     with the Trainer's cuts and skip_pretrained, its text embeddings
+     computed from the synthetic checkpoint and merges file into the JAX
+     CLI's cache file (equal to phase 9's), the pseudo-masks of every
+     image combined_retrieval chose generated by the CLI from phase 10's
+     checkpoint (24 flash launches an image), 6 iterations of batch 8 at
+     384 px from the JPEGs, logs at 2, 4, 6, evaluations of the 16 val
+     JPEGs and full checkpoints at 3 and 6, every launch count set to 0
+     before and read after (24 flash launches a step and a padded
+     forward, 18 of those masked, one matcher launch a step, no probe)
+     and the seconds it waited for batches, its artifacts; the loader's
      IndexDataset.sample ms and batch_iterator samples/s at 1, 2 and
-     os.cpu_count() threads, and a COCO2017Dataset item's ms;
-     `zutis_tpu_torch.cli.main.main` on the shipped config with the
-     Trainer's cuts and skip_pretrained, its text embeddings computed from
-     the synthetic checkpoint and merges file into the JAX CLI's cache file
-     (equal to phase 9's), 6 iterations of batch 8 at 384 px from the
-     JPEGs, logs at 2, 4, 6, evaluations of the 16 val JPEGs and full
-     checkpoints at 3 and 6, every launch count set to 0 before and read
-     after (24 flash launches a step and a padded forward, 18 of those
-     masked, one matcher launch a step, no probe) and the seconds it
-     waited for batches, its artifacts, the same evaluation again with no
-     loader thread running, and the run resumed from step 3 (which reads
-     the cache) against the straight one; `cli.coco20k_eval.main` on the
+     os.cpu_count() threads, and a COCO2017Dataset item's ms; the same
+     evaluation again with no loader thread running, and the run resumed
+     from step 3 (which reads the cache and finds every pseudo-mask,
+     untouched) against the straight one; `cli.coco20k_eval.main` on the
      trained final_model.npz, batched at depth 1 and 2. Prints the decode
      ms, the loader's rates, fit's iters/s beside phase_trainer's, the
      eval CLI's img/s and peak memory.
 
-Prints the kernel record (flash's launches on the main paths, its eval
-and retrieval shapes, the matcher's) and the card on lines of their own,
+Prints the kernel record (flash's launches on the main paths, its eval,
+retrieval and SelfMask shapes, the matcher's) and the card on lines of
+their own,
 then, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
 no result line, on any failure or without a card.
 """
@@ -183,6 +203,7 @@ from zutis_tpu_torch.losses import criterion as crit
 from zutis_tpu_torch.models.layers import MultiHeadAttention
 from zutis_tpu_torch.models.zutis import ZUTIS
 from zutis_tpu_torch.native import image as native_image
+from zutis_tpu_torch.native import labels as native_labels
 from zutis_tpu_torch.ops import _build
 from zutis_tpu_torch.ops import attention_probes as ap
 from zutis_tpu_torch.ops import flash_attention as fa
@@ -409,12 +430,13 @@ def phase_card() -> tuple[str, list]:
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
     # one compiler per source, together: nvcc for the three kernel
-    # libraries, g++ for the RLE codec and the image library
-    with ThreadPoolExecutor(5) as pool:
+    # libraries, g++ for the RLE codec, the image library and the hole
+    # fill and labelling
+    with ThreadPoolExecutor(6) as pool:
         builds = [pool.submit(m.build)
-                  for m in (fa, ap, hg, native, native_image)]
+                  for m in (fa, ap, hg, native, native_image, native_labels)]
         results = [b.result() for b in builds]
-    print(f"build: all five libraries in {time.perf_counter() - t0:.1f} s",
+    print(f"build: all six libraries in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for path, seconds, log in results:
         print(f"build: {path.name} in {seconds:.1f} s", flush=True)
@@ -2035,13 +2057,6 @@ def check_fixture_decodes(reps: int = 20) -> dict:
     return {"fixtures": len(expected), "decode_ms": timed}
 
 
-def _ellipse(rng, h: int, w: int) -> np.ndarray:
-    yy, xx = np.mgrid[0:h, 0:w]
-    cy, cx = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w
-    ry, rx = rng.uniform(0.15, 0.4) * h, rng.uniform(0.15, 0.4) * w
-    return (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1).astype(np.uint8)
-
-
 def _polygon(rng, h: int, w: int) -> list:
     cy, cx = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w
     r = rng.uniform(0.08, 0.3) * min(h, w)
@@ -2053,25 +2068,14 @@ def _polygon(rng, h: int, w: int) -> list:
 
 
 def build_cli_fixture(root: Path, retrieval: dict) -> dict:
-    """On disk under `root`, beside phase_retrieval's files: RLE
-    pseudo-masks for every image of the retrieval banks, where the
-    training CLI looks for them (beside the category_to_p_images JSON that
-    combined_retrieval wrote); a coco2017-layout val set of 16 committed
-    JPEGs with polygon annotations and the same images in the coco20k
-    layout."""
-    from zutis_tpu_torch.data.image_io import read_rgb
-    from zutis_tpu_torch.data.pseudo_masks import pseudo_mask_path
-
+    """On disk under `root`, beside phase_retrieval's files: a
+    coco2017-layout val set of 16 committed JPEGs with polygon annotations
+    and the same images in the coco20k layout. No pseudo-mask is written:
+    the training CLI makes them."""
     rng = np.random.default_rng(2026)
     photos = sorted(FIXTURES.glob("photo_*_420_q75.jpg"))
     largest = FIXTURES / "largest_640x480_422_q80_progressive.jpg"
     library = retrieval["library"]
-    dir_pm = library["cat_fp"].parent / "pseudo_masks"
-    dir_pm.mkdir()
-    for p in library["images"]:
-        h, w = read_rgb(p).shape[:2]
-        with open(pseudo_mask_path(str(dir_pm), p), "w") as f:
-            json.dump(rle.encode(_ellipse(rng, h, w)), f)
 
     dir_val, dir_20k = root / "coco2017", root / "coco20k"
     for d in (dir_val / "val2017", dir_val / "annotations",
@@ -2202,6 +2206,31 @@ def loader_waits():
         index_dataset.batch_iterator = real
 
 
+@contextlib.contextmanager
+def generation_record():
+    """While open, each `generate_pseudo_masks` call (the training CLI's)
+    appends its image count, flash launches and seconds to the yielded
+    list."""
+    from zutis_tpu_torch.data import pseudo_masks
+
+    calls, real = [], pseudo_masks.generate_pseudo_masks
+
+    def recorded(p_images, *args, **kwargs):
+        before = fa.flash_attention.launches
+        t0 = time.perf_counter()
+        result = real(p_images, *args, **kwargs)
+        _sync(kwargs.get("device", "cuda"))
+        calls.append(dict(images=len(p_images), seconds=time.perf_counter()
+                          - t0, launches=fa.flash_attention.launches - before))
+        return result
+
+    pseudo_masks.generate_pseudo_masks = recorded
+    try:
+        yield calls
+    finally:
+        pseudo_masks.generate_pseudo_masks = real
+
+
 def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
               model_kwargs=None, image_size: int = 0) -> dict:
     """The two CLIs on images from disk, fed by phase_retrieval. The
@@ -2220,6 +2249,7 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
     from zutis_tpu_torch.cli import main as cli_main
     from zutis_tpu_torch.core.config import checkpoint_dir
     from zutis_tpu_torch.data.datasets import get_eval_dataset
+    from zutis_tpu_torch.data.pseudo_masks import pseudo_mask_path
 
     t_phase = time.perf_counter()
     device = torch.device(device)
@@ -2241,28 +2271,14 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
               and cfg.n_iters == TRAINER_SCHEDULE["n_iters"],
               f"the derived config: {cfg}")
         batch = cfg.train_dataloader_kwargs["batch_size"]
-        loader = time_loader(cli_main.build_index_dataset(cfg, 0), batch,
-                             device)
-        print(f"cli: loader: IndexDataset.sample {loader['sample_ms']:.1f} "
-              f"ms (median of {LOADER_SAMPLES}, "
-              f"{loader['objects_per_sample']:.2f} objects a sample; "
-              f"shares under cProfile {json.dumps(loader['split'])}); "
-              f"batch_iterator samples/s by threads "
-              f"{json.dumps(loader['loader_samples_per_s'])} on "
-              f"os.cpu_count() = {loader['cpu_count']}", flush=True)
-
-        # what an evaluation pays on the host for each val item: decode,
-        # normalise, the semantic mask and the instance masks rendered
-        # from the polygons
-        val = get_eval_dataset(cfg.dataset_name, cfg.dir_val_dataset)
-        item_ms = []
-        for i in range(len(val)):
-            t0 = time.perf_counter()
-            val[i]
-            item_ms.append((time.perf_counter() - t0) * 1e3)
-        loader["val_item_ms"] = statistics.median(item_ms)
-        print(f"cli: val: COCO2017Dataset item {loader['val_item_ms']:.1f} "
-              f"ms (median of {len(val)})", flush=True)
+        # every retrieved image, none with a pseudo-mask yet
+        with open(cfg.category_to_p_images_fp) as f:
+            retrieved = sorted({p for ps in json.load(f).values() for p in ps})
+        masks = {p: pseudo_mask_path(os.path.join(os.path.dirname(
+            cfg.category_to_p_images_fp), "pseudo_masks"), p)
+            for p in retrieved}
+        check(not any(os.path.exists(m) for m in masks.values()),
+              "a pseudo-mask exists before the training CLI runs")
 
         # the buckets of the val images: one padded forward each per
         # evaluation (16 images a batch)
@@ -2275,11 +2291,21 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
         zero_counts()
         sync()
         t0 = time.perf_counter()
-        with loader_waits() as waits:
+        with loader_waits() as waits, generation_record() as generated:
             cli_main.main(args)
         sync()
         fit_s = time.perf_counter() - t0
         launches, masked = read_counts()
+        # the pseudo-masks the CLI made before training
+        check(len(generated) == 1 and generated[0]["images"] == len(
+            retrieved) and all(os.path.exists(m) for m in masks.values()),
+            f"the training CLI generated {generated} for {len(retrieved)} "
+            "images")
+        gen = generated[0]
+        mask_stamps = {m: os.stat(m).st_mtime_ns for m in masks.values()}
+        print(f"cli: pseudo-masks: the training CLI made {gen['images']} "
+              f"from the assets' selfmask_nq20.pt in {gen['seconds']:.3f} s "
+              f"({gen['launches']} flash launches)", flush=True)
         peak_gib = (torch.cuda.max_memory_allocated(device) / 2 ** 30
                     if on_card else None)
         # the text embeddings the CLI computed and cached
@@ -2302,10 +2328,13 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
               f"{json.dumps([round(w, 4) for w in waits])}); launches "
               f"{json.dumps(launches)} ({masked} masked flash)", flush=True)
         if on_card:
-            check(launches["flash_attention"] == LAUNCHES_PER_FORWARD * (
-                cfg.n_iters + forwards * n_evals),
-                f"{launches['flash_attention']} flash launches: expected "
-                f"{LAUNCHES_PER_FORWARD} a step and a padded forward")
+            check(gen["launches"] == SELFMASK_LAUNCHES * gen["images"],
+                  f"{gen['launches']} flash launches for {gen['images']} "
+                  f"pseudo-masks: expected {SELFMASK_LAUNCHES} an image")
+            check(launches["flash_attention"] - gen["launches"]
+                  == LAUNCHES_PER_FORWARD * (cfg.n_iters + forwards * n_evals),
+                  f"{launches['flash_attention']} flash launches: expected "
+                  f"{LAUNCHES_PER_FORWARD} a step and a padded forward")
             check(masked == EVAL_MASKED_LAUNCHES * forwards * n_evals,
                   f"{masked} masked flash launches")
             check(launches["batched_hungarian"] == cfg.n_iters,
@@ -2342,6 +2371,29 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
         check(all(np.isfinite(v).all() for v in straight.values()),
               "final_model.npz holds a non-finite parameter")
 
+        loader = time_loader(cli_main.build_index_dataset(cfg, 0, device),
+                             batch, device)
+        print(f"cli: loader: IndexDataset.sample {loader['sample_ms']:.1f} "
+              f"ms (median of {LOADER_SAMPLES}, "
+              f"{loader['objects_per_sample']:.2f} objects a sample; "
+              f"shares under cProfile {json.dumps(loader['split'])}); "
+              f"batch_iterator samples/s by threads "
+              f"{json.dumps(loader['loader_samples_per_s'])} on "
+              f"os.cpu_count() = {loader['cpu_count']}", flush=True)
+
+        # what an evaluation pays on the host for each val item: decode,
+        # normalise, the semantic mask and the instance masks rendered
+        # from the polygons
+        val = get_eval_dataset(cfg.dataset_name, cfg.dir_val_dataset)
+        item_ms = []
+        for i in range(len(val)):
+            t0 = time.perf_counter()
+            val[i]
+            item_ms.append((time.perf_counter() - t0) * 1e3)
+        loader["val_item_ms"] = statistics.median(item_ms)
+        print(f"cli: val: COCO2017Dataset item {loader['val_item_ms']:.1f} "
+              f"ms (median of {len(val)})", flush=True)
+
         # the same evaluation with no loader thread beside it
         model = cli_main.build_model(cfg, device, init=False)
         model.load_state_dict(load_params_any(final), strict=True)
@@ -2359,12 +2411,16 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
         shutil.rmtree(os.path.join(run, "checkpoints", f"step_{cfg.n_iters}"))
         zero_counts()
         t0 = time.perf_counter()
-        cli_main.main(args)
+        with generation_record() as generated_again:
+            cli_main.main(args)
         sync()
         resume_s = time.perf_counter() - t0
         resumed_launches, _ = read_counts()
         check(os.stat(cache_fp).st_mtime_ns == cache_mtime,
               "the resumed run rewrote the text-embedding cache")
+        check(not generated_again and {m: os.stat(m).st_mtime_ns
+                                       for m in masks.values()}
+              == mask_stamps, "the resumed run made pseudo-masks again")
         resumed_steps = cfg.n_iters - cfg.checkpoint_every
         if on_card:
             check(resumed_launches["batched_hungarian"] == resumed_steps,
@@ -2419,6 +2475,7 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
 
     rate = logs[-1]["iters_per_sec"]
     out = dict(decoder=decoder, loader=loader, fit_s=fit_s,
+               pseudo_masks=gen,
                loader_wait_s=waits,
                fit_iters_per_sec=rate,
                trainer_fit_iters_per_sec=trainer_stats.get(
@@ -2588,38 +2645,39 @@ def retrieval_tokenizer(path: Path):
     return tok
 
 
-def bank_flash(gen) -> list:
-    """Flash at encode_image's shape as the ViT passes it ([b, s, h, d]
-    views), f32 and bf16, against its plain version (of the largest
-    |output|: 1e-4 f32, 8e-3 bf16); times beside the plain version, SDPA
-    and the bound at the rate of the path the kernel takes (bf16: 989
-    TFLOP/s; f32: 989 / 3, its three bf16 MMAs a product)."""
-    b, h, sq, sk, d = BANK_FLASH_SHAPE
+def flash_rows(gen, cases, label: str) -> list:
+    """Flash at each (name, [b, h, sq, sk, d], dtype, launches a forward)
+    case as the model passes it ([b, s, h, d] views) against its plain
+    version (of the largest |output|: 1e-4 f32, 8e-3 bf16); times beside
+    the plain version, SDPA and the bound at the rate of the path the
+    kernel takes (bf16: 989 TFLOP/s; f32: 989 / 3, its three bf16 MMAs a
+    product), bytes counting q and o [b, h, sq, d], k and v [b, h, sk, d]
+    once each."""
     rows = []
-    for dtype, tol, peak in ((torch.float32, TOL_F32, PEAK_F32_FLASH_FLOPS),
-                             (torch.bfloat16, TOL_FLASH_BF16,
-                              kernel_tune.PEAK_BF16_FLOPS)):
-        name = str(dtype)[6:]
+    for name, (b, h, sq, sk, d), dtype, per_forward in cases:
+        f32 = dtype == torch.float32
+        tol = TOL_F32 if f32 else TOL_FLASH_BF16
+        peak = PEAK_F32_FLASH_FLOPS if f32 else kernel_tune.PEAK_BF16_FLOPS
         q, k, v = _inputs(gen, b, h, sq, sk, d, dtype, strided=True)
         before = fa.flash_attention.launches
         got = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
         check(fa.flash_attention.launches == before + 1,
-              "bank flash: no launch")
+              f"{label} flash: no launch")
         want = fa.flash_attention_reference(q.float(), k.float(), v.float())
         err = (got.float() - want).abs().max().item()
         rel = err / want.abs().max().item()
         del got, want
-        print(f"kernel check bank {[b, h, sq, sk, d]} {name}: max_abs_err "
+        print(f"kernel check {label} {name} {[b, h, sq, sk, d]}: max_abs_err "
               f"{err:.3e} max_rel_err {rel:.3e} (tol {tol} rel)", flush=True)
-        check(rel <= tol, f"bank flash {name} disagrees with its plain "
+        check(rel <= tol, f"{label} flash {name} disagrees with its plain "
               "version")
         flops = 4 * b * h * sq * sk * d
-        nbytes = q.element_size() * 4 * b * h * sq * d
+        nbytes = q.element_size() * 2 * b * h * (sq + sk) * d
         t_ops = flops / peak * 1e3
         t_bytes = nbytes / kernel_tune.PEAK_BYTES * 1e3
-        row = dict(name=f"bank encoder self {name}", shape=[b, h, sq, sk, d],
-                   dtype=name, per_forward=BANK_ENCODER["layers"],
+        row = dict(name=name, shape=[b, h, sq, sk, d],
+                   dtype=str(dtype)[6:], per_forward=per_forward,
                    max_abs_err=err, max_rel_err=rel,
                    ms=cuda_ms(lambda: fa.flash_attention(q, k, v)),
                    plain_ms=cuda_ms(
@@ -2632,7 +2690,7 @@ def bank_flash(gen) -> list:
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
                    peak_flops=peak)
         rows.append(row)
-        print(f"kernel time bank {[b, h, sq, sk, d]} {name}: kernel "
+        print(f"kernel time {label} {name} {[b, h, sq, sk, d]}: kernel "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}; operations at {peak / 1e12:.1f} "
@@ -2983,8 +3041,12 @@ def phase_retrieval(root: Path, device="cuda", text_tower=None,
           f"{json.dumps(out['projected_hours'])} hours", flush=True)
 
     if on_card:
-        out["flash_rows"] = bank_flash(
-            torch.Generator(device="cuda").manual_seed(24))
+        # flash at encode_image's shape, f32 and bf16
+        out["flash_rows"] = flash_rows(
+            torch.Generator(device="cuda").manual_seed(24),
+            [(f"bank encoder self {str(dtype)[6:]}", BANK_FLASH_SHAPE, dtype,
+              BANK_ENCODER["layers"])
+             for dtype in (torch.float32, torch.bfloat16)], "bank")
     out["library"] = library_path(root, enc, pe, device)
     del enc, enc_bf16, x
     if on_card:
@@ -3004,6 +3066,230 @@ def phase_retrieval(root: Path, device="cuda", text_tower=None,
     out["assets_dir"] = assets
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"retrieval: phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------- pseudo-masks
+
+PSEUDO_SEED = 40
+# the three attention shapes of a retrieved 500 x 375 photo (and of the
+# 640 x 480 fixture): 683 x 512 after the resize, 688 x 512 padded, a
+# 64 x 86 token grid; launches an image
+SELFMASK_FLASH_SHAPES = [
+    ("selfmask encoder self", (1, 6, 5505, 5505, 64), 12),
+    ("selfmask decoder self", (1, 6, 20, 20, 64), 6),
+    ("selfmask decoder cross", (1, 6, 20, 5504, 64), 6),
+]
+# the kernel path against the "torch" attention path, f32: mask
+# probabilities apart, and objectness of its largest |value|; a best query
+# or mask pixel may differ only within this of a tie
+SELFMASK_LAUNCHES = sum(n for _, _, n in SELFMASK_FLASH_SHAPES)
+TOL_SELFMASK_TORCH = 1e-3
+TOL_BILATERAL = 1e-9  # the card's soft output against the CPU rerun's
+RETRIEVED_SETS = {"COCO / CoCA n500": 80 * 500, "ImageNet-S n500": 919 * 500}
+
+
+def _best_mask(out: dict, h: int, w: int):
+    """best_masks' steps on a forward's output -> (mask [h, w] bool, the
+    chosen query's probabilities [h, w], the objectness margin of the best
+    query over the second)."""
+    from zutis_tpu_torch.ops.resize import interpolate
+
+    up = interpolate(out["mask_pred"], scale_factor=4, mode="bilinear")
+    obj = out["objectness"][0]
+    top = torch.topk(obj, 2).values
+    prob = up[0, int(obj.argmax())][:h, :w].cpu().numpy()
+    return prob > 0.5, prob, float(top[0] - top[1])
+
+
+def phase_pseudo_masks(root: Path, retrieval: dict, device="cuda",
+                       selfmask_cfg: dict = None) -> dict:
+    """Pseudo-labelling at full width over phase_retrieval's bank images
+    (the committed 500 x 375 photos and the 640 x 480 fixture, first
+    copy): a seeded SelfMask (DeiT-S/8, 20 queries, 6 decoder layers, f32)
+    saved as a reference-layout `selfmask_nq20.pt` in the retrieval's
+    assets directory (where phase_cli's training CLI looks) and loaded
+    back through `load_selfmask`; `generate_pseudo_masks` at 512 px with
+    every launch count set to 0 before and read after (flash 24 an image,
+    nothing else); a second run written byte-equal; per image the
+    SelfMask forward on the kernel path against the "torch" path, and the
+    bilateral solve on the card against a CPU rerun on the same mask;
+    flash f32 at the three SelfMask shapes; per-image host and card times,
+    flash's share of SelfMask's device time, peak memory, hours projected
+    for the retrieved sets. `selfmask_cfg` shrinks SelfMask for a
+    rehearsal on the CPU, where the card's checks and times are left
+    out."""
+    from zutis_tpu_torch.data import pseudo_masks as PM
+    from zutis_tpu_torch.data.transforms import normalize_image
+    from zutis_tpu_torch.models.selfmask import SelfMask, pad_to_patch_multiple
+    from zutis_tpu_torch.models.weights import (load_selfmask,
+                                                selfmask_reference_state_dict)
+    from zutis_tpu_torch.ops import bilateral
+
+    t_phase = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    out = {}
+    seeded = SelfMask(**(selfmask_cfg or {}), device=device).init_params(
+        torch.Generator().manual_seed(PSEUDO_SEED))
+    p_ckpt = retrieval["assets_dir"] / "selfmask_nq20.pt"
+    torch.save(selfmask_reference_state_dict(seeded), p_ckpt)
+    model = load_selfmask(str(p_ckpt), device=device,
+                          **({"heads": selfmask_cfg["heads"]}
+                             if selfmask_cfg else {}))
+    check(all(torch.equal(a, b) for a, b in zip(
+        seeded.state_dict().values(), model.state_dict().values())),
+        "load_selfmask gave other weights than were saved")
+    del seeded
+    per_image = len(model.encoder.blocks) + 2 * len(model.decoder.layers)
+    bank = root / "bank_images"
+    images = [str(p) for p in sorted(bank.glob("0_photo_*_420_q75.jpg"))]
+    images.append(str(bank / "0_largest_640x480_422_q80_progressive.jpg"))
+
+    # generation, counted from 0, and again for determinism
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    written, gen_s = _seconds(lambda: PM.generate_pseudo_masks(
+        images, str(root / "pseudo_masks_a"), model, device=device), device)
+    out["launches"] = flash_only_launches("pseudo-mask generation")
+    _, out["masked_launches"] = read_counts()
+    out["peak_memory_gib"] = (torch.cuda.max_memory_allocated(device)
+                              / 2 ** 30 if on_card else None)
+    if on_card:
+        check(out["launches"] == per_image * len(images),
+              f"{out['launches']} flash launches for {len(images)} images: "
+              f"expected {per_image} an image")
+        check(out["masked_launches"] == 0, "SelfMask's flash took a mask")
+    again = PM.generate_pseudo_masks(images, str(root / "pseudo_masks_b"),
+                                     model, device=device)
+    check(all(Path(written[p]).read_bytes() == Path(again[p]).read_bytes()
+              for p in images), "two runs wrote different pseudo-masks")
+    areas = [float(rle.decode(json.loads(Path(written[p]).read_text()))
+                   .mean()) for p in images]
+    out.update(n_images=len(images), generate_s=gen_s, mask_areas=areas)
+    print(f"pseudo: generate_pseudo_masks over {len(images)} images in "
+          f"{gen_s:.3f} s ({out['launches']} flash launches, "
+          f"{out['masked_launches']} masked, no other kernel); a second run "
+          f"wrote byte-equal JSON; mask areas {json.dumps(areas)}; peak "
+          f"memory {out['peak_memory_gib']} GiB", flush=True)
+
+    # per image: the kernel path against the torch path, the card's solve
+    # against the CPU's, and where the time goes
+    parts = {k: [] for k in ("decode_resize_ms", "bilateral_card_ms",
+                             "bilateral_cpu_ms", "grid_keys_ms", "label_ms",
+                             "resize_back_rle_ms")}
+    agreement = []
+    for i, p in enumerate(images):
+        (size, resized), t = _seconds(lambda: PM.load_resized(p), "cpu")
+        parts["decode_resize_ms"].append(t * 1e3)
+        h, w = resized.shape[:2]
+        x = torch.from_numpy(pad_to_patch_multiple(
+            normalize_image(resized)[None], model.patch_size)).to(device)
+        outs = {}
+        with torch.inference_mode():
+            for impl in ("torch", "auto"):
+                set_attn_impl(model, impl)
+                outs[impl] = model(x)
+        mask_k, _, _ = _best_mask(outs["auto"], h, w)
+        mask_t, prob_t, margin = _best_mask(outs["torch"], h, w)
+        obj_scale = float(outs["torch"]["objectness"].abs().max())
+        row = dict(
+            image=os.path.basename(p),
+            mask_pred_max_abs_diff=float((outs["auto"]["mask_pred"]
+                                          - outs["torch"]["mask_pred"])
+                                         .abs().max()),
+            objectness_max_rel_diff=float(
+                (outs["auto"]["objectness"] - outs["torch"]["objectness"])
+                .abs().max()) / obj_scale,
+            best_query_margin=margin / obj_scale,
+            best_query_equal=bool(outs["auto"]["objectness"].argmax()
+                                  == outs["torch"]["objectness"].argmax()),
+            pixels_differ=int((mask_k != mask_t).sum()),
+            nearest_tie=float(np.abs(prob_t - 0.5).min()))
+        del outs
+        agreement.append(row)
+        check(row["mask_pred_max_abs_diff"] <= TOL_SELFMASK_TORCH
+              and row["objectness_max_rel_diff"] <= TOL_SELFMASK_TORCH,
+              f"SelfMask on the kernel path against the torch path: {row}")
+        check(row["best_query_equal"]
+              or row["best_query_margin"] <= TOL_SELFMASK_TORCH,
+              f"the best query differs away from a tie: {row}")
+        if row["best_query_equal"]:
+            check((np.abs(prob_t[mask_k != mask_t] - 0.5)
+                   <= TOL_SELFMASK_TORCH).all(),
+                  f"best masks differ away from 0.5: {row}")
+
+        mask = PM.selfmask_mask(model, resized, device).astype(np.float64)
+        if i == 0:  # the solver's first call on a device pays its warm-up
+            bilateral.bilateral_solver_output(resized, mask, device=device)
+        (soft, refined), t = _seconds(lambda: bilateral.bilateral_solver_output(
+            resized, mask, device=device), device)
+        parts["bilateral_card_ms"].append(t * 1e3)
+        (soft_cpu, refined_cpu), t = _seconds(
+            lambda: bilateral.bilateral_solver_output(resized, mask,
+                                                      device="cpu"), "cpu")
+        parts["bilateral_cpu_ms"].append(t * 1e3)
+        err = float(np.abs(soft - soft_cpu).max())
+        row.update(bilateral_max_abs_err=err,
+                   bilateral_near_half=int((np.abs(soft_cpu - 0.5)
+                                            <= TOL_BILATERAL).sum()))
+        check(err <= TOL_BILATERAL and np.array_equal(refined, refined_cpu),
+              f"the bilateral solve on {device} against the CPU: {row}")
+        _, t = _seconds(lambda: bilateral.grid_keys(resized), "cpu")
+        parts["grid_keys_ms"].append(t * 1e3)
+        _, t = _seconds(lambda: bilateral.refine_mask(soft), "cpu")
+        parts["label_ms"].append(t * 1e3)
+        _, t = _seconds(lambda: PM.write_mask(PM.to_original_size(
+            refined.astype(np.uint8), size), str(root / "timed.json")), "cpu")
+        parts["resize_back_rle_ms"].append(t * 1e3)
+    out["agreement"] = agreement
+    print("pseudo: kernel path against the torch path, card solve against "
+          f"the CPU, per image: {json.dumps(agreement)}", flush=True)
+
+    # SelfMask on the card, one 683 x 512 image: host clock and device
+    _, resized = PM.load_resized(images[0])
+    out["selfmask_ms"] = host_ms(lambda: PM.selfmask_mask(model, resized,
+                                                          device),
+                                 device, reps=5, warmup=1)
+    if on_card:
+        x = torch.from_numpy(pad_to_patch_multiple(
+            normalize_image(resized)[None], model.patch_size)).to(device)
+        by_name = device_kernels(lambda: model(x))
+        busy = sum(ms for ms, _ in by_name.values())
+        flash = sum(ms for k, (ms, _) in by_name.items() if "flash" in k)
+        out.update(selfmask_busy_ms=busy, selfmask_flash_ms=flash,
+                   selfmask_flash_share=flash / busy if busy else None)
+        out["flash_rows"] = flash_rows(
+            torch.Generator(device="cuda").manual_seed(41),
+            [(n, shape, torch.float32, k)
+             for n, shape, k in SELFMASK_FLASH_SHAPES], "selfmask")
+    out["parts_ms"] = {k: statistics.median(v) for k, v in parts.items()}
+    serial = (out["parts_ms"]["decode_resize_ms"] + out["selfmask_ms"]
+              + out["parts_ms"]["bilateral_card_ms"]
+              + out["parts_ms"]["resize_back_rle_ms"])
+    out["serial_ms_per_image"] = serial
+    out["projected_hours"] = {name: n * serial / 3.6e6
+                              for name, n in RETRIEVED_SETS.items()}
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"pseudo: per image (median of {len(images)}): decode + resize "
+          f"{out['parts_ms']['decode_resize_ms']:.2f} ms on the host; "
+          f"SelfMask {out['selfmask_ms']:.3f} ms host clock + sync (device "
+          f"busy {out.get('selfmask_busy_ms')} ms, flash "
+          f"{out.get('selfmask_flash_ms')} ms, share "
+          f"{out.get('selfmask_flash_share')}); bilateral solve "
+          f"{out['parts_ms']['bilateral_card_ms']:.2f} ms on {device}, "
+          f"{out['parts_ms']['bilateral_cpu_ms']:.2f} ms on the host CPU "
+          f"(of each: the grid's keys on the host "
+          f"{out['parts_ms']['grid_keys_ms']:.2f} ms, fill + label + choice "
+          f"{out['parts_ms']['label_ms']:.2f} ms); NEAREST back + RLE + JSON "
+          f"{out['parts_ms']['resize_back_rle_ms']:.2f} ms; serially "
+          f"{serial:.2f} ms an image: {json.dumps(out['projected_hours'])} "
+          f"hours; phase {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -3030,8 +3316,13 @@ def main() -> None:
             {k: v for k, v in ret.items() if k not in (
                 "head_embeddings", "assets_dir", "library", "flash_rows")}),
             flush=True)
+        pseudo = phase_pseudo_masks(Path(tmp), ret)
+        print(f"pseudo-masks on {card}: " + json.dumps(
+            {k: v for k, v in pseudo.items() if k != "flash_rows"}),
+            flush=True)
         cli = phase_cli(trainer, ret)
     print(f"cli on {card}: {json.dumps(cli)}", flush=True)
+    cli_generation = cli["pseudo_masks"]["launches"]
 
     def per_forward(key):
         return sum(r[key] * r["per_forward"] for r in rows)
@@ -3054,13 +3345,15 @@ def main() -> None:
         # eval's padded forwards, the training steps, Trainer.fit (its
         # steps and its evaluations' padded forwards), the retrieval's
         # image banks (f32, bf16, and the library path's two archives),
-        # and the two CLIs on images from disk (the training CLI, its
-        # resumed run and the eval CLI at depth 1 and 2)
+        # the pseudo-masks' SelfMask, and the two CLIs on images from disk
+        # (the training CLI with the pseudo-masks it made, its resumed run
+        # and the eval CLI at depth 1 and 2)
         "launches": (stats["launches"] + ev["launches"]
                      + tr["launches"]["flash_attention"]
                      + trainer["launches"]["flash_attention"]
                      + sum(ret["bank_launches"].values())
                      + ret["library"]["launches"]
+                     + pseudo["launches"]
                      + cli["launches"]["flash_attention"]
                      + cli["resumed_launches"]["flash_attention"]
                      + sum(e["flash_attention"]
@@ -3073,14 +3366,18 @@ def main() -> None:
                              "trainer_masked": trainer["masked_launches"],
                              "retrieval_bank": ret["bank_launches"],
                              "retrieval_library": ret["library"]["launches"],
-                             "cli_train": cli["launches"]["flash_attention"],
+                             "pseudo_masks": pseudo["launches"],
+                             "cli_pseudo_masks": cli_generation,
+                             "cli_train": (cli["launches"]["flash_attention"]
+                                           - cli_generation),
                              "cli_train_masked": cli["masked_launches"],
                              "cli_resumed": cli["resumed_launches"][
                                  "flash_attention"],
                              "cli_eval": {d: e["flash_attention"] for d, e in
                                           cli["eval_launches"].items()}},
         "max_abs_err": max(max_err, ev["flash_max_abs_err"],
-                           *(r["max_abs_err"] for r in ret["flash_rows"])),
+                           *(r["max_abs_err"] for r in ret["flash_rows"]
+                             + pseudo["flash_rows"])),
         # times and bound: the 24 calls of one batch-8 forward at 384 px
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -3102,6 +3399,11 @@ def main() -> None:
         # encode_image's 24 calls a bank batch at ViT-L/14@336px, f32 and
         # bf16, each beside the bound at its dtype's rate
         "retrieval_shapes": ret["flash_rows"],
+        # SelfMask's 24 calls an image (f32, a 683 x 512 photo), each
+        # beside its bound at 989 / 3 TFLOP/s; flash's share of SelfMask's
+        # device time (torch.profiler)
+        "selfmask_shapes": pseudo["flash_rows"],
+        "selfmask_flash_share": pseudo["selfmask_flash_share"],
         # device time of the 24 flash kernels inside one training step
         # (torch.profiler), and the Function's gradient check
         "train_forward_ms": tr["flash_in_step_ms"],

@@ -6,12 +6,15 @@ newest full checkpoint; evaluating a JAX-written `.npz` gives the JAX CLI's
 `eval_metrics.json` and `eval_coco_style_metrics.json` (every score within
 1e-6, NaNs where JAX has NaNs); `coco20k_eval` gives the JAX CLI's
 predictions and metrics; `load_clip_visual` gives `load_clip_params`'s
-encoder on a synthetic CLIP-layout checkpoint; the refusals name their
-ROADMAP item. The text embeddings computed from a checkpoint are in
+encoder on a synthetic CLIP-layout checkpoint; the training CLI makes missing
+pseudo-masks from a synthetic SelfMask checkpoint in the flat and ImageNet
+layouts, equal to the JAX package's, and refuses without one; the other
+refusals name their ROADMAP item. The text embeddings computed from a checkpoint are in
 tests/test_torch_text_embeddings.py."""
 import json
 import math
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -372,25 +375,112 @@ def test_text_embeddings_from_the_npz_and_the_jax_cache(fixture, tmp_path):
         np.asarray(jax_main.build_text_embeddings(JaxConfig.load(fp))))
 
 
-@pytest.mark.parametrize("overrides,match", [
-    (dict(mesh_axes={"data": 2, "model": 1}), "item 6"),
-    (dict(visualise=True), "matplotlib"),
-    (dict(category_to_p_images_fp="MISSING_PM"), "item 8"),
-    (dict(clip_arch="RN50", model_kwargs=None), "item 7"),
+@pytest.mark.parametrize("overrides,error,match", [
+    (dict(mesh_axes={"data": 2, "model": 1}), NotImplementedError, "item 6"),
+    (dict(visualise=True), NotImplementedError, "matplotlib"),
+    (dict(category_to_p_images_fp="MISSING_PM"), FileNotFoundError,
+     "1 pseudo-masks missing and no SelfMask weights at .*selfmask_nq20.pt"),
+    (dict(clip_arch="RN50", model_kwargs=None), NotImplementedError,
+     "item 7"),
 ])
-def test_cli_refusals(fixture, tmp_path, overrides, match):
+def test_cli_refusals(fixture, tmp_path, overrides, error, match):
     if overrides.get("category_to_p_images_fp") == "MISSING_PM":
-        # the category cache names an image with no pseudo-mask
+        # the category cache names an image with no pseudo-mask, and the
+        # assets directory holds no SelfMask checkpoint to make it with
         fp = tmp_path / "cats" / "category_to_p_images.json"
         fp.parent.mkdir()
         fp.write_text(json.dumps({"square": [str(tmp_path / "new.jpg")]}))
-        overrides = dict(overrides, category_to_p_images_fp=str(fp))
+        overrides = dict(overrides, category_to_p_images_fp=str(fp),
+                         clip_assets_dir=str(tmp_path))
     cfg, _ = _cfg(fixture, "refuse", **overrides)
     cfg = {k: v for k, v in cfg.items() if v is not None}
     cfg["dir_ckpt"] = str(tmp_path / "ckpt")
     fp = dump_cfg(cfg, tmp_path / "refuse.yaml")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         port_main.main(["--p_config", fp, "--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def selfmask_assets(tmp_path_factory):
+    """A synthetic SelfMask checkpoint in the reference layout (width 64,
+    so one DeiT head; one encoder and one decoder layer, 4 queries) as
+    `<assets>/selfmask_nq20.pt`, and the JAX model and parameters that
+    `convert_selfmask_checkpoint` makes of it."""
+    from torch_oracle import TorchSelfMask
+    from zutis_tpu.models.selfmask import SelfMask as JaxSelfMask
+    from zutis_tpu.models.selfmask import convert_selfmask_checkpoint
+    from zutis_tpu.models.weights import load_torch_state_dict
+
+    assets = tmp_path_factory.mktemp("selfmask_assets")
+    torch.manual_seed(5)
+    oracle = TorchSelfMask(dim=64, heads=1, depth=1, patch=8, grid=4,
+                           n_queries=4, dec_layers=1)
+    path = assets / "selfmask_nq20.pt"
+    torch.save(oracle.state_dict(), path)
+    jm = JaxSelfMask(n_queries=4, patch_size=8, n_decoder_layers=1,
+                     embed_dim=64, heads=1, base_grid=4, depth=1)
+    return assets, jm, convert_selfmask_checkpoint(
+        load_torch_state_dict(str(path)))
+
+
+@pytest.mark.parametrize("layout", ["flat", "imagenet"])
+def test_training_generates_the_missing_pseudo_masks(fixture, selfmask_assets,
+                                                      tmp_path, layout):
+    """With no pseudo-mask on disk, the training CLI makes every one from
+    the assets' SelfMask checkpoint, then trains; the files equal the JAX
+    `generate_pseudo_masks` on the same checkpoint (a SelfMask near-tie
+    reported as in tests/test_torch_pseudo_masks.py); a second run finds
+    them and leaves them untouched."""
+    from test_torch_pseudo_masks import _assert_files_equal
+    from zutis_tpu.data.pseudo_masks import generate_pseudo_masks
+    from zutis_tpu_torch.data.imagenet_index import imagenet_pseudo_mask_path
+    from zutis_tpu_torch.data.pseudo_masks import pseudo_mask_path
+    from zutis_tpu_torch.models.weights import load_selfmask
+
+    assets, jm, params = selfmask_assets
+    root, (categories, _, dir_train, _, _) = fixture
+    sources = sorted(dir_train.glob("*.jpg"))
+    cat_fp = tmp_path / "index" / "category_to_p_images.json"
+    cat_fp.parent.mkdir()
+    if layout == "flat":
+        images = [str(p) for p in sources]
+        want_paths = {p: pseudo_mask_path(str(cat_fp.parent / "pseudo_masks"),
+                                          p) for p in images}
+        overrides = {}
+    else:
+        dir_in = tmp_path / "ImageNet2012"
+        images = []
+        for i, src in enumerate(sources):
+            wnid = f"n0000000{i % 2}"
+            dst = dir_in / "train" / wnid / f"{wnid}_{i}.JPEG"
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            shutil.copyfile(src, dst)
+            images.append(str(dst))
+        want_paths = {p: imagenet_pseudo_mask_path(str(dir_in), p)
+                      for p in images}
+        overrides = dict(index_dataset_name="imagenet",
+                         dir_train_dataset=[str(dir_in)])
+    cat_fp.write_text(json.dumps({"square": images[::2],
+                                  "blob": images[1::2]}))
+    _, cfg_fp = _cfg(fixture, f"gen_{layout}", n_iters=1, iter_eval=1,
+                     category_to_p_images_fp=str(cat_fp),
+                     clip_assets_dir=str(assets), **overrides)
+    port_main.main(["--p_config", cfg_fp, "--device", "cpu"])
+    assert "final_model.npz" in os.listdir(
+        _run_dir(root / f"ckpt_gen_{layout}"))
+    assert all(os.path.exists(p) for p in want_paths.values())
+
+    jax_paths = {p: str(tmp_path / "jax" / os.path.relpath(pm, tmp_path))
+                 for p, pm in want_paths.items()}
+    want = generate_pseudo_masks(images, "", params, model=jm,
+                                 path_map=jax_paths)
+    ours = load_selfmask(str(assets / "selfmask_nq20.pt"), device="cpu")
+    _assert_files_equal((jm, params, ours), images, want, want_paths, 512)
+
+    # the files are found again, not rewritten
+    stamps = {p: os.stat(p).st_mtime_ns for p in want_paths.values()}
+    port_main.build_index_dataset(Config.load(cfg_fp), 0, "cpu")
+    assert {p: os.stat(p).st_mtime_ns for p in want_paths.values()} == stamps
 
 
 def test_mesh_axes_of_one_device_train(fixture):

@@ -1,6 +1,7 @@
 """zutis_tpu_torch stands alone: in a fresh interpreter where importing jax,
-flax, PIL, yaml, cv2, matplotlib or zutis_tpu fails (the card's machine has
-none of them), the package and every submodule import."""
+flax, PIL, yaml, cv2, matplotlib, scipy or zutis_tpu fails (the card's
+machine has none of the first six, and the port does not lean on scipy),
+the package and every submodule import."""
 import subprocess
 import sys
 from pathlib import Path
@@ -13,7 +14,7 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "PIL", "yaml", "cv2",
-           "matplotlib", "zutis_tpu")
+           "matplotlib", "scipy", "zutis_tpu")
 
 
 class Blocker:
@@ -90,6 +91,14 @@ RETRIEVAL_SLICE = ("zutis_tpu_torch.data.tokenizer",
                    "zutis_tpu_torch.retrieval.bank")
 
 
+# the pseudo-labelling slice's modules: SelfMask, the bilateral solver, the
+# host fill and labelling, the generator
+PSEUDO_MASK_SLICE = ("zutis_tpu_torch.models.selfmask",
+                     "zutis_tpu_torch.ops.bilateral",
+                     "zutis_tpu_torch.native.labels",
+                     "zutis_tpu_torch.data.pseudo_masks")
+
+
 def test_port_imports_without_jax_flax_pil_or_zutis_tpu():
     proc = _run(_PROBE.replace('print("imported", len(names))',
                                'print(*names)\nprint("imported", len(names))'))
@@ -100,9 +109,10 @@ def test_port_imports_without_jax_flax_pil_or_zutis_tpu():
     assert set(TRAINER_SLICE) <= set(proc.stdout.split()), proc.stdout
     assert set(DATA_SLICE) <= set(proc.stdout.split()), proc.stdout
     assert set(RETRIEVAL_SLICE) <= set(proc.stdout.split()), proc.stdout
+    assert set(PSEUDO_MASK_SLICE) <= set(proc.stdout.split()), proc.stdout
 
 
-@pytest.mark.parametrize("name", ["cv2", "matplotlib", "yaml"])
+@pytest.mark.parametrize("name", ["cv2", "matplotlib", "yaml", "scipy"])
 def test_blocker_blocks_what_the_card_lacks(name):
     proc = _run(_PROBE.replace("import zutis_tpu_torch\n",
                                f"import zutis_tpu_torch\nimport {name}\n"))

@@ -16,9 +16,14 @@ else from the JAX CLI's cache file (`text_emb_<arch>_<n>cat_<hash>.npz` in
 (`<clip_assets_dir>/<arch>.pt` and the BPE merges file), which writes that
 cache file.
 
+Missing pseudo-masks are generated before training, as the JAX CLI does:
+SelfMask from `<clip_assets_dir>/selfmask_nq20.pt` and the bilateral solver,
+on the training device (`data/pseudo_masks.py`), into the flat
+`<dir of category_to_p_images_fp>/pseudo_masks/<stem>.json` layout or
+ImageNet's per-wnid one; without that checkpoint the CLI raises.
+
 What the port does not do yet, and raises on:
   - the RN archs and the DINO encoder: ROADMAP.md, queue 1, item 7;
-  - missing pseudo-masks: SelfMask and the bilateral solver are item 8;
   - `mesh_axes` over more than one device: the parallel layer is item 6;
   - `visualise`: the JAX CLI defaults it to True and renders figures with
     matplotlib, which the port does not use; here it defaults to False and
@@ -148,18 +153,34 @@ def check_single_device(cfg) -> None:
             "mesh_axes to train on one card")
 
 
-def ensure_pseudo_masks(missing) -> None:
-    """The JAX CLI generates missing pseudo-masks with SelfMask; the port
-    cannot yet."""
-    if missing:
-        raise NotImplementedError(
-            f"{len(missing)} pseudo-masks missing (first: {missing[0]}): "
-            "SelfMask and the bilateral solver are not ported yet "
-            "(ROADMAP.md, queue 1, item 8); generate them with the JAX "
-            "package")
+def ensure_pseudo_masks(cfg, missing, dir_pseudo: str, path_map=None,
+                        device="cuda") -> None:
+    """Generate the missing pseudo-masks with SelfMask and the bilateral
+    solver on `device`, from `<clip_assets_dir>/selfmask_nq20.pt` (the
+    reference's checkpoint layout); raise if that file is missing."""
+    if not missing:
+        return
+    import torch
+
+    from zutis_tpu_torch.data.pseudo_masks import generate_pseudo_masks
+    from zutis_tpu_torch.models.weights import load_selfmask
+
+    p_selfmask = os.path.join(cfg.clip_assets_dir or ".", "selfmask_nq20.pt")
+    if not os.path.exists(p_selfmask):
+        raise FileNotFoundError(
+            f"{len(missing)} pseudo-masks missing and no SelfMask weights at "
+            f"{p_selfmask}")
+    selfmask = load_selfmask(p_selfmask, device=device)
+    generate_pseudo_masks(missing, dir_pseudo, selfmask, path_map=path_map,
+                          device=device)
+    del selfmask
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()  # the training run has the card to itself
 
 
-def build_index_dataset(cfg, seed: int):
+def build_index_dataset(cfg, seed: int, device="cuda"):
+    """The config's index dataset; its missing pseudo-masks are made first
+    on `device`."""
     from zutis_tpu_torch.data.index_dataset import (
         IndexDataset,
         load_category_to_p_images,
@@ -179,7 +200,9 @@ def build_index_dataset(cfg, seed: int):
             use_advanced_copy_paste=cfg.use_advanced_copy_paste,
             seed=seed,
         )
-        ensure_pseudo_masks(dataset.missing_pseudo_masks())
+        ensure_pseudo_masks(cfg, dataset.missing_pseudo_masks(), "",
+                            path_map=dataset.p_image_to_p_pseudo_mask,
+                            device=device)
         return dataset
     category_to_p_images = load_category_to_p_images(
         cfg.category_to_p_images_fp)
@@ -188,8 +211,9 @@ def build_index_dataset(cfg, seed: int):
     all_images = [p for ps in category_to_p_images.values() for p in ps]
     p_image_to_p_pseudo_mask = {
         p: pseudo_mask_path(dir_pseudo, p) for p in all_images}
-    ensure_pseudo_masks([p for p, pm in p_image_to_p_pseudo_mask.items()
-                         if not os.path.exists(pm)])
+    ensure_pseudo_masks(cfg, [p for p, pm in p_image_to_p_pseudo_mask.items()
+                              if not os.path.exists(pm)], dir_pseudo,
+                        device=device)
     return IndexDataset(
         categories=cfg.categories,
         category_to_p_images=category_to_p_images,
@@ -273,7 +297,7 @@ def main(argv=None):
 
     # ---- training path ----
     check_single_device(cfg)
-    dataset = build_index_dataset(cfg, args.seed)
+    dataset = build_index_dataset(cfg, args.seed, device)
     batch_size = cfg.train_dataloader_kwargs.get("batch_size", 8)
     if not cfg.extras.get("skip_pretrained"):
         load_clip_visual(model, clip_checkpoint_path(cfg.clip_arch,

@@ -19,8 +19,8 @@ own JPEG/PNG decoder (data/image_io.py) and augmented on HWC uint8 arrays
 batches on threads (the native decoder and blur release the GIL) and yields
 dicts of CPU torch tensors, in pinned memory when the target is a card.
 The category -> image paths JSON comes from retrieval
-(data/imagenet_index.py, retrieval/); generating missing pseudo-masks is
-not ported (ROADMAP.md, queue 1, item 8): the pseudo-mask JSONs must exist.
+(data/imagenet_index.py, retrieval/); the pseudo-mask JSONs must exist (the
+training CLI makes the missing ones first, data/pseudo_masks.py).
 """
 from __future__ import annotations
 

@@ -78,6 +78,25 @@ def interpolate_pos_embed(
     return torch.cat([cls_pe, patch_pe], dim=0)
 
 
+def interpolate_pos_embed_exact(
+    pos_embed: torch.Tensor,  # [1 + g*g, width]
+    size: Tuple[int, int],
+) -> torch.Tensor:
+    """The SelfMask ViT's variant: the identity at the stored grid, else an
+    exact-size bicubic resize (F.interpolate's size path) with no +0.1
+    fudge, which belongs to the CLIP tower only."""
+    h, w = size
+    cls_pe, patch_pe = pos_embed[:1], pos_embed[1:]
+    hw, n_dims = patch_pe.shape
+    g = int(math.sqrt(hw))
+    if (h, w) == (g, g):
+        return pos_embed
+    grid = patch_pe.reshape(g, g, n_dims).permute(2, 0, 1)  # [d, g, g]
+    grid = resize_2d(grid, (h, w), mode="cubic")
+    patch_pe = grid.permute(1, 2, 0).reshape(h * w, n_dims)
+    return torch.cat([cls_pe, patch_pe], dim=0)
+
+
 class CLIPViT(nn.Module):
     def __init__(self, width: int = 768, layers: int = 12, heads: int = 12,
                  patch_size: int = 16, output_dim: int = 512,

@@ -1,7 +1,9 @@
 """Parameter bridge: a flax ZUTIS parameter tree (nested dicts of numpy
-arrays, ViT encoder) or CLIP text-tower tree -> a state_dict in the
-reference torch layout, and the port's model -> that layout as numpy
-(`export_params`).
+arrays, ViT encoder), CLIP text-tower tree or SelfMask tree -> a state_dict
+in the reference torch layout, and the port's model -> that layout as numpy
+(`export_params`); the reference SelfMask checkpoint -> the port's
+`SelfMask` (`load_selfmask`, the counterpart of the JAX package's
+`convert_selfmask_checkpoint`).
 
 The port's own copy of the ViT branch of
 zutis_tpu/models/weights.py::export_zutis (and the inverse of its
@@ -82,7 +84,13 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for ffn in ("ffn1", "ffn2"):
         for j in range(3):
             _put_dense(sd, f"{ffn}.layers.{j}", params[ffn][f"layers_{j}"])
-    dec = params["decoder"]
+    _put_decoder(sd, params["decoder"])
+    sd["query_embed"] = _t(params["query_embed"])
+    return sd
+
+
+def _put_decoder(sd, dec) -> None:
+    """A flax `QueryDecoder` tree -> `decoder.*`."""
     _put_ln(sd, "decoder.norm", dec["norm"])
     i = 0
     while f"layers_{i}" in dec:
@@ -96,8 +104,6 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         _put_ln(sd, f"{p}.norm2", dl["norm2"])
         _put_ln(sd, f"{p}.norm3", dl["norm3"])
         i += 1
-    sd["query_embed"] = _t(params["query_embed"])
-    return sd
 
 
 def text_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -112,6 +118,91 @@ def text_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     _put_ln(sd, "ln_final", params["ln_final"])
     _put_resblocks(sd, "transformer.resblocks", params)
     return sd
+
+
+def selfmask_params_from_jax(params: Mapping[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """A flax `SelfMask` tree -> the port's `SelfMask` state dict."""
+    enc = params["encoder"]
+    sd: Dict[str, torch.Tensor] = {
+        "encoder.patch_embed.proj.weight": _t(
+            np.asarray(enc["patch_embed"]["kernel"]).transpose(3, 2, 0, 1)),
+        "encoder.patch_embed.proj.bias": _t(enc["patch_embed"]["bias"]),
+        "encoder.cls_token": _t(enc["cls_token"]),
+        "encoder.pos_embed": _t(enc["pos_embed"])[None],
+        "query_embed": _t(params["query_embed"]),
+    }
+    _put_ln(sd, "encoder.norm", enc["norm"])
+    i = 0
+    while f"blocks_{i}" in enc:
+        blk, p = enc[f"blocks_{i}"], f"encoder.blocks.{i}"
+        _put_ln(sd, f"{p}.norm1", blk["norm1"])
+        _put_ln(sd, f"{p}.norm2", blk["norm2"])
+        _put_mha(sd, f"{p}.attn", blk["attn"])
+        _put_dense(sd, f"{p}.mlp.fc1", blk["fc1"])
+        _put_dense(sd, f"{p}.mlp.fc2", blk["fc2"])
+        i += 1
+    _put_decoder(sd, params["decoder"])
+    for j in range(3):
+        _put_dense(sd, f"ffn.layers.{j}", params["ffn"][f"layers_{j}"])
+    return sd
+
+
+def selfmask_state_dict(ref: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """The reference checkpoint's state dict (selfmask_nq20.pt's layout,
+    what zutis_tpu/models/selfmask.py::convert_selfmask_checkpoint reads)
+    -> the port's names, in float32. Only the fused attention's names
+    differ: each block's `attn.qkv` [3d, d] (q, k, v) is `attn.in_proj_*`
+    and `attn.proj` is `attn.out_proj`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in ref.items():
+        key = (key.replace(".attn.qkv.", ".attn.in_proj_")
+               .replace(".attn.proj.", ".attn.out_proj."))
+        sd[key] = value.detach().to("cpu", torch.float32)
+    return sd
+
+
+def selfmask_reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The port's `SelfMask` -> the reference checkpoint's layout on the
+    host (what `load_selfmask` reads; the inverse of
+    `selfmask_state_dict`)."""
+    return {(k.replace(".attn.in_proj_", ".attn.qkv.")
+             .replace(".attn.out_proj.", ".attn.proj.")): v.detach().cpu()
+            for k, v in model.state_dict().items()}
+
+
+def load_selfmask(path: str, device="cuda", **kwargs) -> nn.Module:
+    """A `SelfMask` on `device` with the weights of a reference-layout
+    checkpoint (`<clip_assets_dir>/selfmask_nq20.pt`), loaded strictly. The
+    architecture is read off the weights' shapes (DeiT-S/8 with 20 queries
+    and 6 decoder layers for the reference's); the heads are DeiT's, one
+    per 64 channels unless `kwargs` name them; `kwargs` go to `SelfMask`
+    (heads, dtype, attn_impl)."""
+    from zutis_tpu_torch.core.checkpoint import load_params_any
+    from zutis_tpu_torch.models.selfmask import SelfMask
+
+    # read with weights_only=True, "state_dict" unwrapped
+    sd = selfmask_state_dict(load_params_any(path))
+
+    def count(prefix):
+        return len({k[len(prefix):].split(".")[0] for k in sd
+                    if k.startswith(prefix)})
+
+    dim = sd["encoder.cls_token"].shape[-1]
+    arch = dict(
+        n_queries=sd["query_embed"].shape[0],
+        patch_size=sd["encoder.patch_embed.proj.weight"].shape[-1],
+        n_decoder_layers=count("decoder.layers."), embed_dim=dim,
+        heads=max(1, dim // 64),
+        base_grid=round((sd["encoder.pos_embed"].shape[1] - 1) ** 0.5),
+        depth=count("encoder.blocks."))
+    model = SelfMask(**{**arch, **kwargs}, device=device)
+    # what the JAX converter reads, and nothing else; a missing key raises
+    wanted = model.state_dict()
+    model.load_state_dict({k: v for k, v in sd.items() if k in wanted},
+                          strict=True)
+    return model
 
 
 def load_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
