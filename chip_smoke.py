@@ -15,12 +15,15 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
   2. Flash kernels against their plain version on the card, at the three
      attention shapes of the serving path (batch 8, bf16), also as strided
      [b, s, h, d] views as the model passes them, ragged cases and kv_mask
-     cases with an all-masked item (plus f32 inputs); checks that the bf16
-     kernel and every probe kernel were compiled to TMA loads and wgmma with
-     no mma.sync or cp.async (cuobjdump, which must be in the toolkit);
-     prints its shared memory and blocks per SM; times each main-path shape
-     beside the plain version and F.scaled_dot_product_attention (a
-     yardstick only: the port never calls it).
+     cases with an all-masked item, and f32 inputs (d 96 under a mask, keys
+     past the edge, SelfMask's cross-attention split into key ranges and
+     held to the same call on one range); checks that both flash kernels
+     and every probe kernel were compiled to TMA loads and wgmma with no
+     mma.sync or cp.async (cuobjdump, which must be in the toolkit) and that
+     the mma.sync f32 kernel is gone; prints each flash kernel's shared
+     memory and blocks per SM; times each main-path shape beside the plain
+     version and F.scaled_dot_product_attention (a yardstick only: the port
+     never calls it).
   3. Probe kernels against their plain versions on the card in bf16: every
      family, layout, sum mode, exp mode and the dots-only kt, at the tuning
      tool's shape [64,12,577,577,64], the serving encoder shape, a ragged
@@ -319,10 +322,12 @@ def counted_wrappers() -> dict:
 
 
 def zero_counts() -> None:
-    """Every wrapper's launch count, and flash's masked count, set to 0."""
+    """Every wrapper's launch count, and flash's masked and split counts,
+    set to 0."""
     for w in counted_wrappers().values():
         w.launches = 0
     fa.flash_attention.masked_launches = 0
+    fa.flash_attention.split_launches = 0
 
 
 def read_counts() -> tuple:
@@ -457,15 +462,21 @@ def phase_card() -> tuple[str, list]:
 
 SASS_OPS = ("UTMALDG", "HGMMA", "HMMA", "LDGSTS")  # TMA, wgmma, mma.sync, cp.async
 # the wgmma kernels of each library and their instantiations: flash's bf16
-# kernel per head dim; `single` per head dim, exp mode and layout; the
-# max-free kernel per head dim for fastsm (3 exp x 2 sum modes) and kt (3
-# exp modes, dots-only)
+# kernel per head dim, its f32 kernel at d 64 with one and two consumer
+# warpgroups and at d 96 with one; `single` per head dim, exp mode and
+# layout; the max-free kernel per head dim for fastsm (3 exp x 2 sum modes)
+# and kt (3 exp modes, dots-only)
 SASS_KERNELS = {
     "flash_wgmma_kernel": len(fa.HEAD_DIMS),
+    "flash_f32_kernel": 3,
     "single_kernel": 2 * len(ap.EXP_MODES) * 2,
     "maxfree_kernel": 2 * (len(ap.EXP_MODES) * len(ap.SUM_MODES)
                            + len(ap.EXP_MODES) + 1),
 }
+
+
+# kernels that a redesign replaced: the f32 flash forward on mma.sync
+GONE_KERNELS = ("flash_fwd_kernel",)
 
 
 def sass_check(libs: list) -> dict:
@@ -479,7 +490,7 @@ def sass_check(libs: list) -> dict:
         tool = str(Path(_build._nvcc()).parent / "cuobjdump")
     check(Path(tool).exists(), "no cuobjdump beside nvcc: the wgmma "
           "kernels' opcodes cannot be checked")
-    counts = {}
+    counts, names = {}, []
     for lib in libs:
         out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                              text=True, timeout=300)
@@ -487,6 +498,7 @@ def sass_check(libs: list) -> dict:
               f"cuobjdump failed: {out.stderr.strip()[:300]}")
         for block in out.stdout.split("Function : ")[1:]:
             name = _kernel_name(block.split()[0])
+            names.append(name)
             if name.split("<")[0] in SASS_KERNELS:
                 counts[name] = {op: len(re.findall(rf"\b{op}\b", block))
                                 for op in SASS_OPS}
@@ -494,6 +506,8 @@ def sass_check(libs: list) -> dict:
         found = sorted(k for k in counts if k.split("<")[0] == kernel)
         check(len(found) == n,
               f"cuobjdump found {found} for {kernel}, expected {n}")
+    check(not any(name.split("<")[0] in GONE_KERNELS for name in names),
+          f"the libraries still hold one of {GONE_KERNELS}")
     for name, c in counts.items():
         print(f"sass: {name}: {json.dumps(c)}", flush=True)
         check(c["UTMALDG"] > 0 and c["HGMMA"] > 0,
@@ -513,17 +527,29 @@ def _inputs(gen, b, h, sq, sk, d, dtype, strided=False):
             for s in (sq, sk, sk)]
 
 
+# (dtype, head dim, query rows a block) of every flash kernel the library
+# launches: bf16 at 64 rows; f32 at 128 and 64 rows at d 64, 64 at d 96
+FLASH_BLOCKS = ([(torch.bfloat16, d, 64) for d in fa.HEAD_DIMS]
+                + [(torch.float32, 64, 128), (torch.float32, 64, 64),
+                   (torch.float32, 96, 64)])
+
+
 def flash_occupancy() -> dict:
-    """The bf16 flash kernel's dynamic shared memory and blocks per SM, for
-    each head dim."""
+    """Each flash kernel's dynamic shared memory and blocks per SM: the
+    bf16 kernel per head dim (keys "d64", "d96"), the f32 kernel per head
+    dim and block ("f32 d64 block_q 128", ...)."""
     occ = {}
-    for d in fa.HEAD_DIMS:
-        smem, blocks = fa.occupancy(d)
-        check(smem == fa.smem_layout(d)["total"],
-              f"flash shared memory {smem} differs from smem_layout")
-        occ[f"d{d}"] = dict(smem_bytes=smem, blocks_per_sm=blocks)
-        print(f"flash occupancy d {d}: {smem} bytes of dynamic shared "
-              f"memory, {blocks} block(s) per SM", flush=True)
+    for dtype, d, block_q in FLASH_BLOCKS:
+        f32 = dtype == torch.float32
+        smem, blocks = fa.occupancy(d, dtype, block_q)
+        layout = fa.f32_smem_layout(d) if f32 else fa.smem_layout(d)
+        check(smem == layout["total"],
+              f"flash shared memory {smem} differs from its layout mirror")
+        key = f"f32 d{d} block_q {block_q}" if f32 else f"d{d}"
+        occ[key] = dict(smem_bytes=smem, blocks_per_sm=blocks)
+        print(f"flash occupancy {'f32' if f32 else 'bf16'} d {d} block_q "
+              f"{block_q}: {smem} bytes of dynamic shared memory, {blocks} "
+              f"block(s) per SM", flush=True)
     return occ
 
 
@@ -545,7 +571,14 @@ def phase_kernel():
               ("kv_mask strided", (3, 4, 130, 300, 64), "mask",
                torch.bfloat16, True),
               ("kv_mask f32", (3, 8, 64, 200, 96), "mask", torch.float32, False),
-              ("ragged f32", (2, 12, 77, 333, 64), None, torch.float32, False)]
+              ("ragged f32", (2, 12, 77, 333, 64), None, torch.float32, False),
+              # SelfMask's cross-attention, split into key ranges
+              ("selfmask cross f32", SELFMASK_FLASH_SHAPES[2][1], None,
+               torch.float32, True),
+              ("selfmask cross f32 kv_mask", (3, 6, 20, 5504, 64), "mask",
+               torch.float32, True),
+              ("keys past the edge f32", (2, 4, 100, 65, 96), None,
+               torch.float32, True)]
     for name, (b, h, sq, sk, d), masked, dtype, strided in cases:
         q, k, v = _inputs(gen, b, h, sq, sk, d, dtype, strided)
         mask = None
@@ -553,9 +586,15 @@ def phase_kernel():
             mask = (torch.rand(b, sk, generator=gen, device="cuda") > 0.3).int()
             mask[1] = 0  # an item with no valid key
         before = fa.flash_attention.launches
+        split_before = fa.flash_attention.split_launches
         got = fa.flash_attention(q, k, v, mask)
         torch.cuda.synchronize()
         check(fa.flash_attention.launches == before + 1, f"{name}: no launch")
+        splits = (fa.key_splits(b, h, sq, sk, d)
+                  if dtype == torch.float32 else 1)
+        check(fa.flash_attention.split_launches == split_before
+              + (splits > 1), f"{name}: {splits} key ranges, split count "
+              f"{fa.flash_attention.split_launches - split_before}")
         check(got.stride() == q.stride(), f"{name}: output not in q's layout")
         want = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask)
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
@@ -566,12 +605,23 @@ def phase_kernel():
         else:
             tol, ok = f"{TOL_F32} abs", err <= TOL_F32
         print(f"kernel check {name} {[b, h, sq, sk, d]} {str(dtype)[6:]}: "
-              f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol {tol})",
-              flush=True)
+              f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol {tol}), "
+              f"{splits} key range(s)", flush=True)
         check(ok, f"{name}: kernel disagrees with its plain version")
         if masked:
             check(bool((got[1] == 0).all()), f"{name}: all-masked item not zero")
         max_err = max(max_err, err)
+        if splits > 1:  # the same call on one key range
+            whole = fa._flash_forward(q, k, v, mask, 1)
+            torch.cuda.synchronize()
+            apart = (whole - got).abs().max().item()
+            print(f"kernel check {name}: {splits} key ranges against one: "
+                  f"max_abs_diff {apart:.3e} (tol {TOL_F32} abs)", flush=True)
+            check(apart <= TOL_F32, f"{name}: split and unsplit launches "
+                  "disagree")
+            if masked:
+                check(bool((whole[1] == 0).all()),
+                      f"{name}: all-masked item not zero unsplit")
 
     occupancy = flash_occupancy()
     rows = []
@@ -2209,19 +2259,22 @@ def loader_waits():
 @contextlib.contextmanager
 def generation_record():
     """While open, each `generate_pseudo_masks` call (the training CLI's)
-    appends its image count, flash launches and seconds to the yielded
-    list."""
+    appends its image count, flash launches (and those split into key
+    ranges) and seconds to the yielded list."""
     from zutis_tpu_torch.data import pseudo_masks
 
     calls, real = [], pseudo_masks.generate_pseudo_masks
 
     def recorded(p_images, *args, **kwargs):
         before = fa.flash_attention.launches
+        split_before = fa.flash_attention.split_launches
         t0 = time.perf_counter()
         result = real(p_images, *args, **kwargs)
         _sync(kwargs.get("device", "cuda"))
-        calls.append(dict(images=len(p_images), seconds=time.perf_counter()
-                          - t0, launches=fa.flash_attention.launches - before))
+        calls.append(dict(
+            images=len(p_images), seconds=time.perf_counter() - t0,
+            launches=fa.flash_attention.launches - before,
+            split_launches=fa.flash_attention.split_launches - split_before))
         return result
 
     pseudo_masks.generate_pseudo_masks = recorded
@@ -2305,7 +2358,8 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
         mask_stamps = {m: os.stat(m).st_mtime_ns for m in masks.values()}
         print(f"cli: pseudo-masks: the training CLI made {gen['images']} "
               f"from the assets' selfmask_nq20.pt in {gen['seconds']:.3f} s "
-              f"({gen['launches']} flash launches)", flush=True)
+              f"({gen['launches']} flash launches, {gen['split_launches']} "
+              "split into key ranges)", flush=True)
         peak_gib = (torch.cuda.max_memory_allocated(device) / 2 ** 30
                     if on_card else None)
         # the text embeddings the CLI computed and cached
@@ -2331,6 +2385,10 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
             check(gen["launches"] == SELFMASK_LAUNCHES * gen["images"],
                   f"{gen['launches']} flash launches for {gen['images']} "
                   f"pseudo-masks: expected {SELFMASK_LAUNCHES} an image")
+            check(gen["split_launches"]
+                  == SELFMASK_SPLIT_LAUNCHES * gen["images"],
+                  f"{gen['split_launches']} split flash launches for "
+                  f"{gen['images']} pseudo-masks")
             check(launches["flash_attention"] - gen["launches"]
                   == LAUNCHES_PER_FORWARD * (cfg.n_iters + forwards * n_evals),
                   f"{launches['flash_attention']} flash launches: expected "
@@ -2652,7 +2710,8 @@ def flash_rows(gen, cases, label: str) -> list:
     the plain version, SDPA and the bound at the rate of the path the
     kernel takes (bf16: 989 TFLOP/s; f32: 989 / 3, its three bf16 MMAs a
     product), bytes counting q and o [b, h, sq, d], k and v [b, h, sk, d]
-    once each."""
+    once each. An f32 row carries its key ranges (`key_splits`) and, where
+    there are several, the same call on one range (`unsplit_ms`)."""
     rows = []
     for name, (b, h, sq, sk, d), dtype, per_forward in cases:
         f32 = dtype == torch.float32
@@ -2676,9 +2735,10 @@ def flash_rows(gen, cases, label: str) -> list:
         nbytes = q.element_size() * 2 * b * h * (sq + sk) * d
         t_ops = flops / peak * 1e3
         t_bytes = nbytes / kernel_tune.PEAK_BYTES * 1e3
+        splits = fa.key_splits(b, h, sq, sk, d) if f32 else 1
         row = dict(name=name, shape=[b, h, sq, sk, d],
                    dtype=str(dtype)[6:], per_forward=per_forward,
-                   max_abs_err=err, max_rel_err=rel,
+                   max_abs_err=err, max_rel_err=rel, splits=splits,
                    ms=cuda_ms(lambda: fa.flash_attention(q, k, v)),
                    plain_ms=cuda_ms(
                        lambda: fa.flash_attention_reference(q, k, v),
@@ -2689,9 +2749,14 @@ def flash_rows(gen, cases, label: str) -> list:
                    bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
                    peak_flops=peak)
+        if splits > 1:
+            row["unsplit_ms"] = cuda_ms(
+                lambda: fa._flash_forward(q, k, v, None, 1))
         rows.append(row)
         print(f"kernel time {label} {name} {[b, h, sq, sk, d]}: kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+              f"{row['ms']:.4f} ms ({splits} key range(s); one range "
+              f"{row.get('unsplit_ms', row['ms']):.4f} ms), plain "
+              f"{row['plain_ms']:.4f} ms, sdpa "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}; operations at {peak / 1e12:.1f} "
               f"TFLOP/s, bytes at {kernel_tune.PEAK_BYTES / 1e12} TB/s), "
@@ -3084,6 +3149,9 @@ SELFMASK_FLASH_SHAPES = [
 # probabilities apart, and objectness of its largest |value|; a best query
 # or mask pixel may differ only within this of a tie
 SELFMASK_LAUNCHES = sum(n for _, _, n in SELFMASK_FLASH_SHAPES)
+# of those, the calls the f32 kernel splits into key ranges (the cross's)
+SELFMASK_SPLIT_LAUNCHES = sum(n for _, shape, n in SELFMASK_FLASH_SHAPES
+                              if fa.key_splits(*shape) > 1)
 TOL_SELFMASK_TORCH = 1e-3
 TOL_BILATERAL = 1e-9  # the card's soft output against the CPU rerun's
 RETRIEVED_SETS = {"COCO / CoCA n500": 80 * 500, "ImageNet-S n500": 919 * 500}
@@ -3155,6 +3223,7 @@ def phase_pseudo_masks(root: Path, retrieval: dict, device="cuda",
         images, str(root / "pseudo_masks_a"), model, device=device), device)
     out["launches"] = flash_only_launches("pseudo-mask generation")
     _, out["masked_launches"] = read_counts()
+    out["split_launches"] = fa.flash_attention.split_launches
     out["peak_memory_gib"] = (torch.cuda.max_memory_allocated(device)
                               / 2 ** 30 if on_card else None)
     if on_card:
@@ -3162,6 +3231,10 @@ def phase_pseudo_masks(root: Path, retrieval: dict, device="cuda",
               f"{out['launches']} flash launches for {len(images)} images: "
               f"expected {per_image} an image")
         check(out["masked_launches"] == 0, "SelfMask's flash took a mask")
+        check(out["split_launches"] == SELFMASK_SPLIT_LAUNCHES * len(images),
+              f"{out['split_launches']} split flash launches for "
+              f"{len(images)} images: expected {SELFMASK_SPLIT_LAUNCHES} an "
+              "image")
     again = PM.generate_pseudo_masks(images, str(root / "pseudo_masks_b"),
                                      model, device=device)
     check(all(Path(written[p]).read_bytes() == Path(again[p]).read_bytes()
@@ -3171,7 +3244,8 @@ def phase_pseudo_masks(root: Path, retrieval: dict, device="cuda",
     out.update(n_images=len(images), generate_s=gen_s, mask_areas=areas)
     print(f"pseudo: generate_pseudo_masks over {len(images)} images in "
           f"{gen_s:.3f} s ({out['launches']} flash launches, "
-          f"{out['masked_launches']} masked, no other kernel); a second run "
+          f"{out['masked_launches']} masked, {out['split_launches']} split "
+          f"into key ranges, no other kernel); a second run "
           f"wrote byte-equal JSON; mask areas {json.dumps(areas)}; peak "
           f"memory {out['peak_memory_gib']} GiB", flush=True)
 
@@ -3375,6 +3449,13 @@ def main() -> None:
                                  "flash_attention"],
                              "cli_eval": {d: e["flash_attention"] for d, e in
                                           cli["eval_launches"].items()}},
+        # of the f32 launches, those split into key ranges (each with a
+        # flash_combine_kernel launch): SelfMask's cross-attention
+        "split_launches": (pseudo["split_launches"]
+                           + cli["pseudo_masks"]["split_launches"]),
+        "split_launches_by_path": {
+            "pseudo_masks": pseudo["split_launches"],
+            "cli_pseudo_masks": cli["pseudo_masks"]["split_launches"]},
         "max_abs_err": max(max_err, ev["flash_max_abs_err"],
                            *(r["max_abs_err"] for r in ret["flash_rows"]
                              + pseudo["flash_rows"])),
@@ -3388,7 +3469,9 @@ def main() -> None:
         # calls) launches; every shape's own is in its row
         "smem_bytes": rows[0]["smem_bytes"],
         "blocks_per_sm": rows[0]["blocks_per_sm"],
-        "block_q": fa.KEY_CHUNK,  # query rows a block, at every shape
+        "block_q": fa.KEY_CHUNK,  # query rows a bf16 block, at every shape
+        # f32: 128 rows a block at d 64 for sq > 64, else 64 (block_rows);
+        # both kernels' occupancy by dtype, head dim and block
         "occupancy": flash_occ,
         "sass": {k: c for k, c in sass.items() if k.startswith("flash")},
         "shapes": rows,

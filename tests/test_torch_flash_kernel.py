@@ -1,5 +1,5 @@
 """The flash-attention kernels (csrc/flash_attention.cu) against their plain
-version on the card, and the bf16 kernel's launch geometry and input checks
+version on the card, and both kernels' launch geometry and the input checks
 on the CPU.
 
 The kernels have no CPU mode, so the tests that launch them are marked
@@ -14,7 +14,7 @@ kernel rounds P to bf16 before P V and the output to bf16, about 2^-9
 relative each, and reads at most 3.1e-3 of it on an H100. Giving the zero
 keys past a ragged edge any weight, or skipping a 64-key chunk, costs
 several times that. f32 inputs take hi/lo bf16 splits (~16 mantissa bits)
-and are held to 1e-4 absolute.
+and are held to 1e-4 absolute, split and unsplit alike.
 """
 import re
 
@@ -24,6 +24,7 @@ import torch
 
 from zutis_tpu_torch.ops import _build
 from zutis_tpu_torch.ops import flash_attention as fa
+from zutis_tpu_torch.tools import flash_f32_bench
 
 TOL_BF16 = 8e-3  # of the largest |output|
 TOL_F32 = 1e-4
@@ -162,6 +163,63 @@ def test_cuda_one_valid_key_besides_cls():
     _check_mask((32, 4, 130, 1281, 64), mask)
 
 
+# SelfMask's f32 calls at a reduced encoder length: encoder self, the
+# 20-query cross-attention into the patch tokens (split keys) and the decoder
+# self-attention, as the model passes them ([b, s, h, d] views)
+SELFMASK_SHAPES = [(1, 6, 700, 700, 64), (1, 6, 20, 5504, 64),
+                   (1, 6, 20, 20, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SELFMASK_SHAPES, ids=str)
+def test_cuda_f32_kernel_at_the_selfmask_shapes(shape):
+    before = fa.flash_attention.split_launches
+    _check(shape, torch.float32, strided=True)
+    split = fa.key_splits(*shape[:4]) > 1
+    assert fa.flash_attention.split_launches == before + split
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,masked", [
+    ((3, 8, 20, 700, 96), True),    # split keys under a mask, d 96
+    ((3, 4, 130, 300, 96), True),   # two consumer warpgroups under a mask
+    ((2, 4, 100, 1, 64), False),    # keys past the edge
+    ((2, 4, 20, 65, 96), False),
+    ((1, 4, 130, 577, 64), False),
+], ids=str)
+def test_cuda_f32_kernel_masks_and_edges(shape, masked):
+    _check(shape, torch.float32, masked=masked, strided=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,splits", [
+    ((1, 6, 20, 5504, 64), 22),   # the SelfMask cross call's own split
+    ((1, 6, 20, 5504, 64), 100),  # ranges past the last chunk
+    ((3, 6, 20, 5504, 64), 7),    # under a mask
+    ((3, 2, 130, 700, 96), 4),
+], ids=str)
+def test_cuda_split_and_unsplit_launches_agree(shape, splits):
+    _needs_card()
+    b, h, sq, sk, d = shape
+    q, k, v = (x.cuda() for x in _qkv(10, *shape, strided=True))
+    mask = None
+    if b > 1:  # item 1 with no valid key, item 0 whole key ranges without
+        mask = _mask(10, b, sk, all_masked=1).cuda()
+        mask[0, 64:400] = 0
+    launches = fa.flash_attention.launches
+    split_launches = fa.flash_attention.split_launches
+    whole = fa._flash_forward(q, k, v, mask, 1)
+    split = fa._flash_forward(q, k, v, mask, splits)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == launches + 2
+    assert fa.flash_attention.split_launches == split_launches + 1
+    torch.testing.assert_close(split, whole, rtol=0, atol=TOL_F32)
+    if mask is not None:
+        assert (split[1] == 0).all() and (whole[1] == 0).all()
+    want = fa.flash_attention_split_reference(q, k, v, mask, splits)
+    torch.testing.assert_close(split, want, rtol=0, atol=TOL_F32)
+
+
 # the last chunk holds 1 key and 63 rows that TMA fills with zeros: only the
 # per-chunk validity keeps them out of the softmax
 @pytest.mark.cuda
@@ -179,6 +237,15 @@ def test_cuda_occupancy_reports_the_launched_kernel(d):
     smem, blocks = fa.occupancy(d)
     assert smem == fa.smem_layout(d)["total"]
     assert blocks == 2  # the design: one block's loads overlap the other's work
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,block_q", [(64, 64), (64, 128), (96, 64)])
+def test_cuda_f32_occupancy_reports_the_launched_kernel(d, block_q):
+    _needs_card()
+    smem, blocks = fa.occupancy(d, torch.float32, block_q)
+    assert smem == fa.f32_smem_layout(d)["total"]
+    assert blocks == 1  # a block holds the SM's registers (setmaxnreg)
 
 
 # ---------------------------------------------------------------- on the CPU
@@ -211,15 +278,126 @@ def test_smem_layout_leaves_room_for_two_blocks():
         assert 2 * (fa.smem_layout(d)["total"] + 1024) <= 228 * 1024
 
 
+def _swizzle_64b(addr):
+    """hopper.cuh::swizzle_64b: address bits [4, 6) ^= bits [7, 9)."""
+    return addr ^ (((addr >> 7) & 3) << 4)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_f32_smem_layout_keeps_tiles_on_the_swizzle_pattern(d):
+    lay = fa.f32_smem_layout(d)
+    f32_chunk, tile = fa.KEY_CHUNK * d * 4, fa.KEY_CHUNK * d * 2
+    q_boxes = fa.block_rows(128, d) // fa.KEY_CHUNK  # one per consumer
+    f32_tiles = [lay["q"] + w * f32_chunk for w in range(q_boxes)]
+    f32_tiles += [lay[a] + s * f32_chunk for a in ("kf", "vf")
+                  for s in range(fa.F32_STAGES)]
+    bf16_tiles = [lay[a] + s * tile for a in ("khi", "klo", "vhi", "vlo")
+                  for s in range(fa.SPLIT_STAGES)]
+    # TMA writes the f32 Q rows and chunks (128-byte aligned destinations);
+    # the split writes and wgmma reads the bf16 tiles on the 64-byte swizzle,
+    # from absolute address bits, so each starts on the 512-byte pattern (and
+    # each 4 KB box of 64 rows x 32 columns on 4 KB)
+    assert all(t % 128 == 0 for t in f32_tiles)
+    assert all(t % 4096 == 0 for t in bf16_tiles)
+    # areas in order, none overlapping the next
+    assert lay["q"] == 0
+    assert lay["q"] + q_boxes * f32_chunk <= lay["kf"]
+    assert lay["kf"] + fa.F32_STAGES * f32_chunk <= lay["vf"]
+    assert lay["vf"] + fa.F32_STAGES * f32_chunk <= lay["khi"]
+    for a, b in (("khi", "klo"), ("klo", "vhi"), ("vhi", "vlo"),
+                 ("vlo", "valid")):
+        assert lay[a] + fa.SPLIT_STAGES * tile <= lay[b]
+    assert lay["valid"] + fa.SPLIT_STAGES * 8 <= lay["bars"]
+    assert lay["bars"] % 8 == 0
+    assert lay["total"] == lay["bars"] + (2 * fa.F32_STAGES
+                                          + 4 * fa.SPLIT_STAGES + 2) * 8
+    assert lay["total"] <= fa.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_f32_split_writes_fill_the_tile_that_wgmma_reads(d):
+    """split_chunk's reads and stores, mirrored: thread t takes columns
+    4 (t % 8) .. + 3 of a 32-column box in rows t / 8 + 16 p of every box,
+    reading 16 bytes of the row-major f32 chunk and writing 8 bytes to each
+    bf16 tile at one swizzled offset plus box * 4 KB + p * 1 KB. Every
+    element lands where TMA's 64-byte swizzle puts it in a bf16 chunk
+    (which is where the K-major and MN-major descriptors read it), the
+    stores cover the tile once, and the 16 threads of a half-warp store to
+    32 distinct banks and the 8 of a quarter-warp read 128 contiguous
+    bytes."""
+    seen = np.zeros(fa.KEY_CHUNK * d * 2, np.int32)
+    stores = {}
+    for t in range(128):
+        r, q = t >> 3, t & 7
+        to = _swizzle_64b(r * 64 + q * 8)
+        for box in range(d // 32):
+            for p in range(fa.KEY_CHUNK // 16):
+                row, col = r + 16 * p, box * 32 + 4 * q
+                src = (r * d * 4 + q * 16) + p * 16 * d * 4 + box * 128
+                # row-major f32, as TMA writes it
+                assert src == (row * d + col) * 4
+                off = to + box * 4096 + p * 1024
+                assert off // 16 == (off + 7) // 16  # one swizzle unit
+                for i in range(4):
+                    c = col + i
+                    assert off + 2 * i == (c // 32) * 4096 + _swizzle_64b(
+                        row * 64 + (c % 32) * 2)
+                seen[off:off + 8] += 1
+                stores[(box, p, t)] = off
+    assert (seen == 1).all()
+    for (box, p, t), off in stores.items():
+        if t % 16 == 0:  # a half-warp's sixteen 8-byte stores
+            banks = {(stores[(box, p, u)] // 4 + w) % 32
+                     for u in range(t, t + 16) for w in (0, 1)}
+            assert len(banks) == 32
+
+
+def test_f32_smem_layout_holds_one_block_an_sm():
+    # one block a SM by registers (setmaxnreg hands the producer's to the
+    # consumers), so the block may take all of the 227 KB
+    for d in fa.HEAD_DIMS:
+        assert fa.f32_smem_layout(d)["total"] + 1024 <= 228 * 1024
+
+
+def test_f32_register_split_fills_the_register_file():
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    producer, consumer = (
+        int(re.findall(rf"constexpr int {name} = (\d+);", text)[0])
+        for name in ("kProducerRegs", "kConsumerRegs"))
+    # setmaxnreg takes multiples of 8 in [24, 256]; a 384-thread block is
+    # launched with 168 registers a thread (65,536 / 384, rounded down to 8),
+    # and the two consumers take what the producer gives back
+    for regs in (producer, consumer):
+        assert regs % 8 == 0 and 24 <= regs <= 256
+    assert producer + 2 * consumer == 3 * 168
+
+
 @pytest.mark.parametrize("source,name,attr", [
     ("flash_attention.cu", "kFlashStages", "STAGES"),
     ("hopper.cuh", "kChunkRows", "KEY_CHUNK"),
     ("hopper.cuh", "kSmemLimit", "SMEM_LIMIT"),
+    ("flash_attention.cu", "kF32Stages", "F32_STAGES"),
+    ("flash_attention.cu", "kSplitStages", "SPLIT_STAGES"),
 ])
 def test_smem_layout_mirrors_the_kernels_constants(source, name, attr):
     text = (_build.CSRC / source).read_text()
     found = re.findall(rf"constexpr int {name} = (\d+);", text)
     assert found == [str(getattr(fa, attr))]
+
+
+@pytest.mark.parametrize("name", list(flash_f32_bench.ABLATIONS))
+def test_f32_bench_ablations_still_match_the_source(name, tmp_path):
+    """The measuring tool's edits apply to the kernel source as it stands
+    (it raises on one that no longer matches)."""
+    source = flash_f32_bench.ablated_sources(name, _build.CSRC,
+                                             tmp_path / name)
+    original = (_build.CSRC / "flash_attention.cu").read_text()
+    assert source.read_text() != original
+    assert (source.parent / "hopper.cuh").exists()
+
+
+def test_f32_bench_timer_is_a_script_of_its_own():
+    compile(flash_f32_bench.timer_script(), "timer", "exec")
 
 
 def test_kernel_input_check_refuses_no_keys():

@@ -481,7 +481,7 @@ int kt_map(CUtensorMap* map, const void* kt, int b, int h, int sk, int d, const 
   const uint64_t bytes[3] = {static_cast<uint64_t>(strides[2]) * 2, static_cast<uint64_t>(strides[1]) * 2,
                              static_cast<uint64_t>(strides[0]) * 2};
   const uint32_t box[4] = {hopper::kBoxCols, static_cast<uint32_t>(d), 1, 1};
-  return hopper::encode_bf16_4d(map, kt, dims, bytes, box, CU_TENSOR_MAP_SWIZZLE_64B);
+  return hopper::encode_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kt, dims, bytes, box, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // The producer: one thread issues every TMA load of the block.
@@ -807,11 +807,12 @@ int launch_maxfree_entry(const void* q, const void* k, const void* v, void* o, i
   if (block_q != 64 && block_q != 128) return static_cast<int>(cudaErrorInvalidValue);
   if ((d != 64 && d != 96) || sk < 1) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[3];
-  int err = hopper::rows_map(&maps[0], q, b, h, sq, d, strides);
+  int err = hopper::rows_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, b, h, sq, d, strides);
   if (err == 0) {
-    err = kt ? kt_map(&maps[1], k, b, h, sk, d, strides + 3) : hopper::rows_map(&maps[1], k, b, h, sk, d, strides + 3);
+    err = kt ? kt_map(&maps[1], k, b, h, sk, d, strides + 3)
+             : hopper::rows_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, b, h, sk, d, strides + 3);
   }
-  if (err == 0) err = hopper::rows_map(&maps[2], v, b, h, sk, d, strides + 6);
+  if (err == 0) err = hopper::rows_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, b, h, sk, d, strides + 6);
   if (err != 0) return err;
   const Params p = make_params(o, h, sq, sk, strides, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -845,7 +846,7 @@ int zutis_probe_single(const void* q, const void* k, const void* v, void* o, int
   if (block_q != 64 && block_q != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (d != 64 && d != 96) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[3];
-  const int err = hopper::attention_maps(maps, q, k, v, b, h, sq, sk, d, strides);
+  const int err = hopper::attention_maps(maps, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, b, h, sq, sk, d, strides);
   if (err != 0) return err;
   const Params p = make_params(o, h, sq, sk, strides, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

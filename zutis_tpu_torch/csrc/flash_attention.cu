@@ -25,11 +25,14 @@
 // Two kernels, chosen by dtype:
 //   - bf16 (the serving path): flash_wgmma_kernel, on Hopper's TMA,
 //     mbarriers and wgmma (helpers in hopper.cuh; design note at the kernel).
-//   - f32: flash_fwd_kernel, FlashAttention-2 style on mma.sync with a
-//     two-stage cp.async K/V ring. Inputs are split into bf16 high and low
-//     parts (x = hi + lo) and each product takes three bf16 MMAs (hi*hi +
-//     hi*lo + lo*hi), which keeps about 16 mantissa bits: close to f32
-//     attention without a slow f32 datapath.
+//   - f32 (SelfMask, the f32 image bank, the f32 checks):
+//     flash_f32_kernel, on the same TMA, mbarriers and wgmma. Inputs are
+//     split into bf16 high and low parts (x = hi + lo) and each product takes
+//     three bf16 wgmma (hi*hi + hi*lo + lo*hi), which keeps about 16 mantissa
+//     bits: close to f32 attention without a slow f32 datapath. A producer
+//     warpgroup splits each f32 K/V chunk once for two consumer warpgroups;
+//     calls too small to fill the card split their keys into ranges and
+//     merge them in flash_combine_kernel (design note at the kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,286 +58,6 @@ struct Params {
   int sq, sk;
   float scale_log2;  // d^-1/2 * log2(e): softmax runs in base 2
 };
-
-// ---------------------------------------------------------------------------
-// f32: flash_fwd_kernel
-//
-// One block of 4 warps owns 64 query rows of one (batch, head); each warp
-// keeps its 16 rows' scores, softmax statistics and output accumulator in
-// registers (mma.sync m16n8k16 bf16 -> f32 fragments, FlashAttention-2
-// style), and K/V stream through shared memory in 64-key tiles with a
-// two-stage cp.async pipeline, so each K/V byte is read once per 64 queries
-// and the next tile's load overlaps the current tile's products. The ragged
-// key edge and kv_mask are applied per tile from a staged validity vector.
-// ---------------------------------------------------------------------------
-
-constexpr int kBlockM = 64;  // query rows per block, 16 per warp
-constexpr int kBlockN = 64;  // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-
-// Shared-memory rows are padded by 16 bytes so that the fragment loads of
-// neighbouring rows fall on different banks.
-__host__ __device__ constexpr int row_stride(int d) { return d + 4; }
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // Q tile + two stages of (K tile, V tile) + two stages of key validity
-  return (5 * kBlockN * row_stride(D)) * sizeof(float) + 2 * kBlockN * sizeof(int);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // src-size 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [row0, row0 + 64) of a [rows, D] slice with row stride `ss` into a
-// padded shared tile; rows at or past `rows` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(float* tile, const float* g, long long ss, int row0, int rows) {
-  constexpr int kVec = 4;
-  constexpr int kChunksPerRow = D / kVec;
-  constexpr int kChunks = kBlockN * kChunksPerRow;
-  constexpr int kStride = row_stride(D);
-  static_assert(kChunks % kThreads == 0, "tile chunks must split evenly over the block");
-#pragma unroll
-  for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-    const int r = c / kChunksPerRow;
-    const int col = (c % kChunksPerRow) * kVec;
-    const int gr = row0 + r;
-    const bool ok = gr < rows;
-    cp_async16(tile + r * kStride + col, g + (ok ? gr : 0) * ss + col, ok);
-  }
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two values as a bf16x2 operand register (first value in the low half) and
-// the bf16x2 register of what bf16 rounding left over.
-__device__ __forceinline__ void split(float a, float b, uint32_t& hi, uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(a - __low2float(h), b - __high2float(h)));
-}
-
-__device__ __forceinline__ void pair(const float* p0, const float* p1, uint32_t& hi, uint32_t& lo) {
-  split(*p0, *p1, hi, lo);
-}
-
-// Two neighbouring f32 elements (8-byte aligned).
-__device__ __forceinline__ void pair_adjacent(const float* p, uint32_t& hi, uint32_t& lo) {
-  const float2 f = *reinterpret_cast<const float2*>(p);
-  split(f.x, f.y, hi, lo);
-}
-
-// D[16x8] += A[16x16] * B[16x8], bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// Fragment layouts of mma.m16n8k16 (PTX ISA), with g = lane / 4, t = lane % 4:
-//   A (16x16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-//   B (16x8, "col"):      b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8.., n = g)
-//   C (16x8 f32):         c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  constexpr int kStride = row_stride(D);
-  constexpr int kTile = kBlockN * kStride;
-  constexpr int kKSteps = D / 16;  // k-steps of q k^T
-  constexpr int kOTiles = D / 8;   // n8 tiles of the output row block
-  constexpr int kSTiles = kBlockN / 8;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* s_q = reinterpret_cast<float*>(smem);
-  float* s_k = s_q + kTile;      // two stages
-  float* s_v = s_k + 2 * kTile;  // two stages
-  int* s_valid = reinterpret_cast<int*>(s_v + 2 * kTile);  // two stages
-
-  const int bi = blockIdx.z, hi = blockIdx.y, q0 = blockIdx.x * kBlockM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  const float* q = static_cast<const float*>(p.q) + bi * p.q_sb + hi * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + bi * p.k_sb + hi * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + bi * p.v_sb + hi * p.v_sh;
-  float* o = static_cast<float*>(p.o) + bi * p.o_sb + hi * p.o_sh;
-  const int* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(bi) * p.sk;
-  const int n_tiles = (p.sk + kBlockN - 1) / kBlockN;
-
-  auto prefetch = [&](int j) {
-    const int stage = j & 1;
-    load_tile<D>(s_k + stage * kTile, k, p.k_ss, j * kBlockN, p.sk);
-    load_tile<D>(s_v + stage * kTile, v, p.v_ss, j * kBlockN, p.sk);
-    if (threadIdx.x < kBlockN) {
-      const int col = j * kBlockN + threadIdx.x;
-      s_valid[stage * kBlockN + threadIdx.x] = col < p.sk && (mask == nullptr || mask[col] != 0);
-    }
-  };
-
-  load_tile<D>(s_q, q, p.q_ss, q0, p.sq);
-  cp_async_commit();
-  if (n_tiles > 0) prefetch(0);
-  cp_async_commit();
-  cp_async_wait<1>();  // the Q group has landed
-  __syncthreads();
-
-  uint32_t qa[kKSteps][4], qa_lo[kKSteps][4];
-  {
-    const float* base = s_q + (warp * 16) * kStride;
-#pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-      const int c = ks * 16 + 2 * t;
-      pair_adjacent(base + g * kStride + c, qa[ks][0], qa_lo[ks][0]);
-      pair_adjacent(base + (g + 8) * kStride + c, qa[ks][1], qa_lo[ks][1]);
-      pair_adjacent(base + g * kStride + c + 8, qa[ks][2], qa_lo[ks][2]);
-      pair_adjacent(base + (g + 8) * kStride + c + 8, qa[ks][3], qa_lo[ks][3]);
-    }
-  }
-
-  float acc[kOTiles][4];
-#pragma unroll
-  for (int n = 0; n < kOTiles; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  // running max (base-2 logits) and this thread's share of the running sum
-  // for rows g and g + 8 of the warp's 16
-  float m_run[2] = {-1e30f, -1e30f};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) prefetch(j + 1);
-    cp_async_commit();  // possibly empty, so that wait<1> always means "tile j landed"
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const int stage = j & 1;
-    const float* kt = s_k + stage * kTile;
-    const float* vt = s_v + stage * kTile;
-    const int* valid = s_valid + stage * kBlockN;
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[kSTiles][4];
-#pragma unroll
-    for (int n = 0; n < kSTiles; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks) {
-        const float* kp = kt + (n * 8 + g) * kStride + ks * 16 + 2 * t;
-        uint32_t b0, b1, b0_lo, b1_lo;
-        pair_adjacent(kp, b0, b0_lo);
-        pair_adjacent(kp + 8, b1, b1_lo);
-        mma(s[n], qa[ks], b0, b1);
-        mma(s[n], qa[ks], b0_lo, b1_lo);
-        mma(s[n], qa_lo[ks], b0, b1);
-      }
-    }
-
-    // online softmax: masked keys are -inf, so they get exactly zero weight
-    float mx[2] = {-1e30f, -1e30f};
-#pragma unroll
-    for (int n = 0; n < kSTiles; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        s[n][e] = valid[col] ? s[n][e] * p.scale_log2 : -CUDART_INF_F;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = exp2f(m_run[r] - m_new);
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kSTiles; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - m_run[e >> 1]);
-        l_run[e >> 1] += s[n][e];
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kOTiles; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // O += P V: the score accumulators are already in the A-operand layout
-#pragma unroll
-    for (int c = 0; c < kBlockN / 16; ++c) {
-      uint32_t pa[4], pa_lo[4];
-      split(s[2 * c][0], s[2 * c][1], pa[0], pa_lo[0]);
-      split(s[2 * c][2], s[2 * c][3], pa[1], pa_lo[1]);
-      split(s[2 * c + 1][0], s[2 * c + 1][1], pa[2], pa_lo[2]);
-      split(s[2 * c + 1][2], s[2 * c + 1][3], pa[3], pa_lo[3]);
-#pragma unroll
-      for (int n = 0; n < kOTiles; ++n) {
-        const float* vp = vt + (c * 16 + 2 * t) * kStride + n * 8 + g;
-        uint32_t b0, b1, b0_lo, b1_lo;
-        pair(vp, vp + kStride, b0, b0_lo);
-        pair(vp + 8 * kStride, vp + 9 * kStride, b1, b1_lo);
-        mma(acc[n], pa, b0, b1);
-        mma(acc[n], pa, b0_lo, b1_lo);
-        mma(acc[n], pa_lo, b0, b1);
-      }
-    }
-    __syncthreads();  // the next iteration's prefetch refills this stage
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    inv[r] = 1.f / fmaxf(l_run[r], 1e-30f);  // no valid key: l = 0 and acc = 0
-  }
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-#pragma unroll
-  for (int n = 0; n < kOTiles; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (row_a < p.sq) store2(o + row_a * p.o_ss + col, acc[n][0] * inv[0], acc[n][1] * inv[0]);
-    if (row_b < p.sq) store2(o + row_b * p.o_ss + col, acc[n][2] * inv[1], acc[n][3] * inv[1]);
-  }
-}
-
-template <int D>
-cudaError_t launch(const Params& p, int b, int h, cudaStream_t stream) {
-  constexpr size_t kSmem = smem_bytes<D>();
-  static bool configured = false;  // the attribute is per function, set once
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  const dim3 grid((p.sq + kBlockM - 1) / kBlockM, h, b);
-  flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(p);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16: flash_wgmma_kernel
@@ -615,22 +338,577 @@ cudaError_t launch_wgmma(const CUtensorMap (&maps)[3], const Params& p, int b, i
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32: flash_f32_kernel
+//
+// Numerics. Every product a·b takes three bf16 wgmma on hi/lo splits (x = hi
+// + lo, hi = bf16(x), lo = bf16(x - hi)): a_hi·b_hi + a_hi·b_lo + a_lo·b_hi,
+// f32 accumulation, which keeps about 16 mantissa bits. Q and P are split in
+// registers as A operands; K and V are split once per chunk into bf16 tiles in
+// shared memory, because wgmma reads B only from there and only in bf16.
+//
+// Design (Hopper). What bounds it is shared memory, not the tensor cores: at
+// d 64 a 64-key chunk costs each 64-row warpgroup 48 KB of wgmma B reads (six
+// products on 8 KB tiles) beside ~770 cycles of tensor-core work, and
+// splitting the chunk's f32 K and V costs 64 KB more (read 32 KB, write 32
+// KB) on top of the 32 KB TMA writes. So the split is shared: a block is a
+// producer warpgroup and kNC consumer warpgroups of 64 query rows each (2,
+// 128 rows, at d 64 for sq > 64; 1 for the 20-query SelfMask shapes and at d
+// 96), FlashAttention-3 style.
+//   - Blocks are persistent: one an SM walks the tiles (a tile is kNC x 64
+//     query rows of one head against one key range), so the producer runs
+//     ahead into a block's next tile while its consumers finish the last.
+//   - The producer warpgroup's thread 0 loads a tile's f32 Q rows (one TMA
+//     box of 64 rows x d per consumer, rows past sq as zeros) as it starts
+//     the tile, and every f32 K and V chunk (the same boxes, keys past sk as
+//     zeros) into a ring of kF32Stages, completing on kf_full / vf_full. The
+//     whole warpgroup then splits each chunk into a bf16 hi and a bf16 lo
+//     tile of the split ring (kSplitStages), written in the exact
+//     64-byte-swizzled layout in which TMA lays out a bf16 chunk
+//     (hopper.cuh), so the bf16 kernel's K-major (K) and MN-major (V)
+//     descriptors read them unchanged (split_chunk: no bank conflicts, one
+//     offset for every pass). Each thread fences its writes to the async
+//     proxy (fence.proxy.async) before a named barrier of the warpgroup,
+//     after which thread 0 arrives on k_full / v_full and reuses the f32
+//     stage for the chunk kF32Stages further. K and V go apart, so that Q
+//     K^T starts while V is being split. The first warp writes each chunk's
+//     key validity (in range, not masked) as one 64-bit word.
+//   - setmaxnreg moves registers from the producer (kProducerRegs) to the two
+//     consumers (kConsumerRegs): S and O accumulators and the Q and P hi/lo
+//     fragments take ~214 a thread at d 64 (ptxas). At d 96 they take ~240,
+//     so d 96 keeps one consumer a block and needs no setmaxnreg; only the
+//     f32 checks run d 96.
+//   - A consumer warpgroup splits its 64 Q rows into A fragments once a
+//     tile, then runs the bf16 kernel's loop: Q K_j^T and P_{j-1} V_{j-1}
+//     issued together as two wgmma groups (12 and 12 or 18 and 12
+//     instructions), chunk j's online softmax (chunk_softmax) while P V is on
+//     the tensor cores, O rescaled and P split after its wait.
+//   - Split keys: a call whose b·h·q-tile tiles cannot fill the card cuts
+//     the keys into ranges of `per` chunks, one block a tile. Such a block
+//     writes its unnormalised O, running max m (base 2) and sum l to an f32
+//     workspace, and flash_combine_kernel merges the ranges.
+// Tried on an H100 and not kept, as they did not make it faster (PERF.md):
+// deeper rings, the two consumers taking turns at the tensor cores, and
+// narrow products for a last chunk of <= 16 keys.
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Stages = 2;     // f32 K and V chunks in the TMA ring
+constexpr int kSplitStages = 2;   // bf16 hi/lo K and V tiles in the split ring
+constexpr int kProducerRegs = 56;   // setmaxnreg of the producer warpgroup
+constexpr int kConsumerRegs = 224;  // and of each consumer (56 + 2 * 224 = 504 = 65,536 / 128)
+
+__host__ __device__ constexpr int f32_chunk_bytes(int d) { return 4 * kChunkRows * d; }
+__host__ __device__ constexpr int f32_threads(int nc) { return 128 * (nc + 1); }
+
+// What one launch covers: `tiles` tiles, each kNC x 64 query rows of one
+// (batch, head) against one key range of `per` chunks, numbered with the q
+// tile fastest, then the range, head and batch. Block x takes tiles x, x +
+// gridDim.x, ... In the split path (splits > 1) a block takes one tile and
+// writes its unnormalised O rows to o_part [splits, b, h, sq, d] and (m, l)
+// to ml [splits, b, h, sq, 2], both f32 and contiguous; null when the call
+// is not split.
+struct F32Params {
+  float* o_part;
+  float* ml;
+  int per, splits, b, h, q_tiles, tiles;
+};
+
+struct F32Tile {
+  int bi, hi, q0, split, c0, n;  // key chunks c0 .. c0 + n - 1
+};
+
+template <int kNC>
+__device__ __forceinline__ F32Tile f32_tile(const Params& p, const F32Params& fp, int t) {
+  const int chunks = flash_chunks(p.sk);
+  F32Tile tile;
+  tile.q0 = (t % fp.q_tiles) * kNC * kChunkRows;
+  t /= fp.q_tiles;
+  tile.split = t % fp.splits;
+  t /= fp.splits;
+  tile.hi = t % fp.h;
+  tile.bi = t / fp.h;
+  tile.c0 = min(tile.split * fp.per, chunks);
+  tile.n = min(tile.c0 + fp.per, chunks) - tile.c0;
+  return tile;
+}
+
+// Consumer warpgroups (of 64 query rows) in a block of the f32 kernel: two
+// at d 64 for sq > 64, else one (ops/flash_attention.py::block_rows). At d 96
+// a consumer needs ~240 registers, more than setmaxnreg can give two.
+__host__ __device__ constexpr int f32_consumers(int sq, int d) { return d == 64 && sq > kChunkRows ? 2 : 1; }
+
+// Byte offsets into a block's dynamic shared memory (mirrored by
+// ops/flash_attention.py::f32_smem_layout): the f32 Q rows of a tile (one
+// 64-row TMA box per consumer: two at d 64, one at d 96), kF32Stages f32 K
+// chunks and as many V chunks, then kSplitStages bf16 tiles each of K hi, K
+// lo, V hi and V lo, every one a multiple of 4 KB from the 1 KB-aligned base;
+// a 64-bit key-validity word per split stage; the mbarriers kf_full[F],
+// vf_full[F], k_full[S], k_empty[S], v_full[S], v_empty[S], q_full, q_empty.
+struct F32Layout {
+  int q, kf, vf, khi, klo, vhi, vlo, valid, bars, total;
+};
+
+__host__ __device__ constexpr F32Layout f32_layout(int d) {
+  const int f = f32_chunk_bytes(d), c = hopper::chunk_bytes(d);
+  const int kf = f32_consumers(2 * kChunkRows, d) * f, vf = kf + kF32Stages * f, khi = vf + kF32Stages * f;
+  const int klo = khi + kSplitStages * c, vhi = klo + kSplitStages * c, vlo = vhi + kSplitStages * c;
+  const int valid = vlo + kSplitStages * c, bars = valid + kSplitStages * 8;
+  return F32Layout{0, kf, vf, khi, klo, vhi, vlo, valid, bars, bars + (2 * kF32Stages + 4 * kSplitStages + 2) * 8};
+}
+
+struct F32Bars {
+  uint32_t base;
+  __device__ uint32_t kf_full(int f) const { return base + 8 * f; }
+  __device__ uint32_t vf_full(int f) const { return base + 8 * (kF32Stages + f); }
+  __device__ uint32_t k_full(int s) const { return base + 8 * (2 * kF32Stages + s); }
+  __device__ uint32_t k_empty(int s) const { return base + 8 * (2 * kF32Stages + kSplitStages + s); }
+  __device__ uint32_t v_full(int s) const { return base + 8 * (2 * kF32Stages + 2 * kSplitStages + s); }
+  __device__ uint32_t v_empty(int s) const { return base + 8 * (2 * kF32Stages + 3 * kSplitStages + s); }
+  __device__ uint32_t q_full() const { return base + 8 * (2 * kF32Stages + 4 * kSplitStages); }
+  __device__ uint32_t q_empty() const { return base + 8 * (2 * kF32Stages + 4 * kSplitStages + 1); }
+};
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) { return *reinterpret_cast<uint32_t*>(&v); }
+
+// Two values as a bf16x2 operand register (first value in the low half) and
+// the bf16x2 register of what bf16 rounding left over.
+__device__ __forceinline__ void split(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(a - __low2float(h), b - __high2float(h)));
+}
+
+// The producer warpgroup's own barrier (id 1; __syncthreads is 0).
+__device__ __forceinline__ void producer_sync() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); }
+
+// The f32 chunk at `src` (64 rows of D floats, as TMA wrote it) as bf16 tiles
+// hi and lo in the chunk layout of hopper.cuh (D / 32 boxes of 64 rows x 32
+// columns, 64-byte swizzle), by the 128 threads of the producer warpgroup.
+// Thread t takes columns 4 (t % 8) .. + 3 of a box in rows t / 8 + 16 p (p
+// < 4) of every box: one 16-byte f32 read (8 threads read 128 contiguous
+// bytes) and 8 bytes to each tile, so 16 threads write two whole 64-byte box
+// rows, one 128-byte line that the swizzle only permutes: no bank conflict.
+// A pass of 16 rows is 1 KB, a multiple of the swizzle's 512-byte period,
+// so one swizzled offset serves every pass and box.
+template <int D>
+__device__ __forceinline__ void split_chunk(uint32_t src, uint32_t hi, uint32_t lo, int tid) {
+  constexpr int kPassRows = 128 / 8;
+  static_assert(kChunkRows % kPassRows == 0 && D % hopper::kBoxCols == 0, "passes must tile the chunk");
+  const int r = tid >> 3, q = tid & 7;
+  const uint32_t from = src + r * D * 4 + q * 16;
+  const uint32_t to = hopper::swizzle_64b(r * hopper::kRowStrideBytes + q * 8);  // hi, lo: 4 KB-aligned
+#pragma unroll
+  for (int box = 0; box < D / hopper::kBoxCols; ++box) {
+#pragma unroll
+    for (int pass = 0; pass < kChunkRows / kPassRows; ++pass) {
+      float x0, x1, x2, x3;
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(x0), "=f"(x1), "=f"(x2), "=f"(x3)
+                   : "r"(from + pass * kPassRows * D * 4 + box * hopper::kBoxCols * 4)
+                   : "memory");
+      uint32_t h0, l0, h1, l1;
+      split(x0, x1, h0, l0);
+      split(x2, x3, h1, l1);
+      const uint32_t off = to + box * hopper::kBoxBytes + pass * kPassRows * hopper::kRowStrideBytes;
+      asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(hi + off), "r"(h0), "r"(h1) : "memory");
+      asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(lo + off), "r"(l0), "r"(l1) : "memory");
+    }
+  }
+}
+
+// The producer warpgroup over every key chunk of the block's tiles in turn,
+// running ahead into the next tile while the consumers finish one. Every
+// tile of a block has the same n chunks: all of them unsplit, and a split
+// launch gives each block one tile.
+template <int D, int kNC>
+__device__ void f32_producer(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv, const Params& p,
+                             const F32Params& fp, uint32_t base, const F32Layout& lay, const F32Bars& bar) {
+  constexpr uint32_t kF32Chunk = f32_chunk_bytes(D);
+  constexpr uint32_t kTile = hopper::chunk_bytes(D);
+  const int tid = threadIdx.x - 128 * kNC, lane = tid & 31;
+  // a cursor over the block's chunks: its tile decoded once, on entering it
+  struct Cursor {
+    int t, j;
+    F32Tile tile;
+  };
+  auto start = [&]() { return Cursor{static_cast<int>(blockIdx.x), 0, f32_tile<kNC>(p, fp, blockIdx.x)}; };
+  auto advance = [&](Cursor& c) {
+    if (++c.j == c.tile.n) {
+      c.j = 0;
+      c.t += gridDim.x;
+      if (c.t < fp.tiles) c.tile = f32_tile<kNC>(p, fp, c.t);
+    }
+  };
+  const int n = f32_tile<kNC>(p, fp, blockIdx.x).n;
+  const int items = n * ((fp.tiles - blockIdx.x + gridDim.x - 1) / gridDim.x);
+  auto load = [&](const CUtensorMap* map, int area, uint32_t full, int g, const Cursor& c) {  // thread 0
+    hopper::mbar_arrive_expect_tx(full, kF32Chunk);
+    hopper::tma_load_4d(base + area + (g % kF32Stages) * kF32Chunk, map, full, 0, (c.tile.c0 + c.j) * kChunkRows,
+                        c.tile.hi, c.tile.bi);
+  };
+  Cursor at = start(), ahead = start();  // chunk g, and the chunk kF32Stages further that TMA loads
+  if (tid == 0) {
+    hopper::prefetch_tensormap(tq);
+    hopper::prefetch_tensormap(tk);
+    hopper::prefetch_tensormap(tv);
+  }
+  int tiles_begun = 0;
+  for (int g = 0; g < kF32Stages && g < items; ++g) {
+    if (tid == 0) {
+      load(tk, lay.kf, bar.kf_full(g), g, ahead);
+      load(tv, lay.vf, bar.vf_full(g), g, ahead);
+    }
+    advance(ahead);
+  }
+  for (int g = 0; g < items; ++g) {
+    const int f = g % kF32Stages, s = g % kSplitStages;
+    const uint32_t f_parity = (g / kF32Stages) & 1;
+    const uint32_t e_parity = ((g / kSplitStages) + 1) & 1;  // the release of chunk g - kSplitStages
+    const bool more = g + kF32Stages < items;
+    if (at.j == 0 && tid == 0) {  // a tile begins: its Q rows, once the last tile's are read
+      if (tiles_begun > 0) hopper::mbar_wait(bar.q_empty(), (tiles_begun - 1) & 1);
+      hopper::mbar_arrive_expect_tx(bar.q_full(), kNC * kF32Chunk);
+      for (int w = 0; w < kNC; ++w) {
+        hopper::tma_load_4d(base + lay.q + w * kF32Chunk, tq, bar.q_full(), 0, at.tile.q0 + w * kChunkRows,
+                            at.tile.hi, at.tile.bi);
+      }
+    }
+    tiles_begun += at.j == 0;
+
+    hopper::mbar_wait(bar.kf_full(f), f_parity);
+    if (g >= kSplitStages) hopper::mbar_wait(bar.k_empty(s), e_parity);
+    split_chunk<D>(base + lay.kf + f * kF32Chunk, base + lay.khi + s * kTile, base + lay.klo + s * kTile, tid);
+    if (tid < 32) {
+      const int* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(at.tile.bi) * p.sk;
+      const int k0 = (at.tile.c0 + at.j) * kChunkRows + lane, k1 = k0 + 32;
+      const bool ok0 = k0 < p.sk && (mask == nullptr || mask[k0] != 0);
+      const bool ok1 = k1 < p.sk && (mask == nullptr || mask[k1] != 0);
+      const uint64_t lo = __ballot_sync(0xffffffffu, ok0), hi = __ballot_sync(0xffffffffu, ok1);
+      if (lane == 0) hopper::st_shared_u64(base + lay.valid + 8 * s, lo | (hi << 32));
+    }
+    hopper::fence_proxy_async();  // the tiles, to wgmma; the f32 stage's reads, before TMA refills it
+    producer_sync();
+    if (tid == 0) {
+      hopper::mbar_arrive(bar.k_full(s));
+      if (more) load(tk, lay.kf, bar.kf_full(f), g + kF32Stages, ahead);
+    }
+
+    hopper::mbar_wait(bar.vf_full(f), f_parity);
+    if (g >= kSplitStages) hopper::mbar_wait(bar.v_empty(s), e_parity);
+    split_chunk<D>(base + lay.vf + f * kF32Chunk, base + lay.vhi + s * kTile, base + lay.vlo + s * kTile, tid);
+    hopper::fence_proxy_async();
+    producer_sync();
+    if (tid == 0) {
+      hopper::mbar_arrive(bar.v_full(s));
+      if (more) load(tv, lay.vf, bar.vf_full(f), g + kF32Stages, ahead);
+    }
+    advance(at);
+    if (more) advance(ahead);
+  }
+}
+
+// Issue S[64 x 64] = Q K^T as one wgmma group of three products a K step:
+// Q_hi K_hi, Q_hi K_lo, Q_lo K_hi (K-major tiles, as qk_issue reads them).
+template <int D>
+__device__ __forceinline__ void qk3_issue(float (&s)[kChunkRows / 8][4], const uint32_t (&qh)[D / 16][4],
+                                          const uint32_t (&ql)[D / 16][4], uint32_t k_hi, uint32_t k_lo) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t off = (ks / 2) * hopper::kBoxBytes + (ks % 2) * 32;
+    const uint64_t dh = hopper::smem_desc(k_hi + off, 16, hopper::kGroupStrideBytes, hopper::kSwizzle64B);
+    const uint64_t dl = hopper::smem_desc(k_lo + off, 16, hopper::kGroupStrideBytes, hopper::kSwizzle64B);
+    hopper::WgmmaRS<kChunkRows>::template mma<0>(s, qh[ks], dh, ks > 0);
+    hopper::WgmmaRS<kChunkRows>::template mma<0>(s, qh[ks], dl, 1);
+    hopper::WgmmaRS<kChunkRows>::template mma<0>(s, ql[ks], dh, 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// Issue acc[64 x D] += P V as one wgmma group of three products a K step:
+// P_hi V_hi, P_hi V_lo, P_lo V_hi (MN-major tiles, as pv_issue reads them).
+template <int D>
+__device__ __forceinline__ void pv3_issue(float (&acc)[D / 8][4], const uint32_t (&ph)[kChunkRows / 16][4],
+                                          const uint32_t (&pl)[kChunkRows / 16][4], uint32_t v_hi, uint32_t v_lo) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < kChunkRows / 16; ++c) {
+    hopper::pv_step<D>(acc, ph[c], v_hi, c);
+    hopper::pv_step<D>(acc, ph[c], v_lo, c);
+    hopper::pv_step<D>(acc, pl[c], v_hi, c);
+  }
+  hopper::wgmma_commit();
+}
+
+// p split into the hi and lo A fragments of P V (pack_p's layout).
+__device__ __forceinline__ void split_p(uint32_t (&ph)[kChunkRows / 16][4], uint32_t (&pl)[kChunkRows / 16][4],
+                                        const float (&s)[kChunkRows / 8][4]) {
+#pragma unroll
+  for (int nn = 0; nn < kChunkRows / 8; ++nn) {
+    split(s[nn][0], s[nn][1], ph[nn / 2][2 * (nn % 2)], pl[nn / 2][2 * (nn % 2)]);
+    split(s[nn][2], s[nn][3], ph[nn / 2][2 * (nn % 2) + 1], pl[nn / 2][2 * (nn % 2) + 1]);
+  }
+}
+
+// A consumer warpgroup: its 64 query rows of each of the block's tiles
+// against the tile's key chunks. The split rings and the Q barriers count
+// the block's chunks and tiles across its tiles, as the producer does.
+template <int D, int kNC>
+__device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base, const F32Layout& lay,
+                             const F32Bars& bar) {
+  constexpr uint32_t kTile = hopper::chunk_bytes(D);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  auto tile = [&](int area, int c) { return base + area + (c % kSplitStages) * kTile; };
+  auto valid = [&](int c) { return hopper::ld_shared_u64(base + lay.valid + 8 * (c % kSplitStages)); };
+  auto parity = [](int c) { return static_cast<uint32_t>((c / kSplitStages) & 1); };
+  int c0 = 0, tiles_begun = 0;  // chunks and tiles (with chunks) of the block's earlier tiles
+  for (int ti = blockIdx.x; ti < fp.tiles; ti += gridDim.x) {
+    const F32Tile tl = f32_tile<kNC>(p, fp, ti);
+    const int row_a = tl.q0 + wg * kChunkRows + warp * 16 + g, row_b = row_a + 8;
+    const int n = tl.n;
+
+    // Q rows as split A fragments, from the f32 rows TMA brought (rows past
+    // sq are zeros); a range with no chunk has no Q either
+    uint32_t qh[D / 16][4], ql[D / 16][4];
+    if (n > 0) {
+      hopper::mbar_wait(bar.q_full(), tiles_begun & 1);
+      const uint32_t q = base + lay.q + wg * f32_chunk_bytes(D) + (warp * 16 + g) * D * 4;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x0, x1;
+          asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                       : "=f"(x0), "=f"(x1)
+                       : "r"(q + ((i & 1) * 8 * D + ks * 16 + 2 * t + (i >> 1) * 8) * 4)
+                       : "memory");
+          split(x0, x1, qh[ks][i], ql[ks][i]);
+        }
+      }
+      hopper::fence_proxy_async();  // the reads, before TMA writes the next tile's Q
+      hopper::warp_arrive(bar.q_empty());
+      ++tiles_begun;
+    }
+
+    float acc[D / 8][4];
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn) acc[nn][0] = acc[nn][1] = acc[nn][2] = acc[nn][3] = 0.f;
+    float s[kChunkRows / 8][4] = {};
+    uint32_t ph[kChunkRows / 16][4], pl[kChunkRows / 16][4];
+    float m[2] = {-1e30f, -1e30f};  // running max of the scaled logits (base 2)
+    float l[2] = {0.f, 0.f};
+    float alpha[2];
+
+    if (n > 0) {  // a key range past the last chunk has nothing to read
+      // chunk 0: O is still zero, so it needs no P V beside it
+      hopper::mbar_wait(bar.k_full(c0 % kSplitStages), parity(c0));
+      qk3_issue<D>(s, qh, ql, tile(lay.khi, c0), tile(lay.klo, c0));
+      uint64_t bits_j = valid(c0);
+      hopper::wgmma_wait<0>();
+      hopper::warp_arrive(bar.k_empty(c0 % kSplitStages));
+      chunk_softmax(s, bits_j, p.scale_log2, m, l, alpha);
+      split_p(ph, pl, s);
+      for (int j = c0 + 1; j < c0 + n; ++j) {
+        hopper::mbar_wait(bar.k_full(j % kSplitStages), parity(j));
+        qk3_issue<D>(s, qh, ql, tile(lay.khi, j), tile(lay.klo, j));
+        hopper::mbar_wait(bar.v_full((j - 1) % kSplitStages), parity(j - 1));
+        pv3_issue<D>(acc, ph, pl, tile(lay.vhi, j - 1), tile(lay.vlo, j - 1));
+        bits_j = valid(j);
+        hopper::wgmma_wait<1>();  // Q K^T of chunk j is done
+        hopper::warp_arrive(bar.k_empty(j % kSplitStages));
+        chunk_softmax(s, bits_j, p.scale_log2, m, l, alpha);
+        hopper::wgmma_wait<0>();  // P V of chunk j - 1 is done with ph, pl and V
+        hopper::fence_operands(acc);
+        hopper::warp_arrive(bar.v_empty((j - 1) % kSplitStages));
+#pragma unroll
+        for (int nn = 0; nn < D / 8; ++nn) {
+          acc[nn][0] *= alpha[0];
+          acc[nn][1] *= alpha[0];
+          acc[nn][2] *= alpha[1];
+          acc[nn][3] *= alpha[1];
+        }
+        split_p(ph, pl, s);
+      }
+      const int last = c0 + n - 1;
+      hopper::mbar_wait(bar.v_full(last % kSplitStages), parity(last));
+      pv3_issue<D>(acc, ph, pl, tile(lay.vhi, last), tile(lay.vlo, last));
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(acc);
+      hopper::warp_arrive(bar.v_empty(last % kSplitStages));
+    }
+    c0 += n;
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    if (fp.o_part == nullptr) {
+      float* o = static_cast<float*>(p.o) + tl.bi * p.o_sb + tl.hi * p.o_sh;
+      const float inv_a = 1.f / fmaxf(l[0], 1e-30f), inv_b = 1.f / fmaxf(l[1], 1e-30f);  // no valid key: 0
+#pragma unroll
+      for (int nn = 0; nn < D / 8; ++nn) {
+        const int col = nn * 8 + 2 * t;
+        if (row_a < p.sq) {
+          *reinterpret_cast<float2*>(o + row_a * p.o_ss + col) = make_float2(acc[nn][0] * inv_a, acc[nn][1] * inv_a);
+        }
+        if (row_b < p.sq) {
+          *reinterpret_cast<float2*>(o + row_b * p.o_ss + col) = make_float2(acc[nn][2] * inv_b, acc[nn][3] * inv_b);
+        }
+      }
+      continue;
+    }
+    // the split path: unnormalised O, m and l of this key range
+    const long long item = (static_cast<long long>(tl.split) * fp.b + tl.bi) * fp.h + tl.hi;
+    float* o = fp.o_part + item * p.sq * D;
+    float* ml = fp.ml + item * p.sq * 2;
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn) {
+      const int col = nn * 8 + 2 * t;
+      if (row_a < p.sq) *reinterpret_cast<float2*>(o + row_a * D + col) = make_float2(acc[nn][0], acc[nn][1]);
+      if (row_b < p.sq) *reinterpret_cast<float2*>(o + row_b * D + col) = make_float2(acc[nn][2], acc[nn][3]);
+    }
+    if (t == 0) {
+      if (row_a < p.sq) *reinterpret_cast<float2*>(ml + 2 * row_a) = make_float2(m[0], l[0]);
+      if (row_b < p.sq) *reinterpret_cast<float2*>(ml + 2 * row_b) = make_float2(m[1], l[1]);
+    }
+  }
+}
+
+template <int D, int kNC>
+__global__ void __launch_bounds__(f32_threads(kNC), 1)
+    flash_f32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const Params p, const F32Params fp) {
+  extern __shared__ __align__(1024) unsigned char flash_f32_smem[];
+  const uint32_t base = hopper::smem_u32(flash_f32_smem);
+  const F32Layout lay = f32_layout(D);
+  const F32Bars bar{base + static_cast<uint32_t>(lay.bars)};
+  if (threadIdx.x == 0) {
+    if (base % 1024 != 0) __trap();  // the swizzled tiles need the pattern's alignment
+    for (int f = 0; f < kF32Stages; ++f) {
+      hopper::mbar_init(bar.kf_full(f), 1);
+      hopper::mbar_init(bar.vf_full(f), 1);
+    }
+    for (int s = 0; s < kSplitStages; ++s) {
+      hopper::mbar_init(bar.k_full(s), 1);
+      hopper::mbar_init(bar.k_empty(s), 4 * kNC);  // one arrive per consumer warp
+      hopper::mbar_init(bar.v_full(s), 1);
+      hopper::mbar_init(bar.v_empty(s), 4 * kNC);
+    }
+    hopper::mbar_init(bar.q_full(), 1);
+    hopper::mbar_init(bar.q_empty(), 4 * kNC);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128 * kNC) {
+    if constexpr (kNC > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    f32_producer<D, kNC>(&tq, &tk, &tv, p, fp, base, lay, bar);
+  } else {
+    if constexpr (kNC > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    f32_consumer<D, kNC>(p, fp, base, lay, bar);
+  }
+}
+
+// The split path's second pass, one warp a query row:
+//   O = sum_s 2^(m_s - M) O_s / max(sum_s 2^(m_s - M) l_s, 1e-30),
+// M the largest m_s over the ranges with l_s > 0. A range with no valid key
+// (l_s = 0) gets weight 0 and its m_s is never read into an exponent; a row
+// with no valid key at all comes out zero.
+template <int D>
+__global__ void __launch_bounds__(128) flash_combine_kernel(const Params p, const F32Params fp) {
+  constexpr int kPairs = (D / 2 + 31) / 32;  // float2 columns a lane
+  const long long rows = static_cast<long long>(fp.b) * fp.h * p.sq;
+  const long long row = static_cast<long long>(blockIdx.x) * 4 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  float big_m = -CUDART_INF_F;
+  for (int s = 0; s < fp.splits; ++s) {
+    const float2 ml = *reinterpret_cast<const float2*>(fp.ml + 2 * (s * rows + row));
+    if (ml.y > 0.f) big_m = fmaxf(big_m, ml.x);
+  }
+  float2 acc[kPairs];
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) acc[i] = make_float2(0.f, 0.f);
+  float big_l = 0.f;
+  for (int s = 0; s < fp.splits; ++s) {
+    const float2 ml = *reinterpret_cast<const float2*>(fp.ml + 2 * (s * rows + row));
+    if (!(ml.y > 0.f)) continue;
+    const float w = exp2f(ml.x - big_m);
+    big_l = fmaf(w, ml.y, big_l);
+    const float* o = fp.o_part + (s * rows + row) * D;
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const int c = 2 * (lane + 32 * i);
+      if (c < D) {
+        const float2 x = *reinterpret_cast<const float2*>(o + c);
+        acc[i].x = fmaf(w, x.x, acc[i].x);
+        acc[i].y = fmaf(w, x.y, acc[i].y);
+      }
+    }
+  }
+  const float inv = 1.f / fmaxf(big_l, 1e-30f);
+  const int r = static_cast<int>(row % p.sq);
+  const long long bh = row / p.sq;
+  float* o = static_cast<float*>(p.o) + (bh / fp.h) * p.o_sb + (bh % fp.h) * p.o_sh + r * p.o_ss;
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    const int c = 2 * (lane + 32 * i);
+    if (c < D) *reinterpret_cast<float2*>(o + c) = make_float2(acc[i].x * inv, acc[i].y * inv);
+  }
+}
+
+// The f32 launch: flash_f32_kernel, one block an SM walking the tiles (one
+// block a tile when the call is split), then the combine when it is split.
+template <int D, int kNC>
+cudaError_t launch_f32(const CUtensorMap (&maps)[3], const Params& p, F32Params fp, cudaStream_t stream) {
+  static const cudaError_t configured =
+      cudaFuncSetAttribute(flash_f32_kernel<D, kNC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (configured != cudaSuccess) return configured;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  fp.q_tiles = (p.sq + kNC * kChunkRows - 1) / (kNC * kChunkRows);
+  const long long tiles = static_cast<long long>(fp.q_tiles) * fp.splits * fp.h * fp.b;
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  fp.tiles = static_cast<int>(tiles);
+  const int blocks = fp.splits > 1 || fp.tiles < sms ? fp.tiles : sms;
+  flash_f32_kernel<D, kNC>
+      <<<blocks, f32_threads(kNC), f32_layout(D).total, stream>>>(maps[0], maps[1], maps[2], p, fp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || fp.splits == 1) return err;
+  const long long rows = static_cast<long long>(fp.b) * fp.h * p.sq;
+  flash_combine_kernel<D><<<static_cast<unsigned>((rows + 3) / 4), 128, 0, stream>>>(p, fp);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = bfloat16 (flash_wgmma_kernel), 1 = float32 (flash_fwd_kernel).
+// dtype: 0 = bfloat16 (flash_wgmma_kernel), 1 = float32 (flash_f32_kernel).
 // strides: 12 values, the (batch, head, sequence) strides in elements of q,
-// k, v and o in that order. Both kernels take 64 query rows a block. bf16
-// reads q, k and v through tensor maps and needs sk >= 1; a map the CUDA
-// driver will not encode returns hopper::kErrTensorMapEncode, and a pipeline wait
-// that never completes traps the kernel, which fails the launch at the next
-// synchronisation. Returns a cudaError_t (0 on success), or
-// cudaErrorInvalidValue for a dtype, head dim or size this library does not
-// take. Launches on `stream`, allocates nothing and does not synchronise.
+// k, v and o in that order. bf16 takes 64 query rows a block; f32 takes 128
+// (64 for sq <= 64 and at d 96) and reads q, k and v through f32 tensor
+// maps.
+// splits (f32 only; 1 for bf16): key ranges of one call. Above 1, o_part
+// [splits, b, h, sq, d] and ml [splits, b, h, sq, 2] are the f32 workspace
+// the caller allocated, and a combine kernel follows the main one. Both read
+// tensor maps and need sk >= 1; a map the CUDA driver will not encode returns
+// hopper::kErrTensorMapEncode, and a pipeline wait that never completes traps
+// the kernel, which fails the launch at the next synchronisation. Returns a
+// cudaError_t (0 on success), or cudaErrorInvalidValue for a dtype, head dim,
+// size or split count this library does not take. Launches on `stream`,
+// allocates nothing and does not synchronise.
 int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const int* kv_mask, void* o,
                               int dtype, int b, int h, int sq, int sk, int d, const long long* strides,
-                              float scale, void* stream) {
+                              float scale, int splits, float* o_part, float* ml, void* stream) {
+  if ((dtype != 0 && dtype != 1) || (d != 64 && d != 96) || sk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits < 1 || splits > 65535 || (dtype == 0 && splits != 1) ||
+      (splits > 1 && (o_part == nullptr || ml == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params p;
   p.q = q;
   p.k = k;
@@ -645,26 +923,51 @@ int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const
   p.sk = sk;
   p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 64) return launch<64>(p, b, h, s);
-  if (dtype == 1 && d == 96) return launch<96>(p, b, h, s);
-  if (dtype != 0 || (d != 64 && d != 96) || sk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) {
+    CUtensorMap maps[3];
+    const int err = hopper::attention_maps(maps, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, q, k, v, b, h, sq, sk, d, strides);
+    if (err != 0) return err;
+    F32Params fp{};
+    fp.o_part = splits > 1 ? o_part : nullptr;
+    fp.ml = splits > 1 ? ml : nullptr;
+    fp.per = (flash_chunks(sk) + splits - 1) / splits;
+    fp.splits = splits;
+    fp.b = b;
+    fp.h = h;
+    if (d == 96) return launch_f32<96, 1>(maps, p, fp, s);
+    if (f32_consumers(sq, d) == 1) return launch_f32<64, 1>(maps, p, fp, s);
+    return launch_f32<64, 2>(maps, p, fp, s);
+  }
   CUtensorMap maps[3];
-  const int err = hopper::attention_maps(maps, q, k, v, b, h, sq, sk, d, strides);
+  const int err = hopper::attention_maps(maps, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, b, h, sq, sk, d, strides);
   if (err != 0) return err;
   if (d == 64) return launch_wgmma<64>(maps, p, b, h, s);
   return launch_wgmma<96>(maps, p, b, h, s);
 }
 
-// The dynamic shared memory of one bf16 block, and the blocks of that kernel
-// an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-int zutis_flash_occupancy(int d, int* smem_bytes, int* blocks_per_sm) {
+// The dynamic shared memory of one block of the kernel of `dtype` at head
+// dim d with block_q query rows (bf16: 64; f32: 64, or 128 at d 64), and the blocks of
+// that kernel an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int zutis_flash_occupancy(int dtype, int d, int block_q, int* smem_bytes, int* blocks_per_sm) {
   if (d != 64 && d != 96) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = d == 64 ? flash_wgmma_kernel<64> : flash_wgmma_kernel<96>;
+  const void* kernel = nullptr;
+  int threads = 0;
+  if (dtype == 0 && block_q == kChunkRows) {
+    kernel = reinterpret_cast<const void*>(d == 64 ? flash_wgmma_kernel<64> : flash_wgmma_kernel<96>);
+    threads = kFlashThreads;
+    *smem_bytes = flash_layout(d).total;
+  } else if (dtype == 1 && (block_q == kChunkRows || (d == 64 && block_q == 2 * kChunkRows))) {
+    const bool one = block_q == kChunkRows;
+    kernel = reinterpret_cast<const void*>(d == 96 ? flash_f32_kernel<96, 1>
+                                                   : (one ? flash_f32_kernel<64, 1> : flash_f32_kernel<64, 2>));
+    threads = f32_threads(one ? 1 : 2);
+    *smem_bytes = f32_layout(d).total;
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (err != cudaSuccess) return static_cast<int>(err);
-  *smem_bytes = flash_layout(d).total;
-  return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kFlashThreads, *smem_bytes));
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, *smem_bytes));
 }
 
 const char* zutis_cuda_error_string(int err) {

@@ -65,20 +65,20 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A rank-4 bf16 tensor map: extents dims[0..3], innermost first; byte
-// strides[0..2] of dims 1..3 (multiples of 16); boxes of box[0..3] elements.
-// Loads fill elements past an extent with zeros. Returns 0 or one of the
-// error codes above.
-inline int encode_bf16_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
-                          const uint64_t (&strides)[3], const uint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+// A rank-4 tensor map of `type` (bf16 or f32): extents dims[0..3], innermost
+// first; byte strides[0..2] of dims 1..3 (multiples of 16); boxes of
+// box[0..3] elements. Loads fill elements past an extent with zeros. Returns
+// 0 or one of the error codes above.
+inline int encode_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base, const uint64_t (&dims)[4],
+                     const uint64_t (&strides)[3], const uint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return kErrNoTensorMapEncoder;
   const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
   const cuuint64_t gdim[4] = {dims[0], dims[1], dims[2], dims[3]};
   const cuuint32_t gbox[4] = {box[0], box[1], box[2], box[3]};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gdim, st, gbox,
-                            estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base), gdim, st, gbox, estride,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrTensorMapEncode;
 }
@@ -306,28 +306,32 @@ constexpr uint32_t kGroupStrideBytes = 8 * kRowStrideBytes; // an 8-row group: t
 
 __host__ __device__ constexpr int chunk_bytes(int d) { return d * kChunkRows * 2; }  // d / 32 boxes
 
-// The tensor map of one [b, h, rows, d] bf16 tensor as rank 4 {d, rows, h,
-// b} with its (batch, head, row) strides in elements (strides[0..2]), so
-// that rows past the edge arrive as zeros; in boxes of one chunk's 64 rows by
-// 32 columns with a 64-byte swizzle. Returns 0 or an error code of
-// encode_bf16_4d.
-inline int rows_map(CUtensorMap* map, const void* ptr, int b, int h, int rows, int d, const long long* strides) {
+// The tensor map of one [b, h, rows, d] tensor of `type` as rank 4 {d,
+// rows, h, b} with its (batch, head, row) strides in elements
+// (strides[0..2]), so that rows past the edge arrive as zeros. bf16 comes in
+// boxes of one chunk's 64 rows by 32 columns with a 64-byte swizzle, as wgmma
+// reads it; f32 in one unswizzled box of 64 rows by d columns (row-major, d * 4
+// bytes a row), which threads read. Returns 0 or an error code of encode_4d.
+inline int rows_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int b, int h, int rows, int d,
+                    const long long* strides) {
+  const bool f32 = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const uint64_t size = f32 ? 4 : 2;
   const uint64_t dims[4] = {static_cast<uint64_t>(d), static_cast<uint64_t>(rows), static_cast<uint64_t>(h),
                             static_cast<uint64_t>(b)};
-  const uint64_t bytes[3] = {static_cast<uint64_t>(strides[2]) * 2, static_cast<uint64_t>(strides[1]) * 2,
-                             static_cast<uint64_t>(strides[0]) * 2};
-  const uint32_t box[4] = {kBoxCols, kChunkRows, 1, 1};
-  return encode_bf16_4d(map, ptr, dims, bytes, box, CU_TENSOR_MAP_SWIZZLE_64B);
+  const uint64_t bytes[3] = {static_cast<uint64_t>(strides[2]) * size, static_cast<uint64_t>(strides[1]) * size,
+                             static_cast<uint64_t>(strides[0]) * size};
+  const uint32_t box[4] = {f32 ? static_cast<uint32_t>(d) : kBoxCols, kChunkRows, 1, 1};
+  return encode_4d(map, type, ptr, dims, bytes, box, f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // rows_map of q, k and v (strides[3i..3i+2] for q, k, v), rows sq for q and
 // sk for k and v.
-inline int attention_maps(CUtensorMap (&maps)[3], const void* q, const void* k, const void* v, int b, int h, int sq,
-                          int sk, int d, const long long* strides) {
+inline int attention_maps(CUtensorMap (&maps)[3], CUtensorMapDataType type, const void* q, const void* k,
+                          const void* v, int b, int h, int sq, int sk, int d, const long long* strides) {
   const void* ptrs[3] = {q, k, v};
   const int rows[3] = {sq, sk, sk};
   for (int i = 0; i < 3; ++i) {
-    const int err = rows_map(&maps[i], ptrs[i], b, h, rows[i], d, strides + 3 * i);
+    const int err = rows_map(&maps[i], type, ptrs[i], b, h, rows[i], d, strides + 3 * i);
     if (err != 0) return err;
   }
   return 0;

@@ -7,11 +7,16 @@ _flash_kernel. They compute softmax(q k^T / sqrt(d), keys masked by
 and give an item whose mask has no valid key an all-zero output, as the JAX
 wrapper does after its kernel.
 
-Dispatch is by dtype. bf16, the serving path, runs on Hopper's TMA,
-mbarriers and wgmma: one producer warp streams 64-key K and V chunks
-through a ring in shared memory (`STAGES` deep) to one consumer warpgroup
-of 64 query rows. f32 runs on an mma.sync kernel with hi/lo bf16 splits.
-Both take 64 query rows a block.
+Dispatch is by dtype; both kernels run on Hopper's TMA, mbarriers and
+wgmma. bf16, the serving path: one producer warp streams 64-key K and V
+chunks through a ring in shared memory (`STAGES` deep) to one consumer
+warpgroup of 64 query rows. f32: every product takes three bf16 wgmma on
+hi/lo splits (~16 mantissa bits); a producer warpgroup loads f32 K and V
+chunks with TMA and splits each once into bf16 tiles for two consumer
+warpgroups (128 query rows a block; 64 for sq <= 64 and at d 96). An f32
+call whose blocks cannot fill the card splits its keys into `key_splits`
+ranges, whose partial results a second kernel combines
+(`flash_attention_split_reference` is its plain version).
 
 `flash_attention` takes the plain version only for tensors that lie on the
 CPU. For a CUDA tensor it launches a kernel or raises: an unsupported
@@ -40,9 +45,13 @@ STEM = "libzutis_flash"
 HEAD_DIMS = (64, 96)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _NEG_INF = -1e30
-KEY_CHUNK = 64        # keys per K/V chunk, and query rows per block
+KEY_CHUNK = 64        # keys per K/V chunk, and query rows per warpgroup
 STAGES = 4            # K/V chunks in the bf16 kernel's ring
+F32_STAGES = 2        # f32 K/V chunks in the f32 kernel's TMA ring
+SPLIT_STAGES = 2      # bf16 hi/lo K/V tiles in its split ring
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
+SMS = 132             # streaming multiprocessors of an H100
+MIN_SPLIT_CHUNKS = 2  # key chunks a range of the split path takes at least
 
 
 def build():
@@ -57,11 +66,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.zutis_flash_occupancy.restype = ctypes.c_int
     lib.zutis_flash_occupancy.argtypes = (
-        [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2)
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)
 
 
 def flash_attention_reference(
@@ -83,7 +93,8 @@ def softmax_weights_f32(q, k, kv_mask) -> torch.Tensor:
     """W = softmax(q k^T / sqrt(d)) in f32, masked keys at -1e30
     (zutis_tpu/ops/flash_attention.py::_xla_reference); an all-masked row
     is uniform."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if kv_mask is not None:
         s = s.masked_fill(~(kv_mask > 0)[:, None, None, :], _NEG_INF)
     return torch.softmax(s, dim=-1)
@@ -95,6 +106,75 @@ def _zero_all_masked(out: torch.Tensor, kv_mask) -> torch.Tensor:
         return out
     any_valid = (kv_mask > 0).any(dim=-1)
     return out * any_valid[:, None, None, None].to(out.dtype)
+
+
+def flash_attention_split_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor] = None,
+    n_splits: int = 1,
+) -> torch.Tensor:
+    """Plain version of the f32 kernel's split path, in f32: the keys cut
+    into `n_splits` ranges of `split_chunks` 64-key chunks (a range past the
+    last chunk is empty), each range's unnormalised output O_s, row max m_s
+    and sum l_s, then the combine
+    O = sum_s e^(m_s - M) O_s / max(sum_s e^(m_s - M) l_s, 1e-30), M the
+    largest m_s of the ranges with l_s > 0. A range with no valid key gets
+    weight 0 (its m_s never enters an exponent); an item with no valid key
+    comes out zero."""
+    sk = k.shape[2]
+    per = split_chunks(sk, n_splits) * KEY_CHUNK
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if kv_mask is not None:
+        s = s.masked_fill(~(kv_mask > 0)[:, None, None, :], float("-inf"))
+    parts = []
+    for i in range(n_splits):
+        lo, hi = min(i * per, sk), min((i + 1) * per, sk)
+        s_i = s[..., lo:hi]
+        m_i = (s_i.amax(-1, keepdim=True) if hi > lo
+               else s.new_full(s.shape[:-1] + (1,), float("-inf")))
+        p = torch.exp(s_i - torch.where(torch.isfinite(m_i), m_i, 0.0))
+        o_i = torch.einsum("bhqk,bhkd->bhqd", p, v[:, :, lo:hi].float())
+        parts.append((m_i, p.sum(-1, keepdim=True), o_i))
+    big_m = torch.stack([torch.where(l_i > 0, m_i, float("-inf"))
+                         for m_i, l_i, _ in parts]).amax(0)
+    num, den = 0.0, 0.0
+    for m_i, l_i, o_i in parts:
+        live = l_i > 0
+        w = torch.where(live, torch.exp(torch.where(live, m_i - big_m, 0.0)),
+                        0.0)
+        num = num + w * o_i
+        den = den + w * l_i
+    return (num / den.clamp(min=1e-30)).to(q.dtype)
+
+
+def block_rows(sq: int, d: int) -> int:
+    """Query rows a block of the f32 kernel takes: two consumer warpgroups
+    at d 64 for sq > 64, else one (f32_consumers in
+    csrc/flash_attention.cu)."""
+    return 2 * KEY_CHUNK if d == 64 and sq > KEY_CHUNK else KEY_CHUNK
+
+
+def split_chunks(sk: int, n_splits: int) -> int:
+    """64-key chunks in each of `n_splits` key ranges (the last may hold
+    fewer, and ranges past the last chunk none), as the kernel cuts them."""
+    chunks = -(-sk // KEY_CHUNK)
+    return -(-chunks // n_splits)
+
+
+def key_splits(b: int, h: int, sq: int, sk: int, d: int = 64) -> int:
+    """Key ranges the f32 kernel cuts one call into: 1 when its
+    b * h * ceil(sq / block_rows) blocks fill an H100's SMS SMs; else
+    enough ranges of at least MIN_SPLIT_CHUNKS chunks each that the blocks
+    come to about one wave, and none of them empty."""
+    blocks = b * h * -(-sq // block_rows(sq, d))
+    if blocks == 0 or blocks >= SMS:
+        return 1
+    chunks = -(-sk // KEY_CHUNK)
+    per = max(MIN_SPLIT_CHUNKS, -(-chunks // (SMS // blocks)))
+    return -(-chunks // per)
 
 
 def smem_layout(d: int) -> dict:
@@ -111,6 +191,31 @@ def smem_layout(d: int) -> dict:
     bars = valid + STAGES * 8
     return dict(q=0, k=k, v=v, valid=valid, bars=bars,
                 total=bars + (1 + 4 * STAGES) * 8)
+
+
+def f32_smem_layout(d: int) -> dict:
+    """Byte offsets into one f32 block's dynamic shared memory (f32_layout
+    in csrc/flash_attention.cu): a tile's f32 Q rows (a 64-row TMA box per
+    consumer warpgroup: two at d 64, one at d 96), F32_STAGES f32 K chunks
+    and as many V chunks (64 rows of d f32, unswizzled, as TMA writes them),
+    then SPLIT_STAGES bf16 tiles each of K hi, K lo, V hi and V lo (64 rows
+    of d bf16 in the swizzled chunk layout), a 64-bit key-validity word per
+    split stage, then the mbarriers: kf_full and vf_full per f32 stage,
+    k_full, k_empty, v_full and v_empty per split stage, q_full and
+    q_empty."""
+    f32_chunk = KEY_CHUNK * d * 4
+    tile = KEY_CHUNK * d * 2
+    kf = block_rows(2 * KEY_CHUNK, d) // KEY_CHUNK * f32_chunk
+    vf = kf + F32_STAGES * f32_chunk
+    khi = vf + F32_STAGES * f32_chunk
+    klo = khi + SPLIT_STAGES * tile
+    vhi = klo + SPLIT_STAGES * tile
+    vlo = vhi + SPLIT_STAGES * tile
+    valid = vlo + SPLIT_STAGES * tile
+    bars = valid + SPLIT_STAGES * 8
+    return dict(q=0, kf=kf, vf=vf, khi=khi, klo=klo, vhi=vhi, vlo=vlo,
+                valid=valid, bars=bars,
+                total=bars + (2 * F32_STAGES + 4 * SPLIT_STAGES + 2) * 8)
 
 
 def check_kernel_inputs(q, k, v, kv_mask) -> None:
@@ -155,12 +260,19 @@ def check_kernel_inputs(q, k, v, kv_mask) -> None:
                 f"{tuple(kv_mask.shape)} on {kv_mask.device}")
 
 
-def occupancy(d: int) -> tuple[int, int]:
-    """(dynamic shared memory bytes, blocks per SM) of the bf16 kernel at
-    this head dim, from the current card's occupancy calculator."""
+def occupancy(d: int, dtype: torch.dtype = torch.bfloat16,
+              block_q: Optional[int] = None) -> tuple[int, int]:
+    """(dynamic shared memory bytes, blocks per SM) of the kernel of `dtype`
+    at this head dim, from the current card's occupancy calculator; block_q
+    is 64 for bf16 and for f32 at d 96, 64 or 128 (the default) for f32 at
+    d 64."""
+    if block_q is None:
+        block_q = (block_rows(2 * KEY_CHUNK, d) if dtype == torch.float32
+                   else KEY_CHUNK)
     lib = _build.load(SOURCE, STEM, _bind)
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.zutis_flash_occupancy(d, ctypes.byref(smem), ctypes.byref(blocks))
+    err = lib.zutis_flash_occupancy(_DTYPE_CODES[dtype], d, block_q,
+                                    ctypes.byref(smem), ctypes.byref(blocks))
     _build.check_launch(lib, err, "flash occupancy")
     return smem.value, blocks.value
 
@@ -201,8 +313,10 @@ def flash_attention(
     """softmax(q k^T / sqrt(d), keys masked by kv_mask) v -> [b, h, sq, d].
 
     Differentiable in q, k and v (`FlashAttention`). The kernel launch
-    count is `flash_attention.launches`, and of those the launches given a
-    mask `flash_attention.masked_launches`."""
+    count is `flash_attention.launches` (one a call); of those the launches
+    given a mask are `flash_attention.masked_launches`, and the f32 calls
+    split by `key_splits`, each with a combine launch,
+    `flash_attention.split_launches`."""
     if not (torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
         return _flash_forward(q, k, v, kv_mask)
@@ -211,8 +325,9 @@ def flash_attention(
     return _zero_all_masked(FlashAttention.apply(q, k, v, kv_mask), kv_mask)
 
 
-def _flash_forward(q, k, v, kv_mask) -> torch.Tensor:
-    """The forward: the plain version on the CPU, a kernel on a card."""
+def _flash_forward(q, k, v, kv_mask, n_splits=None) -> torch.Tensor:
+    """The forward: the plain version on the CPU, a kernel on a card. An
+    f32 call takes `key_splits` key ranges unless `n_splits` says how many."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_mask)
     if q.device.type != "cuda":
@@ -231,6 +346,17 @@ def _flash_forward(q, k, v, kv_mask) -> torch.Tensor:
         mask = kv_mask
         if mask.dtype != torch.int32 or not mask.is_contiguous():
             mask = (kv_mask > 0).to(torch.int32).contiguous()
+    splits = 1
+    if q.dtype == torch.float32:
+        splits = key_splits(b, h, sq, sk, d) if n_splits is None else n_splits
+    elif n_splits not in (None, 1):
+        raise ValueError("only the f32 kernel splits its keys")
+    o_part = ml = None
+    if splits > 1:  # the split path's workspace; the library allocates nothing
+        o_part = torch.empty((splits, b, h, sq, d), dtype=torch.float32,
+                             device=q.device)
+        ml = torch.empty((splits, b, h, sq, 2), dtype=torch.float32,
+                         device=q.device)
     lib = _build.load(SOURCE, STEM, _bind)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
@@ -240,13 +366,16 @@ def _flash_forward(q, k, v, kv_mask) -> torch.Tensor:
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), o.data_ptr(),
             _DTYPE_CODES[q.dtype], b, h, sq, sk, d, strides, d ** -0.5,
-            stream,
+            splits, None if o_part is None else o_part.data_ptr(),
+            None if ml is None else ml.data_ptr(), stream,
         )
     _build.check_launch(lib, err, "flash attention")
     flash_attention.launches += 1
     flash_attention.masked_launches += mask is not None
+    flash_attention.split_launches += splits > 1
     return o
 
 
 flash_attention.launches = 0
 flash_attention.masked_launches = 0  # the launches given a kv_mask
+flash_attention.split_launches = 0   # the f32 launches split, with a combine

@@ -1,0 +1,285 @@
+"""Where the f32 flash kernel's time goes, on the card: its time at the
+main-path f32 shapes against another checkout's, against copies of its
+source with one part taken out, and whether the other kernels of that
+checkout compile to the same SASS.
+
+    python -m zutis_tpu_torch.tools.flash_f32_bench [--against DIR] \\
+        [--ablations no_split,no_softmax,one_product,rings3]
+
+- `--against DIR`: a checkout of another commit (`git archive` of it,
+  unpacked into a directory git ignores). Both checkouts' `flash_attention`
+  are timed at SHAPES, each run in a process of its own, in the order
+  other, this, this, other; then the SASS of every kernel that both builds
+  of csrc/flash_attention.cu and csrc/attention_probes.cu hold is compared
+  instruction by instruction.
+- `--ablations`: copies of csrc/ with one edit each (ABLATIONS), built with
+  nvcc and timed in turns with the unedited source.
+
+Times are device ms per call: 20 calls captured in a CUDA graph, the median
+of 21 replays, on [b, s, h, d] views as the models pass them; each run also
+times the bf16 kernel at the serving encoder shape, a control for the
+card's speed, beside nvidia-smi's SM clock and power. Prints one JSON line
+per measurement. Needs a card, nvcc and cuobjdump.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import inspect
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+from typing import Optional, Sequence
+from unittest import mock
+
+# [b, h, sq, sk, d] of the f32 calls on the main paths: SelfMask's encoder
+# self-attention, decoder cross- and self-attention (a 683 x 512 photo), and
+# the ViT-L/14@336px image bank's encoder at batch 32
+SHAPES = {
+    "selfmask encoder self": (1, 6, 5505, 5505, 64),
+    "selfmask decoder cross": (1, 6, 20, 5504, 64),
+    "selfmask decoder self": (1, 6, 20, 20, 64),
+    "bank encoder self": (32, 16, 577, 577, 64),
+}
+CONTROL = (8, 12, 577, 577, 64)  # bf16, the serving encoder shape
+# name -> [(text in csrc/flash_attention.cu, its replacement)]. The
+# ablations take a part out and compute a wrong result on purpose: their
+# time says what the part costs, nothing else. `rings3` is an alternative
+# that stays right (d 64 only: at d 96 the rings outgrow shared memory).
+ABLATIONS = {
+    # the producer splits nothing: wgmma reads stale tiles
+    "no_split": [
+        ("    for (int pass = 0; pass < kChunkRows / kPassRows; ++pass) {",
+         "    for (int pass = 0; pass < 0; ++pass) {")],
+    # p = the raw logits, O never rescaled
+    "no_softmax": [
+        ("chunk_softmax(s, bits_j, p.scale_log2, m, l, alpha);",
+         "alpha[0] = alpha[1] = 1.f;")],
+    # one bf16 product for each f32 one (hi * hi), in both products
+    "one_product": [
+        ("    hopper::WgmmaRS<kChunkRows>::template mma<0>(s, qh[ks], dl, 1);\n"
+         "    hopper::WgmmaRS<kChunkRows>::template mma<0>(s, ql[ks], dh, 1);\n",
+         ""),
+        ("    hopper::pv_step<D>(acc, ph[c], v_lo, c);\n"
+         "    hopper::pv_step<D>(acc, pl[c], v_hi, c);\n", "")],
+    # three f32 and three split stages instead of two and two
+    "rings3": [("constexpr int kF32Stages = 2;", "constexpr int kF32Stages = 3;"),
+               ("constexpr int kSplitStages = 2;",
+                "constexpr int kSplitStages = 3;")],
+}
+
+
+def device_ms(fn, calls=20, reps=21):
+    """Device ms per call of `fn`: `calls` calls captured in a CUDA graph,
+    the median of `reps` replays."""
+    import statistics
+
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def flash_inputs(gen, shape, dtype):
+    """q, k, v as [b, h, s, d] views of [b, s, h, d] tensors on the card."""
+    import torch
+
+    b, h, sq, sk, d = shape
+    return [torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+            .transpose(1, 2) for s in (sq, sk, sk)]
+
+
+def time_shapes(shapes, control):
+    """{name: device ms} of flash_attention at each f32 shape and the bf16
+    control, and nvidia-smi's SM clock, power draw and limit."""
+    import subprocess
+
+    import torch
+
+    from zutis_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name, shape in shapes.items():
+        q, k, v = flash_inputs(gen, shape, torch.float32)
+        out[name] = device_ms(lambda: fa.flash_attention(q, k, v))
+    qb, kb, vb = flash_inputs(gen, control, torch.bfloat16)
+    out["control bf16"] = device_ms(lambda: fa.flash_attention(qb, kb, vb))
+    out["nvidia-smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
+    return out
+
+
+def timer_script() -> str:
+    """time_shapes as a `python -c` script: run from a checkout's root, it
+    imports that checkout's package; argv holds the shapes and control."""
+    return "\n\n".join(
+        ["import json, sys",
+         *(inspect.getsource(f) for f in (device_ms, flash_inputs,
+                                          time_shapes)),
+         "print(json.dumps(time_shapes(json.loads(sys.argv[1]), "
+         "json.loads(sys.argv[2]))))"])
+
+
+def _emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def time_checkout(root: Path) -> dict:
+    """time_shapes in a process of its own, run from `root`."""
+    proc = subprocess.run(
+        [sys.executable, "-c", timer_script(), json.dumps(SHAPES),
+         json.dumps(CONTROL)],
+        cwd=root, capture_output=True, text=True, timeout=1200)
+    if proc.returncode != 0:
+        raise RuntimeError(f"timing {root} failed:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def ablated_sources(name: str, csrc: Path, into: Path) -> Path:
+    """A copy of csrc/ in `into` with ablation `name` applied; the copy's
+    flash_attention.cu. Raises if an edit no longer matches the source."""
+    shutil.rmtree(into, ignore_errors=True)
+    shutil.copytree(csrc, into)
+    path = into / "flash_attention.cu"
+    text = path.read_text()
+    for old, new in ABLATIONS[name]:
+        if old not in text:
+            raise ValueError(f"ablation {name}: the source no longer holds "
+                             f"{old.strip()[:60]!r}")
+        text = text.replace(old, new)
+    path.write_text(text)
+    return path
+
+
+def nvcc(source: Path, out: Path) -> Path:
+    """`source` built as _build builds a CUDA source, into `out`."""
+    from zutis_tpu_torch.ops import _build
+
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(source)],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr[-3000:]}")
+    return out
+
+
+def run_ablations(names: Sequence[str], rounds: int) -> None:
+    """Each ablation and the unedited source, built side by side, timed in
+    turns (forward, then backward) within this process."""
+    from zutis_tpu_torch.ops import _build
+    from zutis_tpu_torch.ops import flash_attention as fa
+
+    work = _build.BUILD_DIR / "ablations"
+    work.mkdir(parents=True, exist_ok=True)
+    libs = {}
+    for name in ["none", *names]:
+        source = (fa.SOURCE if name == "none"
+                  else ablated_sources(name, _build.CSRC, work / name))
+        lib = ctypes.CDLL(str(nvcc(source, work / f"lib_{name}.so")))
+        lib.zutis_cuda_error_string.restype = ctypes.c_char_p
+        lib.zutis_cuda_error_string.argtypes = [ctypes.c_int]
+        fa._bind(lib)
+        libs[name] = lib
+    order = list(libs)
+    for r in range(rounds):
+        for name in order if r % 2 == 0 else order[::-1]:
+            # flash_attention loads its library through _build.load
+            with mock.patch.object(_build, "load",
+                                   lambda *a, _lib=libs[name]: _lib):
+                _emit({"ablation": name, "round": r,
+                       "ms": time_shapes(SHAPES, CONTROL)})
+
+
+# the anonymous namespace's name in a mangled symbol, which differs between
+# builds of different sources
+_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
+
+
+def sass_functions(lib: Path) -> dict:
+    """{mangled name without its anonymous namespace: instructions with
+    addresses and encodings stripped} from cuobjdump."""
+    from zutis_tpu_torch.ops import _build
+
+    tool = (shutil.which("cuobjdump")
+            or str(Path(_build._nvcc()).parent / "cuobjdump"))
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr[-1000:]}")
+    functions = {}
+    for block in out.stdout.split("Function : ")[1:]:
+        name, _, body = block.partition("\n")
+        lines = (re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "", line)
+                 .strip() for line in body.splitlines() if "/*" in line)
+        functions[_ANON.sub("", name.strip())] = [ln for ln in lines if ln]
+    return functions
+
+
+def compare_sass(other: Path) -> None:
+    """The SASS of every kernel both checkouts' flash and probe libraries
+    hold, instruction by instruction: one line a library."""
+    from zutis_tpu_torch.ops import _build
+    from zutis_tpu_torch.ops import attention_probes as ap
+    from zutis_tpu_torch.ops import flash_attention as fa
+
+    work = _build.BUILD_DIR / "sass_against"
+    work.mkdir(parents=True, exist_ok=True)
+    for module in (fa, ap):
+        mine = sass_functions(module.build()[0])
+        theirs = sass_functions(nvcc(
+            other / "zutis_tpu_torch" / "csrc" / module.SOURCE.name,
+            work / f"{module.STEM}.so"))
+        both = sorted(set(mine) & set(theirs))
+        _emit({"sass": module.SOURCE.name,
+               "equal": sum(mine[n] == theirs[n] for n in both),
+               "differ": [n for n in both if mine[n] != theirs[n]],
+               "only_here": sorted(set(mine) - set(theirs)),
+               "only_there": sorted(set(theirs) - set(mine))})
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", type=Path,
+                        help="another checkout to time and compare SASS with")
+    parser.add_argument("--ablations", default="",
+                        help=f"comma-separated, of {', '.join(ABLATIONS)}")
+    parser.add_argument("--rounds", type=int, default=2,
+                        help="turns of the ablation timings")
+    args = parser.parse_args(argv)
+    names = [n for n in args.ablations.split(",") if n]
+    unknown = set(names) - set(ABLATIONS)
+    if unknown:
+        parser.error(f"unknown ablations {sorted(unknown)}")
+    here = Path(__file__).resolve().parents[2]
+    if args.against is not None:
+        other = args.against.resolve()
+        for who in ("other", "this", "this", "other"):
+            root = other if who == "other" else here
+            _emit({"checkout": who, "ms": time_checkout(root)})
+        compare_sass(other)
+    if names:
+        run_ablations(names, args.rounds)
+
+
+if __name__ == "__main__":
+    main()
