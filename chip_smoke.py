@@ -159,9 +159,27 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
      ms, the loader's rates, fit's iters/s beside phase_trainer's, the
      eval CLI's img/s and peak memory.
 
+ 12. The opt-in levers (`phase_levers`, run after phase 7): flash at the
+     levers' calls (the serving encoder under ToMe r 16 at 577 and 401
+     tokens with its log(size) bias, the pooled cross-attention's 576 keys,
+     the eval encoder under ToMe r 90 at 1281 and 291 tokens and the
+     padded pooled cross's 1280 keys, masked and biased) against the plain
+     version in bf16 and f32, split and unsplit, timed beside the bound,
+     the unbiased kernel and SDPA given the bias as a float mask; serving
+     at (tome_r, decoder_pool) = (0, 1), (16, 1), (0, 2), (16, 2) with
+     every launch count set to 0 before and read after (24 flash launches
+     a batch forward, 12 of them biased under ToMe, no probe), the semantic
+     map against the f32 forward on the kernel path's merges, the decode
+     against a CPU rerun, img/s, device busy and top kernels; the eval at
+     the JAX tool's (90, 2): the f32 padded forward on both attention
+     paths on the same merges, evaluate_instances (18 masked and 18 biased
+     launches a padded forward), img/s at depth 1; a training step at
+     (16, 2) (24 flash launches, 12 biased, one matcher launch) and the f32
+     step on both paths on the same merges, ReLU gates and matching.
+
 Prints the kernel record (flash's launches on the main paths, its eval,
-retrieval and SelfMask shapes, the matcher's) and the card on lines of
-their own,
+retrieval, SelfMask and lever shapes, the matcher's) and the card on lines
+of their own,
 then, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
 no result line, on any failure or without a card.
 """
@@ -203,6 +221,7 @@ from zutis_tpu_torch.engine.train_step import (TrainState, make_train_step,
                                                upload_batch)
 from zutis_tpu_torch.engine.trainer import Trainer
 from zutis_tpu_torch.losses import criterion as crit
+from zutis_tpu_torch.models import vit as vit_module
 from zutis_tpu_torch.models.layers import MultiHeadAttention
 from zutis_tpu_torch.models.zutis import ZUTIS
 from zutis_tpu_torch.native import image as native_image
@@ -322,11 +341,12 @@ def counted_wrappers() -> dict:
 
 
 def zero_counts() -> None:
-    """Every wrapper's launch count, and flash's masked and split counts,
-    set to 0."""
+    """Every wrapper's launch count, and flash's masked, biased and split
+    counts, set to 0."""
     for w in counted_wrappers().values():
         w.launches = 0
     fa.flash_attention.masked_launches = 0
+    fa.flash_attention.biased_launches = 0
     fa.flash_attention.split_launches = 0
 
 
@@ -463,12 +483,14 @@ def phase_card() -> tuple[str, list]:
 SASS_OPS = ("UTMALDG", "HGMMA", "HMMA", "LDGSTS")  # TMA, wgmma, mma.sync, cp.async
 # the wgmma kernels of each library and their instantiations: flash's bf16
 # kernel per head dim, its f32 kernel at d 64 with one and two consumer
-# warpgroups and at d 96 with one; `single` per head dim, exp mode and
-# layout; the max-free kernel per head dim for fastsm (3 exp x 2 sum modes)
-# and kt (3 exp modes, dots-only)
+# warpgroups and at d 96 with one, and the biased instantiations of both;
+# `single` per head dim, exp mode and layout; the max-free kernel per head
+# dim for fastsm (3 exp x 2 sum modes) and kt (3 exp modes, dots-only)
 SASS_KERNELS = {
     "flash_wgmma_kernel": len(fa.HEAD_DIMS),
     "flash_f32_kernel": 3,
+    "flash_wgmma_bias_kernel": len(fa.HEAD_DIMS),
+    "flash_f32_bias_kernel": 3,
     "single_kernel": 2 * len(ap.EXP_MODES) * 2,
     "maxfree_kernel": 2 * (len(ap.EXP_MODES) * len(ap.SUM_MODES)
                            + len(ap.EXP_MODES) + 1),
@@ -537,19 +559,27 @@ FLASH_BLOCKS = ([(torch.bfloat16, d, 64) for d in fa.HEAD_DIMS]
 def flash_occupancy() -> dict:
     """Each flash kernel's dynamic shared memory and blocks per SM: the
     bf16 kernel per head dim (keys "d64", "d96"), the f32 kernel per head
-    dim and block ("f32 d64 block_q 128", ...)."""
+    dim and block ("f32 d64 block_q 128", ...), and the biased
+    instantiations of both ("bias d64", "bias f32 d64 block_q 128", ...),
+    which must hold at least as many blocks an SM."""
     occ = {}
-    for dtype, d, block_q in FLASH_BLOCKS:
-        f32 = dtype == torch.float32
-        smem, blocks = fa.occupancy(d, dtype, block_q)
-        layout = fa.f32_smem_layout(d) if f32 else fa.smem_layout(d)
-        check(smem == layout["total"],
-              f"flash shared memory {smem} differs from its layout mirror")
-        key = f"f32 d{d} block_q {block_q}" if f32 else f"d{d}"
-        occ[key] = dict(smem_bytes=smem, blocks_per_sm=blocks)
-        print(f"flash occupancy {'f32' if f32 else 'bf16'} d {d} block_q "
-              f"{block_q}: {smem} bytes of dynamic shared memory, {blocks} "
-              f"block(s) per SM", flush=True)
+    for bias in (False, True):
+        for dtype, d, block_q in FLASH_BLOCKS:
+            f32 = dtype == torch.float32
+            smem, blocks = fa.occupancy(d, dtype, block_q, bias=bias)
+            layout = (fa.f32_smem_layout(d, bias) if f32
+                      else fa.smem_layout(d, bias))
+            check(smem == layout["total"],
+                  f"flash shared memory {smem} differs from its layout mirror")
+            key = ("bias " if bias else "") + (
+                f"f32 d{d} block_q {block_q}" if f32 else f"d{d}")
+            occ[key] = dict(smem_bytes=smem, blocks_per_sm=blocks)
+            if bias:
+                unbiased = occ[key[len("bias "):]]["blocks_per_sm"]
+                check(blocks >= unbiased, f"flash {key}: {blocks} blocks an "
+                      f"SM against {unbiased} unbiased")
+            print(f"flash occupancy {key}: {smem} bytes of dynamic shared "
+                  f"memory, {blocks} block(s) per SM", flush=True)
     return occ
 
 
@@ -1536,9 +1566,60 @@ def check_flash_gradients() -> float:
     return worst
 
 
-def f32_paths_agree(cfg, text, data, n_categories, device) -> dict:
+@contextlib.contextmanager
+def tome_inputs(replay=None):
+    """Records every token merge of the ViT (its similarity metric and
+    mapping); with `replay`, an earlier run's records, each merge takes the
+    recorded metric in turn, and so makes the recorded merges."""
+    real, seen = vit_module.tome_merge, []
+
+    def capture(x, metric, size, r):
+        if replay is not None:
+            metric = replay[len(seen)][0]
+        out = real(x, metric, size, r)
+        seen.append((metric.detach().clone(), out[2]))
+        return out
+
+    vit_module.tome_merge = capture
+    try:
+        yield seen
+    finally:
+        vit_module.tome_merge = real
+
+
+@contextlib.contextmanager
+def relu_gates(replay=None):
+    """Records every F.relu's gate (x > 0) of the model; with `replay`, an
+    earlier run's gates, each relu applies the recorded gate in turn (x
+    times it), so that a pre-activation within rounding of 0 takes the
+    same branch on both paths. Records the call's own gate either way."""
+    real, seen = F.relu, []
+
+    def gate(x, inplace=False):
+        own = x > 0
+        out = real(x) if replay is None else x * replay[len(seen)]
+        seen.append(own)
+        return out
+
+    F.relu = gate
+    try:
+        yield seen
+    finally:
+        F.relu = real
+
+
+def f32_paths_agree(cfg, text, data, n_categories, device,
+                    levers=None) -> dict:
     """One f32 step on the kernel path and on the "torch" attention path,
-    from the same seeded weights. Each path's matching is compared on both
+    from the same seeded weights, with the model's `levers` (tome_r,
+    decoder_pool). Where the model merges tokens, the torch path's own
+    merges are first compared with the kernel path's (a near-tie of merge
+    scores can flip one), and it then replays the kernel path's; with
+    levers it also replays the kernel path's ReLU gates (`relu_gates`),
+    counting the pre-activations whose sign differs on its own: one such
+    near-tie in a decoder FFN can move that FFN's gradients by ~1e-2 of
+    their largest (PERF.md). Each path's
+    matching is compared on both
     paths' costs: where the two differ, each must be optimal on the other
     path's costs to within what the costs themselves differ by (a near-tie;
     bench.py's GT masks are random noise, so every query costs nearly the
@@ -1547,15 +1628,23 @@ def f32_paths_agree(cfg, text, data, n_categories, device) -> dict:
     attention paths alone. Every parameter gets a nonzero gradient, except
     ZERO_GRAD_PARAMS (zero on both paths): the check that catches a graph
     cut at the kernel."""
-    model = ZUTIS(**cfg, dtype=torch.float32, device=device).init_params(
-        torch.Generator().manual_seed(0))
+    model = ZUTIS(**cfg, **(levers or {}), dtype=torch.float32,
+                  device=device).init_params(torch.Generator().manual_seed(0))
     text_d = torch.from_numpy(text).to(device)
-    runs, seen = {}, {}
+    runs, seen, merges, gates = {}, {}, {}, {}
     for impl in ("auto", "torch"):
         set_attn_impl(model, impl)
         model.zero_grad(set_to_none=True)
-        # the torch path replays the kernel path's matching
-        with matcher_inputs(seen.get("auto", (None, None))[1]) as calls:
+        if impl == "torch" and merges["auto"]:  # its own merges, then replay
+            with torch.no_grad(), tome_inputs() as own:
+                model(data["image"])
+            merges["torch own"] = own
+        # the torch path replays the kernel path's matching and merges,
+        # and with levers its ReLU gates
+        replay_gates = gates.get("auto") if levers else None
+        with matcher_inputs(seen.get("auto", (None, None))[1]) as calls, \
+                tome_inputs(merges.get("auto")) as merged, \
+                relu_gates(replay_gates) as gated:
             out = model(data["image"])
             loss = crit.criterion_loss(
                 out["mask_proposals"], data["instance_masks"],
@@ -1563,11 +1652,33 @@ def f32_paths_agree(cfg, text, data, n_categories, device) -> dict:
                 data["semantic_mask"], text_d, ignore_index=TRAIN_IGNORE)
             loss["loss"].backward()
         seen[impl] = calls[-1]
+        merges[impl] = merged
+        gates[impl] = gated
         runs[impl] = (loss["loss"].item(),
                       {n: None if p.grad is None else p.grad.clone()
                        for n, p in model.named_parameters()})
         del out, loss
 
+    merges_differ = 0
+    if merges["auto"]:
+        merges_differ = sum(not torch.equal(a[1], b[1]) for a, b in
+                            zip(merges["auto"], merges["torch own"]))
+        moved = sum(int((a[1] != b[1]).sum()) for a, b in
+                    zip(merges["auto"], merges["torch own"]))
+        print(f"train: f32 ToMe merges: {merges_differ} of "
+              f"{len(merges['auto'])} blocks' mappings differ between the "
+              f"kernel and torch paths ({moved} token slots); the torch "
+              "path replays the kernel path's merges", flush=True)
+        check(all(torch.equal(a[1], b[1]) for a, b in
+                  zip(merges["auto"], merges["torch"])),
+              "the torch path did not replay the kernel path's merges")
+    gate_flips = sum(int((a != b).sum())
+                     for a, b in zip(gates["auto"], gates["torch"]))
+    gate_count = sum(g.numel() for g in gates["auto"])
+    print(f"train: f32 ReLU gates: {gate_flips} of {gate_count} differ "
+          f"between the kernel and torch paths" + (
+              "; the torch path replays the kernel path's" if levers else ""),
+          flush=True)
     (ck, mk), (ct, mt) = seen["auto"], seen["torch"]
     mk, mt = mk.long(), mt.long()
 
@@ -1613,7 +1724,8 @@ def f32_paths_agree(cfg, text, data, n_categories, device) -> dict:
     del model
     return dict(loss_kernel=lk, loss_torch=lt, loss_rel=loss_rel,
                 grad_rel=worst, params_checked=n, matchings_differ=n_differ,
-                cost_diff=cost_diff, matching_gap=gap)
+                cost_diff=cost_diff, matching_gap=gap,
+                merges_differ=merges_differ, relu_gates_differ=gate_flips)
 
 
 def phase_train(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
@@ -1767,6 +1879,432 @@ def phase_train(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
           f"{stats.get('peak_memory_gib')} GiB; phase {stats['phase_s']:.1f} s",
           flush=True)
     return stats
+
+
+# the opt-in levers (phase_levers): (tome_r, decoder_pool) pairs served at
+# the serving cell, beside the pair without levers
+LEVER_PAIRS = [(0, 1), (16, 1), (0, 2), (16, 2)]
+LEVER_REQUESTS = 16  # two batch forwards a pair, and one synchronous infer
+# the JAX eval tool's lever values (tools/instance_eval_bench.py:36-40)
+EVAL_LEVERS = dict(tome_r=90, decoder_pool=2)
+# the f32 padded forward with the levers, kernel path against the "torch"
+# path on the same merges, relative to the largest |output|: the f32
+# kernel's hi/lo splits carry ~16 mantissa bits through 12 merged blocks
+TOL_LEVERS_F32 = 1e-3
+# bench.py:174-201's training step with both levers
+TRAIN_LEVERS = dict(tome_r=16, decoder_pool=2)
+TRAIN_LEVER_STEPS = 2  # one warm-up, one more
+
+
+def set_levers(model: ZUTIS, tome_r: int, decoder_pool: int) -> None:
+    """The levers are plain attributes: one model serves every pair."""
+    model.tome_r = model.encoder.tome_r = tome_r
+    model.decoder_pool = decoder_pool
+
+
+def merged_sizes(b: int, s0: int, r: int, blocks: int, valid=None,
+                 seed: int = 0) -> torch.Tensor:
+    """Token sizes [b, s0 - merged] after `blocks` merges of up to r tokens
+    from sizes `valid` (ones without), on seeded random similarities: the
+    sizes a ToMe encoder's last block attends with."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    size = (torch.ones(b, s0, device="cuda") if valid is None
+            else valid.float().cuda())
+    for r_eff in vit_module.merge_schedule(s0, r, blocks):
+        s = size.shape[1]
+        metric = torch.randn(b, s, 16, generator=gen, device="cuda")
+        _, size, _ = vit_module.tome_merge(metric, metric, size, r_eff)
+    return size
+
+
+def pooled_counts(valid: torch.Tensor, hp: int, wp: int, p: int):
+    """(kv_mask [b, cells], key_bias [b, cells]) of the padded pooled
+    cross-attention for the memory's validity [b, hp * wp]."""
+    b = valid.shape[0]
+    count = valid.reshape(b, hp // p, p, wp // p, p).float().sum((2, 4))
+    count = count.reshape(b, -1)
+    return (count > 0).int(), torch.log(count.clamp(min=1.0))
+
+
+def lever_flash_cases() -> list:
+    """(name, [b, h, sq, sk, d], kv_mask or None, key_bias or None) of the
+    levers' flash calls: the serving encoder under ToMe r 16 at its first
+    and last block (577 and 401 tokens), the pooled cross-attention of
+    decoder_pool 2 (576 keys, no bias), the eval encoder under ToMe r 90
+    (1281 and 291 tokens, masked) and the padded pooled cross (1280 keys,
+    masked, log(count))."""
+    ones = torch.ones(BATCH, 577, device="cuda")
+    last = merged_sizes(BATCH, 577, 16, 11)
+    masks = {k: v.cuda() for k, v in
+             eval_masks(eval_bench.bench_sizes(EVAL_BATCH)).items()}
+    eval_last = merged_sizes(EVAL_BATCH, 1281, 90, 11, masks["encoder"])
+    hp, wp = (2 * n // 16 for n in EVAL_SHAPE)
+    cross_mask, cross_bias = pooled_counts(masks["memory"], hp, wp, 2)
+
+    def prop(size):
+        return torch.log(size.clamp(min=1.0))
+
+    return [
+        ("tome encoder self first", (BATCH, 12, 577, 577, 64), None,
+         prop(ones)),
+        ("tome encoder self last", (BATCH, 12, 401, 401, 64), None,
+         prop(last)),
+        ("pooled cross", (BATCH, 8, 100, 576, 96), None, None),
+        ("eval tome encoder self first", (EVAL_BATCH, 12, 1281, 1281, 64),
+         masks["encoder"], prop(masks["encoder"].float())),
+        ("eval tome encoder self last", (EVAL_BATCH, 12, 291, 291, 64),
+         (eval_last > 0).int(), prop(eval_last)),
+        ("eval pooled cross", (EVAL_BATCH, 8, 100, 1280, 96), cross_mask,
+         cross_bias),
+    ]
+
+
+def phase_levers_flash() -> tuple:
+    """Each lever flash call against its plain version in bf16 (8e-3 of
+    the largest |output|) and f32 (1e-4; split and unsplit), then timed in
+    bf16 in a CUDA graph beside its bound (the valid keys; the bias's
+    bytes), the plain version and SDPA given the same float mask (the bias,
+    -inf where masked: a yardstick only)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows, max_err = [], 0.0
+    for name, (b, h, sq, sk, d), mask, bias in lever_flash_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _inputs(gen, b, h, sq, sk, d, dtype, strided=True)
+            want = fa.flash_attention_reference(q.float(), k.float(),
+                                                v.float(), mask, bias)
+            scale = want.abs().max().item()
+            splits = ([None] if dtype == torch.bfloat16
+                      else [1, max(2, fa.key_splits(b, h, sq, sk, d))])
+            for n in splits:
+                got = fa._flash_forward(q, k, v, mask, n, key_bias=bias)
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs().max().item()
+                ok = (err <= TOL_FLASH_BF16 * scale if dtype == torch.bfloat16
+                      else err <= TOL_F32)
+                print(f"kernel check {name} {[b, h, sq, sk, d]} "
+                      f"{str(dtype)[6:]} splits {n}: max_abs_err {err:.3e} "
+                      f"max_rel_err {err / scale:.3e}", flush=True)
+                check(ok and bool(torch.isfinite(got).all()),
+                      f"{name}: biased kernel disagrees with its plain version")
+                max_err = max(max_err, err)
+                del got
+            del want
+        # q, k, v in bf16 from here
+        valid = b * sk if mask is None else int(mask.sum())
+        bound_ms, bound_by = bound(b, h, sq, sk, d, valid_keys=valid,
+                                   extra_bytes=0 if bias is None else 4 * b * sk)
+        float_mask = None
+        if bias is not None or mask is not None:
+            float_mask = (torch.zeros(b, sk, device="cuda") if bias is None
+                          else bias.clone())
+            if mask is not None:
+                float_mask = float_mask.masked_fill(mask == 0, float("-inf"))
+            float_mask = float_mask[:, None, None, :].to(torch.bfloat16)
+        big = b >= EVAL_BATCH
+        row = dict(
+            name=name, shape=[b, h, sq, sk, d], masked=mask is not None,
+            biased=bias is not None, valid_keys=valid,
+            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, mask, bias)),
+            plain_ms=cuda_ms(
+                lambda: fa.flash_attention_reference(q, k, v, mask, bias),
+                **(dict(calls=3, reps=5, warmup=1) if big else {})),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=float_mask)),
+            bound_ms=bound_ms, bound_by=bound_by)
+        if bias is not None:  # the same call without the bias, beside it
+            row["unbiased_ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v,
+                                                                    mask))
+        rows.append(row)
+        print(f"kernel time {name} {[b, h, sq, sk, d]}: kernel "
+              f"{row['ms']:.4f} ms (unbiased {row.get('unbiased_ms')}), "
+              f"plain {row['plain_ms']:.4f} ms, sdpa with the float mask "
+              f"{row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {bound_ms / row['ms']:.1%} of bound", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows, max_err
+
+
+def _semantic_agreement(model, ref, x, text_d) -> tuple:
+    """(kernel vs f32, torch path vs f32, f32 blocks merging otherwise)
+    semantic agreement of one batch: `model` bf16 on the kernel and the
+    "torch" paths, `ref` the f32 forward of the same weights on exact
+    attention. Under ToMe the bf16 and f32 keys pick other merges (their
+    own f32 merges are counted), so the torch path and the f32 forward
+    replay the kernel path's."""
+    def semantic(out):
+        return torch.einsum("nc,bhwc->bnhw", text_d,
+                            out["patch_tokens"]).argmax(1)
+
+    with torch.inference_mode():
+        with tome_inputs() as merges:
+            sem_k = semantic(model(x, inference=True))
+        replay = merges or None
+        set_attn_impl(model, "torch")
+        with tome_inputs(replay):
+            sem_t = semantic(model(x, inference=True))
+        set_attn_impl(model, "auto")
+        differ = 0
+        if merges:
+            with tome_inputs() as own:
+                ref(x, inference=True)
+            differ = sum(not torch.equal(a[1], b[1])
+                         for a, b in zip(merges, own))
+        with tome_inputs(replay):
+            sem_f = semantic(ref(x, inference=True))
+    return ((sem_k == sem_f).float().mean().item(),
+            (sem_t == sem_f).float().mean().item(), differ)
+
+
+def phase_levers_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
+                         n_categories: int = N_CATEGORIES,
+                         device="cuda") -> dict:
+    """The serving cell with each lever pair: requests through the server
+    with every launch count set to 0 before and read after (24 flash
+    launches a batch forward, 12 of them biased under ToMe, no probe), the
+    kernel path's semantic map against the f32 forward, the decode against
+    a CPU rerun, and the rate, device busy and top kernels of a step."""
+    device = torch.device(device)
+    rng = np.random.RandomState(0)
+    model = build_model(cfg, device)
+    ref = ZUTIS(**cfg, dtype=torch.float32, attn_impl="torch", device=device)
+    ref.load_state_dict(model.state_dict())
+    text = rng.randn(n_categories, cfg["text_dim"]).astype(np.float32)
+    text /= np.linalg.norm(text, axis=1, keepdims=True)
+    text_d = torch.from_numpy(text).to(device)
+    images = [rng.randn(3, image_size, image_size).astype(np.float32)
+              for _ in range(LEVER_REQUESTS)]
+    x = torch.from_numpy(np.stack(images[:BATCH])).to(device)
+    out = {}
+    for tome_r, pool in LEVER_PAIRS:
+        key = f"tome_r {tome_r} decoder_pool {pool}"
+        set_levers(model, tome_r, pool)
+        set_levers(ref, tome_r, pool)
+        with torch.inference_mode():
+            proposals = model(x, inference=True)["mask_proposals"][:, -1]
+        threshold = float(torch.quantile(proposals.flatten()[::7].float(), 0.9))
+        server = InferenceServer(model, text, image_size=image_size,
+                                 batch_size=BATCH, threshold=threshold,
+                                 max_wait_ms=50, device=device)
+        zero_counts()
+        server.start()
+        futures = [server.submit(im) for im in images]
+        results = [f.result(timeout=600) for f in futures]
+        server.stop()
+        sync = server.infer(images[:BATCH])
+        counts, masked = read_counts()
+        biased = fa.flash_attention.biased_launches
+        batches = server.batches
+        check(len(results) == LEVER_REQUESTS and len(sync) == BATCH,
+              f"{key}: not every request was answered")
+        for a, b in zip(results[:BATCH], sync):
+            check(np.array_equal(a["semantic"], b["semantic"])
+                  and len(a["instances"]) == len(b["instances"]),
+                  f"{key}: sync and async answers differ for the same batch")
+        if device.type == "cuda":
+            check(counts["flash_attention"] == LAUNCHES_PER_FORWARD * batches,
+                  f"{key}: {counts['flash_attention']} flash launches for "
+                  f"{batches} batch forwards")
+            check(biased == (12 * batches if tome_r else 0) and masked == 0,
+                  f"{key}: {biased} biased and {masked} masked launches for "
+                  f"{batches} batch forwards")
+            check(sum(counts[p] for p in PROBES) == 0,
+                  f"{key}: serving launched a probe kernel")
+        agree_kf, agree_tf, differ = _semantic_agreement(model, ref, x,
+                                                         text_d)
+        print(f"levers serving {key}: {batches} batch forwards, "
+              f"{counts['flash_attention']} flash launches ({biased} biased); "
+              f"semantic agreement with the f32 forward on the kernel path's "
+              f"merges: kernel path {agree_kf:.4%}, torch path "
+              f"{agree_tf:.4%} (f32 merging otherwise on its own in "
+              f"{differ} blocks)", flush=True)
+        check(agree_kf >= MIN_SEMANTIC_AGREEMENT,
+              f"{key}: kernel path's semantic map disagrees with the f32 forward")
+        check(agree_kf >= agree_tf - SEMANTIC_SLACK,
+              f"{key}: kernel path further from the f32 forward than torch's")
+        binary = proposals > threshold
+        decoded = []
+        with torch.inference_mode():
+            tokens = model(x, inference=True)["patch_tokens"]
+            for dev in (device, torch.device("cpu")):
+                conf, cats = classify_proposals(
+                    proposals.to(dev), binary.to(dev), tokens.to(dev),
+                    text_d.to(dev), server.temperature)
+                keep, scores = mask_nms(binary.to(dev), conf, cats,
+                                        nms_threshold=server.nms_threshold)
+                decoded.append((keep.cpu(), cats.cpu(), scores.cpu()))
+        (keep_d, cats_d, _), (keep_c, cats_c, _) = decoded
+        check(torch.equal(keep_d, keep_c) and torch.equal(cats_d, cats_c),
+              f"{key}: the card's decode differs from the CPU rerun")
+        infer_ms = host_ms(lambda: server.infer(images[:2 * BATCH]), device,
+                           reps=3, warmup=1)
+        busy, top, by_name = profile_device(lambda: server.step(x), device,
+                                            top=6)
+        out[key] = dict(
+            img_per_s=2 * BATCH / (infer_ms / 1e3), ms_per_batch=infer_ms / 2,
+            step_device_busy_ms=busy, step_top_kernels=top,
+            flash_in_step_ms=sum(ms for k, (ms, _) in by_name.items()
+                                 if "flash" in k),
+            launches=counts["flash_attention"], biased_launches=biased,
+            batches=batches, agreement_kernel_f32=agree_kf,
+            agreement_torch_f32=agree_tf, f32_blocks_merging_otherwise=differ,
+            kept=int(keep_d.sum()))
+        print(f"levers serving rate {key}: {out[key]['img_per_s']:.2f} img/s "
+              f"sync infer, device busy in a step {busy} ms (flash "
+              f"{out[key]['flash_in_step_ms']} ms)", flush=True)
+    del model, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_levers_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
+    """The bucketed eval with the JAX tool's levers: the f32 padded forward
+    on the kernel path against the "torch" path on the kernel path's merges
+    (their own merges compared first); 64 images through evaluate_instances
+    with every launch count set to 0 before and read after (24 flash
+    launches a padded forward, 18 masked and 18 biased); the tool's img/s
+    at depth 1."""
+    device = torch.device(device)
+    sizes = eval_bench.bench_sizes(EVAL_BATCH)
+    text = eval_bench.text_embeddings(eval_bench.N_CATEGORIES, cfg["text_dim"])
+    rng = np.random.RandomState(3)
+    images = [rng.randn(3, h, w).astype(np.float32) for h, w in sizes[:3]]
+    padded, grid, _ = BE.pad_batch(images, EVAL_SHAPE, 3, 16)
+    f32 = build_model(cfg, device, torch.float32, **EVAL_LEVERS)
+    xs = torch.from_numpy(padded).to(device)
+    with torch.inference_mode(), tome_inputs() as merges_k:
+        out_k = f32.forward_padded(xs, grid)
+    set_attn_impl(f32, "torch")
+    with torch.inference_mode(), tome_inputs() as own:
+        f32.forward_padded(xs, grid)
+    with torch.inference_mode(), tome_inputs(merges_k):
+        out_t = f32.forward_padded(xs, grid)
+    del f32
+    differ = sum(not torch.equal(a[1], b[1]) for a, b in zip(merges_k, own))
+    worst = {}
+    for key in ("patch_tokens", "mask_proposals"):
+        a, b = out_k[key], out_t[key]
+        worst[key] = ((a - b).abs().max() / b.abs().max()).item()
+    print(f"levers eval: f32 padded forward with {EVAL_LEVERS}, kernel path "
+          f"against the torch path: {differ} of {len(merges_k)} blocks' "
+          f"merges differ on their own (replayed); max rel diff "
+          f"{json.dumps(worst)} (tol {TOL_LEVERS_F32})", flush=True)
+    check(max(worst.values()) <= TOL_LEVERS_F32,
+          "the f32 padded forward with the levers differs between paths")
+    del out_k, out_t
+    torch.cuda.empty_cache()
+
+    model = build_model(cfg, device, **EVAL_LEVERS)
+    rng = np.random.RandomState(4)
+    u8 = [rng.randint(0, 256, (3, h, w)).astype(np.uint8)
+          for h, w in sizes + sizes]
+    ids = list(range(1, EVAL_IMAGES + 1))
+    pad8, grid8, pix8 = BE.pad_batch(u8[:EVAL_BATCH], EVAL_SHAPE, EVAL_BATCH,
+                                     16, np.uint8)
+    with torch.inference_mode():
+        x = BE._normalise_u8(torch.from_numpy(pad8).to(device))
+        thr = _threshold(model.forward_padded(x, grid8)["mask_proposals"][:, -1])
+    zero_counts()
+    preds = BE.evaluate_instances(model, text, u8, ids,
+                                  batch_images=EVAL_BATCH, depth=2,
+                                  threshold=thr, device=device)
+    counts, masked = read_counts()
+    biased = fa.flash_attention.biased_launches
+    batches = EVAL_IMAGES // EVAL_BATCH
+    print(f"levers eval: evaluate_instances with {EVAL_LEVERS} on "
+          f"{EVAL_IMAGES} images: {len(preds)} predictions, "
+          f"{counts['flash_attention']} flash launches ({masked} masked, "
+          f"{biased} biased) for {batches} padded forwards", flush=True)
+    if device.type == "cuda":
+        check(counts["flash_attention"] == EVAL_LAUNCHES * batches,
+              f"{counts['flash_attention']} flash launches for {batches} "
+              "padded forwards")
+        check(masked == 18 * batches and biased == 18 * batches,
+              f"{masked} masked and {biased} biased launches: expected 18 "
+              "and 18 a forward (12 encoder, 6 pooled cross)")
+        check(sum(counts[p] for p in PROBES) == 0, "the eval launched a probe")
+    check(len(preds) > 0, "evaluate_instances returned no prediction")
+    rate = eval_bench.run(EVAL_BATCH, "counts", 12, 1, device, model=model,
+                          threshold=thr)["value"]
+    step = BE.make_instance_step(model, text, EVAL_SHAPE, threshold=thr,
+                                 uint8_input=True, semantic_mode="none",
+                                 device=device)
+    busy, top, by_name = profile_device(lambda: step(pad8, grid8, pix8),
+                                        device, top=6)
+    del model
+    torch.cuda.empty_cache()
+    return dict(img_per_s_depth_1=rate, launches=counts["flash_attention"],
+                masked_launches=masked, biased_launches=biased,
+                batches=batches, predictions=len(preds),
+                f32_check=dict(worst, merges_differ=differ),
+                step_device_busy_ms=busy, step_top_kernels=top,
+                flash_in_step_ms=sum(ms for k, (ms, _) in by_name.items()
+                                     if "flash" in k))
+
+
+def phase_levers_train(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
+                       batch: int = TRAIN_BATCH,
+                       n_categories: int = N_CATEGORIES,
+                       device="cuda") -> dict:
+    """bench.py:174-201's training step with both levers: finite losses
+    and the launches of each step (24 flash, 12 biased, 1 matcher, no
+    probe), its time; then one f32 step on the kernel and the "torch"
+    paths, on the same merges and matching, at phase 7's tolerances."""
+    device = torch.device(device)
+    text, host = train_batch(cfg, image_size, batch, TRAIN_N_MAX,
+                             TRAIN_VALID, n_categories)
+    data = upload_batch(host, device)
+    model = ZUTIS(**cfg, **TRAIN_LEVERS, dtype=torch.bfloat16,
+                  device=device).init_params(torch.Generator().manual_seed(0))
+    state = TrainState.create(model, base_lr=TRAIN_LR, n_iters=TRAIN_ITERS)
+    step = make_train_step(model, text, n_categories,
+                           ignore_index=TRAIN_IGNORE, device=device)
+    counted = counted_wrappers()
+    zero_counts()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_LEVER_STEPS):
+        before = {n: w.launches for n, w in counted.items()}
+        biased_before = fa.flash_attention.biased_launches
+        _sync(device)
+        t0 = time.perf_counter()
+        m = step(state, data)
+        losses.append(m["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        n = {k: w.launches - before[k] for k, w in counted.items()}
+        biased = fa.flash_attention.biased_launches - biased_before
+        if device.type == "cuda":
+            check(n["flash_attention"] == LAUNCHES_PER_FORWARD
+                  and biased == 12 and n["batched_hungarian"] == 1
+                  and sum(n[p] for p in PROBES) == 0,
+                  f"a lever step launched {n} ({biased} biased flash)")
+    check(all(np.isfinite(losses)), f"a lever step's loss is not finite: {losses}")
+    launches = {k: w.launches for k, w in counted.items()}
+    print(f"levers train {TRAIN_LEVERS}: losses {json.dumps(losses)}, "
+          f"launches {json.dumps(launches)}, step {step_ms[-1]:.3f} ms",
+          flush=True)
+    del model, state, step
+    torch.cuda.empty_cache()
+    f32_check = f32_paths_agree(cfg, text, data, n_categories, device,
+                                levers=TRAIN_LEVERS)
+    return dict(losses=losses, launches=launches, step_ms=step_ms[-1],
+                biased_launches=fa.flash_attention.biased_launches,
+                f32_check=f32_check)
+
+
+def phase_levers(device="cuda") -> dict:
+    """The opt-in levers (tome_r, decoder_pool) on the card: their flash
+    calls against the plain version and timed, the serving cell with each
+    lever pair, the bucketed eval and a training step with them."""
+    t0 = time.perf_counter()
+    rows, max_err = phase_levers_flash()
+    out = dict(flash_rows=rows, flash_max_abs_err=max_err,
+               serving=phase_levers_serving(device=device),
+               eval=phase_levers_eval(device=device),
+               train=phase_levers_train(device=device))
+    zero_counts()  # the lever paths are read; later phases count from 0
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"levers: phase {out['phase_s']:.1f} s", flush=True)
+    return out
 
 
 # the Trainer at the shipped config configs/coco2017_val_imagenet_pass_n500_
@@ -3380,6 +3918,13 @@ def main() -> None:
         {k: v for k, v in ev.items() if k != "flash_rows"}), flush=True)
     tr = phase_train()
     print(f"train on {card}: {json.dumps(tr)}", flush=True)
+    lev = phase_levers()
+    print(f"levers on {card}: " + json.dumps(
+        {k: v for k, v in lev.items() if k != "flash_rows"}), flush=True)
+    lev_launches = {
+        "levers_serving": sum(r["launches"] for r in lev["serving"].values()),
+        "levers_eval": lev["eval"]["launches"],
+        "levers_train": lev["train"]["launches"]["flash_attention"]}
     trainer = phase_trainer(tr)
     print(f"trainer on {card}: {json.dumps(trainer)}", flush=True)
     build = Path(__file__).resolve().parent / "build"
@@ -3431,7 +3976,8 @@ def main() -> None:
                      + cli["launches"]["flash_attention"]
                      + cli["resumed_launches"]["flash_attention"]
                      + sum(e["flash_attention"]
-                           for e in cli["eval_launches"].values())),
+                           for e in cli["eval_launches"].values())
+                     + sum(lev_launches.values())),
         "launches_by_path": {"serving": stats["launches"],
                              "eval": ev["launches"],
                              "eval_masked": ev["masked_launches"],
@@ -3448,7 +3994,15 @@ def main() -> None:
                              "cli_resumed": cli["resumed_launches"][
                                  "flash_attention"],
                              "cli_eval": {d: e["flash_attention"] for d, e in
-                                          cli["eval_launches"].items()}},
+                                          cli["eval_launches"].items()},
+                             **lev_launches},
+        # the launches given a key bias (the levers' ToMe encoder and
+        # padded pooled cross-attention), by path
+        "biased_launches": {
+            "levers_serving": sum(r["biased_launches"]
+                                  for r in lev["serving"].values()),
+            "levers_eval": lev["eval"]["biased_launches"],
+            "levers_train": lev["train"]["biased_launches"]},
         # of the f32 launches, those split into key ranges (each with a
         # flash_combine_kernel launch): SelfMask's cross-attention
         "split_launches": (pseudo["split_launches"]
@@ -3457,6 +4011,7 @@ def main() -> None:
             "pseudo_masks": pseudo["split_launches"],
             "cli_pseudo_masks": cli["pseudo_masks"]["split_launches"]},
         "max_abs_err": max(max_err, ev["flash_max_abs_err"],
+                           lev["flash_max_abs_err"],
                            *(r["max_abs_err"] for r in ret["flash_rows"]
                              + pseudo["flash_rows"])),
         # times and bound: the 24 calls of one batch-8 forward at 384 px
@@ -3487,6 +4042,10 @@ def main() -> None:
         # device time (torch.profiler)
         "selfmask_shapes": pseudo["flash_rows"],
         "selfmask_flash_share": pseudo["selfmask_flash_share"],
+        # the levers' calls (ToMe encoder, pooled cross-attention; bf16
+        # times beside the bound with the bias's bytes and SDPA given the
+        # bias as a float mask)
+        "lever_shapes": lev["flash_rows"],
         # device time of the 24 flash kernels inside one training step
         # (torch.profiler), and the Function's gradient check
         "train_forward_ms": tr["flash_in_step_ms"],
@@ -3535,11 +4094,13 @@ def main() -> None:
         # the training steps, Trainer.fit's and the training CLI's (and
         # its resumed run's), each counted from 0
         "launches": (tr["launches"]["batched_hungarian"]
+                     + lev["train"]["launches"]["batched_hungarian"]
                      + trainer["launches"]["batched_hungarian"]
                      + cli["launches"]["batched_hungarian"]
                      + cli["resumed_launches"]["batched_hungarian"]),
         "launches_by_path": {
             "train": tr["launches"]["batched_hungarian"],
+            "levers_train": lev["train"]["launches"]["batched_hungarian"],
             "trainer": trainer["launches"]["batched_hungarian"],
             "cli_train": cli["launches"]["batched_hungarian"],
             "cli_resumed": cli["resumed_launches"]["batched_hungarian"]},

@@ -8,8 +8,9 @@ newest full checkpoint; evaluating a JAX-written `.npz` gives the JAX CLI's
 predictions and metrics; `load_clip_visual` gives `load_clip_params`'s
 encoder on a synthetic CLIP-layout checkpoint; the training CLI makes missing
 pseudo-masks from a synthetic SelfMask checkpoint in the flat and ImageNet
-layouts, equal to the JAX package's, and refuses without one; the other
-refusals name their ROADMAP item. The text embeddings computed from a checkpoint are in
+layouts, equal to the JAX package's, and refuses without one; both CLIs
+build the config's `tome_r` / `decoder_pool` extras into the model (the port
+of tests/test_cli_levers.py); the other refusals name their ROADMAP item. The text embeddings computed from a checkpoint are in
 tests/test_torch_text_embeddings.py."""
 import json
 import math
@@ -338,12 +339,82 @@ def test_factory_equals_jax(arch):
     (dict(clip_arch="RN50"), "item 7"),
     (dict(clip_arch="dilatedRN101"), "item 7"),
     (dict(encoder_type="dino"), "item 7"),
-    (dict(tome_r=8), "item 5"),
-    (dict(decoder_pool=2), "item 5"),
 ])
 def test_factory_refusals(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         factory.build_zutis(**{"device": "cpu", **kw})
+
+
+def test_factory_passes_the_levers():
+    with torch.device("meta"):
+        model = factory.build_zutis("ViT-B/16", tome_r=16, decoder_pool=2,
+                                    device="cpu")
+        plain = factory.build_zutis("ViT-B/16", device="cpu")
+    assert (model.tome_r, model.encoder.tome_r, model.decoder_pool) == (16, 16, 2)
+    assert (plain.tome_r, plain.decoder_pool) == (0, 1)
+    assert list(model.state_dict()) == list(plain.state_dict())
+    with pytest.raises(ValueError, match="decoder_pool must be >= 1"):
+        factory.build_zutis("ViT-B/16", decoder_pool=0, device="meta")
+
+
+# ------------------------------------------------------------ the levers
+# (the port of tests/test_cli_levers.py: both CLIs build the config's
+# tome_r / decoder_pool extras into the model)
+
+class _Captured(Exception):
+    pass
+
+
+@pytest.fixture()
+def lever_cfg(fixture, tmp_path):
+    cfg, _ = _cfg(fixture, "levers", tome_r=3, decoder_pool=2)
+    del cfg["model_kwargs"]  # the build_zutis (published-arch) branch
+    cfg["dir_ckpt"] = str(tmp_path / "ckpt")
+    return dump_cfg(cfg, tmp_path / "lever.yaml")
+
+
+def _capture_build(monkeypatch):
+    seen = {}
+
+    def fake_build(clip_arch, **kwargs):
+        seen.update(kwargs, clip_arch=clip_arch)
+        raise _Captured
+
+    monkeypatch.setattr(factory, "build_zutis", fake_build)
+    return seen
+
+
+def test_train_cli_passes_levers(lever_cfg, monkeypatch):
+    seen = _capture_build(monkeypatch)
+    with pytest.raises(_Captured):
+        port_main.main(["--p_config", str(lever_cfg), "--device", "cpu"])
+    assert seen["tome_r"] == 3 and seen["decoder_pool"] == 2
+
+
+def test_coco20k_eval_cli_passes_levers(lever_cfg, coco20k, tmp_path,
+                                        monkeypatch):
+    seen = _capture_build(monkeypatch)
+    with pytest.raises(_Captured):
+        coco20k_eval.main(["--p_config", str(lever_cfg),
+                           "--p_state_dict", str(tmp_path / "none.npz"),
+                           "--dir_dataset", str(coco20k),
+                           "--dir_ckpt", str(tmp_path / "out"),
+                           "--device", "cpu"])
+    assert seen["tome_r"] == 3 and seen["decoder_pool"] == 2
+
+
+def test_build_model_carries_the_levers(fixture, lever_cfg, tmp_path):
+    """Both branches of the CLIs' `build_model`: the config's extras through
+    build_zutis, and `model_kwargs` carrying the levers itself."""
+    with torch.device("meta"):
+        model = port_main.build_model(Config.load(str(lever_cfg)), "cpu",
+                                      init=False)
+    assert (model.tome_r, model.encoder.tome_r, model.decoder_pool) == (3, 3, 2)
+    cfg, _ = _cfg(fixture, "lever_kwargs")
+    cfg["model_kwargs"] = dict(cfg["model_kwargs"], tome_r=2, decoder_pool=2)
+    fp = dump_cfg(cfg, tmp_path / "kwargs.yaml")
+    model = port_main.build_model(Config.load(fp), "cpu")
+    assert (model.tome_r, model.decoder_pool) == (2, 2)
 
 
 # ------------------------------------------------- text embeddings, refusals

@@ -5,14 +5,26 @@
 // (launched by _flash_forward through pl.pallas_call), together with the
 // wrapper's zeroing of items whose kv_mask has no valid key.
 //
-// Computes  o = softmax(q k^T * d^-1/2, keys masked by kv_mask) v  for
-// q [b, h, sq, d], k/v [b, h, sk, d], o [b, h, sq, d], d 64 or 96. Each of q,
+// Computes  o = softmax(q k^T * d^-1/2 + key_bias, keys masked by kv_mask) v
+// for q [b, h, sq, d], k/v [b, h, sk, d], o [b, h, sq, d], d 64 or 96, and
+// key_bias [b, sk] f32 added to every query's logit of a key (ToMe's
+// log(size), the pooled decoder memory's log(count); the JAX package sends
+// such a bias to XLA's einsum attention). Each of q,
 // k, v and o is addressed through its own (batch, head, sequence) strides in
 // elements with the head dim contiguous, so the [b, s, h, d] projections of
 // the model are read and written in place with no transpose copies. Both
 // kernels keep f32 running max and sum in base 2, round P to bf16 before
 // P V (hi/lo parts for f32), give masked keys exactly zero weight, floor l
 // at 1e-30 and so give an item with no valid key an all-zero output.
+//
+// The key bias is a compile-time flag: flash_wgmma_bias_kernel and
+// flash_f32_bias_kernel are the two kernels with kBias set, and the
+// unbiased kernels compile as they did without it. Where a kernel forms a
+// chunk's validity word, its producer also writes the chunk's 64 biases,
+// times log2(e), to a ring in shared memory, with -inf for a key out of
+// range or masked; chunk_softmax adds them to s * scale_log2 before the row
+// max, since a bias a key does not commute with the max as the positive
+// scale does.
 //
 // What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s):
 //   - encoder self-attention, d=64, 577 tokens: ~1.0 GFLOP against ~3.5 MB of
@@ -97,6 +109,33 @@ using hopper::kChunkRows;
 using hopper::kSmemLimit;
 constexpr int kFlashStages = 4;          // K/V ring depth
 constexpr int kFlashThreads = 128 + 32;  // a consumer warpgroup and the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBiasSlotBytes = kChunkRows * 4;  // one chunk's 64 f32 key biases
+
+// Key-bias slots in a ring twice as deep as the K ring it rides beside: the
+// last reader of chunk j's slot, the softmax of chunk j - 2 * stages, comes
+// before the consumers release chunk j - 1 - stages, which the producer
+// has waited for before it writes chunk j's biases.
+__host__ __device__ constexpr int bias_slots(int stages) { return 2 * stages; }
+
+__device__ __forceinline__ void st_shared_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ float2 ld_shared_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// A warp writes one chunk's key biases into the slot at `slot`: lane i
+// those of keys k0 + i and k0 + i + 32, times log2(e), or -inf where the
+// key is out of range or masked (ok0, ok1 false).
+__device__ __forceinline__ void store_chunk_bias(uint32_t slot, const float* bias, int k0, bool ok0, bool ok1) {
+  const int lane = threadIdx.x & 31;
+  st_shared_f32(slot + 4 * lane, ok0 ? bias[k0 + lane] * kLog2e : -CUDART_INF_F);
+  st_shared_f32(slot + 4 * (lane + 32), ok1 ? bias[k0 + lane + 32] * kLog2e : -CUDART_INF_F);
+}
 
 __host__ __device__ constexpr int flash_chunks(int sk) { return (sk + kChunkRows - 1) / kChunkRows; }
 
@@ -104,16 +143,17 @@ __host__ __device__ constexpr int flash_chunks(int sk) { return (sk + kChunkRows
 // ops/flash_attention.py::smem_layout): the Q tile, kFlashStages K chunks,
 // kFlashStages V chunks, every one a multiple of 4 KB from the 1 KB-aligned
 // base; then a 64-bit key-validity word per stage and the mbarriers q_full,
-// k_full[S], k_empty[S], v_full[S], v_empty[S].
+// k_full[S], k_empty[S], v_full[S], v_empty[S]; the biased kernel appends
+// bias_slots(S) chunks' key biases.
 struct FlashLayout {
-  int q, k, v, valid, bars, total;
+  int q, k, v, valid, bars, bias, total;
 };
 
-__host__ __device__ constexpr FlashLayout flash_layout(int d) {
+__host__ __device__ constexpr FlashLayout flash_layout(int d, bool bias = false) {
   const int c = hopper::chunk_bytes(d);
   const int k = c, v = k + kFlashStages * c, valid = v + kFlashStages * c;
-  const int bars = valid + kFlashStages * 8;
-  return FlashLayout{0, k, v, valid, bars, bars + (1 + 4 * kFlashStages) * 8};
+  const int bars = valid + kFlashStages * 8, end = bars + (1 + 4 * kFlashStages) * 8;
+  return FlashLayout{0, k, v, valid, bars, end, end + (bias ? bias_slots(kFlashStages) * kBiasSlotBytes : 0)};
 }
 
 struct FlashBars {
@@ -126,10 +166,12 @@ struct FlashBars {
 };
 
 // The producer warp: lane 0 issues every TMA load of the block; the warp
-// computes each chunk's key validity while lane 0 waits for a free stage.
-template <int D>
+// computes each chunk's key validity (and with kBias writes its biases)
+// while lane 0 waits for a free stage.
+template <int D, bool kBias>
 __device__ void flash_producer(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv, const Params& p,
-                               uint32_t base, const FlashLayout& lay, const FlashBars& bar, int bi, int hi, int q0) {
+                               const float* key_bias, uint32_t base, const FlashLayout& lay, const FlashBars& bar,
+                               int bi, int hi, int q0) {
   constexpr uint32_t kChunk = hopper::chunk_bytes(D);
   const int lane = threadIdx.x & 31;
   const int n = flash_chunks(p.sk);
@@ -149,6 +191,13 @@ __device__ void flash_producer(const CUtensorMap* tq, const CUtensorMap* tk, con
     const bool ok1 = c1 < p.sk && (mask == nullptr || mask[c1] != 0);
     const uint64_t lo = __ballot_sync(0xffffffffu, ok0), hi_bits = __ballot_sync(0xffffffffu, ok1);
     const uint64_t valid = lo | (hi_bits << 32);
+    if constexpr (kBias) {
+      // the slot is free since the k_empty wait of the iteration before
+      // (bias_slots); released with lane 0's arrive below
+      store_chunk_bias(base + lay.bias + (j % bias_slots(kFlashStages)) * kBiasSlotBytes,
+                       key_bias + static_cast<long long>(bi) * p.sk, j * kChunkRows, ok0, ok1);
+      __syncwarp();
+    }
     if (lane == 0) {
       if (j >= kFlashStages) hopper::mbar_wait(bar.k_empty(s), parity);
       // released with the arrive below, acquired by the consumers' k_full wait
@@ -167,10 +216,23 @@ __device__ void flash_producer(const CUtensorMap* tq, const CUtensorMap* tk, con
 // get -inf and so exactly zero weight; s becomes p = exp2(s * scale_log2 -
 // m_new), m the running max of the scaled logits, l this thread's share of
 // the running sum (rescaled, plus p in f32), alpha the factor that rescales O.
+// With kBias, s becomes s * scale_log2 + the key's bias from the chunk's
+// slot at `bias` (-inf for a key out of range or masked, so `valid` is not
+// read) before the max, and p = exp2(s - m_new).
+template <bool kBias>
 __device__ __forceinline__ void chunk_softmax(float (&s)[kChunkRows / 8][4], uint64_t valid, float scale_log2,
-                                              float (&m)[2], float (&l)[2], float (&alpha)[2]) {
+                                              float (&m)[2], float (&l)[2], float (&alpha)[2], uint32_t bias) {
   const int t = threadIdx.x & 3;
-  if (valid != ~0ull) {
+  if constexpr (kBias) {
+#pragma unroll
+    for (int nn = 0; nn < kChunkRows / 8; ++nn) {
+      const float2 b = ld_shared_f32x2(bias + 4 * (nn * 8 + 2 * t));
+      s[nn][0] = fmaf(s[nn][0], scale_log2, b.x);
+      s[nn][1] = fmaf(s[nn][1], scale_log2, b.y);
+      s[nn][2] = fmaf(s[nn][2], scale_log2, b.x);
+      s[nn][3] = fmaf(s[nn][3], scale_log2, b.y);
+    }
+  } else if (valid != ~0ull) {
 #pragma unroll
     for (int nn = 0; nn < kChunkRows / 8; ++nn) {
 #pragma unroll
@@ -190,7 +252,8 @@ __device__ __forceinline__ void chunk_softmax(float (&s)[kChunkRows / 8][4], uin
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m[r], mx[r] * scale_log2);  // scale_log2 > 0: max commutes with it
+    // scale_log2 > 0: the max commutes with it; a bias is in s already
+    const float m_new = fmaxf(m[r], kBias ? mx[r] : mx[r] * scale_log2);
     alpha[r] = exp2f(m[r] - m_new);
     m[r] = m_new;
     l[r] *= alpha[r];
@@ -200,14 +263,14 @@ __device__ __forceinline__ void chunk_softmax(float (&s)[kChunkRows / 8][4], uin
   for (int nn = 0; nn < kChunkRows / 8; ++nn) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      s[nn][e] = exp2f(fmaf(s[nn][e], scale_log2, neg_m[e >> 1]));
+      s[nn][e] = kBias ? exp2f(s[nn][e] + neg_m[e >> 1]) : exp2f(fmaf(s[nn][e], scale_log2, neg_m[e >> 1]));
       l[e >> 1] += s[nn][e];
     }
   }
 }
 
 // The consumer warpgroup: its 64 query rows against every key chunk.
-template <int D>
+template <int D, bool kBias>
 __device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout& lay, const FlashBars& bar, int bi,
                                int hi, int q0) {
   constexpr uint32_t kChunk = hopper::chunk_bytes(D);
@@ -218,6 +281,7 @@ __device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout
   auto v_chunk = [&](int j) { return base + lay.v + (j % kFlashStages) * kChunk; };
   auto valid = [&](int j) { return hopper::ld_shared_u64(base + lay.valid + 8 * (j % kFlashStages)); };
   auto parity = [](int j) { return static_cast<uint32_t>((j / kFlashStages) & 1); };
+  auto bias = [&](int j) { return base + lay.bias + (j % bias_slots(kFlashStages)) * kBiasSlotBytes; };
 
   // Q as A fragments; rows past sq arrived as zeros
   hopper::mbar_wait(bar.q_full(), 0);
@@ -246,7 +310,7 @@ __device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout
   uint64_t bits = valid(0);
   hopper::wgmma_wait<0>();
   hopper::warp_arrive(bar.k_empty(0));
-  chunk_softmax(s, bits, p.scale_log2, m, l, alpha);
+  chunk_softmax<kBias>(s, bits, p.scale_log2, m, l, alpha, bias(0));
   hopper::pack_p(pa, s);
   for (int j = 1; j < n; ++j) {
     hopper::mbar_wait(bar.k_full(j % kFlashStages), parity(j));
@@ -256,7 +320,7 @@ __device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout
     bits = valid(j);
     hopper::wgmma_wait<1>();  // Q K^T of chunk j is done
     hopper::warp_arrive(bar.k_empty(j % kFlashStages));
-    chunk_softmax(s, bits, p.scale_log2, m, l, alpha);
+    chunk_softmax<kBias>(s, bits, p.scale_log2, m, l, alpha, bias(j));
     hopper::wgmma_wait<0>();  // P V of chunk j - 1 is done with pa and V
     hopper::fence_operands(acc);
     hopper::warp_arrive(bar.v_empty((j - 1) % kFlashStages));
@@ -298,13 +362,12 @@ __device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kFlashThreads, 2)
-    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, const Params p) {
-  extern __shared__ __align__(1024) unsigned char flash_smem[];
+// The block of flash_wgmma_kernel (kBias false) and flash_wgmma_bias_kernel.
+template <int D, bool kBias>
+__device__ __forceinline__ void flash_wgmma_block(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+                                                  const Params& p, const float* key_bias, unsigned char* flash_smem) {
   const uint32_t base = hopper::smem_u32(flash_smem);
-  const FlashLayout lay = flash_layout(D);
+  const FlashLayout lay = flash_layout(D, kBias);
   const FlashBars bar{base + static_cast<uint32_t>(lay.bars)};
   if (threadIdx.x == 0) {
     if (base % 1024 != 0) __trap();  // the swizzled tiles need the pattern's alignment
@@ -320,21 +383,46 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
   __syncthreads();
   const int bi = blockIdx.z, hi = blockIdx.y, q0 = blockIdx.x * kChunkRows;
   if (threadIdx.x >= 128) {
-    flash_producer<D>(&tq, &tk, &tv, p, base, lay, bar, bi, hi, q0);
+    flash_producer<D, kBias>(tq, tk, tv, p, key_bias, base, lay, bar, bi, hi, q0);
   } else {
-    flash_consumer<D>(p, base, lay, bar, bi, hi, q0);
+    flash_consumer<D, kBias>(p, base, lay, bar, bi, hi, q0);
   }
 }
 
 template <int D>
-cudaError_t launch_wgmma(const CUtensorMap (&maps)[3], const Params& p, int b, int h, cudaStream_t stream) {
+__global__ void __launch_bounds__(kFlashThreads, 2)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const Params p) {
+  extern __shared__ __align__(1024) unsigned char flash_smem[];
+  flash_wgmma_block<D, false>(&tq, &tk, &tv, p, nullptr, flash_smem);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFlashThreads, 2)
+    flash_wgmma_bias_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv, const Params p, const float* key_bias) {
+  extern __shared__ __align__(1024) unsigned char flash_smem[];
+  flash_wgmma_block<D, true>(&tq, &tk, &tv, p, key_bias, flash_smem);
+}
+
+template <int D>
+cudaError_t launch_wgmma(const CUtensorMap (&maps)[3], const Params& p, const float* key_bias, int b, int h,
+                         cudaStream_t stream) {
   // the attribute is per function: raising it to the limit once covers
   // every launch
   static const cudaError_t configured =
       cudaFuncSetAttribute(flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  static const cudaError_t configured_bias =
+      cudaFuncSetAttribute(flash_wgmma_bias_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (configured != cudaSuccess) return configured;
+  if (configured_bias != cudaSuccess) return configured_bias;
   const dim3 grid((p.sq + kChunkRows - 1) / kChunkRows, h, b);
-  flash_wgmma_kernel<D><<<grid, kFlashThreads, flash_layout(D).total, stream>>>(maps[0], maps[1], maps[2], p);
+  if (key_bias != nullptr) {
+    flash_wgmma_bias_kernel<D>
+        <<<grid, kFlashThreads, flash_layout(D, true).total, stream>>>(maps[0], maps[1], maps[2], p, key_bias);
+  } else {
+    flash_wgmma_kernel<D><<<grid, kFlashThreads, flash_layout(D).total, stream>>>(maps[0], maps[1], maps[2], p);
+  }
   return cudaGetLastError();
 }
 
@@ -443,17 +531,20 @@ __host__ __device__ constexpr int f32_consumers(int sq, int d) { return d == 64 
 // chunks and as many V chunks, then kSplitStages bf16 tiles each of K hi, K
 // lo, V hi and V lo, every one a multiple of 4 KB from the 1 KB-aligned base;
 // a 64-bit key-validity word per split stage; the mbarriers kf_full[F],
-// vf_full[F], k_full[S], k_empty[S], v_full[S], v_empty[S], q_full, q_empty.
+// vf_full[F], k_full[S], k_empty[S], v_full[S], v_empty[S], q_full, q_empty;
+// the biased kernel appends bias_slots(S) chunks' key biases.
 struct F32Layout {
-  int q, kf, vf, khi, klo, vhi, vlo, valid, bars, total;
+  int q, kf, vf, khi, klo, vhi, vlo, valid, bars, bias, total;
 };
 
-__host__ __device__ constexpr F32Layout f32_layout(int d) {
+__host__ __device__ constexpr F32Layout f32_layout(int d, bool bias = false) {
   const int f = f32_chunk_bytes(d), c = hopper::chunk_bytes(d);
   const int kf = f32_consumers(2 * kChunkRows, d) * f, vf = kf + kF32Stages * f, khi = vf + kF32Stages * f;
   const int klo = khi + kSplitStages * c, vhi = klo + kSplitStages * c, vlo = vhi + kSplitStages * c;
   const int valid = vlo + kSplitStages * c, bars = valid + kSplitStages * 8;
-  return F32Layout{0, kf, vf, khi, klo, vhi, vlo, valid, bars, bars + (2 * kF32Stages + 4 * kSplitStages + 2) * 8};
+  const int end = bars + (2 * kF32Stages + 4 * kSplitStages + 2) * 8;
+  const int total = end + (bias ? bias_slots(kSplitStages) * kBiasSlotBytes : 0);
+  return F32Layout{0, kf, vf, khi, klo, vhi, vlo, valid, bars, end, total};
 }
 
 struct F32Bars {
@@ -519,10 +610,12 @@ __device__ __forceinline__ void split_chunk(uint32_t src, uint32_t hi, uint32_t 
 // The producer warpgroup over every key chunk of the block's tiles in turn,
 // running ahead into the next tile while the consumers finish one. Every
 // tile of a block has the same n chunks: all of them unsplit, and a split
-// launch gives each block one tile.
-template <int D, int kNC>
+// launch gives each block one tile. With kBias its first warp writes each
+// chunk's biases beside the validity word.
+template <int D, int kNC, bool kBias>
 __device__ void f32_producer(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv, const Params& p,
-                             const F32Params& fp, uint32_t base, const F32Layout& lay, const F32Bars& bar) {
+                             const F32Params& fp, const float* key_bias, uint32_t base, const F32Layout& lay,
+                             const F32Bars& bar) {
   constexpr uint32_t kF32Chunk = f32_chunk_bytes(D);
   constexpr uint32_t kTile = hopper::chunk_bytes(D);
   const int tid = threadIdx.x - 128 * kNC, lane = tid & 31;
@@ -585,6 +678,10 @@ __device__ void f32_producer(const CUtensorMap* tq, const CUtensorMap* tk, const
       const bool ok1 = k1 < p.sk && (mask == nullptr || mask[k1] != 0);
       const uint64_t lo = __ballot_sync(0xffffffffu, ok0), hi = __ballot_sync(0xffffffffu, ok1);
       if (lane == 0) hopper::st_shared_u64(base + lay.valid + 8 * s, lo | (hi << 32));
+      if constexpr (kBias) {  // the slot is free since this chunk's k_empty wait (bias_slots)
+        store_chunk_bias(base + lay.bias + (g % bias_slots(kSplitStages)) * kBiasSlotBytes,
+                         key_bias + static_cast<long long>(at.tile.bi) * p.sk, k0 - lane, ok0, ok1);
+      }
     }
     hopper::fence_proxy_async();  // the tiles, to wgmma; the f32 stage's reads, before TMA refills it
     producer_sync();
@@ -653,7 +750,7 @@ __device__ __forceinline__ void split_p(uint32_t (&ph)[kChunkRows / 16][4], uint
 // A consumer warpgroup: its 64 query rows of each of the block's tiles
 // against the tile's key chunks. The split rings and the Q barriers count
 // the block's chunks and tiles across its tiles, as the producer does.
-template <int D, int kNC>
+template <int D, int kNC, bool kBias>
 __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base, const F32Layout& lay,
                              const F32Bars& bar) {
   constexpr uint32_t kTile = hopper::chunk_bytes(D);
@@ -662,6 +759,7 @@ __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base
   auto tile = [&](int area, int c) { return base + area + (c % kSplitStages) * kTile; };
   auto valid = [&](int c) { return hopper::ld_shared_u64(base + lay.valid + 8 * (c % kSplitStages)); };
   auto parity = [](int c) { return static_cast<uint32_t>((c / kSplitStages) & 1); };
+  auto bias = [&](int c) { return base + lay.bias + (c % bias_slots(kSplitStages)) * kBiasSlotBytes; };
   int c0 = 0, tiles_begun = 0;  // chunks and tiles (with chunks) of the block's earlier tiles
   for (int ti = blockIdx.x; ti < fp.tiles; ti += gridDim.x) {
     const F32Tile tl = f32_tile<kNC>(p, fp, ti);
@@ -707,7 +805,7 @@ __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base
       uint64_t bits_j = valid(c0);
       hopper::wgmma_wait<0>();
       hopper::warp_arrive(bar.k_empty(c0 % kSplitStages));
-      chunk_softmax(s, bits_j, p.scale_log2, m, l, alpha);
+      chunk_softmax<kBias>(s, bits_j, p.scale_log2, m, l, alpha, bias(c0));
       split_p(ph, pl, s);
       for (int j = c0 + 1; j < c0 + n; ++j) {
         hopper::mbar_wait(bar.k_full(j % kSplitStages), parity(j));
@@ -717,7 +815,7 @@ __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base
         bits_j = valid(j);
         hopper::wgmma_wait<1>();  // Q K^T of chunk j is done
         hopper::warp_arrive(bar.k_empty(j % kSplitStages));
-        chunk_softmax(s, bits_j, p.scale_log2, m, l, alpha);
+        chunk_softmax<kBias>(s, bits_j, p.scale_log2, m, l, alpha, bias(j));
         hopper::wgmma_wait<0>();  // P V of chunk j - 1 is done with ph, pl and V
         hopper::fence_operands(acc);
         hopper::warp_arrive(bar.v_empty((j - 1) % kSplitStages));
@@ -776,13 +874,13 @@ __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base
   }
 }
 
-template <int D, int kNC>
-__global__ void __launch_bounds__(f32_threads(kNC), 1)
-    flash_f32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv, const Params p, const F32Params fp) {
-  extern __shared__ __align__(1024) unsigned char flash_f32_smem[];
+// The block of flash_f32_kernel (kBias false) and flash_f32_bias_kernel.
+template <int D, int kNC, bool kBias>
+__device__ __forceinline__ void flash_f32_block(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+                                                const Params& p, const F32Params& fp, const float* key_bias,
+                                                unsigned char* flash_f32_smem) {
   const uint32_t base = hopper::smem_u32(flash_f32_smem);
-  const F32Layout lay = f32_layout(D);
+  const F32Layout lay = f32_layout(D, kBias);
   const F32Bars bar{base + static_cast<uint32_t>(lay.bars)};
   if (threadIdx.x == 0) {
     if (base % 1024 != 0) __trap();  // the swizzled tiles need the pattern's alignment
@@ -803,11 +901,28 @@ __global__ void __launch_bounds__(f32_threads(kNC), 1)
   __syncthreads();
   if (threadIdx.x >= 128 * kNC) {
     if constexpr (kNC > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    f32_producer<D, kNC>(&tq, &tk, &tv, p, fp, base, lay, bar);
+    f32_producer<D, kNC, kBias>(tq, tk, tv, p, fp, key_bias, base, lay, bar);
   } else {
     if constexpr (kNC > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    f32_consumer<D, kNC>(p, fp, base, lay, bar);
+    f32_consumer<D, kNC, kBias>(p, fp, base, lay, bar);
   }
+}
+
+template <int D, int kNC>
+__global__ void __launch_bounds__(f32_threads(kNC), 1)
+    flash_f32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const Params p, const F32Params fp) {
+  extern __shared__ __align__(1024) unsigned char flash_f32_smem[];
+  flash_f32_block<D, kNC, false>(&tq, &tk, &tv, p, fp, nullptr, flash_f32_smem);
+}
+
+template <int D, int kNC>
+__global__ void __launch_bounds__(f32_threads(kNC), 1)
+    flash_f32_bias_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const Params p, const F32Params fp,
+                          const float* key_bias) {
+  extern __shared__ __align__(1024) unsigned char flash_f32_smem[];
+  flash_f32_block<D, kNC, true>(&tq, &tk, &tv, p, fp, key_bias, flash_f32_smem);
 }
 
 // The split path's second pass, one warp a query row:
@@ -858,13 +973,18 @@ __global__ void __launch_bounds__(128) flash_combine_kernel(const Params p, cons
   }
 }
 
-// The f32 launch: flash_f32_kernel, one block an SM walking the tiles (one
-// block a tile when the call is split), then the combine when it is split.
+// The f32 launch: flash_f32_kernel (flash_f32_bias_kernel given a key
+// bias), one block an SM walking the tiles (one block a tile when the call
+// is split), then the combine when it is split.
 template <int D, int kNC>
-cudaError_t launch_f32(const CUtensorMap (&maps)[3], const Params& p, F32Params fp, cudaStream_t stream) {
+cudaError_t launch_f32(const CUtensorMap (&maps)[3], const Params& p, F32Params fp, const float* key_bias,
+                       cudaStream_t stream) {
   static const cudaError_t configured =
       cudaFuncSetAttribute(flash_f32_kernel<D, kNC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  static const cudaError_t configured_bias =
+      cudaFuncSetAttribute(flash_f32_bias_kernel<D, kNC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (configured != cudaSuccess) return configured;
+  if (configured_bias != cudaSuccess) return configured_bias;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -874,8 +994,13 @@ cudaError_t launch_f32(const CUtensorMap (&maps)[3], const Params& p, F32Params 
   if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
   fp.tiles = static_cast<int>(tiles);
   const int blocks = fp.splits > 1 || fp.tiles < sms ? fp.tiles : sms;
-  flash_f32_kernel<D, kNC>
-      <<<blocks, f32_threads(kNC), f32_layout(D).total, stream>>>(maps[0], maps[1], maps[2], p, fp);
+  if (key_bias != nullptr) {
+    flash_f32_bias_kernel<D, kNC>
+        <<<blocks, f32_threads(kNC), f32_layout(D, true).total, stream>>>(maps[0], maps[1], maps[2], p, fp, key_bias);
+  } else {
+    flash_f32_kernel<D, kNC>
+        <<<blocks, f32_threads(kNC), f32_layout(D).total, stream>>>(maps[0], maps[1], maps[2], p, fp);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || fp.splits == 1) return err;
   const long long rows = static_cast<long long>(fp.b) * fp.h * p.sq;
@@ -887,7 +1012,9 @@ cudaError_t launch_f32(const CUtensorMap (&maps)[3], const Params& p, F32Params 
 
 extern "C" {
 
-// dtype: 0 = bfloat16 (flash_wgmma_kernel), 1 = float32 (flash_f32_kernel).
+// dtype: 0 = bfloat16 (flash_wgmma_kernel), 1 = float32 (flash_f32_kernel);
+// with a key_bias [b, sk] f32 (contiguous; null for none), their biased
+// instantiations flash_wgmma_bias_kernel and flash_f32_bias_kernel.
 // strides: 12 values, the (batch, head, sequence) strides in elements of q,
 // k, v and o in that order. bf16 takes 64 query rows a block; f32 takes 128
 // (64 for sq <= 64 and at d 96) and reads q, k and v through f32 tensor
@@ -901,7 +1028,8 @@ extern "C" {
 // cudaError_t (0 on success), or cudaErrorInvalidValue for a dtype, head dim,
 // size or split count this library does not take. Launches on `stream`,
 // allocates nothing and does not synchronise.
-int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const int* kv_mask, void* o,
+int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const int* kv_mask, const float* key_bias,
+                              void* o,
                               int dtype, int b, int h, int sq, int sk, int d, const long long* strides,
                               float scale, int splits, float* o_part, float* ml, void* stream) {
   if ((dtype != 0 && dtype != 1) || (d != 64 && d != 96) || sk < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -934,34 +1062,41 @@ int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const
     fp.splits = splits;
     fp.b = b;
     fp.h = h;
-    if (d == 96) return launch_f32<96, 1>(maps, p, fp, s);
-    if (f32_consumers(sq, d) == 1) return launch_f32<64, 1>(maps, p, fp, s);
-    return launch_f32<64, 2>(maps, p, fp, s);
+    if (d == 96) return launch_f32<96, 1>(maps, p, fp, key_bias, s);
+    if (f32_consumers(sq, d) == 1) return launch_f32<64, 1>(maps, p, fp, key_bias, s);
+    return launch_f32<64, 2>(maps, p, fp, key_bias, s);
   }
   CUtensorMap maps[3];
   const int err = hopper::attention_maps(maps, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, b, h, sq, sk, d, strides);
   if (err != 0) return err;
-  if (d == 64) return launch_wgmma<64>(maps, p, b, h, s);
-  return launch_wgmma<96>(maps, p, b, h, s);
+  if (d == 64) return launch_wgmma<64>(maps, p, key_bias, b, h, s);
+  return launch_wgmma<96>(maps, p, key_bias, b, h, s);
 }
 
 // The dynamic shared memory of one block of the kernel of `dtype` at head
-// dim d with block_q query rows (bf16: 64; f32: 64, or 128 at d 64), and the blocks of
-// that kernel an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-int zutis_flash_occupancy(int dtype, int d, int block_q, int* smem_bytes, int* blocks_per_sm) {
+// dim d with block_q query rows (bf16: 64; f32: 64, or 128 at d 64), biased
+// (bias 1) or not, and the blocks of that kernel an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int zutis_flash_occupancy(int dtype, int d, int block_q, int bias, int* smem_bytes, int* blocks_per_sm) {
   if (d != 64 && d != 96) return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel = nullptr;
   int threads = 0;
   if (dtype == 0 && block_q == kChunkRows) {
-    kernel = reinterpret_cast<const void*>(d == 64 ? flash_wgmma_kernel<64> : flash_wgmma_kernel<96>);
+    kernel = bias ? reinterpret_cast<const void*>(d == 64 ? flash_wgmma_bias_kernel<64> : flash_wgmma_bias_kernel<96>)
+                  : reinterpret_cast<const void*>(d == 64 ? flash_wgmma_kernel<64> : flash_wgmma_kernel<96>);
     threads = kFlashThreads;
-    *smem_bytes = flash_layout(d).total;
+    *smem_bytes = flash_layout(d, bias != 0).total;
   } else if (dtype == 1 && (block_q == kChunkRows || (d == 64 && block_q == 2 * kChunkRows))) {
     const bool one = block_q == kChunkRows;
-    kernel = reinterpret_cast<const void*>(d == 96 ? flash_f32_kernel<96, 1>
-                                                   : (one ? flash_f32_kernel<64, 1> : flash_f32_kernel<64, 2>));
+    if (bias) {
+      kernel = reinterpret_cast<const void*>(
+          d == 96 ? flash_f32_bias_kernel<96, 1> : (one ? flash_f32_bias_kernel<64, 1> : flash_f32_bias_kernel<64, 2>));
+    } else {
+      kernel = reinterpret_cast<const void*>(d == 96 ? flash_f32_kernel<96, 1>
+                                                     : (one ? flash_f32_kernel<64, 1> : flash_f32_kernel<64, 2>));
+    }
     threads = f32_threads(one ? 1 : 2);
-    *smem_bytes = f32_layout(d).total;
+    *smem_bytes = f32_layout(d, bias != 0).total;
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

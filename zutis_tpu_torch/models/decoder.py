@@ -42,13 +42,15 @@ class DecoderLayer(nn.Module):
         memory: torch.Tensor,  # [b, s, d]
         query_pos: Optional[torch.Tensor],  # [b, q, d]
         memory_mask: Optional[torch.Tensor] = None,  # [b, s] valid memory keys
+        memory_bias: Optional[torch.Tensor] = None,  # additive, [b, 1, 1, s]
     ) -> torch.Tensor:
         q = tgt if query_pos is None else tgt + query_pos
         tgt = self.norm1(tgt + self.self_attn(q, q, tgt))
         q = tgt if query_pos is None else tgt + query_pos
         cross = self.multihead_attn
         tgt = self.norm2(tgt + cross.attend_kv(
-            q, cross.k_proj(mem_pos), cross.v_proj(memory), kv_mask=memory_mask))
+            q, cross.k_proj(mem_pos), cross.v_proj(memory), kv_mask=memory_mask,
+            bias=memory_bias))
         y = self.linear2(F.relu(self.linear1(tgt, self.dtype)), self.dtype)
         return self.norm3(tgt + y)
 
@@ -78,15 +80,19 @@ class QueryDecoder(nn.Module):
         pos: Optional[torch.Tensor] = None,
         query_pos: Optional[torch.Tensor] = None,
         memory_mask: Optional[torch.Tensor] = None,
+        memory_bias: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """-> [n_layers, b, q, d], each layer's output through the shared
         final norm. `memory_mask` [b, s] (nonzero = valid) masks the
-        cross-attention's keys: the padded eval path's memory padding."""
+        cross-attention's keys: the padded eval path's memory padding.
+        `memory_bias` is an additive cross-attention bias broadcast to
+        [b, h, q, s]: the padded pooled path's log(valid count) a pooled
+        key (models/zutis.py)."""
         mem_pos = memory if pos is None else memory + pos
         outputs = []
         x = tgt
         for layer in self.layers:
-            x = layer(x, mem_pos, memory, query_pos, memory_mask)
+            x = layer(x, mem_pos, memory, query_pos, memory_mask, memory_bias)
             outputs.append(x)
         return self.norm(torch.stack(outputs, dim=0))
 

@@ -13,7 +13,8 @@ ViT-L-14.pt, ViT-L-14-336px.pt, and the BPE merges file
 Not ported yet (each raises NotImplementedError, ROADMAP.md, queue 1,
 item 7): the ResNet visual encoders (RN50 ... RN50x64) and their `dilated`
 variants, and `encoder_type="dino"`; the text towers of every arch are
-here. The opt-in levers `tome_r` and `decoder_pool` are item 5.
+here. `build_zutis` passes the opt-in levers `tome_r` and `decoder_pool`
+on to ZUTIS.
 """
 from __future__ import annotations
 
@@ -110,10 +111,6 @@ def build_zutis(
         raise NotImplementedError(f"encoder_type 'dino' is {_NOT_PORTED}")
     if encoder_type != "clip":
         raise ValueError(f"unknown encoder_type {encoder_type!r}")
-    if tome_r or decoder_pool != 1:
-        raise NotImplementedError(
-            "tome_r and decoder_pool are not ported yet (ROADMAP.md, queue "
-            "1, item 5)")
     s = clip_spec(base_arch)
     return ZUTIS(
         width=s.width,
@@ -128,6 +125,8 @@ def build_zutis(
         stop_gradient=stop_gradient,
         dtype=dtype,
         attn_impl=attn_impl,
+        tome_r=tome_r,
+        decoder_pool=decoder_pool,
         device=device,
     )
 

@@ -121,10 +121,17 @@ class MultiHeadAttention(nn.Module):
         b, sq = out.shape[:2]
         return self.out_proj(out.reshape(b, sq, self.dim), self.dtype)
 
-    def forward(self, q_in, k_in, v_in, kv_mask=None,
-                bias=None) -> torch.Tensor:
-        return self.attend_kv(q_in, self.k_proj(k_in), self.v_proj(v_in),
-                              kv_mask=kv_mask, bias=bias)
+    def forward(self, q_in, k_in, v_in, kv_mask=None, bias=None,
+                return_k: bool = False):
+        """-> the attention's output [b, sq, dim]; with `return_k`, also
+        the head-mean keys [b, sk, dim // heads] in the compute dtype (the
+        similarity ToMe merges on, ops/tome.py)."""
+        k = self.k_proj(k_in)
+        out = self.attend_kv(q_in, k, self.v_proj(v_in), kv_mask=kv_mask,
+                             bias=bias)
+        if return_k:
+            return out, self._split(k).mean(dim=2)
+        return out
 
     def init_params(self, generator: torch.Generator) -> None:
         fill_normal_(self.in_proj_weight, 1.0 / math.sqrt(self.dim), generator)

@@ -30,6 +30,11 @@ from zutis_tpu_torch.ops.dynamic_shapes import (
     token_valid_mask,
 )
 from zutis_tpu_torch.ops.resize import resize_2d
+from zutis_tpu_torch.ops.tome import (
+    merge_schedule,
+    proportional_attn_bias,
+    tome_merge,
+)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -48,14 +53,31 @@ class ResidualAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 kv_mask: Optional[torch.Tensor] = None,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Pre-LN block; an additive attention `bias` (the text tower's
-        causal mask) takes the "torch" attention path."""
+                bias: Optional[torch.Tensor] = None,
+                tome_r: int = 0, size: Optional[torch.Tensor] = None):
+        """Pre-LN block; an additive attention `bias` that is not per key
+        (the text tower's causal mask) takes the "torch" attention path.
+        With tome_r > 0 and `size` the [b, s] token sizes, r tokens merge
+        between the attention and the MLP (ops/tome.py), the attention
+        taking the proportional bias log(size), and the block returns (x
+        [b, s - r, d], size [b, s - r], mapping [b, s]); tome_r = 0 is the
+        program without merging."""
         y = self.ln_1(x)
-        x = x + self.attn(y, y, y, kv_mask=kv_mask, bias=bias)
+        mapping = None
+        if tome_r <= 0:
+            x = x + self.attn(y, y, y, kv_mask=kv_mask, bias=bias)
+        else:
+            prop = proportional_attn_bias(size)
+            out, k_mean = self.attn(
+                y, y, y, kv_mask=kv_mask,
+                bias=prop if bias is None else prop + bias, return_k=True)
+            x, size, mapping = tome_merge(x + out, k_mean, size, tome_r)
         y = self.ln_2(x)
         y = quick_gelu(self.mlp["c_fc"](y, self.dtype))
-        return x + self.mlp["c_proj"](y, self.dtype)
+        x = x + self.mlp["c_proj"](y, self.dtype)
+        if mapping is not None:
+            return x, size, mapping
+        return x
 
 
 def interpolate_pos_embed(
@@ -102,9 +124,12 @@ class CLIPViT(nn.Module):
                  patch_size: int = 16, output_dim: int = 512,
                  input_resolution: int = 224,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
-                 device=None):
+                 tome_r: int = 0, device=None):
         super().__init__()
         self.width, self.patch_size, self.dtype = width, patch_size, dtype
+        # opt-in token merging: up to tome_r tokens a block (ops/tome.py);
+        # 0 is the program without merging, and it adds no parameter
+        self.tome_r = tome_r
         grid = input_resolution // patch_size
         self.conv1 = nn.Module()
         self.conv1.weight = empty_param(width, 3, patch_size, patch_size,
@@ -160,9 +185,41 @@ class CLIPViT(nn.Module):
         tokens = self._with_cls(tokens)
         pe = interpolate_pos_embed(self.positional_embedding, (h, w))
         tokens = self.ln_pre(tokens + pe.to(self.dtype)[None])
+        if self.tome_r > 0:
+            return self._run_blocks_tome(tokens), h, w
         for block in self.transformer.resblocks:
             tokens = block(tokens)
         return tokens, h, w
+
+    def _run_blocks_tome(self, tokens: torch.Tensor,
+                         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The blocks with token merging -> dense tokens [b, s0, width]: the
+        merged stream gathered back to every original position through the
+        composed per-block mappings, CLS at 0.
+
+        With `valid` ([b, s0] f32, the padded path), padding tokens start
+        at size 0: they merge with zero weight, first, and each block's key
+        mask is size > 0. A padding slot may also take a merge of two valid
+        tokens' content, as the JAX package's padded path does (ROADMAP.md
+        §3)."""
+        b, s0, _ = tokens.shape
+        if valid is None:
+            size = torch.ones((b, s0), dtype=torch.float32, device=tokens.device)
+        else:
+            size = valid.float()
+        assign = torch.arange(s0, device=tokens.device).expand(b, s0)
+        blocks = self.transformer.resblocks
+        for block, r_eff in zip(blocks, merge_schedule(s0, self.tome_r,
+                                                       len(blocks))):
+            kv_mask = None if valid is None else size > 0
+            if r_eff <= 0:
+                tokens = block(tokens, kv_mask=kv_mask)
+                continue
+            tokens, size, mapping = block(tokens, kv_mask=kv_mask,
+                                          tome_r=r_eff, size=size)
+            assign = torch.gather(mapping, 1, assign).long()
+        return torch.gather(tokens, 1,
+                            assign[..., None].expand(-1, -1, self.width))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
         """x [b, 3, H, W] -> (patch tokens [b, h*w, width] after ln_post, h, w)."""
@@ -186,8 +243,8 @@ class CLIPViT(nn.Module):
         attention layer masks the keys to the sample's CLS and valid patch
         tokens, so valid tokens never see padding. -> (patch tokens
         [b, hp*wp, width], of which each sample's top-left [h_i, w_i] window
-        is meaningful; the [b, hp*wp] int32 validity mask). The token-merging
-        branch of the JAX package is not ported."""
+        is meaningful; the [b, hp*wp] int32 validity mask). With tome_r > 0
+        the padding tokens start at size 0 (`_run_blocks_tome`)."""
         tokens, hp, wp = self._patchify(x)
         b = tokens.shape[0]
         tokens = self._with_cls(tokens)
@@ -198,6 +255,9 @@ class CLIPViT(nn.Module):
         # one int32 mask, CLS always valid, shared by every layer's launch
         kv_mask = torch.cat([torch.ones(b, 1, dtype=torch.int32,
                                         device=x.device), patch_valid], dim=1)
-        for block in self.transformer.resblocks:
-            tokens = block(tokens, kv_mask=kv_mask)
+        if self.tome_r > 0:
+            tokens = self._run_blocks_tome(tokens, valid=kv_mask)
+        else:
+            for block in self.transformer.resblocks:
+                tokens = block(tokens, kv_mask=kv_mask)
         return self.ln_post(tokens[:, 1:, :]), patch_valid

@@ -1,6 +1,7 @@
-"""The ZUTIS network, CLIP ViT family, dense forward (the port of
-zutis_tpu/models/zutis.py `ZUTIS.__call__` with encoder_family="vit",
-decoder_pool=1 and tome_r=0).
+"""The ZUTIS network, CLIP ViT family (the port of
+zutis_tpu/models/zutis.py `ZUTIS` with encoder_family="vit"), with its two
+opt-in levers: `tome_r` (token merging in the encoder, ops/tome.py) and
+`decoder_pool` (the cross-attention reads a pooled memory).
 
   1. encoder -> patch tokens [b, hw, width]
   2. bilinear x2 upsample of the token grid
@@ -8,7 +9,9 @@ decoder_pool=1 and tome_r=0).
      the tokens are detached, so the mask loss trains no encoder weight
   4. sine positional embedding over the upsampled grid
   5. query decoder, tgt = 0, query_pos = the learned queries, all layers
-     (`inference=True` keeps only the last layer after the decoder)
+     (`inference=True` keeps only the last layer after the decoder); with
+     decoder_pool p > 1 the cross-attention reads the p x p cell means of
+     memory and position, and the proposals of step 7 keep the dense memory
   6. ffn2(queries), L2-normalised (a zero query maps to zero)
   7. mask_proposals = sigmoid(queries . memory) in f32
   8. text-space tokens: tokens @ proj, a parameter-free LayerNorm over the
@@ -72,6 +75,21 @@ def _l2_normalize_queries(queries: torch.Tensor) -> torch.Tensor:
     return (q32 / torch.clamp(norm, min=1e-30)).to(queries.dtype)
 
 
+def _cell_mean(t: torch.Tensor, h: int, w: int, p: int, weight=None,
+               count=None) -> torch.Tensor:
+    """[n, h*w, c] -> [n, (h/p)*(w/p), c]: the f32 mean over each p x p
+    cell, or with `weight` [n, h/p, p, w/p, p] and its cell sums `count`
+    the weighted sum over max(count, 1); cast back to t's dtype."""
+    n, c = t.shape[0], t.shape[-1]
+    g = t.reshape(n, h // p, p, w // p, p, c).float()
+    if weight is None:
+        g = g.mean(dim=(2, 4))
+    else:
+        g = (g * weight[..., None]).sum(dim=(2, 4)) / torch.clamp(
+            count, min=1.0)[..., None]
+    return g.to(t.dtype).reshape(n, -1, c)
+
+
 class ZUTIS(nn.Module):
     def __init__(
         self,
@@ -87,17 +105,23 @@ class ZUTIS(nn.Module):
         stop_gradient: bool = True,
         dtype: torch.dtype = torch.float32,
         attn_impl: str = "auto",
+        tome_r: int = 0,
+        decoder_pool: int = 1,
         device="cuda",
     ):
         super().__init__()
         device = resolve_device(device)
+        if decoder_pool < 1:
+            raise ValueError(f"decoder_pool must be >= 1, got {decoder_pool}")
         self.width, self.n_queries, self.dtype = width, n_queries, dtype
         self.stop_gradient = stop_gradient
+        # the levers add no parameter: one checkpoint serves every setting
+        self.tome_r, self.decoder_pool = tome_r, decoder_pool
         self.encoder = CLIPViT(
             width=width, layers=encoder_layers, heads=encoder_heads,
             patch_size=patch_size, output_dim=text_dim,
             input_resolution=input_resolution, dtype=dtype,
-            attn_impl=attn_impl, device=device,
+            attn_impl=attn_impl, tome_r=tome_r, device=device,
         )
         self.ffn1 = MLP(width, 256, width, 3, dtype=dtype, device=device)
         self.ffn2 = MLP(width, 256, width, 3, dtype=dtype, device=device)
@@ -137,9 +161,20 @@ class ZUTIS(nn.Module):
         pos = to_device(torch.from_numpy(np.ascontiguousarray(pos)), x.device).to(dt)[None]
 
         tgt, query_pos = self._queries(b)
-        queries = self.decoder(tgt, memory, pos=pos, query_pos=query_pos)
+        mem_att, pos_att = memory, pos
+        if self.decoder_pool > 1:
+            p = self._pool_factor(h, w, "(post-upsample) token grid")
+            mem_att = _cell_mean(memory, h, w, p)
+            pos_att = _cell_mean(pos, h, w, p)
+        queries = self.decoder(tgt, mem_att, pos=pos_att, query_pos=query_pos)
         return self._heads(queries, memory, patch_tokens, h, w, inference,
                            full_map_layer_norm)
+
+    def _pool_factor(self, h: int, w: int, what: str) -> int:
+        p = self.decoder_pool
+        if h % p or w % p:
+            raise ValueError(f"decoder_pool={p} must divide the {what} {h}x{w}")
+        return p
 
     def _tokens_in(self, patch_tokens: torch.Tensor) -> torch.Tensor:
         """ffn1's input: the tokens, detached under `stop_gradient`."""
@@ -181,16 +216,17 @@ class ZUTIS(nn.Module):
         native_grid,  # [b, 2] native token grids (H // p, W // p), on the host
         inference: bool = True,
     ) -> Dict[str, torch.Tensor]:
-        """Batched variable-resolution forward for the bucketed evaluator
-        (decoder_pool = 1, no token merging). Each sample's valid window
-        equals, up to summation order, what `forward` computes at its native
-        size:
+        """Batched variable-resolution forward for the bucketed evaluator.
+        Without the levers, each sample's valid window equals, up to
+        summation order, what `forward` computes at its native size:
           - encoder: per-sample positional embedding and key-masked
-            attention (`CLIPViT.forward_padded`);
+            attention (`CLIPViT.forward_padded`; with tome_r, padding
+            merges first at zero weight);
           - the x2 upsample reads an edge-replicated grid, which reproduces
             the native program's clamped border taps;
           - decoder: the sine embedding normalised by the native extent, and
-            the memory's padding masked out of the cross-attention;
+            the memory's padding masked out of the cross-attention (with
+            decoder_pool, pooled by validity with a log(count) key bias);
           - text-space tokens: the full-map LayerNorm over the valid window.
         Returns the forward's outputs plus "valid" [b, h, w] int32 on the
         device and "native_grid" [b, 2], the upsampled native grids on the
@@ -214,8 +250,26 @@ class ZUTIS(nn.Module):
         pos = sine_pos_embed_dynamic(hp, wp, width // 2, native_grid,
                                      device=x.device).to(self.dtype)
         tgt, query_pos = self._queries(b)
-        queries = self.decoder(tgt, memory, pos=pos, query_pos=query_pos,
-                               memory_mask=valid)
+        if self.decoder_pool > 1:
+            # each pooled key averages the valid tokens of its p x p cell
+            # (cells follow the padded grid's origin) and carries a
+            # +log(count) bias, so a cell of c identical valid tokens draws
+            # c dense tokens' softmax mass; cells with no valid token are
+            # masked out
+            p = self._pool_factor(hp, wp, "bucket token grid")
+            v32 = valid.reshape(b, hp // p, p, wp // p, p).float()
+            count = v32.sum(dim=(2, 4))  # [b, hp / p, wp / p]
+            queries = self.decoder(
+                tgt, _cell_mean(memory, hp, wp, p, v32, count),
+                pos=_cell_mean(pos, hp, wp, p, v32, count),
+                query_pos=query_pos,
+                # int32 once, as the kernel reads it, for all six layers
+                memory_mask=(count > 0).reshape(b, -1).int(),
+                memory_bias=torch.log(torch.clamp(count, min=1.0)).reshape(
+                    b, 1, 1, -1))
+        else:
+            queries = self.decoder(tgt, memory, pos=pos, query_pos=query_pos,
+                                   memory_mask=valid)
         valid_grid = valid.reshape(b, hp, wp)
         out = self._heads(
             queries, memory, patch_tokens, hp, wp, inference,

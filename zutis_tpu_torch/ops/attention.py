@@ -7,10 +7,15 @@
   - "kernel": the flash-attention kernel (ops/flash_attention.py): the
               hand-written Hopper kernel for CUDA tensors, its plain version
               for CPU tensors.
-  - "auto":   "kernel" whenever no additive `bias` is given, on either
-              device; "torch" otherwise. The kernel takes key-validity masks
-              only, so a bias always takes the "torch" path rather than being
-              dropped.
+  - "auto":   the same as "kernel".
+
+The kernel takes key-validity masks and a bias a key: an additive `bias` of
+shape [b or 1, 1, 1, sk] (ToMe's log(size), the pooled decoder memory's
+log(count)) reaches it as `key_bias` [b, sk] in f32. Any other bias (the
+text tower's causal mask) takes the "torch" path rather than being dropped,
+and "torch" keeps the einsum path for every call. The JAX package sends
+every bias to XLA's einsum path (zutis_tpu/ops/attention.py:37-51); in f32
+the kernel computes the same function.
 """
 from __future__ import annotations
 
@@ -23,12 +28,30 @@ from zutis_tpu_torch.ops.flash_attention import flash_attention
 IMPLS = ("auto", "torch", "kernel")
 
 
-def resolve_impl(impl: str, bias) -> str:
+def resolve_impl(impl: str, bias, b: int = 0, sk: int = 0) -> str:
+    """"torch" or "kernel" for a call whose batch is b and keys sk: a bias
+    that is not per key takes "torch"."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r} not in {IMPLS}")
     if impl == "auto":
         impl = "kernel"
-    return "torch" if bias is not None else impl
+    if bias is not None and not is_key_bias(bias, b, sk):
+        return "torch"
+    return impl
+
+
+def is_key_bias(bias: torch.Tensor, b: int, sk: int) -> bool:
+    """Whether `bias` is a bias a key: [b or 1, 1, 1, sk]."""
+    return (bias.dim() == 4 and bias.shape[0] in (1, b)
+            and bias.shape[1:3] == (1, 1) and bias.shape[3] == sk)
+
+
+def key_bias_of(bias: Optional[torch.Tensor], b: int) -> Optional[torch.Tensor]:
+    """A per-key `bias` [b or 1, 1, 1, sk] as the kernel's contiguous f32
+    key_bias [b, sk]."""
+    if bias is None:
+        return None
+    return bias[:, 0, 0, :].float().expand(b, -1).contiguous()
 
 
 def softmax_weights(logits, scale, bias, kv_mask, compute_dtype) -> torch.Tensor:
@@ -69,8 +92,10 @@ def dot_product_attention(
     kv_mask: Optional[torch.Tensor] = None,  # [b, sk] valid-key mask
     impl: str = "auto",
 ) -> torch.Tensor:
-    if resolve_impl(impl, bias) == "kernel":
-        return flash_attention(q, k, v, kv_mask=kv_mask)
+    b, sk = q.shape[0], k.shape[2]
+    if resolve_impl(impl, bias, b, sk) == "kernel":
+        return flash_attention(q, k, v, kv_mask=kv_mask,
+                               key_bias=key_bias_of(bias, b))
     # logits stored in the compute dtype, statistics in f32
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float()
     w = softmax_weights(logits, q.shape[-1] ** -0.5, bias, kv_mask, q.dtype)
@@ -88,10 +113,11 @@ def dot_product_attention_bshd(
     """Attention over head-split projections in their [b, s, h, d] layout.
     The kernel reads and writes that layout in place through strides, so the
     transposes here are views. Returns [b, sq, h, d]."""
-    if resolve_impl(impl, bias) == "kernel":
+    b, sk = q.shape[0], k.shape[1]
+    if resolve_impl(impl, bias, b, sk) == "kernel":
         out = flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            kv_mask=kv_mask,
+            kv_mask=kv_mask, key_bias=key_bias_of(bias, b),
         )
         return out.transpose(1, 2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()

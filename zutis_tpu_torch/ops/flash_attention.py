@@ -2,10 +2,14 @@
 (csrc/flash_attention.cu) and their plain PyTorch version.
 
 The kernels replace the TPU kernel zutis_tpu/ops/flash_attention.py::
-_flash_kernel. They compute softmax(q k^T / sqrt(d), keys masked by
-`kv_mask`) v with f32 softmax statistics, keep the [sq, sk] logits on chip,
-and give an item whose mask has no valid key an all-zero output, as the JAX
-wrapper does after its kernel.
+_flash_kernel. They compute softmax(q k^T / sqrt(d) + key_bias, keys
+masked by `kv_mask`) v with f32 softmax statistics, keep the [sq, sk]
+logits on chip, and give an item whose mask has no valid key an all-zero
+output, as the JAX wrapper does after its kernel. `key_bias` [b, sk] is an
+additive bias a key (ToMe's log(size), the pooled memory's log(count)),
+which the JAX package sends to XLA's einsum attention: each kernel has a
+biased instantiation, chosen at compile time, and the unbiased ones are
+unchanged.
 
 Dispatch is by dtype; both kernels run on Hopper's TMA, mbarriers and
 wgmma. bf16, the serving path: one producer warp streams 64-key K and V
@@ -63,7 +67,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.zutis_flash_attention_fwd.restype = ctypes.c_int
     lib.zutis_flash_attention_fwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
@@ -71,7 +75,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.zutis_flash_occupancy.restype = ctypes.c_int
     lib.zutis_flash_occupancy.argtypes = (
-        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2)
 
 
 def flash_attention_reference(
@@ -79,25 +83,36 @@ def flash_attention_reference(
     k: torch.Tensor,
     v: torch.Tensor,
     kv_mask: Optional[torch.Tensor] = None,
+    key_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version: exact-softmax einsum attention with f32 logits and
-    statistics, masked keys at -1e30, P cast to v's dtype before P V, and
-    all-masked items zeroed (zutis_tpu/ops/flash_attention.py::_xla_reference
-    plus the wrapper's zeroing)."""
-    w = softmax_weights_f32(q, k, kv_mask)
+    statistics, the f32 `key_bias` [b, sk] added to the scaled logits,
+    masked keys at -1e30, P cast to v's dtype before P V, and all-masked
+    items zeroed (zutis_tpu/ops/flash_attention.py::_xla_reference plus the
+    wrapper's zeroing; with a bias, the f32 einsum path of
+    zutis_tpu/ops/attention.py)."""
+    w = softmax_weights_f32(q, k, kv_mask, key_bias)
     out = torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype), v)
     return _zero_all_masked(out, kv_mask).to(q.dtype)
 
 
-def softmax_weights_f32(q, k, kv_mask) -> torch.Tensor:
-    """W = softmax(q k^T / sqrt(d)) in f32, masked keys at -1e30
+def softmax_weights_f32(q, k, kv_mask, key_bias=None) -> torch.Tensor:
+    """W = softmax(q k^T / sqrt(d) + key_bias) in f32, masked keys at -1e30
     (zutis_tpu/ops/flash_attention.py::_xla_reference); an all-masked row
     is uniform."""
-    scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = _scaled_logits(q, k, key_bias)
     if kv_mask is not None:
         s = s.masked_fill(~(kv_mask > 0)[:, None, None, :], _NEG_INF)
     return torch.softmax(s, dim=-1)
+
+
+def _scaled_logits(q, k, key_bias) -> torch.Tensor:
+    """q k^T / sqrt(d) in f32, plus key_bias [b, sk] broadcast over heads
+    and queries."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
+    if key_bias is not None:
+        s = s + key_bias.float()[:, None, None, :]
+    return s
 
 
 def _zero_all_masked(out: torch.Tensor, kv_mask) -> torch.Tensor:
@@ -114,19 +129,20 @@ def flash_attention_split_reference(
     v: torch.Tensor,
     kv_mask: Optional[torch.Tensor] = None,
     n_splits: int = 1,
+    key_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of the f32 kernel's split path, in f32: the keys cut
     into `n_splits` ranges of `split_chunks` 64-key chunks (a range past the
     last chunk is empty), each range's unnormalised output O_s, row max m_s
     and sum l_s, then the combine
-    O = sum_s e^(m_s - M) O_s / max(sum_s e^(m_s - M) l_s, 1e-30), M the
+    O = sum_s e^(m_s - M) O_s / max(sum_s e^(m_s - M) l_s, 1e-30), the
+    logits taking `key_bias` before the ranges' maxima, M the
     largest m_s of the ranges with l_s > 0. A range with no valid key gets
     weight 0 (its m_s never enters an exponent); an item with no valid key
     comes out zero."""
     sk = k.shape[2]
     per = split_chunks(sk, n_splits) * KEY_CHUNK
-    scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = _scaled_logits(q, k, key_bias)
     if kv_mask is not None:
         s = s.masked_fill(~(kv_mask > 0)[:, None, None, :], float("-inf"))
     parts = []
@@ -177,23 +193,31 @@ def key_splits(b: int, h: int, sq: int, sk: int, d: int = 64) -> int:
     return -(-chunks // per)
 
 
-def smem_layout(d: int) -> dict:
+def _with_bias(layout: dict, slots: int) -> dict:
+    """`layout` with a ring of `slots` chunks' key biases (64 f32, already
+    times log2(e)) appended after its mbarriers."""
+    return dict(layout, bias=layout["total"],
+                total=layout["total"] + slots * KEY_CHUNK * 4)
+
+
+def smem_layout(d: int, bias: bool = False) -> dict:
     """Byte offsets into one bf16 block's dynamic shared memory, as the
     kernel lays it out (flash_layout in csrc/flash_attention.cu): the Q
     tile, STAGES K chunks, STAGES V chunks (each 64 rows of d bf16 columns,
     no padding), a 64-bit key-validity word per stage, then the mbarriers:
-    q_full and a full and an empty one per K and V stage. `total` is the
-    block's size."""
+    q_full and a full and an empty one per K and V stage. The biased kernel
+    appends 2 * STAGES chunks' key biases. `total` is the block's size."""
     chunk = KEY_CHUNK * d * 2
     k = chunk
     v = k + STAGES * chunk
     valid = v + STAGES * chunk
     bars = valid + STAGES * 8
-    return dict(q=0, k=k, v=v, valid=valid, bars=bars,
-                total=bars + (1 + 4 * STAGES) * 8)
+    layout = dict(q=0, k=k, v=v, valid=valid, bars=bars,
+                  total=bars + (1 + 4 * STAGES) * 8)
+    return _with_bias(layout, 2 * STAGES) if bias else layout
 
 
-def f32_smem_layout(d: int) -> dict:
+def f32_smem_layout(d: int, bias: bool = False) -> dict:
     """Byte offsets into one f32 block's dynamic shared memory (f32_layout
     in csrc/flash_attention.cu): a tile's f32 Q rows (a 64-row TMA box per
     consumer warpgroup: two at d 64, one at d 96), F32_STAGES f32 K chunks
@@ -202,7 +226,8 @@ def f32_smem_layout(d: int) -> dict:
     of d bf16 in the swizzled chunk layout), a 64-bit key-validity word per
     split stage, then the mbarriers: kf_full and vf_full per f32 stage,
     k_full, k_empty, v_full and v_empty per split stage, q_full and
-    q_empty."""
+    q_empty. The biased kernel appends 2 * SPLIT_STAGES chunks' key
+    biases."""
     f32_chunk = KEY_CHUNK * d * 4
     tile = KEY_CHUNK * d * 2
     kf = block_rows(2 * KEY_CHUNK, d) // KEY_CHUNK * f32_chunk
@@ -213,16 +238,17 @@ def f32_smem_layout(d: int) -> dict:
     vlo = vhi + SPLIT_STAGES * tile
     valid = vlo + SPLIT_STAGES * tile
     bars = valid + SPLIT_STAGES * 8
-    return dict(q=0, kf=kf, vf=vf, khi=khi, klo=klo, vhi=vhi, vlo=vlo,
-                valid=valid, bars=bars,
-                total=bars + (2 * F32_STAGES + 4 * SPLIT_STAGES + 2) * 8)
+    layout = dict(q=0, kf=kf, vf=vf, khi=khi, klo=klo, vhi=vhi, vlo=vlo,
+                  valid=valid, bars=bars,
+                  total=bars + (2 * F32_STAGES + 4 * SPLIT_STAGES + 2) * 8)
+    return _with_bias(layout, 2 * SPLIT_STAGES) if bias else layout
 
 
-def check_kernel_inputs(q, k, v, kv_mask) -> None:
+def check_kernel_inputs(q, k, v, kv_mask, key_bias=None) -> None:
     """Raise on anything the kernels do not take: dtype other than bf16 or
     f32, head dim outside HEAD_DIMS, no keys, mismatched shapes or devices,
-    a head dim that is not contiguous, or strides and addresses not 16-byte
-    aligned."""
+    a head dim that is not contiguous, strides and addresses not 16-byte
+    aligned, or a key_bias other than a contiguous f32 [b, sk]."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("the attention kernels take q, k, v of rank 4 [b, h, s, d]")
     b, h, sq, d = q.shape
@@ -258,20 +284,29 @@ def check_kernel_inputs(q, k, v, kv_mask) -> None:
             raise ValueError(
                 f"kv_mask must be [b, sk] = {(b, sk)} on {q.device}, got "
                 f"{tuple(kv_mask.shape)} on {kv_mask.device}")
+    if key_bias is not None:
+        if (key_bias.shape != (b, sk) or key_bias.device != q.device
+                or key_bias.dtype != torch.float32
+                or not key_bias.is_contiguous()):
+            raise ValueError(
+                f"key_bias must be a contiguous float32 [b, sk] = {(b, sk)} "
+                f"on {q.device}, got {key_bias.dtype} "
+                f"{tuple(key_bias.shape)} on {key_bias.device}")
 
 
 def occupancy(d: int, dtype: torch.dtype = torch.bfloat16,
-              block_q: Optional[int] = None) -> tuple[int, int]:
+              block_q: Optional[int] = None,
+              bias: bool = False) -> tuple[int, int]:
     """(dynamic shared memory bytes, blocks per SM) of the kernel of `dtype`
-    at this head dim, from the current card's occupancy calculator; block_q
-    is 64 for bf16 and for f32 at d 96, 64 or 128 (the default) for f32 at
-    d 64."""
+    at this head dim, biased or not, from the current card's occupancy
+    calculator; block_q is 64 for bf16 and for f32 at d 96, 64 or 128 (the
+    default) for f32 at d 64."""
     if block_q is None:
         block_q = (block_rows(2 * KEY_CHUNK, d) if dtype == torch.float32
                    else KEY_CHUNK)
     lib = _build.load(SOURCE, STEM, _bind)
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.zutis_flash_occupancy(_DTYPE_CODES[dtype], d, block_q,
+    err = lib.zutis_flash_occupancy(_DTYPE_CODES[dtype], d, block_q, int(bias),
                                     ctypes.byref(smem), ctypes.byref(blocks))
     _build.check_launch(lib, err, "flash occupancy")
     return smem.value, blocks.value
@@ -279,21 +314,26 @@ def occupancy(d: int, dtype: torch.dtype = torch.bfloat16,
 
 class FlashAttention(torch.autograd.Function):
     """The flash forward with the JAX package's recomputing backward
-    (`_flash_fwd` / `_flash_bwd`): the residuals are q, k, v and the mask;
-    the gradients come back in each input's dtype and shape, so strided
-    [b, s, h, d] views get theirs through the view."""
+    (`_flash_fwd` / `_flash_bwd`): the residuals are q, k, v, the mask and
+    the key bias; the gradients come back in each input's dtype and shape,
+    so strided [b, s, h, d] views get theirs through the view. The key
+    bias gets none: its callers' biases (ToMe's sizes, the pooled memory's
+    counts) depend on no parameter."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask):
-        ctx.save_for_backward(q, k, v, kv_mask)
-        return _flash_forward(q, k, v, kv_mask)
+    def forward(ctx, q, k, v, kv_mask, key_bias):
+        if key_bias is not None and key_bias.requires_grad:
+            raise ValueError("flash_attention gives key_bias no gradient; "
+                             "detach it or take the 'torch' attention path")
+        ctx.save_for_backward(q, k, v, kv_mask, key_bias)
+        return _flash_forward(q, k, v, kv_mask, key_bias=key_bias)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        q, k, v, kv_mask = ctx.saved_tensors
+        q, k, v, kv_mask, key_bias = ctx.saved_tensors
         scale = q.shape[-1] ** -0.5
-        w = softmax_weights_f32(q, k, kv_mask)
+        w = softmax_weights_f32(q, k, kv_mask, key_bias)
         g32 = g.float()
         dv = torch.einsum("bhqk,bhqd->bhkd", w, g32)
         dp = torch.einsum("bhqd,bhkd->bhqk", g32, v.float())
@@ -301,7 +341,7 @@ class FlashAttention(torch.autograd.Function):
         del w, dp
         dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
         dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
 def flash_attention(
@@ -309,30 +349,36 @@ def flash_attention(
     k: torch.Tensor,  # [b, h, sk, d]
     v: torch.Tensor,  # [b, h, sk, d]
     kv_mask: Optional[torch.Tensor] = None,  # [b, sk] bool/int, nonzero = valid
+    key_bias: Optional[torch.Tensor] = None,  # [b, sk] f32, additive
 ) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d), keys masked by kv_mask) v -> [b, h, sq, d].
+    """softmax(q k^T / sqrt(d) + key_bias[:, None, None, :], keys masked by
+    kv_mask) v -> [b, h, sq, d]. A masked key has zero weight whatever its
+    bias.
 
     Differentiable in q, k and v (`FlashAttention`). The kernel launch
     count is `flash_attention.launches` (one a call); of those the launches
-    given a mask are `flash_attention.masked_launches`, and the f32 calls
-    split by `key_splits`, each with a combine launch,
+    given a mask are `flash_attention.masked_launches`, those given a key
+    bias `flash_attention.biased_launches`, and the f32 calls split by
+    `key_splits`, each with a combine launch,
     `flash_attention.split_launches`."""
     if not (torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
-        return _flash_forward(q, k, v, kv_mask)
+        return _flash_forward(q, k, v, kv_mask, key_bias=key_bias)
     # items with no valid key: zero, and no gradient through them (the JAX
     # wrapper's zeroing, outside the custom VJP)
-    return _zero_all_masked(FlashAttention.apply(q, k, v, kv_mask), kv_mask)
+    return _zero_all_masked(FlashAttention.apply(q, k, v, kv_mask, key_bias),
+                            kv_mask)
 
 
-def _flash_forward(q, k, v, kv_mask, n_splits=None) -> torch.Tensor:
+def _flash_forward(q, k, v, kv_mask, n_splits=None,
+                   key_bias=None) -> torch.Tensor:
     """The forward: the plain version on the CPU, a kernel on a card. An
     f32 call takes `key_splits` key ranges unless `n_splits` says how many."""
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, kv_mask)
+        return flash_attention_reference(q, k, v, kv_mask, key_bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA, not {q.device}")
-    check_kernel_inputs(q, k, v, kv_mask)
+    check_kernel_inputs(q, k, v, kv_mask, key_bias)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     # same memory layout as q: a transposed [b, s, h, d] view stays one
@@ -364,7 +410,8 @@ def _flash_forward(q, k, v, kv_mask, n_splits=None) -> torch.Tensor:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.zutis_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), o.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            None if key_bias is None else key_bias.data_ptr(), o.data_ptr(),
             _DTYPE_CODES[q.dtype], b, h, sq, sk, d, strides, d ** -0.5,
             splits, None if o_part is None else o_part.data_ptr(),
             None if ml is None else ml.data_ptr(), stream,
@@ -372,10 +419,12 @@ def _flash_forward(q, k, v, kv_mask, n_splits=None) -> torch.Tensor:
     _build.check_launch(lib, err, "flash attention")
     flash_attention.launches += 1
     flash_attention.masked_launches += mask is not None
+    flash_attention.biased_launches += key_bias is not None
     flash_attention.split_launches += splits > 1
     return o
 
 
 flash_attention.launches = 0
 flash_attention.masked_launches = 0  # the launches given a kv_mask
+flash_attention.biased_launches = 0  # the launches given a key_bias
 flash_attention.split_launches = 0   # the f32 launches split, with a combine

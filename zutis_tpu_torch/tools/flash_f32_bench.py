@@ -17,9 +17,10 @@ checkout compile to the same SASS.
 
 Times are device ms per call: 20 calls captured in a CUDA graph, the median
 of 21 replays, on [b, s, h, d] views as the models pass them; each run also
-times the bf16 kernel at the serving encoder shape, a control for the
-card's speed, beside nvidia-smi's SM clock and power. Prints one JSON line
-per measurement. Needs a card, nvcc and cuobjdump.
+times the bf16 kernel at the serving shapes (BF16_SHAPES: the encoder's, a
+control for the card's speed, and the decoder's at d 96), beside
+nvidia-smi's SM clock and power. Prints one JSON line per measurement.
+Needs a card, nvcc and cuobjdump.
 """
 from __future__ import annotations
 
@@ -44,7 +45,13 @@ SHAPES = {
     "selfmask decoder self": (1, 6, 20, 20, 64),
     "bank encoder self": (32, 16, 577, 577, 64),
 }
-CONTROL = (8, 12, 577, 577, 64)  # bf16, the serving encoder shape
+# bf16 calls timed beside them: the serving encoder shape (a control for
+# the card's speed) and the serving decoder's d 96 shapes
+BF16_SHAPES = {
+    "control bf16": (8, 12, 577, 577, 64),
+    "decoder self bf16": (8, 8, 100, 100, 96),
+    "decoder cross bf16": (8, 8, 100, 2304, 96),
+}
 # name -> [(text in csrc/flash_attention.cu, its replacement)]. The
 # ablations take a part out and compute a wrong result on purpose: their
 # time says what the part costs, nothing else. `rings3` is an alternative
@@ -56,8 +63,8 @@ ABLATIONS = {
          "    for (int pass = 0; pass < 0; ++pass) {")],
     # p = the raw logits, O never rescaled
     "no_softmax": [
-        ("chunk_softmax(s, bits_j, p.scale_log2, m, l, alpha);",
-         "alpha[0] = alpha[1] = 1.f;")],
+        (f"chunk_softmax<kBias>(s, bits_j, p.scale_log2, m, l, alpha, bias({c}));",
+         "alpha[0] = alpha[1] = 1.f;") for c in ("c0", "j")],
     # one bf16 product for each f32 one (hi * hi), in both products
     "one_product": [
         ("    hopper::WgmmaRS<kChunkRows>::template mma<0>(s, qh[ks], dl, 1);\n"
@@ -106,9 +113,9 @@ def flash_inputs(gen, shape, dtype):
             .transpose(1, 2) for s in (sq, sk, sk)]
 
 
-def time_shapes(shapes, control):
-    """{name: device ms} of flash_attention at each f32 shape and the bf16
-    control, and nvidia-smi's SM clock, power draw and limit."""
+def time_shapes(shapes, bf16_shapes):
+    """{name: device ms} of flash_attention at each f32 shape and each bf16
+    one, and nvidia-smi's SM clock, power draw and limit."""
     import subprocess
 
     import torch
@@ -120,8 +127,9 @@ def time_shapes(shapes, control):
     for name, shape in shapes.items():
         q, k, v = flash_inputs(gen, shape, torch.float32)
         out[name] = device_ms(lambda: fa.flash_attention(q, k, v))
-    qb, kb, vb = flash_inputs(gen, control, torch.bfloat16)
-    out["control bf16"] = device_ms(lambda: fa.flash_attention(qb, kb, vb))
+    for name, shape in bf16_shapes.items():
+        q, k, v = flash_inputs(gen, shape, torch.bfloat16)
+        out[name] = device_ms(lambda: fa.flash_attention(q, k, v))
     out["nvidia-smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -131,7 +139,7 @@ def time_shapes(shapes, control):
 
 def timer_script() -> str:
     """time_shapes as a `python -c` script: run from a checkout's root, it
-    imports that checkout's package; argv holds the shapes and control."""
+    imports that checkout's package; argv holds the f32 and bf16 shapes."""
     return "\n\n".join(
         ["import json, sys",
          *(inspect.getsource(f) for f in (device_ms, flash_inputs,
@@ -148,7 +156,7 @@ def time_checkout(root: Path) -> dict:
     """time_shapes in a process of its own, run from `root`."""
     proc = subprocess.run(
         [sys.executable, "-c", timer_script(), json.dumps(SHAPES),
-         json.dumps(CONTROL)],
+         json.dumps(BF16_SHAPES)],
         cwd=root, capture_output=True, text=True, timeout=1200)
     if proc.returncode != 0:
         raise RuntimeError(f"timing {root} failed:\n{proc.stderr[-3000:]}")
@@ -207,7 +215,7 @@ def run_ablations(names: Sequence[str], rounds: int) -> None:
             with mock.patch.object(_build, "load",
                                    lambda *a, _lib=libs[name]: _lib):
                 _emit({"ablation": name, "round": r,
-                       "ms": time_shapes(SHAPES, CONTROL)})
+                       "ms": time_shapes(SHAPES, BF16_SHAPES)})
 
 
 # the anonymous namespace's name in a mangled symbol, which differs between

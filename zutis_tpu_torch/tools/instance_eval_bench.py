@@ -1,8 +1,9 @@
 """Throughput of the bucketed instance eval (the port of
-tools/instance_eval_bench.py, without its --decoder_pool and --tome_r).
+tools/instance_eval_bench.py).
 
     python -m zutis_tpu_torch.tools.instance_eval_bench [--batch 32]
         [--path counts|packed|dense] [--iters 12] [--depth 1] [--device cuda]
+        [--tome_r 0] [--decoder_pool 1]
 
 ZUTIS ViT-B/16 (seeded random weights, bf16 matrices), 81 unit-norm random
 text embeddings, one batch of images at the JAX bench's native sizes
@@ -16,8 +17,11 @@ list on the host:
 --depth > 1 keeps that many batches in flight (batched_eval.pipelined), so
 that the host assembles batch N while the device runs N + 1. Prints one
 JSON record: the best of three windows of --iters batches, in img/s, with
-the device it ran on. `run` takes a smaller model and bucket, which is how
-the CPU test drives it.
+the device it ran on. --tome_r and --decoder_pool set the opt-in levers
+(the JAX tool's lever values are --tome_r 90 --decoder_pool 2: the bucket's
+1281 tokens end at 201 after 12 blocks, and the decoder's cross-attention
+reads 1280 pooled keys for 5120). `run` takes a smaller model and bucket,
+which is how the CPU test drives it.
 """
 from __future__ import annotations
 
@@ -49,10 +53,12 @@ N_CATEGORIES = 81  # COCO's width
 PATHS = ("counts", "packed", "dense")
 
 
-def build_model(cfg: dict, device, dtype=torch.bfloat16) -> ZUTIS:
-    """Seeded random ZUTIS on `device`; matrices in `dtype` and 1-D
-    parameters in f32, as the JAX bench casts its weights."""
-    model = ZUTIS(**cfg, dtype=dtype, device=device)
+def build_model(cfg: dict, device, dtype=torch.bfloat16, tome_r: int = 0,
+                decoder_pool: int = 1) -> ZUTIS:
+    """Seeded random ZUTIS on `device` with the given levers; matrices in
+    `dtype` and 1-D parameters in f32, as the JAX bench casts its weights."""
+    model = ZUTIS(**cfg, dtype=dtype, tome_r=tome_r,
+                  decoder_pool=decoder_pool, device=device)
     model.init_params(torch.Generator().manual_seed(0))
     with torch.no_grad():
         for p in model.parameters():
@@ -75,13 +81,16 @@ def text_embeddings(n: int, dim: int, seed: int = 0) -> np.ndarray:
 def run(batch: int = 32, path: str = "counts", iters: int = 12,
         depth: int = 1, device="cuda", cfg: dict = VIT_B16, shape=SHAPE,
         n_categories: int = N_CATEGORIES, windows: int = 3,
-        model: Optional[ZUTIS] = None, threshold: float = 0.5) -> dict:
-    """Time the bucketed instance eval; prints and returns the record."""
+        model: Optional[ZUTIS] = None, threshold: float = 0.5,
+        tome_r: int = 0, decoder_pool: int = 1) -> dict:
+    """Time the bucketed instance eval; prints and returns the record. The
+    levers build the model unless `model` is given."""
     if path not in PATHS:
         raise ValueError(f"path {path!r} not in {PATHS}")
     device = resolve_device(device)
     if model is None:
-        model = build_model(cfg, device)
+        model = build_model(cfg, device, tome_r=tome_r,
+                            decoder_pool=decoder_pool)
     text = text_embeddings(n_categories, model.encoder.proj.shape[1])
     step = BE.make_instance_step(model, text, shape, threshold=threshold,
                                  semantic_mode="none", device=device)
@@ -150,6 +159,8 @@ def run(batch: int = 32, path: str = "counts", iters: int = 12,
         "bucket": list(shape),
         "path": path,
         "depth": depth,
+        "tome_r": model.tome_r,
+        "decoder_pool": model.decoder_pool,
         "n_preds_per_batch": n_preds,
         "n_cap_fallbacks": n_fallbacks,
         "device": (torch.cuda.get_device_name(device)
@@ -168,8 +179,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="batches in flight: > 1 overlaps the host's COCO "
                          "assembly of batch N with the device's batch N + 1")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--tome_r", type=int, default=0,
+                    help="opt-in token merging: up to r tokens a block, "
+                         "padding first at zero weight (ops/tome.py)")
+    ap.add_argument("--decoder_pool", type=int, default=1,
+                    help="opt-in decoder-memory pooling: the cross-attention "
+                         "reads p x p cells, validity-weighted with a "
+                         "log(count) key bias")
     args = ap.parse_args(argv)
-    run(args.batch, args.path, args.iters, args.depth, args.device)
+    run(args.batch, args.path, args.iters, args.depth, args.device,
+        tome_r=args.tome_r, decoder_pool=args.decoder_pool)
 
 
 if __name__ == "__main__":

@@ -57,14 +57,14 @@ TOL_BF16 = 2e-2  # bf16 outputs (8-bit mantissa) against an f32 softmax
 TIMED_CALLS = 20
 
 
-def bound(b, h, sq, sk, d, itemsize=2, valid_keys=None):
+def bound(b, h, sq, sk, d, itemsize=2, valid_keys=None, extra_bytes=0):
     """(least ms on an H100, "bytes" or "operations") for one attention
-    call: each of q, k, v read once and o written once, against
-    4*h*sq*d operations per valid key at the bf16 tensor-core peak;
-    `valid_keys` is the count of unmasked keys summed over the batch (all
-    b * sk without a mask)."""
+    call: each of q, k, v read once and o written once (and `extra_bytes`
+    more, such as a key bias), against 4*h*sq*d operations per valid key
+    at the bf16 tensor-core peak; `valid_keys` is the count of unmasked
+    keys summed over the batch (all b * sk without a mask)."""
     flops = 4 * h * sq * d * (b * sk if valid_keys is None else valid_keys)
-    nbytes = itemsize * (2 * b * h * sq * d + 2 * b * h * sk * d)
+    nbytes = itemsize * (2 * b * h * sq * d + 2 * b * h * sk * d) + extra_bytes
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
