@@ -176,10 +176,34 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
      launches a padded forward), img/s at depth 1; a training step at
      (16, 2) (24 flash launches, 12 biased, one matcher launch) and the f32
      step on both paths on the same merges, ReLU gates and matching.
+ 13. The ResNet encoders and the DINO arm (`phase_encoders`, run after
+     phase 12): flash's head-dim-256 instantiation against its plain
+     version at the RN50 decoder's shapes ([8,8,100,100,256] and
+     [8,8,100,576,256], also as strided views, and a ragged 577-key call
+     under a kv_mask with an all-masked item), the families' new
+     attention shapes (RN50 attnpool [8,32,577,577,64], the d 256 decoder,
+     the DINO cross [8,8,100,2304,64]) timed beside the plain version,
+     SDPA and the bound; for RN50 and the DINO arm (ViT-B/16 text dim) at
+     full width: the encoder written as a synthetic checkpoint of its
+     family's published layout (OpenAI's RN50 archive in fp16 with
+     BatchNorm's num_batches_tracked; DINO's with the fused qkv) and loaded
+     back through load_clip_visual / load_dino_encoder, bit for bit;
+     InferenceServer at 384 px, batch 8, 16 requests plus one synchronous
+     infer (13 flash launches a batch forward, 12 at d 256, for RN50; 24
+     for DINO), the semantic map against an f32 "torch"-path forward
+     (>= 98.5%), the decode against a CPU rerun, img/s, device busy and
+     flash's share; Trainer.evaluate in batches of one exact shape against
+     per image (the scores' difference, one batch's maps against its
+     images' own forwards at >= 98.5%: cuDNN may choose other convolution
+     algorithms by batch size); training steps at bench.py:174-201's
+     configuration (finite losses that end below the first, the frozen
+     BatchNorm statistics bit-unchanged and its affine moved, step ms,
+     peak memory); dilatedRN50's batch forward (attnpool over 1 + 12 x 12
+     tokens, the cross over 144 keys, 13 launches).
 
 Prints the kernel record (flash's launches on the main paths, its eval,
-retrieval, SelfMask and lever shapes, the matcher's) and the card on lines
-of their own,
+retrieval, SelfMask, lever and encoder shapes, its head-dim-256
+instantiation apart, the matcher's) and the card on lines of their own,
 then, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
 no result line, on any failure or without a card.
 """
@@ -222,7 +246,9 @@ from zutis_tpu_torch.engine.train_step import (TrainState, make_train_step,
 from zutis_tpu_torch.engine.trainer import Trainer
 from zutis_tpu_torch.losses import criterion as crit
 from zutis_tpu_torch.models import vit as vit_module
+from zutis_tpu_torch.models import factory
 from zutis_tpu_torch.models.layers import MultiHeadAttention
+from zutis_tpu_torch.models.resnet import AttentionPool2d
 from zutis_tpu_torch.models.zutis import ZUTIS
 from zutis_tpu_torch.native import image as native_image
 from zutis_tpu_torch.native import labels as native_labels
@@ -348,6 +374,7 @@ def zero_counts() -> None:
     fa.flash_attention.masked_launches = 0
     fa.flash_attention.biased_launches = 0
     fa.flash_attention.split_launches = 0
+    fa.flash_attention.wide_launches = 0
 
 
 def read_counts() -> tuple:
@@ -583,6 +610,58 @@ def flash_occupancy() -> dict:
     return occ
 
 
+def check_flash_case(gen, name, shape, masked, dtype, strided) -> float:
+    """One flash launch at `shape` [b, h, sq, sk, d] against its plain
+    version (bf16 within TOL_FLASH_BF16 of the largest |output|, f32 within
+    TOL_F32): with `masked` a kv_mask whose item 1 has no valid key (its
+    output must be exactly zero), with `strided` [b, s, h, d] views; an f32
+    call split into key ranges also against the same call on one range.
+    Returns the largest absolute error."""
+    b, h, sq, sk, d = shape
+    q, k, v = _inputs(gen, b, h, sq, sk, d, dtype, strided)
+    mask = None
+    if masked:
+        mask = (torch.rand(b, sk, generator=gen, device="cuda") > 0.3).int()
+        mask[1] = 0  # an item with no valid key
+    before = fa.flash_attention.launches
+    split_before = fa.flash_attention.split_launches
+    got = fa.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    check(fa.flash_attention.launches == before + 1, f"{name}: no launch")
+    splits = (fa.key_splits(b, h, sq, sk, d)
+              if dtype == torch.float32 else 1)
+    check(fa.flash_attention.split_launches == split_before
+          + (splits > 1), f"{name}: {splits} key ranges, split count "
+          f"{fa.flash_attention.split_launches - split_before}")
+    check(got.stride() == q.stride(), f"{name}: output not in q's layout")
+    want = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask)
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    err = (got.float() - want).abs().max().item()
+    rel = err / max(want.abs().max().item(), 1e-30)
+    if dtype == torch.bfloat16:
+        tol, ok = f"{TOL_FLASH_BF16} rel", rel <= TOL_FLASH_BF16
+    else:
+        tol, ok = f"{TOL_F32} abs", err <= TOL_F32
+    print(f"kernel check {name} {[b, h, sq, sk, d]} {str(dtype)[6:]}: "
+          f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol {tol}), "
+          f"{splits} key range(s)", flush=True)
+    check(ok, f"{name}: kernel disagrees with its plain version")
+    if masked:
+        check(bool((got[1] == 0).all()), f"{name}: all-masked item not zero")
+    if splits > 1:  # the same call on one key range
+        whole = fa._flash_forward(q, k, v, mask, 1)
+        torch.cuda.synchronize()
+        apart = (whole - got).abs().max().item()
+        print(f"kernel check {name}: {splits} key ranges against one: "
+              f"max_abs_diff {apart:.3e} (tol {TOL_F32} abs)", flush=True)
+        check(apart <= TOL_F32, f"{name}: split and unsplit launches "
+              "disagree")
+        if masked:
+            check(bool((whole[1] == 0).all()),
+                  f"{name}: all-masked item not zero unsplit")
+    return err
+
+
 def phase_kernel():
     """Kernels against their plain version; per-shape times and bounds."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -609,49 +688,8 @@ def phase_kernel():
                torch.float32, True),
               ("keys past the edge f32", (2, 4, 100, 65, 96), None,
                torch.float32, True)]
-    for name, (b, h, sq, sk, d), masked, dtype, strided in cases:
-        q, k, v = _inputs(gen, b, h, sq, sk, d, dtype, strided)
-        mask = None
-        if masked:
-            mask = (torch.rand(b, sk, generator=gen, device="cuda") > 0.3).int()
-            mask[1] = 0  # an item with no valid key
-        before = fa.flash_attention.launches
-        split_before = fa.flash_attention.split_launches
-        got = fa.flash_attention(q, k, v, mask)
-        torch.cuda.synchronize()
-        check(fa.flash_attention.launches == before + 1, f"{name}: no launch")
-        splits = (fa.key_splits(b, h, sq, sk, d)
-                  if dtype == torch.float32 else 1)
-        check(fa.flash_attention.split_launches == split_before
-              + (splits > 1), f"{name}: {splits} key ranges, split count "
-              f"{fa.flash_attention.split_launches - split_before}")
-        check(got.stride() == q.stride(), f"{name}: output not in q's layout")
-        want = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask)
-        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        err = (got.float() - want).abs().max().item()
-        rel = err / max(want.abs().max().item(), 1e-30)
-        if dtype == torch.bfloat16:
-            tol, ok = f"{TOL_FLASH_BF16} rel", rel <= TOL_FLASH_BF16
-        else:
-            tol, ok = f"{TOL_F32} abs", err <= TOL_F32
-        print(f"kernel check {name} {[b, h, sq, sk, d]} {str(dtype)[6:]}: "
-              f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol {tol}), "
-              f"{splits} key range(s)", flush=True)
-        check(ok, f"{name}: kernel disagrees with its plain version")
-        if masked:
-            check(bool((got[1] == 0).all()), f"{name}: all-masked item not zero")
-        max_err = max(max_err, err)
-        if splits > 1:  # the same call on one key range
-            whole = fa._flash_forward(q, k, v, mask, 1)
-            torch.cuda.synchronize()
-            apart = (whole - got).abs().max().item()
-            print(f"kernel check {name}: {splits} key ranges against one: "
-                  f"max_abs_diff {apart:.3e} (tol {TOL_F32} abs)", flush=True)
-            check(apart <= TOL_F32, f"{name}: split and unsplit launches "
-                  "disagree")
-            if masked:
-                check(bool((whole[1] == 0).all()),
-                      f"{name}: all-masked item not zero unsplit")
+    for case in cases:
+        max_err = max(max_err, check_flash_case(gen, *case))
 
     occupancy = flash_occupancy()
     rows = []
@@ -908,33 +946,40 @@ def profile_device(fn, device: torch.device, top: int = 12, grad: bool = False):
 
 def set_attn_impl(model: torch.nn.Module, impl: str) -> None:
     for m in model.modules():
-        if isinstance(m, MultiHeadAttention):
+        if isinstance(m, (MultiHeadAttention, AttentionPool2d)):
             m.attn_impl = impl
 
 
 def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
                   n_categories: int = N_CATEGORIES, n_requests: int = 20,
-                  device="cuda") -> dict:
+                  device="cuda", launches_per_forward: int = LAUNCHES_PER_FORWARD,
+                  wide_per_forward: int = 0, model=None) -> dict:
+    """InferenceServer at full width: `cfg` is ZUTIS's keyword arguments
+    (the model is `build_model`'s seeded one unless given); each batch
+    forward must launch flash `launches_per_forward` times, of them
+    `wide_per_forward` at head dim 256."""
     device = torch.device(device)
     rng = np.random.RandomState(0)
-    model = build_model(cfg, device)
+    if model is None:
+        model = build_model(cfg, device)
     text = rng.randn(n_categories, cfg["text_dim"]).astype(np.float32)
     text /= np.linalg.norm(text, axis=1, keepdims=True)
     images = [rng.randn(3, image_size, image_size).astype(np.float32)
               for _ in range(n_requests)]
-    grid = image_size // cfg["patch_size"] * 2
     x = torch.from_numpy(np.stack(images[:BATCH])).to(device)
 
     # a threshold at which a tenth of the random model's proposal pixels
     # binarise, so that the instance decode has masks to work on
     with torch.inference_mode():
         out_k = model(x, inference=True)
+    grid = out_k["patch_tokens"].shape[1]  # square images: a square grid
     proposals = out_k["mask_proposals"][:, -1]
     threshold = float(torch.quantile(proposals.flatten()[::7].float(), 0.9))
     print(f"serving: threshold {threshold:.6f}", flush=True)
 
     for w in (fa.flash_attention, *(w for w, _, _ in PROBES.values())):
         w.launches = 0
+    fa.flash_attention.wide_launches = 0
     server = InferenceServer(model, text, image_size=image_size,
                              batch_size=BATCH, threshold=threshold,
                              max_wait_ms=50, device=device)
@@ -944,6 +989,7 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     server.stop()
     sync = server.infer(images[:BATCH])
     launches = fa.flash_attention.launches
+    wide_launches = fa.flash_attention.wide_launches
     probe_launches = sum(w.launches for w, _, _ in PROBES.values())
     batches = server.batches
     print(f"serving: {len(results)} async + {len(sync)} sync requests in "
@@ -968,9 +1014,12 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     print(f"serving: {n_inst} instances returned", flush=True)
     check(probe_launches == 0, "serving launched a probe kernel")
     if device.type == "cuda":
-        check(launches == LAUNCHES_PER_FORWARD * batches,
+        check(launches == launches_per_forward * batches,
               f"{launches} kernel launches for {batches} batch forwards, "
-              f"expected {LAUNCHES_PER_FORWARD} each")
+              f"expected {launches_per_forward} each")
+        check(wide_launches == wide_per_forward * batches,
+              f"{wide_launches} launches at head dim 256 for {batches} batch "
+              f"forwards, expected {wide_per_forward} each")
 
     # the kernel path against the "torch" attention path on one batch, and
     # both against an f32 forward of the same (bf16-rounded) weights with
@@ -993,16 +1042,28 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     agree = (sem_k == sem_t).float().mean().item()
     agree_kf = (sem_k == sem_f).float().mean().item()
     agree_tf = (sem_t == sem_f).float().mean().item()
+    diffs = {}
     for name, a, b in (("kernel vs torch attention", out_k, out_t),
                        ("kernel vs f32", out_k, out_f),
                        ("torch attention vs f32", out_t, out_f)):
-        d_tok = (a["patch_tokens"] - b["patch_tokens"]).abs().max().item()
-        d_prop = (a["mask_proposals"] - b["mask_proposals"]).abs().max().item()
-        print(f"{name}: patch_tokens max diff {d_tok:.3e}, mask_proposals "
-              f"max diff {d_prop:.3e}", flush=True)
+        diffs[name] = [(a[key] - b[key]).abs().max().item()
+                       for key in ("patch_tokens", "mask_proposals")]
+        print(f"{name}: patch_tokens max diff {diffs[name][0]:.3e}, "
+              f"mask_proposals max diff {diffs[name][1]:.3e}", flush=True)
+    n_classes = int(sem_k.unique().numel())
     print(f"semantic agreement: kernel vs torch attention {agree:.4%}, kernel "
-          f"vs f32 {agree_kf:.4%}, torch attention vs f32 {agree_tf:.4%}",
-          flush=True)
+          f"vs f32 {agree_kf:.4%}, torch attention vs f32 {agree_tf:.4%} "
+          f"({n_classes} classes in the kernel path's maps)", flush=True)
+    # Where random weights leave one class on every pixel (the RN50's
+    # attnpool averages nearly all tokens alike), agreement says little:
+    # both outputs are held to the f32 forward too, no further from it
+    # than the "torch" path is, with half again for bf16 rounding; a
+    # skipped chunk or a masked key given weight moves them far more.
+    for i, key in enumerate(("patch_tokens", "mask_proposals")):
+        check(diffs["kernel vs f32"][i]
+              <= 1.5 * diffs["torch attention vs f32"][i],
+              f"kernel path's {key} further from the f32 forward than the "
+              "torch path's")
     # Random weights and 919 random text embeddings leave many pixels with a
     # near-tied argmax, and each bf16 path moves about 1% of them away from
     # the f32 forward, independently, so the two bf16 paths can agree with
@@ -1045,12 +1106,20 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
         fwd_torch_ms = host_ms(lambda: model(x, inference=True), device)
         set_attn_impl(model, "auto")
     per_batch = infer_ms / 2
-    busy_ms, kernels, _ = profile_device(lambda: server.step(x), device)
+    busy_ms, kernels, by_name = profile_device(lambda: server.step(x), device)
+    flash_ms = sum(ms for k, (ms, _) in by_name.items() if "flash" in k)
     stats = dict(img_per_s=len(rate_images) / (infer_ms / 1e3),
                  ms_per_batch=per_batch, forward_ms=fwd_ms, step_ms=step_ms,
                  forward_torch_attention_ms=fwd_torch_ms, launches=launches,
+                 wide_launches=wide_launches,
                  batches=batches, instances=n_inst, step_device_busy_ms=busy_ms,
-                 step_top_kernels=kernels)
+                 step_flash_ms=flash_ms if busy_ms else None,
+                 step_flash_share=flash_ms / busy_ms if busy_ms else None,
+                 step_top_kernels=kernels,
+                 semantic_agreement_with_f32=agree_kf,
+                 semantic_classes=n_classes,
+                 max_diff_with_f32=dict(zip(("patch_tokens", "mask_proposals"),
+                                            diffs["kernel vs f32"])))
     print(f"serving rate: {stats['img_per_s']:.2f} img/s sync infer, "
           f"{per_batch:.3f} ms per batch of {BATCH} (forward {fwd_ms:.3f} ms,"
           f" step with decode {step_ms:.3f} ms, forward with torch attention "
@@ -3480,7 +3549,6 @@ def phase_retrieval(root: Path, device="cuda", text_tower=None,
     rehearsal on the CPU, where the card's checks and times are left
     out."""
     from zutis_tpu_torch.data.category_lists import COCO81_CATEGORIES
-    from zutis_tpu_torch.models import factory
     from zutis_tpu_torch.models.vit import CLIPViT
     from zutis_tpu_torch.retrieval import image_embeddings as IE
     from zutis_tpu_torch.retrieval import text_embeddings as TE
@@ -3905,6 +3973,340 @@ def phase_pseudo_masks(root: Path, retrieval: dict, device="cuda",
     return out
 
 
+# ------------------------------------------------------------------ phase 13
+# the ResNet encoders and the DINO arm (ZUTIS's `encoder_family` "rn" and
+# "dino"): label -> (clip_arch, encoder_type, flash launches a batch
+# forward, of them at head dim 256). RN50: attnpool over 1 + 24 x 24 tokens
+# at d 64, then 6 decoder self- and 6 cross-attentions at d 256 (2048
+# channels over 8 heads); DINO ViT-B/16: 12 encoder blocks at d 64, then
+# the decoder at the ViT-B/16 text dim 512 (d 64)
+ENCODER_ARCHS = {
+    "RN50": ("RN50", "clip", 13, 12),
+    "DINO": ("ViT-B/16", "dino", 24, 0),
+}
+DILATED_ARCH = ("dilatedRN50", 13, 12)  # no x2 upsample: 12 x 12 tokens
+# the d 256 kernel at the RN50 decoder's shapes: (name, shape, mask,
+# dtype, strided)
+ENCODER_FLASH_CASES = [
+    ("RN50 decoder self d256", (BATCH, 8, 100, 100, 256), None,
+     torch.bfloat16, False),
+    ("RN50 decoder cross d256", (BATCH, 8, 100, 576, 256), None,
+     torch.bfloat16, False),
+    ("RN50 decoder self d256 strided", (BATCH, 8, 100, 100, 256), None,
+     torch.bfloat16, True),
+    ("RN50 decoder cross d256 strided", (BATCH, 8, 100, 576, 256), None,
+     torch.bfloat16, True),
+    # a ragged last chunk (577 keys) under a mask with an all-masked item
+    ("d256 ragged kv_mask", (BATCH, 8, 100, 577, 256), "mask",
+     torch.bfloat16, True),
+]
+# the encoder paths' new attention shapes, timed: (name, shape, dtype,
+# launches a batch forward)
+ENCODER_FLASH_SHAPES = [
+    ("RN50 attnpool", (BATCH, 32, 577, 577, 64), torch.bfloat16, 1),
+    ("RN50 decoder self", (BATCH, 8, 100, 100, 256), torch.bfloat16, 6),
+    ("RN50 decoder cross", (BATCH, 8, 100, 576, 256), torch.bfloat16, 6),
+    ("DINO decoder cross", (BATCH, 8, 100, 2304, 64), torch.bfloat16, 6),
+]
+ENCODER_REQUESTS = 16  # two batch forwards and one synchronous infer
+ENCODER_TRAIN_STEPS = 5  # after one warm-up
+ENCODER_EVAL_SIZES = [(384, 384)] * 4 + [(352, 480)] * 4
+ENCODER_EVAL_BATCH = 4
+ENCODER_EVAL_CATEGORIES = 81
+BN_STATS = ("running_mean", "running_var")
+
+
+class _SemanticVal:
+    """An in-memory semantic val set ("coca": no instances) of seeded
+    images and labels."""
+
+    def __init__(self, sizes, n_categories: int, seed: int = 0):
+        self.name, self.n_categories = "coca", n_categories
+        rng = np.random.RandomState(seed)
+        self.samples = [{"image": rng.randn(3, h, w).astype(np.float32),
+                         "semantic_mask": rng.randint(0, n_categories, (h, w))
+                         .astype(np.int32)} for h, w in sizes]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+
+def perturb_batchnorm(model: torch.nn.Module, seed: int) -> None:
+    """BatchNorm's statistics and affine drawn off the identity (a seeded
+    CPU generator), so that loading and freezing them show."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=gen) * 1.5 + 0.5)
+            elif name.endswith("running_mean"):
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+
+
+def synthetic_encoder_checkpoint(model: ZUTIS, path: Path) -> dict:
+    """The encoder's tensors in the layout of its family's published
+    checkpoint, written to `path`: OpenAI's RN archive (`visual.*` in fp16,
+    torch BatchNorm's `num_batches_tracked` beside each BatchNorm) or an
+    official DINO one (the fused `attn.qkv` / `attn.proj`, f32, and a
+    head). Returns the dict written."""
+    sd = {}
+    for k, v in model.encoder.state_dict().items():
+        if model.encoder_family == "rn":
+            sd[f"visual.{k}"] = v.detach().to("cpu", torch.float16)
+            if k.endswith("running_mean"):
+                sd[f"visual.{k[:-len('running_mean')]}num_batches_tracked"] = \
+                    torch.tensor(1000)
+        else:
+            k = (k.replace(".attn.in_proj_", ".attn.qkv.")
+                 .replace(".attn.out_proj.", ".attn.proj."))
+            sd[k] = v.detach().to("cpu", torch.float32)
+    if model.encoder_family == "dino":
+        sd["head.weight"] = torch.zeros(4, model.encoder.embed_dim)
+    torch.save(sd, path)
+    return sd
+
+
+def load_encoder_checkpoint(model: ZUTIS, path: Path, written: dict) -> int:
+    """Zero the encoder, load `path` through the family's loader
+    (`load_clip_visual`, `load_dino_encoder`) and check every tensor is the
+    file's; returns the tensors checked."""
+    with torch.no_grad():
+        for t in model.encoder.state_dict().values():
+            t.zero_()
+    if model.encoder_family == "rn":
+        factory.load_clip_visual(model, str(path))
+        want = {k[len("visual."):]: v for k, v in written.items()
+                if not k.endswith("num_batches_tracked")}
+    else:
+        factory.load_dino_encoder(model, str(path))
+        want = {(k.replace(".attn.qkv.", ".attn.in_proj_")
+                 .replace(".attn.proj.", ".attn.out_proj.")): v
+                for k, v in written.items() if not k.startswith("head.")}
+    got = model.encoder.state_dict()
+    check(sorted(got) == sorted(want), "the checkpoint's keys are not the "
+          "encoder's")
+    for k, v in want.items():
+        check(torch.equal(got[k].cpu(), v.to(got[k].dtype)),
+              f"{k} differs from the checkpoint after loading")
+    return len(want)
+
+
+def encoder_train(cfg: dict, image_size: int, n_categories: int,
+                  per_forward: int, device, steps: int = ENCODER_TRAIN_STEPS,
+                  n_max: int = TRAIN_N_MAX) -> dict:
+    """bench.py:174-201's training step on an encoder family: a warm-up
+    and `steps` more on one batch, each with `per_forward` flash launches
+    and one matcher launch; finite losses that fall; BatchNorm's statistics
+    bit-unchanged and its affine moved (RN)."""
+    on_card = device.type == "cuda"
+    text, host = train_batch(cfg, image_size, TRAIN_BATCH, n_max, TRAIN_VALID,
+                             n_categories)
+    data = upload_batch(host, device)
+    model = ZUTIS(**cfg, dtype=torch.bfloat16, device=device).init_params(
+        torch.Generator().manual_seed(0))
+    perturb_batchnorm(model, 3)
+    stats0 = {k: v.clone() for k, v in model.named_buffers()
+              if k.endswith(BN_STATS)}
+    affine0 = {k: p.detach().clone() for k, p in model.named_parameters()
+               if ".bn" in k or "downsample.1." in k}
+    state = TrainState.create(model, base_lr=TRAIN_LR, n_iters=TRAIN_ITERS)
+    step = make_train_step(model, text, n_categories,
+                           ignore_index=TRAIN_IGNORE, device=device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, ms, per_step, wide = [], [], [], 0
+    counted = counted_wrappers()
+    for _ in range(steps + 1):
+        zero_counts()
+        m, s = _seconds(lambda: step(state, data), device)
+        ms.append(s * 1e3)
+        losses.append(m["loss"].item())
+        per_step.append({n: w.launches for n, w in counted.items()})
+        wide += fa.flash_attention.wide_launches
+    check(all(np.isfinite(losses)), f"a training loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    if on_card:
+        for n in per_step:
+            check(n["flash_attention"] == per_forward and
+                  n["batched_hungarian"] == 1 and
+                  sum(n[p] for p in PROBES) == 0,
+                  f"a step's launches {n}, expected {per_forward} flash and "
+                  "one matcher")
+    for k, v in model.named_buffers():
+        if k in stats0:
+            check(torch.equal(v, stats0[k]), f"{k} moved in training")
+    moved = sum(not torch.equal(p.detach(), affine0[k])
+                for k, p in model.named_parameters() if k in affine0)
+    check(moved == len(affine0), f"{len(affine0) - moved} of BatchNorm's "
+          "weights and biases did not move")
+    out = dict(losses=losses, step_ms=statistics.median(ms[1:]),
+               launches=sum(n["flash_attention"] for n in per_step),
+               wide_launches=wide,
+               frozen_statistics=len(stats0), affine_moved=moved)
+    if on_card:
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    del state, step, model
+    return out
+
+
+def encoder_eval(model: ZUTIS, per_forward: int, device, sizes=ENCODER_EVAL_SIZES,
+                 batch: int = ENCODER_EVAL_BATCH,
+                 n_categories: int = ENCODER_EVAL_CATEGORIES) -> dict:
+    """Trainer.evaluate in batches of one exact shape against the per-image
+    regime: the scores, the launches, and on one batch the semantic maps
+    of the stacked forward against each image's own. cuDNN may pick other
+    convolution algorithms for a batch of 4 than for one image, so the two
+    regimes agree to bf16 rounding, not bit for bit: the maps are held to
+    MIN_SEMANTIC_AGREEMENT, the bar of the smoke's other bf16 paths."""
+    text = np.random.RandomState(5).randn(n_categories, model.text_dim)
+    text = (text / np.linalg.norm(text, axis=1, keepdims=True)).astype(
+        np.float32)
+    ds = _SemanticVal(sizes, n_categories)
+    trainer = Trainer(model, text, device=device)
+    scores, launches, wide = {}, {}, 0
+    for b in (batch, 1):
+        zero_counts()
+        scores[b] = trainer.evaluate(None, ds, batch_images=b)
+        launches[b] = fa.flash_attention.launches
+        wide += fa.flash_attention.wide_launches
+    if device.type == "cuda":
+        groups = sum(-(-sizes.count(s) // batch) for s in set(sizes))
+        for b, n in ((batch, groups), (1, len(sizes))):
+            check(launches[b] == per_forward * n, f"evaluate(batch_images="
+                  f"{b}): {launches[b]} flash launches, expected "
+                  f"{per_forward} x {n}")
+    # the first shape's images, stacked as the batched regime stacks them
+    x = torch.from_numpy(np.stack([s["image"] for s in ds.samples if s[
+        "image"].shape == ds.samples[0]["image"].shape][:batch]))
+    text_d = torch.from_numpy(text).to(device)
+    with torch.inference_mode():
+        stacked = model(x.to(device), inference=True)["patch_tokens"]
+        single = torch.cat([model(x[i:i + 1].to(device), inference=True)
+                            ["patch_tokens"] for i in range(len(x))])
+    agree = (torch.einsum("nc,bhwc->bnhw", text_d, stacked).argmax(1)
+             == torch.einsum("nc,bhwc->bnhw", text_d, single).argmax(1)
+             ).float().mean().item()
+    diff = (stacked - single).abs().max().item()
+    d_miou = abs(scores[batch]["Mean IoU"] - scores[1]["Mean IoU"])
+    d_acc = abs(scores[batch]["Pixel Acc"] - scores[1]["Pixel Acc"])
+    print(f"encoders: eval exact-batched ({batch} a batch) against per "
+          f"image: Mean IoU {scores[batch]['Mean IoU']:.6f} / "
+          f"{scores[1]['Mean IoU']:.6f} (diff {d_miou:.3e}), Pixel Acc diff "
+          f"{d_acc:.3e}; one batch's patch tokens max diff {diff:.3e}, "
+          f"semantic agreement {agree:.4%} (tol {MIN_SEMANTIC_AGREEMENT:.1%});"
+          f" img/s {scores[batch]['eval_images_per_sec']:.2f} / "
+          f"{scores[1]['eval_images_per_sec']:.2f}", flush=True)
+    check(agree >= MIN_SEMANTIC_AGREEMENT, "a batch's semantic map disagrees "
+          "with its images' own")
+    return dict(mean_iou={b: s["Mean IoU"] for b, s in scores.items()},
+                mean_iou_diff=d_miou, pixel_acc_diff=d_acc,
+                patch_tokens_max_diff=diff, semantic_agreement=agree,
+                img_per_s={b: s["eval_images_per_sec"]
+                           for b, s in scores.items()},
+                launches=sum(launches.values()), launches_by_batch=launches,
+                wide_launches=wide)
+
+
+def phase_encoders(device="cuda", archs=None, image_size: int = IMAGE_SIZE,
+                   n_categories: int = N_CATEGORIES, train_n_max: int = TRAIN_N_MAX,
+                   eval_sizes=ENCODER_EVAL_SIZES) -> dict:
+    """The RN and DINO families at full width (`ENCODER_ARCHS`; `archs`
+    maps a label to (ZUTIS keyword arguments, flash launches a forward, of
+    them at d 256) to run other sizes, as on the CPU): the d 256 flash
+    kernel against its plain version and the families' attention shapes
+    timed (on a card); each model's encoder through a synthetic checkpoint
+    of its family's published layout; InferenceServer with the launch
+    counts, the semantic map against an f32 "torch"-path forward and the
+    decode against a CPU rerun; dilatedRN50's forward; training steps; and
+    the Trainer's exact-shape batched evaluation against per image."""
+    t_phase = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if archs is None:
+        archs = {label: (factory.zutis_config(arch, enc), n, wide)
+                 for label, (arch, enc, n, wide) in ENCODER_ARCHS.items()}
+        d_arch, d_n, d_wide = DILATED_ARCH
+        archs["dilatedRN50"] = (factory.zutis_config(d_arch), d_n, d_wide)
+    out = dict(flash_rows=[], flash_max_abs_err=0.0)
+    if on_card:
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        for case in ENCODER_FLASH_CASES:
+            out["flash_max_abs_err"] = max(out["flash_max_abs_err"],
+                                           check_flash_case(gen, *case))
+        out["flash_rows"] = flash_rows(gen, ENCODER_FLASH_SHAPES, "encoders")
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    for label, (cfg, per_forward, wide) in archs.items():
+        t0 = time.perf_counter()
+        model = build_model(cfg, device)
+        res = {}
+        if not cfg.get("upsample_tokens", True):
+            # dilatedRN50: one batch forward, attnpool over 1 + 12 x 12
+            # tokens, the cross-attention over 144 keys
+            x = torch.from_numpy(np.random.RandomState(1).randn(
+                BATCH, 3, image_size, image_size).astype(np.float32)).to(device)
+            zero_counts()
+            with torch.inference_mode():
+                o = model(x, inference=True)
+            _sync(device)
+            grid = image_size // 32
+            check(tuple(o["patch_tokens"].shape[1:3]) == (grid, grid),
+                  f"{label}: a {tuple(o['patch_tokens'].shape)} token grid")
+            check(all(bool(torch.isfinite(v).all()) for v in o.values()),
+                  f"{label}: non-finite outputs")
+            res["launches"] = fa.flash_attention.launches
+            res["wide_launches"] = fa.flash_attention.wide_launches
+            if on_card:
+                check((res["launches"], res["wide_launches"]) == (
+                    per_forward, wide), f"{label}: {res['launches']} flash "
+                    f"launches ({res['wide_launches']} at d 256) a forward")
+        else:
+            if cfg["encoder_family"] == "rn":
+                perturb_batchnorm(model, 2)
+            with tempfile.TemporaryDirectory(dir=build) as tmp:
+                path = Path(tmp) / ("RN50.pt" if cfg["encoder_family"] == "rn"
+                                    else "dino_vitbase16_pretrain.pth")
+                written = synthetic_encoder_checkpoint(model, path)
+                res["checkpoint_tensors"] = load_encoder_checkpoint(
+                    model, path, written)
+                res["checkpoint_bytes"] = path.stat().st_size
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            res["serving"] = phase_serving(
+                cfg, image_size, n_categories, ENCODER_REQUESTS, device,
+                launches_per_forward=per_forward, wide_per_forward=wide,
+                model=model)
+            if on_card:
+                res["serving"]["peak_memory_gib"] = (
+                    torch.cuda.max_memory_allocated(device) / 2 ** 30)
+            res["eval"] = encoder_eval(model, per_forward, device,
+                                       sizes=eval_sizes)
+            del model
+            if on_card:
+                torch.cuda.empty_cache()
+            res["train"] = encoder_train(cfg, image_size, n_categories,
+                                         per_forward, device, n_max=train_n_max)
+        if on_card:
+            torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t0
+        out[label] = res
+        s, tr = res.get("serving", {}), res.get("train", {})
+        print(f"encoders: {label}: {json.dumps({k: v for k, v in res.items() if k not in ('serving', 'eval', 'train')})}; "
+              f"serving {s.get('img_per_s')} img/s sync, device busy "
+              f"{s.get('step_device_busy_ms')} ms a step (flash "
+              f"{s.get('step_flash_ms')} ms, share {s.get('step_flash_share')})"
+              f", peak {s.get('peak_memory_gib')} GiB; train step "
+              f"{tr.get('step_ms')} ms, losses {tr.get('losses')}, peak "
+              f"{tr.get('peak_memory_gib')} GiB", flush=True)
+    zero_counts()  # the encoder paths are read; later phases count from 0
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"encoders: phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     card, libs = phase_card()
     sass = sass_check(libs)
@@ -3925,6 +4327,21 @@ def main() -> None:
         "levers_serving": sum(r["launches"] for r in lev["serving"].values()),
         "levers_eval": lev["eval"]["launches"],
         "levers_train": lev["train"]["launches"]["flash_attention"]}
+    enc = phase_encoders()
+    print(f"encoders on {card}: " + json.dumps(
+        {k: v for k, v in enc.items() if k != "flash_rows"}), flush=True)
+    enc_paths = {label: res for label, res in enc.items()
+                 if isinstance(res, dict) and "seconds" in res}
+
+    def enc_launches(key):
+        """Flash's launches (or, with "wide_launches", those at d 256) on
+        the encoder paths: serving, dilatedRN50's forward, the
+        evaluations and the training steps."""
+        return {label: res.get(key, 0) + sum(
+                    res.get(part, {}).get(key, 0)
+                    for part in ("serving", "eval", "train"))
+                for label, res in enc_paths.items()}
+
     trainer = phase_trainer(tr)
     print(f"trainer on {card}: {json.dumps(trainer)}", flush=True)
     build = Path(__file__).resolve().parent / "build"
@@ -3977,7 +4394,8 @@ def main() -> None:
                      + cli["resumed_launches"]["flash_attention"]
                      + sum(e["flash_attention"]
                            for e in cli["eval_launches"].values())
-                     + sum(lev_launches.values())),
+                     + sum(lev_launches.values())
+                     + sum(enc_launches("launches").values())),
         "launches_by_path": {"serving": stats["launches"],
                              "eval": ev["launches"],
                              "eval_masked": ev["masked_launches"],
@@ -3995,7 +4413,8 @@ def main() -> None:
                                  "flash_attention"],
                              "cli_eval": {d: e["flash_attention"] for d, e in
                                           cli["eval_launches"].items()},
-                             **lev_launches},
+                             **lev_launches,
+                             "encoders": enc_launches("launches")},
         # the launches given a key bias (the levers' ToMe encoder and
         # padded pooled cross-attention), by path
         "biased_launches": {
@@ -4011,9 +4430,9 @@ def main() -> None:
             "pseudo_masks": pseudo["split_launches"],
             "cli_pseudo_masks": cli["pseudo_masks"]["split_launches"]},
         "max_abs_err": max(max_err, ev["flash_max_abs_err"],
-                           lev["flash_max_abs_err"],
+                           lev["flash_max_abs_err"], enc["flash_max_abs_err"],
                            *(r["max_abs_err"] for r in ret["flash_rows"]
-                             + pseudo["flash_rows"])),
+                             + pseudo["flash_rows"] + enc["flash_rows"])),
         # times and bound: the 24 calls of one batch-8 forward at 384 px
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -4046,11 +4465,41 @@ def main() -> None:
         # times beside the bound with the bias's bytes and SDPA given the
         # bias as a float mask)
         "lever_shapes": lev["flash_rows"],
+        # the RN50 and DINO paths' calls (attnpool, the d 256 decoder, the
+        # DINO decoder's cross-attention)
+        "encoder_shapes": enc["flash_rows"],
         # device time of the 24 flash kernels inside one training step
         # (torch.profiler), and the Function's gradient check
         "train_forward_ms": tr["flash_in_step_ms"],
         "train_grad_max_rel_err": tr["flash_grad_max_rel_err"],
     }]
+    # the bf16 kernel's wide instantiation (head dim 256: the RN50 and
+    # RN101 decoders), apart: its launches on the encoder paths, the 12
+    # calls of one RN50 batch forward beside their bound
+    wide_rows = [r for r in enc["flash_rows"] if r["shape"][4] == 256]
+    wide_bytes = sum(r["bound_ms"] * r["per_forward"] for r in wide_rows
+                     if r["bound_by"] == "bytes")
+    wide_all = sum(r["bound_ms"] * r["per_forward"] for r in wide_rows)
+    kernels.append({
+        "name": "flash_attention d256",
+        "route": "cuda",
+        "source": "zutis_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "zutis_tpu/ops/flash_attention.py:53",
+        "instantiation": "flash_wgmma_kernel<256>",
+        "launches": sum(enc_launches("wide_launches").values()),
+        "launches_by_path": enc_launches("wide_launches"),
+        "max_abs_err": enc["flash_max_abs_err"],
+        "ms": sum(r["ms"] * r["per_forward"] for r in wide_rows),
+        "plain_ms": sum(r["plain_ms"] * r["per_forward"] for r in wide_rows),
+        "bound_ms": wide_all,
+        "bound_by": "bytes" if wide_bytes >= wide_all - wide_bytes
+        else "operations",
+        "library_ms": sum(r["library_ms"] * r["per_forward"]
+                          for r in wide_rows),
+        "occupancy": {k: o for k, o in flash_occ.items() if "d256" in k},
+        "sass": {k: c for k, c in sass.items() if k.endswith("<256>")},
+        "shapes": wide_rows,
+    })
     tool = next(r for r in probe_rows if r["name"] == "tool")
     headline = {"single_attention": "single unroll",
                 "fastsm_attention": "fastsm lane", "kt_attention": "kt"}

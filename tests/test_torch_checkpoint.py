@@ -81,10 +81,41 @@ def test_load_params_any_reads_a_wrapped_state_dict(params, tmp_path):
     assert sorted(got) == sorted(model.state_dict())
 
 
-def test_load_params_any_refuses_other_encoders(tmp_path):
-    np.savez(tmp_path / "rn.npz", **{"__flax_raw__/encoder/conv1": np.ones(2)})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        checkpoint.load_params_any(str(tmp_path / "rn.npz"))
+FAMILIES = {
+    "rn": dict(encoder_family="rn", rn_layers=(1, 2, 1, 1), rn_width=2,
+               width=64, text_dim=16, n_queries=4, n_decoder_layers=1,
+               n_heads=2, input_resolution=32),
+    "dino": dict(encoder_family="dino", width=16, text_dim=16, patch_size=16,
+                 input_resolution=32, dino_embed_dim=32, dino_depth=1,
+                 dino_heads=2, n_queries=4, n_decoder_layers=1, n_heads=2),
+}
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_load_params_any_reads_rn_and_dino_exports(tmp_path, family):
+    """An RN or DINO model's export (the raw flax tree, as the JAX package
+    writes it) read back into the same state, BatchNorm statistics
+    included, and a train state with them restored bit for bit."""
+    model = ZUTIS(**FAMILIES[family], device="cpu").init_params(
+        torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if k.endswith("running_var"):
+                v.uniform_(0.5, 2.0)
+    np.savez(tmp_path / "final_model.npz", **export_params(model))
+    got = checkpoint.load_params_any(str(tmp_path / "final_model.npz"))
+    assert sorted(got) == sorted(model.state_dict())
+    for name, value in model.state_dict().items():
+        torch.testing.assert_close(got[name], value, rtol=0, atol=0, msg=name)
+    state = TrainState.create(model, base_lr=1e-3, n_iters=10)
+    checkpoint.save_train_state(str(tmp_path / "step_1"), state)
+    fresh = ZUTIS(**FAMILIES[family], device="cpu")
+    restored = checkpoint.restore_train_state(
+        str(tmp_path / "step_1"), TrainState.create(fresh, base_lr=1e-3,
+                                                    n_iters=10))
+    for name, value in model.state_dict().items():
+        torch.testing.assert_close(restored.model.state_dict()[name], value,
+                                   rtol=0, atol=0, msg=name)
 
 
 def _trained_state(params, steps=2):

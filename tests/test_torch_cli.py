@@ -218,6 +218,82 @@ def test_coco20k_eval_gives_the_jax_clis_predictions(
     assert got["eval_images_per_sec"] > 0
 
 
+def test_train_cli_trains_a_tiny_rn_from_its_clip_checkpoint(fixture,
+                                                            tmp_path):
+    """clip_arch RN50 with the pretrained visual tower (the tiny RN's
+    weights in OpenAI's layout as <assets>/RN50.pt): 3 iterations, the
+    artifacts, final_model.npz as the JAX package's raw RN tree, and the
+    BatchNorm statistics still the checkpoint's."""
+    from zutis_tpu_torch.core.checkpoint import load_params_any
+
+    ckpt = _synthetic_rn_clip()
+    torch.save(ckpt, tmp_path / "RN50.pt")
+    _, cfg_fp = _cfg(fixture, "train_rn", clip_arch="RN50",
+                     skip_pretrained=False, clip_assets_dir=str(tmp_path),
+                     model_kwargs=TINY_RN)
+    port_main.main(["--p_config", cfg_fp, "--device", "cpu"])
+    run = _run_dir(fixture[0] / "ckpt_train_rn")
+    assert set(os.listdir(run)) == ARTIFACTS
+    assert all(np.isfinite(r["loss"])
+               for r in _jsonl(f"{run}/training_metrics.json"))
+    with np.load(f"{run}/final_model.npz") as f:
+        assert all(k.startswith("__flax_raw__/") for k in f.files)
+    final = load_params_any(f"{run}/final_model.npz")
+    for k, v in ckpt.items():
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(final["encoder." + k[len("visual."):]],
+                                       v.float(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("family", ["rn", "dino"])
+def test_coco20k_eval_of_rn_and_dino_runs_per_image(fixture, coco20k,
+                                                   tmp_path, family):
+    """RN and DINO models evaluate image by image at any --batch_images
+    (no padded path), giving the JAX CLI's per-image predictions and
+    metrics (the JAX CLI would send the DINO arm to its batched path and
+    fail there)."""
+    import jax
+    import jax.numpy as jnp
+
+    from zutis_tpu.models.weights import export_zutis
+    from zutis_tpu.models.zutis import ZUTIS as JaxZUTIS
+    from zutis_tpu_torch.engine import batched_eval as BE
+
+    kwargs = TINY_RN if family == "rn" else TINY_DINO
+    jm = JaxZUTIS(**{k: tuple(v) if isinstance(v, list) else v
+                     for k, v in kwargs.items()})
+    params = jax.jit(jm.init)(jax.random.PRNGKey(4),
+                              jnp.zeros((1, 3, 64, 64)))["params"]
+    npz = tmp_path / "model.npz"
+    np.savez(npz, **export_zutis(params))
+    _, cfg_fp = _cfg(fixture, f"c20k_{family}", model_kwargs=kwargs)
+    # two 40 x 40 images and a 33 x 47 one (no patch multiple: DINO's
+    # patchify drops the remainder, as flax's VALID convolution does)
+    args = ["--p_config", cfg_fp, "--p_state_dict", str(npz),
+            "--dir_dataset", str(coco20k), "--threshold", "0.3",
+            "--max_images", "3"]
+    out = {}
+    for side, run, extra in (
+            ("jax", jax_coco20k.main, ["--batch_images", "1"]),
+            ("port", coco20k_eval.main, ["--batch_images", "4",
+                                         "--device", "cpu"])):
+        calls = []
+        real = BE.evaluate_instances
+        BE.evaluate_instances = lambda *a, **k: calls.append(1) or real(*a, **k)
+        try:
+            run(args + extra + ["--dir_ckpt", str(tmp_path / side)])
+        finally:
+            BE.evaluate_instances = real
+        assert not calls  # the port's batched path is the ViT family's
+        files = [os.path.join(dp, fn) for dp, _, fns in
+                 os.walk(tmp_path / side) for fn in fns]
+        assert len(files) == 1, files
+        with open(files[0]) as f:
+            out[side] = json.load(f)
+    assert set(out["port"]) == set(out["jax"])
+    _assert_scores_close(out["port"], out["jax"])
+
+
 def test_coco20k_eval_refuses_visualise(fixture, jax_npz, coco20k):
     _, cfg_fp = _cfg(fixture, "c20k_vis")
     with pytest.raises(NotImplementedError, match="matplotlib"):
@@ -306,43 +382,130 @@ def test_load_clip_visual_equals_load_clip_params(tmp_path, archive):
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
 
 
-def test_load_clip_visual_refuses_a_resnet_checkpoint(tmp_path):
-    path = tmp_path / "RN50.pt"
-    torch.save({"visual.conv1.weight": torch.zeros(2, 3, 3, 3)}, path)
-    model = factory.build_zutis("ViT-B/32", n_queries=2, n_decoder_layers=1,
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        factory.load_clip_visual(model, str(path))
+TINY_RN = {"encoder_family": "rn", "rn_layers": [1, 1, 1, 1], "rn_width": 8,
+           "width": 256, "text_dim": 16, "n_queries": 12,
+           "n_decoder_layers": 2, "n_heads": 2, "input_resolution": 64}
+TINY_DINO = {"encoder_family": "dino", "width": 16, "text_dim": 16,
+             "patch_size": 16, "input_resolution": 32, "dino_embed_dim": 32,
+             "dino_depth": 1, "dino_heads": 2, "n_queries": 12,
+             "n_decoder_layers": 2, "n_heads": 2}
+
+
+def _synthetic_rn_clip(seed=12):
+    """An OpenAI RN archive's layout for the tiny RN: the visual tower of a
+    seeded port encoder (BatchNorm statistics off the identity) in fp16
+    under `visual.`, with torch BatchNorm's `num_batches_tracked`."""
+    from zutis_tpu_torch.models.zutis import ZUTIS
+
+    model = ZUTIS(**TINY_RN, device="cpu").init_params(
+        torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in model.encoder.state_dict().items():
+        if k.endswith("running_var"):
+            v = torch.from_numpy(rng.uniform(0.5, 2.0, v.shape))
+        elif k.endswith("running_mean"):
+            v = torch.from_numpy(0.2 * rng.normal(size=v.shape))
+        sd[f"visual.{k}"] = v.clone().half()
+        if k.endswith("running_mean"):
+            sd[f"visual.{k[:-len('running_mean')]}num_batches_tracked"] = \
+                torch.tensor(0)
+    # the text tower of _synthetic_clip, which load_clip_params also reads
+    sd.update({k: v for k, v in _synthetic_clip().items()
+               if not k.startswith("visual.")})
+    return sd
+
+
+def test_load_clip_visual_equals_load_clip_params_for_a_resnet(tmp_path):
+    """OpenAI's RN layout through the port's `load_clip_visual` and through
+    the JAX package's `load_clip_params` (which dispatches it to
+    `convert_clip_rn_visual`): the same encoder, bit for bit."""
+    from zutis_tpu.models.factory import load_clip_params
+    from zutis_tpu_torch.models.weights import rn_visual_params_from_jax
+    from zutis_tpu_torch.models.zutis import ZUTIS
+
+    torch.save(_synthetic_rn_clip(), tmp_path / "RN50.pt")
+    model = ZUTIS(**TINY_RN, device="cpu")
+    assert factory.load_clip_visual(model, str(tmp_path / "RN50.pt")) is model
+    visual, _ = load_clip_params("dilatedRN50", str(tmp_path))
+    want = rn_visual_params_from_jax(visual)
+    got = model.encoder.state_dict()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
+def _flax_shapes(model):
+    import jax
+    import jax.numpy as jnp
+
+    return jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                          jnp.zeros((1, 3, 64, 64)))["params"]
+
+
+def _port_size(model):
+    return sum(v.numel() for v in model.state_dict().values())
 
 
 @pytest.mark.parametrize("arch", ["ViT-B/32", "ViT-B/16", "ViT-L/14",
-                                  "ViT-L/14@336px"])
+                                  "ViT-L/14@336px", "RN50", "RN101", "RN50x4",
+                                  "RN50x16", "RN50x64", "dilatedRN50"])
 def test_factory_equals_jax(arch):
+    """The arch's spec, checkpoint path and model against the JAX
+    factory's: every family's widths, and for RN the blocks a stage,
+    attnpool's stored grid and output and the upsample flag; the count of
+    parameters and BatchNorm statistics equal to the flax tree's."""
+    import jax
+
     from zutis_tpu.models import factory as jax_factory
 
     assert factory.normalize_clip_arch(arch) == \
         jax_factory.normalize_clip_arch(arch)
-    assert factory.clip_spec(arch).__dict__ == \
-        jax_factory.clip_spec(arch).__dict__
     for assets in ("assets", "/x/y"):
         assert factory.clip_checkpoint_path(arch, assets) == \
             jax_factory.clip_checkpoint_path(arch, assets)
-    spec = factory.clip_spec(arch)
-    with torch.device("meta"):
-        model = factory.build_zutis(arch, device="cpu")
-    assert model.width == spec.width
-    assert len(model.encoder.transformer.resblocks) == spec.layers
-    assert model.encoder.proj.shape == (spec.width, spec.embed_dim)
+    jm = jax_factory.build_zutis(arch)
+    model = factory.build_zutis(arch, device="meta")
+    assert (model.width, model.encoder_family, model.upsample_tokens) == (
+        jm.width, jm.encoder_family, jm.upsample_tokens)
+    if model.encoder_family == "vit":
+        assert factory.clip_spec(arch).__dict__ == \
+            jax_factory.clip_spec(arch).__dict__
+        spec = factory.clip_spec(arch)
+        assert len(model.encoder.transformer.resblocks) == spec.layers
+        assert model.encoder.proj.shape == (spec.width, spec.embed_dim)
+        return
+    enc = model.encoder
+    assert tuple(len(getattr(enc, f"layer{i}")) for i in (1, 2, 3, 4)) == \
+        tuple(jm.rn_layers)
+    assert enc.width == jm.rn_width and enc.embed_dim == jm.width
+    g = jm.input_resolution // 32
+    assert enc.attnpool.positional_embedding.shape == (g * g + 1, jm.width)
+    assert enc.attnpool.c_proj.weight.shape == (jm.text_dim, jm.width)
+    assert enc.attnpool.num_heads == jm.width // 64
+    # the decoder's heads: 8 over 2048 channels (head dim 256) for RN50
+    assert model.decoder.layers[0].self_attn.heads == jm.n_heads
+    assert _port_size(model) == sum(
+        x.size for x in jax.tree.leaves(_flax_shapes(jm)))
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(clip_arch="RN50"), "item 7"),
-    (dict(clip_arch="dilatedRN101"), "item 7"),
-    (dict(encoder_type="dino"), "item 7"),
-])
-def test_factory_refusals(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        factory.build_zutis(**{"device": "cpu", **kw})
+@pytest.mark.parametrize("base", ["ViT-B/16", "RN50"])
+def test_factory_dino_arm_equals_jax(base):
+    """encoder_type "dino": DINO ViT-B/16 in the base arch's text dim (an RN
+    arch's attnpool output)."""
+    import jax
+
+    from zutis_tpu.models import factory as jax_factory
+
+    jm = jax_factory.build_zutis(base, encoder_type="dino")
+    model = factory.build_zutis(base, encoder_type="dino", device="meta")
+    assert (model.encoder_family, model.width) == ("dino", jm.width)
+    assert model.width == (1024 if base == "RN50" else 512)
+    assert (model.encoder.embed_dim, len(model.encoder.blocks),
+            model.encoder.patch_size) == (768, 12, 16)
+    assert model.encoder.pos_embed.shape == (1, 14 * 14 + 1, 768)
+    assert _port_size(model) == sum(
+        x.size for x in jax.tree.leaves(_flax_shapes(jm)))
 
 
 def test_factory_passes_the_levers():
@@ -451,8 +614,8 @@ def test_text_embeddings_from_the_npz_and_the_jax_cache(fixture, tmp_path):
     (dict(visualise=True), NotImplementedError, "matplotlib"),
     (dict(category_to_p_images_fp="MISSING_PM"), FileNotFoundError,
      "1 pseudo-masks missing and no SelfMask weights at .*selfmask_nq20.pt"),
-    (dict(clip_arch="RN50", model_kwargs=None), NotImplementedError,
-     "item 7"),
+    (dict(encoder_type="dino", skip_pretrained=False), ValueError,
+     "encoder_type 'dino' needs the skip_pretrained extra"),
 ])
 def test_cli_refusals(fixture, tmp_path, overrides, error, match):
     if overrides.get("category_to_p_images_fp") == "MISSING_PM":

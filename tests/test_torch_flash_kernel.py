@@ -1,6 +1,7 @@
 """The flash-attention kernels (csrc/flash_attention.cu) against their plain
-version on the card, and both kernels' launch geometry and the input checks
-on the CPU.
+version on the card (the bf16 kernel at head dims 64, 96 and the RN
+decoders' 256), and both kernels' launch geometry and the input checks on
+the CPU.
 
 The kernels have no CPU mode, so the tests that launch them are marked
 `cuda` and skip without a card. The file imports no JAX, so that it runs on
@@ -32,6 +33,10 @@ TOL_F32 = 1e-4
 ENCODER_SELF = (8, 12, 577, 577, 64)
 DECODER_SELF = (8, 8, 100, 100, 96)
 DECODER_CROSS = (8, 8, 100, 2304, 96)
+# the RN50 decoder's at 384 px (2048 channels over 8 heads: head dim 256;
+# 12 x 12 tokens upsampled to 24 x 24 memory keys)
+RN_DECODER_SELF = (8, 8, 100, 100, 256)
+RN_DECODER_CROSS = (8, 8, 100, 576, 256)
 
 
 def _qkv(seed, b, h, sq, sk, d, strided=False):
@@ -95,6 +100,12 @@ def _check(shape, dtype=torch.bfloat16, masked=False, strided=False):
     ((3, 8, 64, 200, 96), torch.float32, True, False),
     ((2, 12, 77, 333, 64), torch.float32, False, False),
     ((2, 4, 100, 300, 96), torch.float32, False, True),
+    (RN_DECODER_SELF, torch.bfloat16, False, False),
+    (RN_DECODER_CROSS, torch.bfloat16, False, False),
+    (RN_DECODER_SELF, torch.bfloat16, False, True),
+    (RN_DECODER_CROSS, torch.bfloat16, False, True),
+    ((8, 8, 100, 577, 256), torch.bfloat16, True, True),  # ragged, masked
+    ((2, 3, 130, 65, 256), torch.bfloat16, True, False),  # keys past the edge
 ], ids=lambda x: str(x).replace("torch.", "").replace(" ", ""))
 def test_cuda_kernel_matches_reference_on_the_card(shape, dtype, masked,
                                                    strided):
@@ -236,7 +247,9 @@ def test_cuda_occupancy_reports_the_launched_kernel(d):
     _needs_card()
     smem, blocks = fa.occupancy(d)
     assert smem == fa.smem_layout(d)["total"]
-    assert blocks == 2  # the design: one block's loads overlap the other's work
+    # the design: at d 64 and 96 two blocks, one's loads overlapping the
+    # other's work; at d 256 one block holds Q and a 3-stage ring
+    assert blocks == fa.min_blocks(d) == (1 if d == 256 else 2)
 
 
 @pytest.mark.cuda
@@ -253,9 +266,9 @@ def test_cuda_f32_occupancy_reports_the_launched_kernel(d, block_q):
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_smem_layout_keeps_tiles_on_the_swizzle_pattern(d):
     lay = fa.smem_layout(d)
-    chunk = fa.KEY_CHUNK * d * 2
+    chunk, stages = fa.KEY_CHUNK * d * 2, fa.stages(d)
     tiles = [lay["q"]] + [lay[area] + s * chunk for area in ("k", "v")
-                          for s in range(fa.STAGES)]
+                          for s in range(stages)]
     # TMA's and wgmma's 64-byte swizzle repeats every 512 bytes, from
     # absolute address bits, so every tile (and every 4 KB box in it)
     # starts on that boundary
@@ -263,19 +276,24 @@ def test_smem_layout_keeps_tiles_on_the_swizzle_pattern(d):
     assert all(t % 4096 == 0 for t in tiles)
     # areas in order, none overlapping the next
     assert lay["q"] + chunk <= lay["k"]
-    assert lay["k"] + fa.STAGES * chunk <= lay["v"]
-    assert lay["v"] + fa.STAGES * chunk <= lay["valid"]
-    assert lay["valid"] + fa.STAGES * 8 <= lay["bars"]
+    assert lay["k"] + stages * chunk <= lay["v"]
+    assert lay["v"] + stages * chunk <= lay["valid"]
+    assert lay["valid"] + stages * 8 <= lay["bars"]
     assert lay["bars"] % 8 == 0  # mbarriers are 8-byte words
-    assert lay["total"] == lay["bars"] + (1 + 4 * fa.STAGES) * 8
+    assert lay["total"] == lay["bars"] + (1 + 4 * stages) * 8
     assert lay["total"] <= fa.SMEM_LIMIT
+    # the wide ring is as deep as the block's shared memory allows
+    if d == 256:
+        assert lay["total"] + 2 * chunk > fa.SMEM_LIMIT
 
 
 def test_smem_layout_leaves_room_for_two_blocks():
     # two blocks (plus the 1 KB each block reserves) must fit in the SM's
-    # 228 KB at both head dims
+    # 228 KB at head dims 64 and 96; at 256 the block is built for one
     for d in fa.HEAD_DIMS:
-        assert 2 * (fa.smem_layout(d)["total"] + 1024) <= 228 * 1024
+        assert fa.min_blocks(d) * (fa.smem_layout(d)["total"] + 1024) \
+            <= 228 * 1024
+    assert [fa.min_blocks(d) for d in fa.HEAD_DIMS] == [2, 2, 1]
 
 
 def _swizzle_64b(addr):
@@ -283,7 +301,7 @@ def _swizzle_64b(addr):
     return addr ^ (((addr >> 7) & 3) << 4)
 
 
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", fa.F32_HEAD_DIMS)
 def test_f32_smem_layout_keeps_tiles_on_the_swizzle_pattern(d):
     lay = fa.f32_smem_layout(d)
     f32_chunk, tile = fa.KEY_CHUNK * d * 4, fa.KEY_CHUNK * d * 2
@@ -314,7 +332,7 @@ def test_f32_smem_layout_keeps_tiles_on_the_swizzle_pattern(d):
     assert lay["total"] <= fa.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", fa.F32_HEAD_DIMS)
 def test_f32_split_writes_fill_the_tile_that_wgmma_reads(d):
     """split_chunk's reads and stores, mirrored: thread t takes columns
     4 (t % 8) .. + 3 of a 32-column box in rows t / 8 + 16 p of every box,
@@ -355,7 +373,7 @@ def test_f32_split_writes_fill_the_tile_that_wgmma_reads(d):
 def test_f32_smem_layout_holds_one_block_an_sm():
     # one block a SM by registers (setmaxnreg hands the producer's to the
     # consumers), so the block may take all of the 227 KB
-    for d in fa.HEAD_DIMS:
+    for d in fa.F32_HEAD_DIMS:
         assert fa.f32_smem_layout(d)["total"] + 1024 <= 228 * 1024
 
 
@@ -374,6 +392,7 @@ def test_f32_register_split_fills_the_register_file():
 
 @pytest.mark.parametrize("source,name,attr", [
     ("flash_attention.cu", "kFlashStages", "STAGES"),
+    ("flash_attention.cu", "kFlashStagesWide", "WIDE_STAGES"),
     ("hopper.cuh", "kChunkRows", "KEY_CHUNK"),
     ("hopper.cuh", "kSmemLimit", "SMEM_LIMIT"),
     ("flash_attention.cu", "kF32Stages", "F32_STAGES"),
@@ -421,6 +440,10 @@ def _bf16(*shape):
     ("address unaligned", ValueError, "16-byte"),
     ("mask shape", ValueError, "kv_mask"),
     ("batch over the grid", ValueError, "launch grid"),
+    # RN50x4's decoder (2560 channels over 8 heads): no kernel at d 320
+    ("head dim 320", ValueError, "head dim 320 not supported by the kernel"),
+    ("f32 head dim 256", ValueError,
+     "head dim 256 not supported by the f32 kernel"),
 ])
 def test_kernel_input_check_refuses_what_the_kernels_do_not_take(
         case, error, match):
@@ -446,5 +469,9 @@ def test_kernel_input_check_refuses_what_the_kernels_do_not_take(
         mask = torch.ones(2, 9, dtype=torch.int32)
     elif case == "batch over the grid":
         q = k = v = _bf16(1, 2, 8, 64).expand(65536, 2, 8, 64)
+    elif case == "head dim 320":
+        q = k = v = _bf16(2, 2, 8, 320)
+    elif case == "f32 head dim 256":
+        q = k = v = _bf16(2, 2, 8, 256).float()
     with pytest.raises(error, match=match):
         fa.check_kernel_inputs(q, k, v, mask)

@@ -447,9 +447,6 @@ def test_what_the_port_does_not_carry_raises(setup):
         Trainer(model, setup["text"], device="cpu").fit(
             _port_state(model), batches(), n_iters=1, n_categories=N_CAT,
             visualise=True)
-    model.encoder_family = "rn"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Trainer(model, setup["text"], device="cpu")
 
 
 def test_trainer_refuses_a_model_on_another_device(setup):

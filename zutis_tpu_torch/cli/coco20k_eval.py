@@ -13,10 +13,12 @@ with the JAX CLI's keys. `--batch_images N > 1` runs the bucketed batched
 path (`engine.batched_eval.evaluate_instances`: images padded into
 resolution buckets, `--pipeline_depth` batches in flight, raw uint8 images
 shipped and normalised on the card); `--batch_images 1` runs each image
-through the dense forward, the reference's per-image regime.
+through the dense forward, the reference's per-image regime, and so do the
+RN and DINO models at any `--batch_images` (they have no padded path; the
+JAX CLI sends the RN family per image and, by a fault, the DINO arm to the
+batched path, where `ZUTIS.forward_padded` refuses it).
 `--visualise_first > 0` raises: the overlays need the JAX package's
-matplotlib visualiser. The RN archs (whose JAX path is always per image)
-are not ported (ROADMAP.md, queue 1, item 7).
+matplotlib visualiser.
 """
 from __future__ import annotations
 
@@ -99,7 +101,7 @@ def main(argv=None):
         return np.ascontiguousarray(arr.transpose(2, 0, 1))
 
     t0 = time.time()
-    if args.batch_images > 1:
+    if args.batch_images > 1 and model.encoder_family == "vit":
         # images load lazily, inside the pipelined loop, so batch N + 1's
         # decode overlaps batch N's device work
         predictions = BE.evaluate_instances(

@@ -22,8 +22,16 @@ on the training device (`data/pseudo_masks.py`), into the flat
 `<dir of category_to_p_images_fp>/pseudo_masks/<stem>.json` layout or
 ImageNet's per-wnid one; without that checkpoint the CLI raises.
 
-What the port does not do yet, and raises on:
-  - the RN archs and the DINO encoder: ROADMAP.md, queue 1, item 7;
+Every `clip_arch` the JAX CLI builds is built here (the ViTs, the RN archs
+and `dilatedRN*`), and `encoder_type: dino` (the DINO ViT-B/16 arm). The
+pretrained CLIP visual tower (ViT or RN) loads from `<clip_assets_dir>/<arch>.pt`
+unless the `skip_pretrained` extra is set.
+
+What the port does not do, and raises on:
+  - `encoder_type: dino` without `skip_pretrained`: the JAX CLI puts the
+    CLIP visual tree into the DINO arm's DeiT encoder there
+    (zutis_tpu/cli/main.py:262-268), which cannot load; the DINO encoder's
+    own weights go in through `models.factory.load_dino_encoder`;
   - `mesh_axes` over more than one device: the parallel layer is item 6;
   - `visualise`: the JAX CLI defaults it to True and renders figures with
     matplotlib, which the port does not use; here it defaults to False and
@@ -151,6 +159,17 @@ def check_single_device(cfg) -> None:
             f"mesh_axes {cfg.mesh_axes} spans {n_mesh} devices: the parallel "
             "layer is not ported yet (ROADMAP.md, queue 1, item 6); drop "
             "mesh_axes to train on one card")
+
+
+def check_pretrained(cfg) -> None:
+    """Refuse the DINO arm with a CLIP visual tower to load into it."""
+    if cfg.encoder_type == "dino" and not cfg.extras.get("skip_pretrained"):
+        raise ValueError(
+            "encoder_type 'dino' needs the skip_pretrained extra: the "
+            "pretrained CLIP visual tower of clip_arch cannot load into the "
+            "DINO arm's DeiT encoder (the JAX CLI tries, "
+            "zutis_tpu/cli/main.py:262-268); load DINO weights with "
+            "zutis_tpu_torch.models.factory.load_dino_encoder")
 
 
 def ensure_pseudo_masks(cfg, missing, dir_pseudo: str, path_map=None,
@@ -297,6 +316,7 @@ def main(argv=None):
 
     # ---- training path ----
     check_single_device(cfg)
+    check_pretrained(cfg)
     dataset = build_index_dataset(cfg, args.seed, device)
     batch_size = cfg.train_dataloader_kwargs.get("batch_size", 8)
     if not cfg.extras.get("skip_pretrained"):

@@ -10,9 +10,10 @@ leaves the previous checkpoint as the newest. With a batch stream that is a
 function of the step, a run restored from it continues as the
 uninterrupted run would have.
 
-`load_params_any` reads the reference-layout weights: the `.npz` that
-`export_params` (and the JAX package's `export_zutis`) writes, or a
-reference torch `.pt`.
+`load_params_any` reads the weights that `export_params` (and the JAX
+package's `export_zutis`) writes to a `.npz` — the reference layout for a
+ViT model, the raw flax tree under `__flax_raw__/` for an RN or DINO one —
+or a reference torch `.pt`.
 """
 from __future__ import annotations
 
@@ -23,7 +24,6 @@ import numpy as np
 import torch
 
 STATE_FILE = "state.pt"
-_FLAX_RAW_PREFIX = "__flax_raw__/"  # the JAX export of RN/DINO encoders
 
 
 def save_train_state(path: str, state) -> None:
@@ -77,17 +77,22 @@ def latest_step_dir(base: str) -> Optional[str]:
 
 
 def load_params_any(path: str) -> Dict[str, torch.Tensor]:
-    """A reference-layout state dict (float32 tensors on the CPU) from a
-    `.npz` export or a reference torch `.pt`; load it into the port's ZUTIS
-    with `load_state_dict(strict=True)`."""
+    """The port's state dict (float32 tensors on the CPU) from a `.npz`
+    export or a reference torch `.pt`; load it into the port's ZUTIS with
+    `load_state_dict(strict=True)`. An RN or DINO model's raw flax tree is
+    converted (`models/weights.py::params_from_jax`)."""
     if path.endswith(".npz"):
+        from zutis_tpu_torch.models.weights import (
+            FLAX_RAW_PREFIX,
+            params_from_jax,
+            unflatten_tree,
+        )
+
         with np.load(path) as f:
             sd = {k: f[k] for k in f.files}
-        if any(k.startswith(_FLAX_RAW_PREFIX) for k in sd):
-            raise NotImplementedError(
-                f"{path} holds an RN or DINO encoder's raw tree; the port "
-                "carries the CLIP ViT encoder only (ROADMAP.md, queue 1, "
-                "item 7)")
+        if any(k.startswith(FLAX_RAW_PREFIX) for k in sd):
+            return params_from_jax(unflatten_tree(
+                {k[len(FLAX_RAW_PREFIX):]: v for k, v in sd.items()}))
         return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd.get("state_dict"), dict):

@@ -6,7 +6,8 @@
 // wrapper's zeroing of items whose kv_mask has no valid key.
 //
 // Computes  o = softmax(q k^T * d^-1/2 + key_bias, keys masked by kv_mask) v
-// for q [b, h, sq, d], k/v [b, h, sk, d], o [b, h, sq, d], d 64 or 96, and
+// for q [b, h, sq, d], k/v [b, h, sk, d], o [b, h, sq, d], d 64, 96 or 256
+// (256 in bf16 only: the RN decoders' 2048 channels over 8 heads), and
 // key_bias [b, sk] f32 added to every query's logit of a key (ToMe's
 // log(size), the pooled decoder memory's log(count); the JAX package sends
 // such a bias to XLA's einsum attention). Each of q,
@@ -103,11 +104,24 @@ struct Params {
 //   - O leaves with per-thread bf16x2 stores through o's strides.
 // Left for later: split keys for the cross-attention's 64-128 blocks,
 // cluster multicast of K/V across a head's q tiles, persistent blocks.
+//
+// At d 256 (the RN50/RN101 decoders, 8 heads over 2048 channels) the same
+// block takes another shape, chosen at compile time by D:
+//   - Q stays in shared memory and S = Q K^T reads it through a descriptor
+//     (SS wgmma, qk_issue_ss): as A fragments it would cost 64 registers a
+//     thread beside O's 64 x 256 f32 accumulator (128), S (32) and P (16),
+//     past ptxas's 255. O += P V is one m64n256k16 a 16-key step.
+//   - A K or V chunk is 32 KB, so the ring holds kFlashStagesWide = 3
+//     stages: Q and three stages of K and V take 224 KB, the key biases
+//     1.5 KB more, and one block fits an SM (__launch_bounds__ min 1).
+//     Bound by bytes at the decoder's shapes (~128 FLOP a byte), with 128
+//     blocks for 132 SMs.
 // ---------------------------------------------------------------------------
 
 using hopper::kChunkRows;
 using hopper::kSmemLimit;
-constexpr int kFlashStages = 4;          // K/V ring depth
+constexpr int kFlashStages = 4;          // K/V ring depth at d 64 and 96
+constexpr int kFlashStagesWide = 3;      // at d 256, where a chunk is 32 KB
 constexpr int kFlashThreads = 128 + 32;  // a consumer warpgroup and the producer warp
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBiasSlotBytes = kChunkRows * 4;  // one chunk's 64 f32 key biases
@@ -139,9 +153,16 @@ __device__ __forceinline__ void store_chunk_bias(uint32_t slot, const float* bia
 
 __host__ __device__ constexpr int flash_chunks(int sk) { return (sk + kChunkRows - 1) / kChunkRows; }
 
+// The K/V ring's depth and the blocks an SM holds at head dim d, and
+// whether the consumers read Q from shared memory (d 256) rather than from
+// registers.
+__host__ __device__ constexpr bool flash_wide(int d) { return d > 128; }
+__host__ __device__ constexpr int flash_stages(int d) { return flash_wide(d) ? kFlashStagesWide : kFlashStages; }
+__host__ __device__ constexpr int flash_min_blocks(int d) { return flash_wide(d) ? 1 : 2; }
+
 // Byte offsets into a block's dynamic shared memory (mirrored by
-// ops/flash_attention.py::smem_layout): the Q tile, kFlashStages K chunks,
-// kFlashStages V chunks, every one a multiple of 4 KB from the 1 KB-aligned
+// ops/flash_attention.py::smem_layout): the Q tile, S = flash_stages(d) K
+// chunks, S V chunks, every one a multiple of 4 KB from the 1 KB-aligned
 // base; then a 64-bit key-validity word per stage and the mbarriers q_full,
 // k_full[S], k_empty[S], v_full[S], v_empty[S]; the biased kernel appends
 // bias_slots(S) chunks' key biases.
@@ -150,19 +171,20 @@ struct FlashLayout {
 };
 
 __host__ __device__ constexpr FlashLayout flash_layout(int d, bool bias = false) {
-  const int c = hopper::chunk_bytes(d);
-  const int k = c, v = k + kFlashStages * c, valid = v + kFlashStages * c;
-  const int bars = valid + kFlashStages * 8, end = bars + (1 + 4 * kFlashStages) * 8;
-  return FlashLayout{0, k, v, valid, bars, end, end + (bias ? bias_slots(kFlashStages) * kBiasSlotBytes : 0)};
+  const int c = hopper::chunk_bytes(d), s = flash_stages(d);
+  const int k = c, v = k + s * c, valid = v + s * c;
+  const int bars = valid + s * 8, end = bars + (1 + 4 * s) * 8;
+  return FlashLayout{0, k, v, valid, bars, end, end + (bias ? bias_slots(s) * kBiasSlotBytes : 0)};
 }
 
+template <int S>
 struct FlashBars {
   uint32_t base;
   __device__ uint32_t q_full() const { return base; }
   __device__ uint32_t k_full(int s) const { return base + 8 * (1 + s); }
-  __device__ uint32_t k_empty(int s) const { return base + 8 * (1 + kFlashStages + s); }
-  __device__ uint32_t v_full(int s) const { return base + 8 * (1 + 2 * kFlashStages + s); }
-  __device__ uint32_t v_empty(int s) const { return base + 8 * (1 + 3 * kFlashStages + s); }
+  __device__ uint32_t k_empty(int s) const { return base + 8 * (1 + S + s); }
+  __device__ uint32_t v_full(int s) const { return base + 8 * (1 + 2 * S + s); }
+  __device__ uint32_t v_empty(int s) const { return base + 8 * (1 + 3 * S + s); }
 };
 
 // The producer warp: lane 0 issues every TMA load of the block; the warp
@@ -170,9 +192,10 @@ struct FlashBars {
 // while lane 0 waits for a free stage.
 template <int D, bool kBias>
 __device__ void flash_producer(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv, const Params& p,
-                               const float* key_bias, uint32_t base, const FlashLayout& lay, const FlashBars& bar,
-                               int bi, int hi, int q0) {
+                               const float* key_bias, uint32_t base, const FlashLayout& lay,
+                               const FlashBars<flash_stages(D)>& bar, int bi, int hi, int q0) {
   constexpr uint32_t kChunk = hopper::chunk_bytes(D);
+  constexpr int kStages = flash_stages(D);
   const int lane = threadIdx.x & 31;
   const int n = flash_chunks(p.sk);
   const int* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(bi) * p.sk;
@@ -184,8 +207,8 @@ __device__ void flash_producer(const CUtensorMap* tq, const CUtensorMap* tk, con
     hopper::load_chunk<D>(base + lay.q, tq, bar.q_full(), q0, hi, bi);
   }
   for (int j = 0; j < n; ++j) {
-    const int s = j % kFlashStages;
-    const uint32_t parity = ((j / kFlashStages) + 1) & 1;  // the release of chunk j - kFlashStages
+    const int s = j % kStages;
+    const uint32_t parity = ((j / kStages) + 1) & 1;  // the release of chunk j - kStages
     const int c0 = j * kChunkRows + lane, c1 = c0 + 32;
     const bool ok0 = c0 < p.sk && (mask == nullptr || mask[c0] != 0);
     const bool ok1 = c1 < p.sk && (mask == nullptr || mask[c1] != 0);
@@ -194,17 +217,17 @@ __device__ void flash_producer(const CUtensorMap* tq, const CUtensorMap* tk, con
     if constexpr (kBias) {
       // the slot is free since the k_empty wait of the iteration before
       // (bias_slots); released with lane 0's arrive below
-      store_chunk_bias(base + lay.bias + (j % bias_slots(kFlashStages)) * kBiasSlotBytes,
+      store_chunk_bias(base + lay.bias + (j % bias_slots(kStages)) * kBiasSlotBytes,
                        key_bias + static_cast<long long>(bi) * p.sk, j * kChunkRows, ok0, ok1);
       __syncwarp();
     }
     if (lane == 0) {
-      if (j >= kFlashStages) hopper::mbar_wait(bar.k_empty(s), parity);
+      if (j >= kStages) hopper::mbar_wait(bar.k_empty(s), parity);
       // released with the arrive below, acquired by the consumers' k_full wait
       hopper::st_shared_u64(base + lay.valid + 8 * s, valid);
       hopper::mbar_arrive_expect_tx(bar.k_full(s), kChunk);
       hopper::load_chunk<D>(base + lay.k + s * kChunk, tk, bar.k_full(s), j * kChunkRows, hi, bi);
-      if (j >= kFlashStages) hopper::mbar_wait(bar.v_empty(s), parity);
+      if (j >= kStages) hopper::mbar_wait(bar.v_empty(s), parity);
       hopper::mbar_arrive_expect_tx(bar.v_full(s), kChunk);
       hopper::load_chunk<D>(base + lay.v + s * kChunk, tv, bar.v_full(s), j * kChunkRows, hi, bi);
     }
@@ -269,29 +292,45 @@ __device__ __forceinline__ void chunk_softmax(float (&s)[kChunkRows / 8][4], uin
   }
 }
 
+// S = Q K^T of one K chunk: Q from the A fragments `qa` at d 64 and 96, from
+// its tile in shared memory at d 256 (qa unused there).
+template <int D>
+__device__ __forceinline__ void flash_qk(float (&s)[kChunkRows / 8][4], const uint32_t (&qa)[flash_wide(D) ? 1 : D / 16][4],
+                                         uint32_t q_tile, uint32_t k_chunk) {
+  if constexpr (flash_wide(D)) {
+    hopper::qk_issue_ss<D>(s, q_tile, k_chunk);
+  } else {
+    hopper::qk_issue<D>(s, qa, k_chunk);
+  }
+}
+
 // The consumer warpgroup: its 64 query rows against every key chunk.
 template <int D, bool kBias>
-__device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout& lay, const FlashBars& bar, int bi,
-                               int hi, int q0) {
+__device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout& lay,
+                               const FlashBars<flash_stages(D)>& bar, int bi, int hi, int q0) {
   constexpr uint32_t kChunk = hopper::chunk_bytes(D);
+  constexpr int kStages = flash_stages(D);
   const int n = flash_chunks(p.sk);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  auto k_chunk = [&](int j) { return base + lay.k + (j % kFlashStages) * kChunk; };
-  auto v_chunk = [&](int j) { return base + lay.v + (j % kFlashStages) * kChunk; };
-  auto valid = [&](int j) { return hopper::ld_shared_u64(base + lay.valid + 8 * (j % kFlashStages)); };
-  auto parity = [](int j) { return static_cast<uint32_t>((j / kFlashStages) & 1); };
-  auto bias = [&](int j) { return base + lay.bias + (j % bias_slots(kFlashStages)) * kBiasSlotBytes; };
+  auto k_chunk = [&](int j) { return base + lay.k + (j % kStages) * kChunk; };
+  auto v_chunk = [&](int j) { return base + lay.v + (j % kStages) * kChunk; };
+  auto valid = [&](int j) { return hopper::ld_shared_u64(base + lay.valid + 8 * (j % kStages)); };
+  auto parity = [](int j) { return static_cast<uint32_t>((j / kStages) & 1); };
+  auto bias = [&](int j) { return base + lay.bias + (j % bias_slots(kStages)) * kBiasSlotBytes; };
 
-  // Q as A fragments; rows past sq arrived as zeros
+  // Q as A fragments (at d 256 read from its tile by each product); rows
+  // past sq arrived as zeros
   hopper::mbar_wait(bar.q_full(), 0);
-  uint32_t qa[D / 16][4];
+  uint32_t qa[flash_wide(D) ? 1 : D / 16][4];
   const uint32_t q_tile = base + lay.q;
+  if constexpr (!flash_wide(D)) {
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
+    for (int ks = 0; ks < D / 16; ++ks) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qa[ks][i] = hopper::ld_chunk_pair(q_tile, warp * 16 + g + (i & 1) * 8, ks * 16 + 2 * t + (i >> 1) * 8);
+      for (int i = 0; i < 4; ++i) {
+        qa[ks][i] = hopper::ld_chunk_pair(q_tile, warp * 16 + g + (i & 1) * 8, ks * 16 + 2 * t + (i >> 1) * 8);
+      }
     }
   }
 
@@ -306,24 +345,24 @@ __device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout
 
   // chunk 0: O is still zero, so it needs no P V beside it
   hopper::mbar_wait(bar.k_full(0), 0);
-  hopper::qk_issue<D>(s, qa, k_chunk(0));
+  flash_qk<D>(s, qa, q_tile, k_chunk(0));
   uint64_t bits = valid(0);
   hopper::wgmma_wait<0>();
   hopper::warp_arrive(bar.k_empty(0));
   chunk_softmax<kBias>(s, bits, p.scale_log2, m, l, alpha, bias(0));
   hopper::pack_p(pa, s);
   for (int j = 1; j < n; ++j) {
-    hopper::mbar_wait(bar.k_full(j % kFlashStages), parity(j));
-    hopper::qk_issue<D>(s, qa, k_chunk(j));
-    hopper::mbar_wait(bar.v_full((j - 1) % kFlashStages), parity(j - 1));
+    hopper::mbar_wait(bar.k_full(j % kStages), parity(j));
+    flash_qk<D>(s, qa, q_tile, k_chunk(j));
+    hopper::mbar_wait(bar.v_full((j - 1) % kStages), parity(j - 1));
     hopper::pv_issue<D>(acc, pa, v_chunk(j - 1));
     bits = valid(j);
     hopper::wgmma_wait<1>();  // Q K^T of chunk j is done
-    hopper::warp_arrive(bar.k_empty(j % kFlashStages));
+    hopper::warp_arrive(bar.k_empty(j % kStages));
     chunk_softmax<kBias>(s, bits, p.scale_log2, m, l, alpha, bias(j));
     hopper::wgmma_wait<0>();  // P V of chunk j - 1 is done with pa and V
     hopper::fence_operands(acc);
-    hopper::warp_arrive(bar.v_empty((j - 1) % kFlashStages));
+    hopper::warp_arrive(bar.v_empty((j - 1) % kStages));
 #pragma unroll
     for (int nn = 0; nn < D / 8; ++nn) {
       acc[nn][0] *= alpha[0];
@@ -333,11 +372,11 @@ __device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout
     }
     hopper::pack_p(pa, s);
   }
-  hopper::mbar_wait(bar.v_full((n - 1) % kFlashStages), parity(n - 1));
+  hopper::mbar_wait(bar.v_full((n - 1) % kStages), parity(n - 1));
   hopper::pv_issue<D>(acc, pa, v_chunk(n - 1));
   hopper::wgmma_wait<0>();
   hopper::fence_operands(acc);
-  hopper::warp_arrive(bar.v_empty((n - 1) % kFlashStages));
+  hopper::warp_arrive(bar.v_empty((n - 1) % kStages));
 
   float inv[2];
 #pragma unroll
@@ -368,11 +407,11 @@ __device__ __forceinline__ void flash_wgmma_block(const CUtensorMap* tq, const C
                                                   const Params& p, const float* key_bias, unsigned char* flash_smem) {
   const uint32_t base = hopper::smem_u32(flash_smem);
   const FlashLayout lay = flash_layout(D, kBias);
-  const FlashBars bar{base + static_cast<uint32_t>(lay.bars)};
+  const FlashBars<flash_stages(D)> bar{base + static_cast<uint32_t>(lay.bars)};
   if (threadIdx.x == 0) {
     if (base % 1024 != 0) __trap();  // the swizzled tiles need the pattern's alignment
     hopper::mbar_init(bar.q_full(), 1);
-    for (int s = 0; s < kFlashStages; ++s) {
+    for (int s = 0; s < flash_stages(D); ++s) {
       hopper::mbar_init(bar.k_full(s), 1);
       hopper::mbar_init(bar.k_empty(s), 4);  // one arrive per consumer warp
       hopper::mbar_init(bar.v_full(s), 1);
@@ -390,7 +429,7 @@ __device__ __forceinline__ void flash_wgmma_block(const CUtensorMap* tq, const C
 }
 
 template <int D>
-__global__ void __launch_bounds__(kFlashThreads, 2)
+__global__ void __launch_bounds__(kFlashThreads, flash_min_blocks(D))
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, const Params p) {
   extern __shared__ __align__(1024) unsigned char flash_smem[];
@@ -398,7 +437,7 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kFlashThreads, 2)
+__global__ void __launch_bounds__(kFlashThreads, flash_min_blocks(D))
     flash_wgmma_bias_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv, const Params p, const float* key_bias) {
   extern __shared__ __align__(1024) unsigned char flash_smem[];
@@ -1012,7 +1051,8 @@ cudaError_t launch_f32(const CUtensorMap (&maps)[3], const Params& p, F32Params 
 
 extern "C" {
 
-// dtype: 0 = bfloat16 (flash_wgmma_kernel), 1 = float32 (flash_f32_kernel);
+// dtype: 0 = bfloat16 (flash_wgmma_kernel; d 64, 96 or 256), 1 = float32
+// (flash_f32_kernel; d 64 or 96);
 // with a key_bias [b, sk] f32 (contiguous; null for none), their biased
 // instantiations flash_wgmma_bias_kernel and flash_f32_bias_kernel.
 // strides: 12 values, the (batch, head, sequence) strides in elements of q,
@@ -1032,7 +1072,9 @@ int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const
                               void* o,
                               int dtype, int b, int h, int sq, int sk, int d, const long long* strides,
                               float scale, int splits, float* o_part, float* ml, void* stream) {
-  if ((dtype != 0 && dtype != 1) || (d != 64 && d != 96) || sk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((dtype != 0 && dtype != 1) || (d != 64 && d != 96 && (dtype != 0 || d != 256)) || sk < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (splits < 1 || splits > 65535 || (dtype == 0 && splits != 1) ||
       (splits > 1 && (o_part == nullptr || ml == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1070,7 +1112,8 @@ int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const
   const int err = hopper::attention_maps(maps, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, b, h, sq, sk, d, strides);
   if (err != 0) return err;
   if (d == 64) return launch_wgmma<64>(maps, p, key_bias, b, h, s);
-  return launch_wgmma<96>(maps, p, key_bias, b, h, s);
+  if (d == 96) return launch_wgmma<96>(maps, p, key_bias, b, h, s);
+  return launch_wgmma<256>(maps, p, key_bias, b, h, s);
 }
 
 // The dynamic shared memory of one block of the kernel of `dtype` at head
@@ -1078,12 +1121,17 @@ int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const
 // (bias 1) or not, and the blocks of that kernel an SM holds
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 int zutis_flash_occupancy(int dtype, int d, int block_q, int bias, int* smem_bytes, int* blocks_per_sm) {
-  if (d != 64 && d != 96) return static_cast<int>(cudaErrorInvalidValue);
+  if (d != 64 && d != 96 && (dtype != 0 || d != 256)) return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel = nullptr;
   int threads = 0;
   if (dtype == 0 && block_q == kChunkRows) {
-    kernel = bias ? reinterpret_cast<const void*>(d == 64 ? flash_wgmma_bias_kernel<64> : flash_wgmma_bias_kernel<96>)
-                  : reinterpret_cast<const void*>(d == 64 ? flash_wgmma_kernel<64> : flash_wgmma_kernel<96>);
+    if (d == 256) {
+      kernel = bias ? reinterpret_cast<const void*>(flash_wgmma_bias_kernel<256>)
+                    : reinterpret_cast<const void*>(flash_wgmma_kernel<256>);
+    } else {
+      kernel = bias ? reinterpret_cast<const void*>(d == 64 ? flash_wgmma_bias_kernel<64> : flash_wgmma_bias_kernel<96>)
+                    : reinterpret_cast<const void*>(d == 64 ? flash_wgmma_kernel<64> : flash_wgmma_kernel<96>);
+    }
     threads = kFlashThreads;
     *smem_bytes = flash_layout(d, bias != 0).total;
   } else if (dtype == 1 && (block_q == kChunkRows || (d == 64 && block_q == 2 * kChunkRows))) {

@@ -8,8 +8,11 @@ zutis_tpu/engine/trainer.py).
     `checkpoint_every` (core/checkpoint.py), `final_model.npz` at the end.
   evaluate: the semantic argmax (and, for coco2017, the instance decode and
     COCO mask AP), bucketed through `ZUTIS.forward_padded`
-    (engine/batched_eval.py) or per image; `eval_metrics.json`,
-    `instance_predictions_<iter>.json` and `eval_coco_style_metrics.json`.
+    (engine/batched_eval.py) for the ViT family, in batches of one exact
+    (input, target) shape for the RN and DINO families (no padding, so
+    every number is the per-image program's), or per image;
+    `eval_metrics.json`, `instance_predictions_<iter>.json` and
+    `eval_coco_style_metrics.json`.
 
 Between log points a step waits for nothing on a card: each step's loss is
 copied to pinned host memory behind the step's kernels and read two steps
@@ -17,10 +20,9 @@ later (the finiteness guard still names the step that produced a NaN), and
 the confusion histogram accumulates on the device until a log, evaluation
 or checkpoint reads it.
 
-Not carried by this port (each raises NotImplementedError): encoders other
-than the CLIP ViT, with their exact-shape batched eval (ROADMAP.md, queue 1,
-item 7), and `visualise=True` (engine/visualiser.py needs matplotlib,
-queue 1, item 4); `debug` writes no images.
+Not carried by this port (raises NotImplementedError): `visualise=True`
+(engine/visualiser.py needs matplotlib, queue 1, item 4); `debug` writes no
+images.
 """
 from __future__ import annotations
 
@@ -91,12 +93,6 @@ class Trainer:
                  device="cuda"):
         """`model` must lie on `device`; raises on a host without a card
         unless device="cpu"."""
-        family = getattr(model, "encoder_family", "vit")
-        if family != "vit":
-            raise NotImplementedError(
-                f"encoder family {family!r}: the port carries the CLIP ViT "
-                "encoder only; RN and DINO encoders and their exact-shape "
-                "batched eval are ROADMAP.md, queue 1, item 7")
         self.device = resolve_device(device)
         param = next(model.parameters())
         if param.device.type != self.device.type:
@@ -279,10 +275,12 @@ class Trainer:
         model itself, or None) on `dataset` (`name`, `n_categories`, items
         with "image" [3, H, W] normalised f32, optional "semantic_mask",
         "image_id", and "original_size" for ImageNet-S; `p_annotations` for
-        coco2017). Images are padded into resolution buckets and run
-        `batch_images` at a time through `ZUTIS.forward_padded`;
-        `batch_images <= 1` or `debug` runs the reference's per-image
-        regime (trainer.py:294-375)."""
+        coco2017). ViT models pad images into resolution buckets and run
+        `batch_images` at a time through `ZUTIS.forward_padded`; RN and DINO
+        models (overlapping convolutions, no padded path) batch up to
+        `batch_images` images of one exact (input, target) shape through
+        the dense forward; `batch_images <= 1` or `debug` runs the
+        reference's per-image regime (trainer.py:294-375)."""
         model = getattr(state, "model", state)
         if model is not None and model is not self.model:
             raise ValueError("evaluate runs this Trainer's model")
@@ -293,10 +291,15 @@ class Trainer:
                                                         len(dataset))
         t_eval = time.time()
         if batch_images <= 1 or self.debug:
-            n_images = self._evaluate_per_image(
-                dataset, n, dataset_name, metric_meter, instance_predictions)
-        else:
+            n_images = self._evaluate_exact_batched(
+                dataset, 1 if self.debug else n, dataset_name, metric_meter,
+                instance_predictions, 1)
+        elif self.model.encoder_family == "vit":
             n_images = self._evaluate_batched(
+                dataset, n, dataset_name, metric_meter, instance_predictions,
+                batch_images)
+        else:
+            n_images = self._evaluate_exact_batched(
                 dataset, n, dataset_name, metric_meter, instance_predictions,
                 batch_images)
         eval_seconds = time.time() - t_eval
@@ -306,24 +309,36 @@ class Trainer:
         return self._finish_evaluate(scores, cls_iu, dataset, dataset_name,
                                      instance_predictions, num_iter)
 
-    def _evaluate_per_image(self, dataset, n, dataset_name, metric_meter,
-                            instance_predictions) -> int:
+    def _evaluate_exact_batched(self, dataset, n, dataset_name, metric_meter,
+                                instance_predictions, batch_images) -> int:
+        """The dense forward over groups of up to `batch_images` samples of
+        one exact (input shape, target shape), no padding; with
+        batch_images 1 the reference's per-image regime. A group runs when
+        it is full, the partial ones at the end, each in order of its
+        first sample (the port of the JAX Trainer's
+        `_evaluate_exact_batched` and `_evaluate_per_image`)."""
         n_classes = metric_meter.n_classes
         confusion = [None]  # the device-side [C, C] accumulator
+        pending: Dict = {}
 
-        def dispatch(i):
-            sample = dataset[i]
-            H, W = self._target_hw(sample, dataset_name)
-            image = to_device(torch.as_tensor(
-                np.asarray(sample["image"], np.float32))[None], self.device)
+        def dispatch(batch):
+            (_, _, H, W), items = batch
+            images = to_device(torch.from_numpy(np.stack(
+                [np.asarray(s["image"], np.float32) for s in items])),
+                self.device)
             res = fetch = None
             with torch.inference_mode():
-                out = self.model(image, inference=True)
+                out = self.model(images, inference=True)
                 sem = predict_semantic(out["patch_tokens"], self._text,
                                        size=(H, W))
-                if "semantic_mask" in sample:
-                    gt = to_device(torch.as_tensor(np.asarray(
-                        sample["semantic_mask"], np.int32))[None], self.device)
+                # items without a semantic GT add rows of -1, which the
+                # confusion's validity mask drops
+                if any("semantic_mask" in s for s in items):
+                    gt = to_device(torch.from_numpy(np.stack([
+                        np.asarray(s["semantic_mask"], np.int32)
+                        if "semantic_mask" in s
+                        else np.full((H, W), -1, np.int32) for s in items])),
+                        self.device)
                     c = confusion_update(gt, sem, n_classes)
                     confusion[0] = c if confusion[0] is None else confusion[0] + c
                 if dataset_name == "coco2017":
@@ -331,25 +346,35 @@ class Trainer:
                         out["mask_proposals"], out["patch_tokens"], self._text,
                         size=(H, W), rle=True)
                     fetch = BE.fetch_to_host(res, self._stream)
-            return sample, (H, W), res, fetch
+            return res, fetch
 
-        def collect(handles, _):
-            sample, hw, res, fetch = handles
+        def collect(handles, batch):
+            res, fetch = handles
+            (_, _, H, W), items = batch
             if res is not None:
                 instance_predictions.extend(instances_to_coco_counts(
-                    fetch.result(), image_ids=[sample["image_id"]],
-                    sizes=[hw],
+                    fetch.result(), image_ids=[s["image_id"] for s in items],
+                    sizes=[(H, W)] * len(items),
                     new_label_id_to_old_label_id=new_label_id_to_old_label_id,
                     dev_masks=BE.SideStreamView(res["masks"], self._stream)))
 
-        n_run = 1 if self.debug else n
-        # depth 2: image i's fetch and host assembly overlap image i + 1's
+        def batches():
+            for i in range(n):
+                sample = dataset[i]
+                key = (*sample["image"].shape[-2:],
+                       *self._target_hw(sample, dataset_name))
+                pending.setdefault(key, []).append(sample)
+                if len(pending[key]) == batch_images:
+                    yield key, pending.pop(key)
+            yield from pending.items()
+
+        # depth 2: batch N's fetch and host assembly overlap batch N + 1's
         # load and device work
-        for _ in BE.pipelined(dispatch, collect, range(n_run), depth=2):
+        for _ in BE.pipelined(dispatch, collect, batches(), depth=2):
             pass
         if confusion[0] is not None:
             metric_meter.confusion_matrix += confusion[0].cpu().numpy()
-        return n_run
+        return n
 
     def _evaluate_batched(self, dataset, n, dataset_name, metric_meter,
                           instance_predictions, batch_images) -> int:

@@ -110,12 +110,15 @@ class DeiTEncoder(nn.Module):
         self.norm.init_params(generator)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
-        """x [b, 3, H, W], H and W patch multiples -> (tokens with CLS
-        [b, 1 + h*w, d] after the final norm, h, w)."""
+        """x [b, 3, H, W] -> (tokens with CLS [b, 1 + h*w, d] after the
+        final norm, h = H // p, w = W // p): the rows and columns past the
+        last whole patch are dropped, as flax's VALID convolution drops
+        them (SelfMask pads its inputs to patch multiples first)."""
         b, c, hh, ww = x.shape
         p, d, dt = self.patch_size, self.embed_dim, self.dtype
         h, w = hh // p, ww // p
         # the stride-p convolution as one product over the patches
+        x = x[..., :h * p, :w * p]
         patches = x.to(dt).reshape(b, c, h, p, w, p).permute(0, 2, 4, 1, 3, 5)
         proj = self.patch_embed.proj
         tokens = F.linear(patches.reshape(b, h * w, c * p * p),

@@ -1,10 +1,19 @@
-"""The ZUTIS network, CLIP ViT family (the port of
-zutis_tpu/models/zutis.py `ZUTIS` with encoder_family="vit"), with its two
-opt-in levers: `tome_r` (token merging in the encoder, ops/tome.py) and
-`decoder_pool` (the cross-attention reads a pooled memory).
+"""The ZUTIS network (the port of zutis_tpu/models/zutis.py `ZUTIS`) in its
+three encoder families, with its two opt-in levers: `tome_r` (token merging
+in the ViT encoder, ops/tome.py) and `decoder_pool` (the cross-attention
+reads a pooled memory).
+
+  - "vit": the CLIP ViT (`models/vit.py`);
+  - "rn": the CLIP ModifiedResNet (`models/resnet.py`); `width` is its
+    stage-4 width rn_width * 32 (2048 for RN50 and RN101), which feeds ffn1,
+    ffn2 and the decoder, so 8 decoder heads run at head dim 256;
+  - "dino": the DINO ViT-B/16 (`models/selfmask.py::DeiTEncoder`), its
+    patch tokens mapped into the text dim by `vision_to_text_ffn` (an MLP
+    through 256) before the upsample, so `width` is text_dim.
 
   1. encoder -> patch tokens [b, hw, width]
-  2. bilinear x2 upsample of the token grid
+  2. bilinear x2 upsample of the token grid, unless `upsample_tokens` is
+     off (the `dilatedRN*` archs)
   3. ffn1(tokens) -> decoder memory; with `stop_gradient` (the default)
      the tokens are detached, so the mask loss trains no encoder weight
   4. sine positional embedding over the upsampled grid
@@ -14,15 +23,20 @@ opt-in levers: `tome_r` (token merging in the encoder, ops/tome.py) and
      memory and position, and the proposals of step 7 keep the dense memory
   6. ffn2(queries), L2-normalised (a zero query maps to zero)
   7. mask_proposals = sigmoid(queries . memory) in f32
-  8. text-space tokens: tokens @ proj, a parameter-free LayerNorm over the
-     whole (h, w, c) map, L2-normalised with eps 1e-7
+  8. text-space tokens: tokens @ proj (ViT), attnpool over the token grid
+     with its mean token dropped (RN), the tokens as they are (DINO); then
+     a parameter-free LayerNorm over the whole (h, w, c) map, L2-normalised
+     with eps 1e-7
 
 Returns {"mask_proposals": [b, L, Q, h, w], "patch_tokens": [b, h, w, text_dim]},
-both f32.
+both f32. `forward_padded` (the bucketed eval's path) is the ViT family's
+only: RN convolutions overlap, so padding would leak into boundary
+features, and the RN and DINO models evaluate image by image or in
+batches of one exact shape (engine/trainer.py).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +46,8 @@ from zutis_tpu_torch.core.device import resolve_device, to_device
 from zutis_tpu_torch.models.decoder import QueryDecoder
 from zutis_tpu_torch.models.layers import MLP, fill_normal_
 from zutis_tpu_torch.models.pos_embed import sine_pos_embed
+from zutis_tpu_torch.models.resnet import ModifiedResNet
+from zutis_tpu_torch.models.selfmask import DeiTEncoder
 from zutis_tpu_torch.models.vit import CLIPViT
 from zutis_tpu_torch.ops.dynamic_shapes import (
     replicate_edges,
@@ -90,6 +106,9 @@ def _cell_mean(t: torch.Tensor, h: int, w: int, p: int, weight=None,
     return g.to(t.dtype).reshape(n, -1, c)
 
 
+ENCODER_FAMILIES = ("vit", "rn", "dino")
+
+
 class ZUTIS(nn.Module):
     def __init__(
         self,
@@ -107,22 +126,67 @@ class ZUTIS(nn.Module):
         attn_impl: str = "auto",
         tome_r: int = 0,
         decoder_pool: int = 1,
+        encoder_family: str = "vit",
+        rn_layers: Sequence[int] = (3, 4, 6, 3),
+        rn_width: int = 64,
+        dino_embed_dim: int = 768,
+        dino_depth: int = 12,
+        dino_heads: int = 12,
+        upsample_tokens: bool = True,
         device="cuda",
     ):
+        """The encoder geometry is `encoder_layers`, `encoder_heads` and
+        `patch_size` for "vit"; `rn_layers` (blocks a stage) and `rn_width`
+        (the stem's width) for "rn"; `dino_embed_dim`, `dino_depth`,
+        `dino_heads` and `patch_size` for "dino", whose positional
+        embedding is stored for input_resolution / patch_size a side."""
         super().__init__()
         device = resolve_device(device)
+        if encoder_family not in ENCODER_FAMILIES:
+            raise ValueError(f"encoder_family {encoder_family!r} not in "
+                             f"{ENCODER_FAMILIES}")
+        if tome_r and encoder_family != "vit":
+            raise ValueError("ToMe token merging is implemented for the CLIP "
+                             "ViT encoder family only")
         if decoder_pool < 1:
             raise ValueError(f"decoder_pool must be >= 1, got {decoder_pool}")
         self.width, self.n_queries, self.dtype = width, n_queries, dtype
+        self.text_dim = text_dim
+        self.encoder_family, self.upsample_tokens = encoder_family, upsample_tokens
         self.stop_gradient = stop_gradient
         # the levers add no parameter: one checkpoint serves every setting
         self.tome_r, self.decoder_pool = tome_r, decoder_pool
-        self.encoder = CLIPViT(
-            width=width, layers=encoder_layers, heads=encoder_heads,
-            patch_size=patch_size, output_dim=text_dim,
-            input_resolution=input_resolution, dtype=dtype,
-            attn_impl=attn_impl, tome_r=tome_r, device=device,
-        )
+        self.vision_to_text_ffn = None
+        if encoder_family == "rn":
+            if width != rn_width * 32:
+                raise ValueError(
+                    "RN encoders feed the decoder at their stage-4 embed dim: "
+                    f"width must be rn_width*32={rn_width * 32}, got {width}")
+            self.encoder = ModifiedResNet(
+                layers=tuple(rn_layers), width=rn_width, output_dim=text_dim,
+                heads=rn_width * 32 // 64, input_resolution=input_resolution,
+                dtype=dtype, attn_impl=attn_impl, device=device)
+        elif encoder_family == "dino":
+            if width != text_dim:
+                raise ValueError(
+                    "DINO family: vision_to_text_ffn maps tokens into the "
+                    "text dim before the decoder; width must equal "
+                    f"text_dim={text_dim}, got {width}")
+            self.encoder = DeiTEncoder(
+                embed_dim=dino_embed_dim, depth=dino_depth, heads=dino_heads,
+                patch_size=patch_size,
+                base_grid=input_resolution // patch_size, dtype=dtype,
+                attn_impl=attn_impl, device=device)
+            # outside `encoder.`, so the optimiser gives it the full rate
+            self.vision_to_text_ffn = MLP(dino_embed_dim, 256, text_dim, 3,
+                                          dtype=dtype, device=device)
+        else:
+            self.encoder = CLIPViT(
+                width=width, layers=encoder_layers, heads=encoder_heads,
+                patch_size=patch_size, output_dim=text_dim,
+                input_resolution=input_resolution, dtype=dtype,
+                attn_impl=attn_impl, tome_r=tome_r, device=device,
+            )
         self.ffn1 = MLP(width, 256, width, 3, dtype=dtype, device=device)
         self.ffn2 = MLP(width, 256, width, 3, dtype=dtype, device=device)
         self.decoder = QueryDecoder(
@@ -138,6 +202,8 @@ class ZUTIS(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.encoder.init_params(generator)
+        if self.vision_to_text_ffn is not None:
+            self.vision_to_text_ffn.init_params(generator)
         self.ffn1.init_params(generator)
         self.ffn2.init_params(generator)
         self.decoder.init_params(generator)
@@ -149,11 +215,15 @@ class ZUTIS(nn.Module):
         b = x.shape[0]
         dt, width = self.dtype, self.width
         patch_tokens, h, w = self.encoder(x)
+        if self.vision_to_text_ffn is not None:
+            # the DINO tokens come with their CLS: into the text dim first
+            patch_tokens = self.vision_to_text_ffn(patch_tokens[:, 1:, :])
 
-        grid = patch_tokens.reshape(b, h, w, width).permute(0, 3, 1, 2)
-        grid = interpolate(grid, scale_factor=2, mode="bilinear")
-        h, w = h * 2, w * 2
-        patch_tokens = grid.permute(0, 2, 3, 1).reshape(b, h * w, width)
+        if self.upsample_tokens:
+            grid = patch_tokens.reshape(b, h, w, width).permute(0, 3, 1, 2)
+            grid = interpolate(grid, scale_factor=2, mode="bilinear")
+            h, w = h * 2, w * 2
+            patch_tokens = grid.permute(0, 2, 3, 1).reshape(b, h * w, width)
 
         memory = self.ffn1(self._tokens_in(patch_tokens))  # [b, hw, width]
         pos = sine_pos_embed(h, w, width // 2).reshape(width, -1).T
@@ -202,8 +272,16 @@ class ZUTIS(nn.Module):
         mask_proposals = torch.sigmoid(logits)
 
         token_grid = patch_tokens.reshape(b, h, w, width)
-        text_tokens = torch.einsum("bhwn,nc->bhwc", token_grid.float(),
-                                   self.encoder.proj.to(self.dtype).float())
+        if self.encoder_family == "rn":
+            # attnpool over the (upsampled) grid, its mean token dropped
+            text_tokens = self.encoder.attnpool_tokens(token_grid).float()
+        elif self.encoder_family == "dino":
+            # already in the text dim (vision_to_text_ffn): no projection
+            text_tokens = token_grid.float()
+        else:
+            text_tokens = torch.einsum(
+                "bhwn,nc->bhwc", token_grid.float(),
+                self.encoder.proj.to(self.dtype).float())
         text_tokens = norm(text_tokens)
         text_tokens = text_tokens / (
             torch.linalg.vector_norm(text_tokens, dim=-1, keepdim=True) + 1e-7)
@@ -230,7 +308,11 @@ class ZUTIS(nn.Module):
           - text-space tokens: the full-map LayerNorm over the valid window.
         Returns the forward's outputs plus "valid" [b, h, w] int32 on the
         device and "native_grid" [b, 2], the upsampled native grids on the
-        host."""
+        host. The ViT family's only: RN and DINO models raise."""
+        if self.encoder_family != "vit":
+            raise ValueError(
+                "forward_padded is implemented for the CLIP ViT family; RN "
+                "(overlapping convs) and DINO models evaluate per-image")
         b, width = x.shape[0], self.width
         native_grid = torch.as_tensor(native_grid).to("cpu", torch.int64)
         patch_tokens, _ = self.encoder.forward_padded(x, native_grid)
@@ -239,11 +321,12 @@ class ZUTIS(nn.Module):
 
         grid_d = to_device(native_grid, x.device)
         grid = replicate_edges(patch_tokens.reshape(b, hp, wp, width), grid_d)
-        grid = interpolate(grid.permute(0, 3, 1, 2), scale_factor=2,
-                           mode="bilinear")
-        hp, wp = hp * 2, wp * 2
-        native_grid, grid_d = native_grid * 2, grid_d * 2
-        patch_tokens = grid.permute(0, 2, 3, 1).reshape(b, hp * wp, width)
+        if self.upsample_tokens:
+            grid = interpolate(grid.permute(0, 3, 1, 2), scale_factor=2,
+                               mode="bilinear").permute(0, 2, 3, 1)
+            hp, wp = hp * 2, wp * 2
+            native_grid, grid_d = native_grid * 2, grid_d * 2
+        patch_tokens = grid.reshape(b, hp * wp, width)
         valid = token_valid_mask(grid_d, hp, wp)  # [b, hp*wp] int32
 
         memory = self.ffn1(self._tokens_in(patch_tokens))

@@ -14,7 +14,9 @@ unchanged.
 Dispatch is by dtype; both kernels run on Hopper's TMA, mbarriers and
 wgmma. bf16, the serving path: one producer warp streams 64-key K and V
 chunks through a ring in shared memory (`STAGES` deep) to one consumer
-warpgroup of 64 query rows. f32: every product takes three bf16 wgmma on
+warpgroup of 64 query rows; at head dim 256 (the RN50 and RN101 decoders)
+the ring is `WIDE_STAGES` deep, Q stays in shared memory and one block
+fills an SM. f32 (head dims 64 and 96): every product takes three bf16 wgmma on
 hi/lo splits (~16 mantissa bits); a producer warpgroup loads f32 K and V
 chunks with TMA and splits each once into bf16 tiles for two consumer
 warpgroups (128 query rows a block; 64 for sq <= 64 and at d 96). An f32
@@ -46,11 +48,13 @@ from zutis_tpu_torch.ops import _build
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 STEM = "libzutis_flash"
-HEAD_DIMS = (64, 96)
+HEAD_DIMS = (64, 96, 256)  # the bf16 kernel's
+F32_HEAD_DIMS = (64, 96)   # the f32 kernel's
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _NEG_INF = -1e30
 KEY_CHUNK = 64        # keys per K/V chunk, and query rows per warpgroup
-STAGES = 4            # K/V chunks in the bf16 kernel's ring
+STAGES = 4            # K/V chunks in the bf16 kernel's ring at d 64, 96
+WIDE_STAGES = 3       # and at d 256, where a chunk is 32 KB
 F32_STAGES = 2        # f32 K/V chunks in the f32 kernel's TMA ring
 SPLIT_STAGES = 2      # bf16 hi/lo K/V tiles in its split ring
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
@@ -193,6 +197,18 @@ def key_splits(b: int, h: int, sq: int, sk: int, d: int = 64) -> int:
     return -(-chunks // per)
 
 
+def stages(d: int) -> int:
+    """K/V chunks in the bf16 kernel's ring at head dim d (flash_stages in
+    csrc/flash_attention.cu)."""
+    return WIDE_STAGES if d > 128 else STAGES
+
+
+def min_blocks(d: int) -> int:
+    """Blocks an SM the bf16 kernel is built to hold at head dim d (its
+    __launch_bounds__, flash_min_blocks): two at d 64 and 96, one at 256."""
+    return 1 if d > 128 else 2
+
+
 def _with_bias(layout: dict, slots: int) -> dict:
     """`layout` with a ring of `slots` chunks' key biases (64 f32, already
     times log2(e)) appended after its mbarriers."""
@@ -203,18 +219,19 @@ def _with_bias(layout: dict, slots: int) -> dict:
 def smem_layout(d: int, bias: bool = False) -> dict:
     """Byte offsets into one bf16 block's dynamic shared memory, as the
     kernel lays it out (flash_layout in csrc/flash_attention.cu): the Q
-    tile, STAGES K chunks, STAGES V chunks (each 64 rows of d bf16 columns,
-    no padding), a 64-bit key-validity word per stage, then the mbarriers:
-    q_full and a full and an empty one per K and V stage. The biased kernel
-    appends 2 * STAGES chunks' key biases. `total` is the block's size."""
-    chunk = KEY_CHUNK * d * 2
+    tile, `stages(d)` K chunks, as many V chunks (each 64 rows of d bf16
+    columns, no padding), a 64-bit key-validity word per stage, then the
+    mbarriers: q_full and a full and an empty one per K and V stage. The
+    biased kernel appends 2 * stages(d) chunks' key biases. `total` is the
+    block's size."""
+    chunk, n = KEY_CHUNK * d * 2, stages(d)
     k = chunk
-    v = k + STAGES * chunk
-    valid = v + STAGES * chunk
-    bars = valid + STAGES * 8
+    v = k + n * chunk
+    valid = v + n * chunk
+    bars = valid + n * 8
     layout = dict(q=0, k=k, v=v, valid=valid, bars=bars,
-                  total=bars + (1 + 4 * STAGES) * 8)
-    return _with_bias(layout, 2 * STAGES) if bias else layout
+                  total=bars + (1 + 4 * n) * 8)
+    return _with_bias(layout, 2 * n) if bias else layout
 
 
 def f32_smem_layout(d: int, bias: bool = False) -> dict:
@@ -246,7 +263,8 @@ def f32_smem_layout(d: int, bias: bool = False) -> dict:
 
 def check_kernel_inputs(q, k, v, kv_mask, key_bias=None) -> None:
     """Raise on anything the kernels do not take: dtype other than bf16 or
-    f32, head dim outside HEAD_DIMS, no keys, mismatched shapes or devices,
+    f32, head dim outside HEAD_DIMS (F32_HEAD_DIMS for f32: no f32 kernel
+    at d 256), no keys, mismatched shapes or devices,
     a head dim that is not contiguous, strides and addresses not 16-byte
     aligned, or a key_bias other than a contiguous f32 [b, sk]."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -267,6 +285,10 @@ def check_kernel_inputs(q, k, v, kv_mask, key_bias=None) -> None:
         raise TypeError(
             f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the kernel takes q, k, v "
             "all bfloat16 or all float32")
+    if q.dtype == torch.float32 and d not in F32_HEAD_DIMS:
+        raise ValueError(
+            f"head dim {d} not supported by the f32 kernel (supported: "
+            f"{F32_HEAD_DIMS}; bf16 also takes {HEAD_DIMS})")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one device")
     if b > 65535 or h > 65535:
@@ -299,8 +321,8 @@ def occupancy(d: int, dtype: torch.dtype = torch.bfloat16,
               bias: bool = False) -> tuple[int, int]:
     """(dynamic shared memory bytes, blocks per SM) of the kernel of `dtype`
     at this head dim, biased or not, from the current card's occupancy
-    calculator; block_q is 64 for bf16 and for f32 at d 96, 64 or 128 (the
-    default) for f32 at d 64."""
+    calculator; block_q is 64 for bf16 (d 64, 96, 256) and for f32 at d 96,
+    64 or 128 (the default) for f32 at d 64."""
     if block_q is None:
         block_q = (block_rows(2 * KEY_CHUNK, d) if dtype == torch.float32
                    else KEY_CHUNK)
@@ -358,9 +380,10 @@ def flash_attention(
     Differentiable in q, k and v (`FlashAttention`). The kernel launch
     count is `flash_attention.launches` (one a call); of those the launches
     given a mask are `flash_attention.masked_launches`, those given a key
-    bias `flash_attention.biased_launches`, and the f32 calls split by
+    bias `flash_attention.biased_launches`, the f32 calls split by
     `key_splits`, each with a combine launch,
-    `flash_attention.split_launches`."""
+    `flash_attention.split_launches`, and those at head dim 256 (the
+    kernel's wide instantiation) `flash_attention.wide_launches`."""
     if not (torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
         return _flash_forward(q, k, v, kv_mask, key_bias=key_bias)
@@ -421,6 +444,7 @@ def _flash_forward(q, k, v, kv_mask, n_splits=None,
     flash_attention.masked_launches += mask is not None
     flash_attention.biased_launches += key_bias is not None
     flash_attention.split_launches += splits > 1
+    flash_attention.wide_launches += d > 128
     return o
 
 
@@ -428,3 +452,4 @@ flash_attention.launches = 0
 flash_attention.masked_launches = 0  # the launches given a kv_mask
 flash_attention.biased_launches = 0  # the launches given a key_bias
 flash_attention.split_launches = 0   # the f32 launches split, with a combine
+flash_attention.wide_launches = 0    # the launches at head dim 256

@@ -96,11 +96,12 @@ def encode_images(p_images: List[str], visual_encoder, resolution: int = 336,
                   batch_size: Optional[int] = None) -> np.ndarray:
     """-> [n, output_dim] float32: the unnormalised `encode_image` of each
     image, in one batch padded to `batch_size` (if given) with copies of
-    its last image."""
+    its last image. `visual_encoder` is the port's `CLIPViT` or
+    `ModifiedResNet` (attnpool's lead token)."""
     arrs = [clip_preprocess(p, resolution) for p in p_images]
     pad = 0 if batch_size is None else batch_size - len(arrs)
     batch = torch.from_numpy(np.stack(arrs + [arrs[-1]] * pad))
-    device = visual_encoder.proj.device
+    device = next(visual_encoder.parameters()).device
     with torch.no_grad():
         emb = visual_encoder.encode_image(to_device(batch, device))
     return emb[:len(arrs)].float().cpu().numpy()
@@ -113,7 +114,8 @@ def extract_image_embeddings(
     batch_size: int = 32,
     fp: Optional[str] = None,
 ) -> Dict[str, np.ndarray]:
-    """-> {path: unit-norm float32 embedding} from the port's `CLIPViT`;
+    """-> {path: unit-norm float32 embedding} from the port's `CLIPViT` or
+    `ModifiedResNet`;
     optionally pickled to `fp` in the reference bank format
     (extract_image_embeddings.py:21-86)."""
     out: Dict[str, np.ndarray] = {}
