@@ -1,5 +1,6 @@
-"""The flash kernels' biased instantiations (flash_wgmma_bias_kernel and
-flash_f32_bias_kernel in csrc/flash_attention.cu) against their plain
+"""The flash kernels' biased instantiations (flash_wgmma_bias_kernel,
+flash_halves_bias_kernel, flash_f32_bias_kernel and
+flash_f32_simt_bias_kernel in csrc/flash_attention.cu) against their plain
 version on the card, and their shared-memory layouts on the CPU.
 
 The file imports no JAX, so that it runs on a machine with a card and no
@@ -10,7 +11,7 @@ without a card. The shapes are the levers' main-path calls: the ToMe
 encoder at its first and last block (577 and 401 tokens, r 16), the padded
 eval encoder under ToMe r 90 (1281 and 291 tokens) and the padded pooled
 cross-attention (1280 pooled keys), each with a bias a key of log(size)
-range. Tolerances as tests/test_torch_flash_kernel.py: bf16 8e-3 of the
+range; and the pooled cross-attention of every decoder head dim 80-512. Tolerances as tests/test_torch_flash_kernel.py: bf16 8e-3 of the
 largest |output|, f32 1e-4, split and unsplit; a masked key takes no
 weight whatever its bias, and an item with no valid key comes out zero.
 """
@@ -91,6 +92,29 @@ def test_cuda_biased_kernel_matches_reference(name, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [d for d in fa.HEAD_DIMS if d not in (64, 96)])
+def test_cuda_biased_kernel_at_the_new_head_dims(d, dtype):
+    """The padded pooled cross-attention (1280 keys, a ragged last chunk,
+    an all-masked item) at each decoder head dim the model factory adds."""
+    _needs_card()
+    q, k, v, bias, mask = _inputs(13, (3, 8, 100, 1281, d), True)
+    q, k, v = (x.cuda().to(dtype) for x in (q, k, v))
+    bias, mask = bias.cuda(), mask.cuda()
+    want = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask,
+                                        bias)
+    before = fa.flash_attention.biased_launches
+    got = fa.flash_attention(q, k, v, mask, bias)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.biased_launches == before + 1
+    tol = (TOL_BF16 * want.abs().max().item() if dtype == torch.bfloat16
+           else TOL_F32)
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+    assert (got[1] == 0).all()
+
+
+@pytest.mark.cuda
 def test_cuda_zero_bias_is_the_unbiased_kernel():
     _needs_card()
     q, k, v, bias, mask = _inputs(12, (4, 6, 200, 333, 64), True)
@@ -108,7 +132,11 @@ def test_cuda_zero_bias_is_the_unbiased_kernel():
 @pytest.mark.parametrize("dtype,d,block_q", [
     (torch.bfloat16, 64, 64), (torch.bfloat16, 96, 64),
     (torch.float32, 64, 128), (torch.float32, 64, 64), (torch.float32, 96, 64),
-    (torch.bfloat16, 256, 64)])
+    (torch.bfloat16, 256, 64), (torch.bfloat16, 80, 64),
+    (torch.bfloat16, 128, 64), (torch.bfloat16, 320, 64),
+    (torch.bfloat16, 384, 64), (torch.bfloat16, 512, 64),
+    (torch.float32, 80, 64), (torch.float32, 128, 32),
+    (torch.float32, 512, 32)])
 def test_cuda_biased_occupancy(dtype, d, block_q):
     _needs_card()
     smem, blocks = fa.occupancy(d, dtype, block_q, bias=True)
@@ -116,8 +144,9 @@ def test_cuda_biased_occupancy(dtype, d, block_q):
     lay = fa.f32_smem_layout(d, True) if f32 else fa.smem_layout(d, True)
     assert smem == lay["total"]
     # at least the unbiased kernel's: one f32 block an SM, two bf16 ones
-    # (one at d 256)
+    # (one from d 128)
     assert blocks >= (1 if f32 else fa.min_blocks(d))
+    assert blocks >= fa.occupancy(d, dtype, block_q)[1]
 
 
 # ---------------------------------------------------------------- on the CPU
@@ -126,25 +155,28 @@ def test_cuda_biased_occupancy(dtype, d, block_q):
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_bias_ring_follows_the_unbiased_layout(d, f32):
     """The unbiased layout is unchanged and the bias ring (2 x stages slots
-    of 64 f32) comes after its mbarriers. The f32 kernel has no d 256: its
-    rings alone would not fit a block."""
+    of a chunk's keys in f32) comes after its mbarriers. The f32 CUDA-core
+    kernel (d 128 and above) reads its biases from device memory: its
+    biased layout is the unbiased one."""
     layout = fa.f32_smem_layout if f32 else fa.smem_layout
     stages = fa.SPLIT_STAGES if f32 else fa.stages(d)
-    if f32 and d not in fa.F32_HEAD_DIMS:
-        assert layout(d)["total"] > fa.SMEM_LIMIT
+    keys = fa.KEY_CHUNK if f32 else fa.chunk_keys(d)
+    if f32 and d in fa.SIMT_HEAD_DIMS:
+        assert layout(d, bias=True) == layout(d)
+        assert layout(d)["total"] <= fa.SMEM_LIMIT
         return
     plain, biased = layout(d), layout(d, bias=True)
     assert {k: v for k, v in biased.items() if k not in ("bias", "total")} \
         == {k: v for k, v in plain.items() if k != "total"}
     assert biased["bias"] == plain["total"]
     assert biased["bias"] % 8 == 0  # 8-byte float2 reads, 4-byte stores
-    assert biased["total"] == plain["total"] + 2 * stages * fa.KEY_CHUNK * 4
+    assert biased["total"] == plain["total"] + 2 * stages * keys * 4
     assert biased["total"] <= fa.SMEM_LIMIT
 
 
 def test_biased_layouts_keep_their_blocks_an_sm():
     for d in fa.HEAD_DIMS:
-        # bf16: two blocks (one at d 256) and their 1 KB reserves in the
+        # bf16: two blocks (one from d 128) and their 1 KB reserves in the
         # SM's 228 KB
         assert fa.min_blocks(d) * (fa.smem_layout(d, bias=True)["total"]
                                    + 1024) <= 228 * 1024
@@ -157,6 +189,8 @@ def test_bias_ring_mirrors_the_source():
     assert re.search(r"constexpr int bias_slots\(int stages\) \{ return 2 \* "
                      r"stages; \}", text)
     assert "constexpr int kBiasSlotBytes = kChunkRows * 4;" in text
-    for kernel in ("flash_wgmma_bias_kernel", "flash_f32_bias_kernel"):
+    assert "constexpr int kShortBiasSlotBytes = kShort * 4;" in text
+    for kernel in ("flash_wgmma_bias_kernel", "flash_f32_bias_kernel",
+                   "flash_halves_bias_kernel", "flash_f32_simt_bias_kernel"):
         assert re.search(rf"__global__ void __launch_bounds__\(.*\)\s+"
                          rf"{kernel}\(", text), kernel

@@ -1,6 +1,7 @@
 """The flash-attention kernels (csrc/flash_attention.cu) against their plain
-version on the card (the bf16 kernel at head dims 64, 96 and the RN
-decoders' 256), and both kernels' launch geometry and the input checks on
+version on the card (bf16 and f32 at every head dim the model factory
+gives: 64, 80, 96, 128, 256, 320, 384, 512), and the kernels' launch
+geometry, their constants against the CUDA sources and the input checks on
 the CPU.
 
 The kernels have no CPU mode, so the tests that launch them are marked
@@ -15,7 +16,8 @@ kernel rounds P to bf16 before P V and the output to bf16, about 2^-9
 relative each, and reads at most 3.1e-3 of it on an H100. Giving the zero
 keys past a ragged edge any weight, or skipping a 64-key chunk, costs
 several times that. f32 inputs take hi/lo bf16 splits (~16 mantissa bits)
-and are held to 1e-4 absolute, split and unsplit alike.
+at d 64 to 96 and full f32 on the CUDA cores from d 128, and are held to
+1e-4 absolute, split and unsplit alike.
 """
 import re
 
@@ -37,6 +39,14 @@ DECODER_CROSS = (8, 8, 100, 2304, 96)
 # 12 x 12 tokens upsampled to 24 x 24 memory keys)
 RN_DECODER_SELF = (8, 8, 100, 100, 256)
 RN_DECODER_CROSS = (8, 8, 100, 576, 256)
+# memory keys of the decoders at the new head dims: the ViT-L/14@336px
+# decoder (d 128) and the DINO arm at RN50x4's text width (d 80) over 48 x
+# 48 upsampled tokens, the RN50x4 / x16 / x64 decoders (d 320, 384, 512)
+# over 24 x 24 at 384 px; f32 at d 256 is RN50's
+WIDE_CROSS_KEYS = {80: 2304, 128: 2304, 256: 576, 320: 576, 384: 576,
+                   512: 576}
+NEW_DIMS = ([(torch.bfloat16, d) for d in (80, 128, 320, 384, 512)]
+            + [(torch.float32, d) for d in (80, 128, 256, 320, 384, 512)])
 
 
 def _qkv(seed, b, h, sq, sk, d, strided=False):
@@ -110,6 +120,31 @@ def _check(shape, dtype=torch.bfloat16, masked=False, strided=False):
 def test_cuda_kernel_matches_reference_on_the_card(shape, dtype, masked,
                                                    strided):
     _check(shape, dtype, masked, strided)
+
+
+def _wide_case(d, case):
+    """(shape, masked, strided) of `case` at head dim d: the decoder's self-
+    and cross-attention at batch 8, a ragged last chunk under a kv_mask with
+    an all-masked item, and 33 keys (one past a 32-key chunk; 31 rows past
+    the edge of a 64-key one)."""
+    return {
+        "self": ((8, 8, 100, 100, d), False, False),
+        "cross": ((8, 8, 100, WIDE_CROSS_KEYS[d], d), False, True),
+        "ragged masked": ((3, 4, 130, 577, d), True, True),
+        "keys past the edge": ((2, 3, 70, 33, d), False, True),
+    }[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["self", "cross", "ragged masked",
+                                  "keys past the edge"])
+@pytest.mark.parametrize("dtype,d", NEW_DIMS,
+                         ids=lambda x: str(x).replace("torch.", ""))
+def test_cuda_kernel_at_the_new_head_dims(dtype, d, case):
+    shape, masked, strided = _wide_case(d, case)
+    before = dict(fa.flash_attention.launches_by_dim)
+    _check(shape, dtype, masked, strided)
+    assert fa.flash_attention.launches_by_dim[d] == before.get(d, 0) + 1
 
 
 # The bucketed eval's shapes at batch 32 in the 512 x 640 bucket: encoder
@@ -247,13 +282,14 @@ def test_cuda_occupancy_reports_the_launched_kernel(d):
     _needs_card()
     smem, blocks = fa.occupancy(d)
     assert smem == fa.smem_layout(d)["total"]
-    # the design: at d 64 and 96 two blocks, one's loads overlapping the
-    # other's work; at d 256 one block holds Q and a 3-stage ring
-    assert blocks == fa.min_blocks(d) == (1 if d == 256 else 2)
+    # the design: at d 64 to 96 two blocks, one's loads overlapping the
+    # other's work; from d 128 one block holds Q and a deep ring
+    assert blocks == fa.min_blocks(d) == (2 if d < 128 else 1)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,block_q", [(64, 64), (64, 128), (96, 64)])
+@pytest.mark.parametrize("d,block_q", [(64, 64), (64, 128), (96, 64),
+                                       (80, 64)])
 def test_cuda_f32_occupancy_reports_the_launched_kernel(d, block_q):
     _needs_card()
     smem, blocks = fa.occupancy(d, torch.float32, block_q)
@@ -261,39 +297,54 @@ def test_cuda_f32_occupancy_reports_the_launched_kernel(d, block_q):
     assert blocks == 1  # a block holds the SM's registers (setmaxnreg)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", fa.SIMT_HEAD_DIMS)
+def test_cuda_simt_occupancy_reports_the_launched_kernel(d):
+    _needs_card()
+    smem, blocks = fa.occupancy(d, torch.float32)
+    assert smem == fa.simt_smem_layout(d)["total"]
+    # 256 threads a block: at least one, at most what the shared memory and
+    # the SM's 2,048 threads hold
+    assert 1 <= blocks <= min(8, 228 * 1024 // (smem + 1024))
+
+
 # ---------------------------------------------------------------- on the CPU
 
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_smem_layout_keeps_tiles_on_the_swizzle_pattern(d):
     lay = fa.smem_layout(d)
-    chunk, stages = fa.KEY_CHUNK * d * 2, fa.stages(d)
+    cols, stages = fa.box_cols(d), fa.stages(d)
+    q_tile, chunk = fa.KEY_CHUNK * cols * 2, fa.chunk_keys(d) * cols * 2
     tiles = [lay["q"]] + [lay[area] + s * chunk for area in ("k", "v")
                           for s in range(stages)]
     # TMA's and wgmma's 64-byte swizzle repeats every 512 bytes, from
     # absolute address bits, so every tile (and every 4 KB box in it)
     # starts on that boundary
     assert all(t % 512 == 0 for t in tiles)
-    assert all(t % 4096 == 0 for t in tiles)
+    # every box starts on its size: 4 KB (64 rows), 2 KB (32-key chunks)
+    assert all(t % (fa.chunk_keys(d) * 64) == 0 for t in tiles)
     # areas in order, none overlapping the next
-    assert lay["q"] + chunk <= lay["k"]
+    assert lay["q"] + q_tile <= lay["k"]
     assert lay["k"] + stages * chunk <= lay["v"]
     assert lay["v"] + stages * chunk <= lay["valid"]
     assert lay["valid"] + stages * 8 <= lay["bars"]
     assert lay["bars"] % 8 == 0  # mbarriers are 8-byte words
     assert lay["total"] == lay["bars"] + (1 + 4 * stages) * 8
     assert lay["total"] <= fa.SMEM_LIMIT
-    # the wide ring is as deep as the block's shared memory allows
-    if d == 256:
+    # the rings at d 256 and above are as deep as a block's shared memory
+    # allows
+    if d >= 256:
         assert lay["total"] + 2 * chunk > fa.SMEM_LIMIT
 
 
 def test_smem_layout_leaves_room_for_two_blocks():
     # two blocks (plus the 1 KB each block reserves) must fit in the SM's
-    # 228 KB at head dims 64 and 96; at 256 the block is built for one
+    # 228 KB at head dims 64 to 96; from 128 the block is built for one
     for d in fa.HEAD_DIMS:
         assert fa.min_blocks(d) * (fa.smem_layout(d)["total"] + 1024) \
             <= 228 * 1024
-    assert [fa.min_blocks(d) for d in fa.HEAD_DIMS] == [2, 2, 1]
+    assert [fa.min_blocks(d) for d in fa.HEAD_DIMS] == [2, 2, 2, 1, 1, 1,
+                                                        1, 1]
 
 
 def _swizzle_64b(addr):
@@ -304,7 +355,8 @@ def _swizzle_64b(addr):
 @pytest.mark.parametrize("d", fa.F32_HEAD_DIMS)
 def test_f32_smem_layout_keeps_tiles_on_the_swizzle_pattern(d):
     lay = fa.f32_smem_layout(d)
-    f32_chunk, tile = fa.KEY_CHUNK * d * 4, fa.KEY_CHUNK * d * 2
+    cols = fa.box_cols(d)  # d 80 computes d 96's columns
+    f32_chunk, tile = fa.KEY_CHUNK * cols * 4, fa.KEY_CHUNK * cols * 2
     q_boxes = fa.block_rows(128, d) // fa.KEY_CHUNK  # one per consumer
     f32_tiles = [lay["q"] + w * f32_chunk for w in range(q_boxes)]
     f32_tiles += [lay[a] + s * f32_chunk for a in ("kf", "vf")
@@ -342,7 +394,8 @@ def test_f32_split_writes_fill_the_tile_that_wgmma_reads(d):
     (which is where the K-major and MN-major descriptors read it), the
     stores cover the tile once, and the 16 threads of a half-warp store to
     32 distinct banks and the 8 of a quarter-warp read 128 contiguous
-    bytes."""
+    bytes. At d 80 the split runs at d 96's width (box_cols)."""
+    d = fa.box_cols(d)
     seen = np.zeros(fa.KEY_CHUNK * d * 2, np.int32)
     stores = {}
     for t in range(128):
@@ -377,6 +430,21 @@ def test_f32_smem_layout_holds_one_block_an_sm():
         assert fa.f32_smem_layout(d)["total"] + 1024 <= 228 * 1024
 
 
+def test_simt_layout_fits_a_block():
+    # Q rows, one K and one V chunk, rows padded by SIMT_PAD floats; the
+    # padded row keeps 16-byte cp.async stores aligned and puts the 8 rows
+    # a quarter-warp reads as float4 on distinct banks
+    for d in fa.SIMT_HEAD_DIMS:
+        lay = fa.simt_smem_layout(d)
+        row = (d + fa.SIMT_PAD) * 4
+        assert row % 16 == 0
+        assert {(r * row // 4) % 32 // 4 for r in range(8)} == set(range(8))
+        assert lay["k"] == fa.SIMT_ROWS * row
+        assert lay["v"] == lay["k"] + fa.SIMT_KEYS * row
+        assert lay["total"] == lay["v"] + fa.SIMT_KEYS * row <= fa.SMEM_LIMIT
+        assert fa.f32_smem_layout(d) == fa.f32_smem_layout(d, bias=True) == lay
+
+
 def test_f32_register_split_fills_the_register_file():
     text = (_build.CSRC / "flash_attention.cu").read_text()
     producer, consumer = (
@@ -397,11 +465,58 @@ def test_f32_register_split_fills_the_register_file():
     ("hopper.cuh", "kSmemLimit", "SMEM_LIMIT"),
     ("flash_attention.cu", "kF32Stages", "F32_STAGES"),
     ("flash_attention.cu", "kSplitStages", "SPLIT_STAGES"),
+    ("hopper.cuh", "kShortChunkRows", "SHORT_CHUNK"),
+    ("hopper.cuh", "kBoxCols", "BOX_COLS"),
+    ("flash_attention.cu", "kSimtRows", "SIMT_ROWS"),
+    ("flash_attention.cu", "kSimtKeys", "SIMT_KEYS"),
+    ("flash_attention.cu", "kSimtPad", "SIMT_PAD"),
 ])
 def test_smem_layout_mirrors_the_kernels_constants(source, name, attr):
     text = (_build.CSRC / source).read_text()
     found = re.findall(rf"constexpr int {name} = (\d+);", text)
     assert found == [str(getattr(fa, attr))]
+
+
+def _family_dims(text, family):
+    """Head dims `family` in csrc/flash_attention.cu gives a Family."""
+    dims = re.findall(rf"if \(([^)]*)\) return Family::{family};", text)
+    assert len(dims) == 1, family
+    return tuple(int(x) for x in re.findall(r"d == (\d+)", dims[0]))
+
+
+def test_kernel_families_mirror_the_head_dims():
+    """The C dispatch takes each dtype's head dims in the family the Python
+    side names, and every switch over d launches an instantiation at that
+    very d (its last case the family's last dim)."""
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    wgmma, halves = _family_dims(text, "kWgmma"), _family_dims(text, "kHalves")
+    f32, simt = _family_dims(text, "kF32"), _family_dims(text, "kSimt")
+    assert halves == fa.HALVES_HEAD_DIMS
+    assert wgmma + halves == fa.HEAD_DIMS
+    assert f32 == fa.F32_HEAD_DIMS and simt == fa.SIMT_HEAD_DIMS
+    assert tuple(sorted(f32 + simt)) == fa.HEAD_DIMS
+    for case, d in re.findall(r"case (\d+): [^\n]*?<(\d+)", text):
+        assert case == d
+    for d, launched in re.findall(r"default: [^\n]*?<(\d+)>[^\n]*// family: d (\d+)", text):
+        assert d == launched
+    fwd = text[text.index("int zutis_flash_attention_fwd"):]
+    for family, dims in (("wgmma", wgmma), ("halves", halves),
+                         ("f32_simt", simt)):
+        launched = re.findall(rf"launch_{family}<(\d+)>", fwd)
+        assert tuple(int(x) for x in launched) == dims, family
+    assert set(re.findall(r"launch_f32<(\d+), \d>", fwd)) == {
+        str(d) for d in f32}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_kernel_input_check_takes_every_head_dim(d, dtype):
+    q = torch.zeros(2, 8, 5, d, dtype=dtype)
+    k = torch.zeros(2, 8, 7, d, dtype=dtype)
+    fa.check_kernel_inputs(q, k, k, None)
+    fa.check_kernel_inputs(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, k, torch.ones(2, 7, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("name", list(flash_f32_bench.ABLATIONS))
@@ -440,10 +555,9 @@ def _bf16(*shape):
     ("address unaligned", ValueError, "16-byte"),
     ("mask shape", ValueError, "kv_mask"),
     ("batch over the grid", ValueError, "launch grid"),
-    # RN50x4's decoder (2560 channels over 8 heads): no kernel at d 320
-    ("head dim 320", ValueError, "head dim 320 not supported by the kernel"),
-    ("f32 head dim 256", ValueError,
-     "head dim 256 not supported by the f32 kernel"),
+    # no arch the factory knows gives these
+    ("head dim 576", ValueError, "head dim 576 not supported by the kernel"),
+    ("f32 head dim 32", ValueError, "head dim 32 not supported by the kernel"),
 ])
 def test_kernel_input_check_refuses_what_the_kernels_do_not_take(
         case, error, match):
@@ -469,9 +583,9 @@ def test_kernel_input_check_refuses_what_the_kernels_do_not_take(
         mask = torch.ones(2, 9, dtype=torch.int32)
     elif case == "batch over the grid":
         q = k = v = _bf16(1, 2, 8, 64).expand(65536, 2, 8, 64)
-    elif case == "head dim 320":
-        q = k = v = _bf16(2, 2, 8, 320)
-    elif case == "f32 head dim 256":
-        q = k = v = _bf16(2, 2, 8, 256).float()
+    elif case == "head dim 576":
+        q = k = v = _bf16(2, 2, 8, 576)
+    elif case == "f32 head dim 32":
+        q = k = v = _bf16(2, 2, 8, 32).float()
     with pytest.raises(error, match=match):
         fa.check_kernel_inputs(q, k, v, mask)

@@ -132,10 +132,18 @@ def test_key_splits_fills_one_wave_at_the_selfmask_cross_shape():
 
 @pytest.mark.parametrize("sq,d,rows", [
     (1, 64, 64), (20, 64, 64), (64, 64, 64), (65, 64, 128), (5505, 64, 128),
-    (20, 96, 64), (5505, 96, 64),
+    (20, 96, 64), (5505, 96, 64), (100, 80, 64), (100, 128, 32),
+    (5505, 512, 32),
 ])
 def test_block_rows_takes_one_warpgroup_for_short_queries_and_d96(sq, d, rows):
     assert fa.block_rows(sq, d) == rows
+
+
+@pytest.mark.parametrize("d", fa.SIMT_HEAD_DIMS)
+def test_key_splits_leaves_the_cuda_core_kernel_whole(d):
+    # the f32 kernel at d 128 and above does not split its keys, however
+    # few its blocks (SelfMask's cross-attention shape at d 64 takes 22)
+    assert fa.key_splits(1, 6, 20, 5504, d) == 1
 
 
 @pytest.mark.parametrize("b,h,sq,sk", [

@@ -6,8 +6,9 @@
 // wrapper's zeroing of items whose kv_mask has no valid key.
 //
 // Computes  o = softmax(q k^T * d^-1/2 + key_bias, keys masked by kv_mask) v
-// for q [b, h, sq, d], k/v [b, h, sk, d], o [b, h, sq, d], d 64, 96 or 256
-// (256 in bf16 only: the RN decoders' 2048 channels over 8 heads), and
+// for q [b, h, sq, d], k/v [b, h, sk, d], o [b, h, sq, d], d 64, 80, 96,
+// 128, 256, 320, 384 or 512 in bf16 and f32 (every head dim the model
+// factory gives: the ViTs' 64, the ZUTIS decoders' width over 8 heads), and
 // key_bias [b, sk] f32 added to every query's logit of a key (ToMe's
 // log(size), the pooled decoder memory's log(count); the JAX package sends
 // such a bias to XLA's einsum attention). Each of q,
@@ -35,10 +36,14 @@
 //     against ~7.4 MB (~96 FLOP/byte), bound by memory: K and V dominate.
 // The [sq, sk] logits never leave the chip in either kernel.
 //
-// Two kernels, chosen by dtype:
-//   - bf16 (the serving path): flash_wgmma_kernel, on Hopper's TMA,
-//     mbarriers and wgmma (helpers in hopper.cuh; design note at the kernel).
-//   - f32 (SelfMask, the f32 image bank, the f32 checks):
+// Four kernels, chosen by dtype and head dim (`family`):
+//   - bf16 (the serving path): flash_wgmma_kernel at d 64 to 256, on
+//     Hopper's TMA, mbarriers and wgmma (helpers in hopper.cuh; design note
+//     at the kernel), and flash_halves_kernel at d 320 to 512, the same
+//     loop with O's columns split between two consumer warpgroups.
+//   - f32 at d 128 and above (the f32 checks of the wide decoders):
+//     flash_f32_simt_kernel, f32 FMA on the CUDA cores.
+//   - f32 at d 64 to 96 (SelfMask, the f32 image bank, the f32 checks):
 //     flash_f32_kernel, on the same TMA, mbarriers and wgmma. Inputs are
 //     split into bf16 high and low parts (x = hi + lo) and each product takes
 //     three bf16 wgmma (hi*hi + hi*lo + lo*hi), which keeps about 16 mantissa
@@ -105,6 +110,15 @@ struct Params {
 // Left for later: split keys for the cross-attention's 64-128 blocks,
 // cluster multicast of K/V across a head's q tiles, persistent blocks.
 //
+// At d 80 (the DINO arm at RN50x4's text width) the block is d 96's: the
+// tensor maps' inner extent is 80, so TMA fills columns 80-95 of Q, K and V
+// with zeros, S is unchanged and O's last 16 columns come out zero and are
+// not stored (box_cols(D) is the width computed, D the width stored). At d
+// 128 (ViT-L/14's decoder, 1024 channels over 8 heads) a chunk is 16 KB:
+// Q (16 KB) and a ring of 4 (128 KB) leave one block an SM, as at 256, so
+// the consumers' loads reach 3 chunks ahead (PERF.md times a 3-stage ring
+// at two blocks an SM against it).
+//
 // At d 256 (the RN50/RN101 decoders, 8 heads over 2048 channels) the same
 // block takes another shape, chosen at compile time by D:
 //   - Q stays in shared memory and S = Q K^T reads it through a descriptor
@@ -156,9 +170,10 @@ __host__ __device__ constexpr int flash_chunks(int sk) { return (sk + kChunkRows
 // The K/V ring's depth and the blocks an SM holds at head dim d, and
 // whether the consumers read Q from shared memory (d 256) rather than from
 // registers.
+using hopper::box_cols;
 __host__ __device__ constexpr bool flash_wide(int d) { return d > 128; }
 __host__ __device__ constexpr int flash_stages(int d) { return flash_wide(d) ? kFlashStagesWide : kFlashStages; }
-__host__ __device__ constexpr int flash_min_blocks(int d) { return flash_wide(d) ? 1 : 2; }
+__host__ __device__ constexpr int flash_min_blocks(int d) { return d < 128 ? 2 : 1; }
 
 // Byte offsets into a block's dynamic shared memory (mirrored by
 // ops/flash_attention.py::smem_layout): the Q tile, S = flash_stages(d) K
@@ -171,7 +186,7 @@ struct FlashLayout {
 };
 
 __host__ __device__ constexpr FlashLayout flash_layout(int d, bool bias = false) {
-  const int c = hopper::chunk_bytes(d), s = flash_stages(d);
+  const int c = hopper::chunk_bytes(box_cols(d)), s = flash_stages(d);
   const int k = c, v = k + s * c, valid = v + s * c;
   const int bars = valid + s * 8, end = bars + (1 + 4 * s) * 8;
   return FlashLayout{0, k, v, valid, bars, end, end + (bias ? bias_slots(s) * kBiasSlotBytes : 0)};
@@ -194,7 +209,8 @@ template <int D, bool kBias>
 __device__ void flash_producer(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv, const Params& p,
                                const float* key_bias, uint32_t base, const FlashLayout& lay,
                                const FlashBars<flash_stages(D)>& bar, int bi, int hi, int q0) {
-  constexpr uint32_t kChunk = hopper::chunk_bytes(D);
+  constexpr int C = box_cols(D);
+  constexpr uint32_t kChunk = hopper::chunk_bytes(C);
   constexpr int kStages = flash_stages(D);
   const int lane = threadIdx.x & 31;
   const int n = flash_chunks(p.sk);
@@ -204,7 +220,7 @@ __device__ void flash_producer(const CUtensorMap* tq, const CUtensorMap* tk, con
     hopper::prefetch_tensormap(tk);
     hopper::prefetch_tensormap(tv);
     hopper::mbar_arrive_expect_tx(bar.q_full(), kChunk);
-    hopper::load_chunk<D>(base + lay.q, tq, bar.q_full(), q0, hi, bi);
+    hopper::load_chunk<C>(base + lay.q, tq, bar.q_full(), q0, hi, bi);
   }
   for (int j = 0; j < n; ++j) {
     const int s = j % kStages;
@@ -226,10 +242,10 @@ __device__ void flash_producer(const CUtensorMap* tq, const CUtensorMap* tk, con
       // released with the arrive below, acquired by the consumers' k_full wait
       hopper::st_shared_u64(base + lay.valid + 8 * s, valid);
       hopper::mbar_arrive_expect_tx(bar.k_full(s), kChunk);
-      hopper::load_chunk<D>(base + lay.k + s * kChunk, tk, bar.k_full(s), j * kChunkRows, hi, bi);
+      hopper::load_chunk<C>(base + lay.k + s * kChunk, tk, bar.k_full(s), j * kChunkRows, hi, bi);
       if (j >= kStages) hopper::mbar_wait(bar.v_empty(s), parity);
       hopper::mbar_arrive_expect_tx(bar.v_full(s), kChunk);
-      hopper::load_chunk<D>(base + lay.v + s * kChunk, tv, bar.v_full(s), j * kChunkRows, hi, bi);
+      hopper::load_chunk<C>(base + lay.v + s * kChunk, tv, bar.v_full(s), j * kChunkRows, hi, bi);
     }
     __syncwarp();
   }
@@ -241,14 +257,15 @@ __device__ void flash_producer(const CUtensorMap* tq, const CUtensorMap* tk, con
 // the running sum (rescaled, plus p in f32), alpha the factor that rescales O.
 // With kBias, s becomes s * scale_log2 + the key's bias from the chunk's
 // slot at `bias` (-inf for a key out of range or masked, so `valid` is not
-// read) before the max, and p = exp2(s - m_new).
-template <bool kBias>
-__device__ __forceinline__ void chunk_softmax(float (&s)[kChunkRows / 8][4], uint64_t valid, float scale_log2,
+// read) before the max, and p = exp2(s - m_new). A chunk is kKeys keys; a
+// 32-key chunk's validity word has its upper 32 bits set.
+template <bool kBias, int kKeys = kChunkRows>
+__device__ __forceinline__ void chunk_softmax(float (&s)[kKeys / 8][4], uint64_t valid, float scale_log2,
                                               float (&m)[2], float (&l)[2], float (&alpha)[2], uint32_t bias) {
   const int t = threadIdx.x & 3;
   if constexpr (kBias) {
 #pragma unroll
-    for (int nn = 0; nn < kChunkRows / 8; ++nn) {
+    for (int nn = 0; nn < kKeys / 8; ++nn) {
       const float2 b = ld_shared_f32x2(bias + 4 * (nn * 8 + 2 * t));
       s[nn][0] = fmaf(s[nn][0], scale_log2, b.x);
       s[nn][1] = fmaf(s[nn][1], scale_log2, b.y);
@@ -257,7 +274,7 @@ __device__ __forceinline__ void chunk_softmax(float (&s)[kChunkRows / 8][4], uin
     }
   } else if (valid != ~0ull) {
 #pragma unroll
-    for (int nn = 0; nn < kChunkRows / 8; ++nn) {
+    for (int nn = 0; nn < kKeys / 8; ++nn) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (!((valid >> (nn * 8 + 2 * t + (e & 1))) & 1)) s[nn][e] = -CUDART_INF_F;
@@ -266,7 +283,7 @@ __device__ __forceinline__ void chunk_softmax(float (&s)[kChunkRows / 8][4], uin
   }
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-  for (int nn = 0; nn < kChunkRows / 8; ++nn) {
+  for (int nn = 0; nn < kKeys / 8; ++nn) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nn][e]);
   }
@@ -283,7 +300,7 @@ __device__ __forceinline__ void chunk_softmax(float (&s)[kChunkRows / 8][4], uin
     neg_m[r] = -m_new;
   }
 #pragma unroll
-  for (int nn = 0; nn < kChunkRows / 8; ++nn) {
+  for (int nn = 0; nn < kKeys / 8; ++nn) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[nn][e] = kBias ? exp2f(s[nn][e] + neg_m[e >> 1]) : exp2f(fmaf(s[nn][e], scale_log2, neg_m[e >> 1]));
@@ -292,15 +309,16 @@ __device__ __forceinline__ void chunk_softmax(float (&s)[kChunkRows / 8][4], uin
   }
 }
 
-// S = Q K^T of one K chunk: Q from the A fragments `qa` at d 64 and 96, from
-// its tile in shared memory at d 256 (qa unused there).
+// S = Q K^T of one K chunk: Q from the A fragments `qa` at d 64 to 128,
+// from its tile in shared memory at d 256 (qa unused there).
 template <int D>
-__device__ __forceinline__ void flash_qk(float (&s)[kChunkRows / 8][4], const uint32_t (&qa)[flash_wide(D) ? 1 : D / 16][4],
+__device__ __forceinline__ void flash_qk(float (&s)[kChunkRows / 8][4],
+                                         const uint32_t (&qa)[flash_wide(D) ? 1 : box_cols(D) / 16][4],
                                          uint32_t q_tile, uint32_t k_chunk) {
   if constexpr (flash_wide(D)) {
     hopper::qk_issue_ss<D>(s, q_tile, k_chunk);
   } else {
-    hopper::qk_issue<D>(s, qa, k_chunk);
+    hopper::qk_issue<box_cols(D)>(s, qa, k_chunk);
   }
 }
 
@@ -308,7 +326,8 @@ __device__ __forceinline__ void flash_qk(float (&s)[kChunkRows / 8][4], const ui
 template <int D, bool kBias>
 __device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout& lay,
                                const FlashBars<flash_stages(D)>& bar, int bi, int hi, int q0) {
-  constexpr uint32_t kChunk = hopper::chunk_bytes(D);
+  constexpr int C = box_cols(D);
+  constexpr uint32_t kChunk = hopper::chunk_bytes(C);
   constexpr int kStages = flash_stages(D);
   const int n = flash_chunks(p.sk);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -322,11 +341,11 @@ __device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout
   // Q as A fragments (at d 256 read from its tile by each product); rows
   // past sq arrived as zeros
   hopper::mbar_wait(bar.q_full(), 0);
-  uint32_t qa[flash_wide(D) ? 1 : D / 16][4];
+  uint32_t qa[flash_wide(D) ? 1 : C / 16][4];
   const uint32_t q_tile = base + lay.q;
   if constexpr (!flash_wide(D)) {
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
+    for (int ks = 0; ks < C / 16; ++ks) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         qa[ks][i] = hopper::ld_chunk_pair(q_tile, warp * 16 + g + (i & 1) * 8, ks * 16 + 2 * t + (i >> 1) * 8);
@@ -334,9 +353,9 @@ __device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout
     }
   }
 
-  float acc[D / 8][4];
+  float acc[C / 8][4];
 #pragma unroll
-  for (int nn = 0; nn < D / 8; ++nn) acc[nn][0] = acc[nn][1] = acc[nn][2] = acc[nn][3] = 0.f;
+  for (int nn = 0; nn < C / 8; ++nn) acc[nn][0] = acc[nn][1] = acc[nn][2] = acc[nn][3] = 0.f;
   float s[kChunkRows / 8][4] = {};
   uint32_t pa[kChunkRows / 16][4];
   float m[2] = {-1e30f, -1e30f};  // running max of the scaled logits (base 2)
@@ -355,7 +374,7 @@ __device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout
     hopper::mbar_wait(bar.k_full(j % kStages), parity(j));
     flash_qk<D>(s, qa, q_tile, k_chunk(j));
     hopper::mbar_wait(bar.v_full((j - 1) % kStages), parity(j - 1));
-    hopper::pv_issue<D>(acc, pa, v_chunk(j - 1));
+    hopper::pv_issue<C>(acc, pa, v_chunk(j - 1));
     bits = valid(j);
     hopper::wgmma_wait<1>();  // Q K^T of chunk j is done
     hopper::warp_arrive(bar.k_empty(j % kStages));
@@ -364,7 +383,7 @@ __device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout
     hopper::fence_operands(acc);
     hopper::warp_arrive(bar.v_empty((j - 1) % kStages));
 #pragma unroll
-    for (int nn = 0; nn < D / 8; ++nn) {
+    for (int nn = 0; nn < C / 8; ++nn) {
       acc[nn][0] *= alpha[0];
       acc[nn][1] *= alpha[0];
       acc[nn][2] *= alpha[1];
@@ -373,7 +392,7 @@ __device__ void flash_consumer(const Params& p, uint32_t base, const FlashLayout
     hopper::pack_p(pa, s);
   }
   hopper::mbar_wait(bar.v_full((n - 1) % kStages), parity(n - 1));
-  hopper::pv_issue<D>(acc, pa, v_chunk(n - 1));
+  hopper::pv_issue<C>(acc, pa, v_chunk(n - 1));
   hopper::wgmma_wait<0>();
   hopper::fence_operands(acc);
   hopper::warp_arrive(bar.v_empty((n - 1) % kStages));
@@ -461,6 +480,288 @@ cudaError_t launch_wgmma(const CUtensorMap (&maps)[3], const Params& p, const fl
         <<<grid, kFlashThreads, flash_layout(D, true).total, stream>>>(maps[0], maps[1], maps[2], p, key_bias);
   } else {
     flash_wgmma_kernel<D><<<grid, kFlashThreads, flash_layout(D).total, stream>>>(maps[0], maps[1], maps[2], p);
+  }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at d 320, 384 and 512: flash_halves_kernel
+//
+// The RN50x4, RN50x16 and RN50x64 decoders (2560, 3072 and 4096 channels
+// over 8 heads). One warpgroup's O accumulator, 64 rows x D f32, would take
+// D / 2 registers a thread (160-256): past ptxas's 255 beside S and P. So a
+// block is two consumer warpgroups over the same 64 query rows, each holding
+// O's columns of one half (D / 4 registers: 80, 96, 128): 256 threads, one
+// block an SM, and no producer warpgroup. With one (384 threads), ptxas gave
+// every thread the launch's 168 registers whatever setmaxnreg asked, and
+// spilled and serialised the wgmma at d 512; at 256 threads it may give 255.
+//   - Each consumer computes the whole S = Q K^T itself, Q read from its tile
+//     by SS wgmma (as at d 256): the two copies are the same instructions on
+//     the same tiles, so they are bit-equal and both warpgroups keep the same
+//     online-softmax statistics with no exchange. That costs 1.5x the minimal
+//     tensor-core work in a kernel bound by bytes, and no barrier between
+//     the two.
+//   - Chunks are 32 keys (hopper.cuh's short chunks: D / 32 boxes of 32 rows
+//     x 32 columns), so that the ring keeps two or more stages beside Q's 64
+//     rows: halves_stages(D) = 4, 3, 2 at d 320, 384, 512 (Q 40-64 KB and
+//     the ring 160-192 KB of the 227 KB).
+//   - P V of a chunk is two m64n{D/2}k16 (16 keys each) on the V chunk's
+//     columns of the warpgroup's half, an MN-major descriptor that starts on
+//     a 32-column box: D / 2 = 160, 192 and 256 are 5, 6 and 8 boxes.
+//   - The loop is flash_consumer's: Q K_j^T and P_{j-1} V_{j-1} issued
+//     together, chunk j's softmax while P V runs. The first warp of the
+//     first warpgroup loads for the block: Q and the first stages before the
+//     loop, then K_{j+S} once all 8 warps have released K_j and V_{j-1+S}
+//     once they have released V_{j-1}, with each chunk's validity word and
+//     key biases, as flash_producer does.
+// ---------------------------------------------------------------------------
+
+constexpr int kShort = hopper::kShortChunkRows;
+constexpr int kHalvesThreads = 2 * 128;  // two consumer warpgroups
+constexpr int kShortBiasSlotBytes = kShort * 4;
+
+__host__ __device__ constexpr int halves_q_bytes(int d) { return hopper::chunk_bytes(d); }
+__host__ __device__ constexpr int halves_chunk_bytes(int d) { return d * kShort * 2; }
+// K/V stages that fit beside Q, the barriers and a key-bias ring: as many as
+// the block's shared memory allows (4, 3, 2 at d 320, 384, 512)
+__host__ __device__ constexpr int halves_stages(int d) {
+  return (kSmemLimit - halves_q_bytes(d) - 2048) / (2 * halves_chunk_bytes(d));
+}
+
+// Byte offsets into a block's dynamic shared memory (mirrored by
+// ops/flash_attention.py::smem_layout): flash_layout's areas with 32-key
+// chunks of d * 64 bytes and halves_stages(d) stages; the biased kernel
+// appends bias_slots(S) chunks' 32 key biases.
+__host__ __device__ constexpr FlashLayout halves_layout(int d, bool bias = false) {
+  const int c = halves_chunk_bytes(d), s = halves_stages(d);
+  const int k = halves_q_bytes(d), v = k + s * c, valid = v + s * c;
+  const int bars = valid + s * 8, end = bars + (1 + 4 * s) * 8;
+  return FlashLayout{0, k, v, valid, bars, end, end + (bias ? bias_slots(s) * kShortBiasSlotBytes : 0)};
+}
+
+// `x`, as a value the compiler cannot see through: an address from it is
+// recomputed where it is used rather than hoisted out of the loop.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
+  return x;
+}
+
+// The loads of one block, by its first warp (lane 0 issues; the warp forms a
+// chunk's validity word, one ballot with the upper 32 bits set for
+// chunk_softmax<.., 32>, and with kBias its key biases).
+template <int D, bool kBias>
+struct HalvesLoader {
+  static constexpr int kStages = halves_stages(D);
+  static constexpr uint32_t kChunk = halves_chunk_bytes(D);
+  const CUtensorMap *tk, *tv;
+  const Params& p;
+  const float* key_bias;
+  const int* mask;
+  uint32_t base;
+  const FlashLayout& lay;
+  const FlashBars<kStages>& bar;
+  int bi, hi;
+
+  // K chunk c into its stage, once every consumer warp has released chunk
+  // c - kStages there (its validity word read, and its bias slot's last
+  // reader, the softmax of chunk c - 2 * kStages, done before that).
+  __device__ void k(int c) const {
+    const int lane = threadIdx.x & 31, s = c % kStages;
+    if (lane == 0 && c >= kStages) hopper::mbar_wait(bar.k_empty(s), ((c / kStages) + 1) & 1);
+    __syncwarp();
+    const int key = c * kShort + lane;
+    const bool ok = key < p.sk && (mask == nullptr || mask[key] != 0);
+    const uint64_t valid = __ballot_sync(0xffffffffu, ok) | (~0ull << 32);
+    if constexpr (kBias) {
+      st_shared_f32(base + lay.bias + (c % bias_slots(kStages)) * kShortBiasSlotBytes + 4 * lane,
+                    ok ? key_bias[static_cast<long long>(bi) * p.sk + key] * kLog2e : -CUDART_INF_F);
+    }
+    __syncwarp();
+    if (lane == 0) {  // released with the arrive, acquired by the consumers' k_full wait
+      hopper::st_shared_u64(base + lay.valid + 8 * s, valid);
+      hopper::mbar_arrive_expect_tx(bar.k_full(s), kChunk);
+      hopper::load_chunk<D, kShort>(base + lay.k + s * kChunk, tk, bar.k_full(s), c * kShort, hi, bi);
+    }
+    __syncwarp();
+  }
+
+  // V chunk c into its stage, once every consumer warp has released chunk
+  // c - kStages there.
+  __device__ void v(int c) const {
+    const int s = c % kStages;
+    if ((threadIdx.x & 31) == 0) {
+      if (c >= kStages) hopper::mbar_wait(bar.v_empty(s), ((c / kStages) + 1) & 1);
+      hopper::mbar_arrive_expect_tx(bar.v_full(s), kChunk);
+      hopper::load_chunk<D, kShort>(base + lay.v + s * kChunk, tv, bar.v_full(s), c * kShort, hi, bi);
+    }
+    __syncwarp();
+  }
+};
+
+// A consumer warpgroup: the block's 64 query rows against every key chunk,
+// O's columns half * D / 2 .. + D / 2; its first warp in the first
+// warpgroup also loads. Q's tile address goes through `opaque` each chunk:
+// hoisted, Q K^T's descriptors stayed live across the loop.
+template <int D, bool kBias>
+__device__ __forceinline__ void halves_consumer(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+                                                const Params& p, const float* key_bias, uint32_t base,
+                                                const FlashLayout& lay, const FlashBars<halves_stages(D)>& bar,
+                                                int bi, int hi, int q0) {
+  constexpr int kHalf = D / 2;
+  constexpr uint32_t kChunk = halves_chunk_bytes(D);
+  constexpr int kStages = halves_stages(D);
+  const int n = (p.sk + kShort - 1) / kShort;
+  const int half = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool loads = threadIdx.x < 32;  // the block's loading warp
+  const HalvesLoader<D, kBias> load{tk, tv, p, key_bias,
+                                    p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(bi) * p.sk,
+                                    base, lay, bar, bi, hi};
+  auto k_chunk = [&](int j) { return base + lay.k + (j % kStages) * kChunk; };
+  auto v_chunk = [&](int j) { return base + lay.v + (j % kStages) * kChunk; };
+  auto valid = [&](int j) { return hopper::ld_shared_u64(base + lay.valid + 8 * (j % kStages)); };
+  auto parity = [](int j) { return static_cast<uint32_t>((j / kStages) & 1); };
+  auto bias = [&](int j) { return base + lay.bias + (j % bias_slots(kStages)) * kShortBiasSlotBytes; };
+  const uint32_t q_tile = base + lay.q;
+  if (loads) {
+    if (lane == 0) {
+      hopper::prefetch_tensormap(tq);
+      hopper::prefetch_tensormap(tk);
+      hopper::prefetch_tensormap(tv);
+      hopper::mbar_arrive_expect_tx(bar.q_full(), halves_q_bytes(D));
+      hopper::load_chunk<D>(q_tile, tq, bar.q_full(), q0, hi, bi);
+    }
+    for (int c = 0; c < kStages && c < n; ++c) {
+      load.k(c);
+      load.v(c);
+    }
+  }
+  hopper::mbar_wait(bar.q_full(), 0);
+
+  float acc[kHalf / 8][4];
+#pragma unroll
+  for (int nn = 0; nn < kHalf / 8; ++nn) acc[nn][0] = acc[nn][1] = acc[nn][2] = acc[nn][3] = 0.f;
+  float s[kShort / 8][4] = {};
+  uint32_t pa[kShort / 16][4];
+  float m[2] = {-1e30f, -1e30f};  // running max of the scaled logits (base 2)
+  float l[2] = {0.f, 0.f};
+  float alpha[2];
+
+  // chunk 0: O is still zero, so it needs no P V beside it
+  hopper::mbar_wait(bar.k_full(0), 0);
+  hopper::qk_issue_ss_short<D>(s, q_tile, k_chunk(0));
+  uint64_t bits = valid(0);
+  hopper::wgmma_wait<0>();
+  hopper::warp_arrive(bar.k_empty(0));
+  if (loads && kStages < n) load.k(kStages);
+  chunk_softmax<kBias, kShort>(s, bits, p.scale_log2, m, l, alpha, bias(0));
+  hopper::pack_p<kShort>(pa, s);
+  for (int j = 1; j < n; ++j) {
+    hopper::mbar_wait(bar.k_full(j % kStages), parity(j));
+    hopper::qk_issue_ss_short<D>(s, opaque(q_tile), k_chunk(j));
+    hopper::mbar_wait(bar.v_full((j - 1) % kStages), parity(j - 1));
+    hopper::pv_issue_short<kHalf>(acc, pa, v_chunk(j - 1), half * kHalf);
+    bits = valid(j);
+    hopper::wgmma_wait<1>();  // Q K^T of chunk j is done
+    hopper::warp_arrive(bar.k_empty(j % kStages));
+    if (loads && j + kStages < n) load.k(j + kStages);
+    chunk_softmax<kBias, kShort>(s, bits, p.scale_log2, m, l, alpha, bias(j));
+    hopper::wgmma_wait<0>();  // P V of chunk j - 1 is done with pa and V
+    hopper::fence_operands(acc);
+    hopper::warp_arrive(bar.v_empty((j - 1) % kStages));
+    if (loads && j - 1 + kStages < n) load.v(j - 1 + kStages);
+#pragma unroll
+    for (int nn = 0; nn < kHalf / 8; ++nn) {
+      acc[nn][0] *= alpha[0];
+      acc[nn][1] *= alpha[0];
+      acc[nn][2] *= alpha[1];
+      acc[nn][3] *= alpha[1];
+    }
+    hopper::pack_p<kShort>(pa, s);
+  }
+  hopper::mbar_wait(bar.v_full((n - 1) % kStages), parity(n - 1));
+  hopper::pv_issue_short<kHalf>(acc, pa, v_chunk(n - 1), half * kHalf);
+  hopper::wgmma_wait<0>();
+  hopper::fence_operands(acc);
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);  // no valid key: l = 0 and acc = 0
+  }
+  bf16* o = static_cast<bf16*>(p.o) + bi * p.o_sb + hi * p.o_sh + half * kHalf;
+  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+#pragma unroll
+  for (int nn = 0; nn < kHalf / 8; ++nn) {
+    const int col = nn * 8 + 2 * t;
+    if (row_a < p.sq) {
+      *reinterpret_cast<uint32_t*>(o + row_a * p.o_ss + col) =
+          hopper::pack_bf16x2(acc[nn][0] * inv[0], acc[nn][1] * inv[0]);
+    }
+    if (row_b < p.sq) {
+      *reinterpret_cast<uint32_t*>(o + row_b * p.o_ss + col) =
+          hopper::pack_bf16x2(acc[nn][2] * inv[1], acc[nn][3] * inv[1]);
+    }
+  }
+}
+
+// The block of flash_halves_kernel (kBias false) and flash_halves_bias_kernel.
+template <int D, bool kBias>
+__device__ __forceinline__ void flash_halves_block(const CUtensorMap* tq, const CUtensorMap* tk,
+                                                   const CUtensorMap* tv, const Params& p, const float* key_bias,
+                                                   unsigned char* flash_smem) {
+  const uint32_t base = hopper::smem_u32(flash_smem);
+  const FlashLayout lay = halves_layout(D, kBias);
+  const FlashBars<halves_stages(D)> bar{base + static_cast<uint32_t>(lay.bars)};
+  if (threadIdx.x == 0) {
+    if (base % 1024 != 0) __trap();  // the swizzled tiles need the pattern's alignment
+    hopper::mbar_init(bar.q_full(), 1);
+    for (int s = 0; s < halves_stages(D); ++s) {
+      hopper::mbar_init(bar.k_full(s), 1);
+      hopper::mbar_init(bar.k_empty(s), 8);  // one arrive per consumer warp, both warpgroups
+      hopper::mbar_init(bar.v_full(s), 1);
+      hopper::mbar_init(bar.v_empty(s), 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  halves_consumer<D, kBias>(tq, tk, tv, p, key_bias, base, lay, bar, blockIdx.z, blockIdx.y,
+                            blockIdx.x * kChunkRows);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kHalvesThreads, 1)
+    flash_halves_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const Params p) {
+  extern __shared__ __align__(1024) unsigned char flash_smem[];
+  flash_halves_block<D, false>(&tq, &tk, &tv, p, nullptr, flash_smem);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kHalvesThreads, 1)
+    flash_halves_bias_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, const Params p, const float* key_bias) {
+  extern __shared__ __align__(1024) unsigned char flash_smem[];
+  flash_halves_block<D, true>(&tq, &tk, &tv, p, key_bias, flash_smem);
+}
+
+template <int D>
+cudaError_t launch_halves(const CUtensorMap (&maps)[3], const Params& p, const float* key_bias, int b, int h,
+                          cudaStream_t stream) {
+  static const cudaError_t configured =
+      cudaFuncSetAttribute(flash_halves_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  static const cudaError_t configured_bias =
+      cudaFuncSetAttribute(flash_halves_bias_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (configured != cudaSuccess) return configured;
+  if (configured_bias != cudaSuccess) return configured_bias;
+  const dim3 grid((p.sq + kChunkRows - 1) / kChunkRows, h, b);
+  if (key_bias != nullptr) {
+    flash_halves_bias_kernel<D>
+        <<<grid, kHalvesThreads, halves_layout(D, true).total, stream>>>(maps[0], maps[1], maps[2], p, key_bias);
+  } else {
+    flash_halves_kernel<D><<<grid, kHalvesThreads, halves_layout(D).total, stream>>>(maps[0], maps[1], maps[2], p);
   }
   return cudaGetLastError();
 }
@@ -577,7 +878,7 @@ struct F32Layout {
 };
 
 __host__ __device__ constexpr F32Layout f32_layout(int d, bool bias = false) {
-  const int f = f32_chunk_bytes(d), c = hopper::chunk_bytes(d);
+  const int f = f32_chunk_bytes(box_cols(d)), c = hopper::chunk_bytes(box_cols(d));
   const int kf = f32_consumers(2 * kChunkRows, d) * f, vf = kf + kF32Stages * f, khi = vf + kF32Stages * f;
   const int klo = khi + kSplitStages * c, vhi = klo + kSplitStages * c, vlo = vhi + kSplitStages * c;
   const int valid = vlo + kSplitStages * c, bars = valid + kSplitStages * 8;
@@ -655,8 +956,9 @@ template <int D, int kNC, bool kBias>
 __device__ void f32_producer(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv, const Params& p,
                              const F32Params& fp, const float* key_bias, uint32_t base, const F32Layout& lay,
                              const F32Bars& bar) {
-  constexpr uint32_t kF32Chunk = f32_chunk_bytes(D);
-  constexpr uint32_t kTile = hopper::chunk_bytes(D);
+  constexpr int C = box_cols(D);
+  constexpr uint32_t kF32Chunk = f32_chunk_bytes(C);
+  constexpr uint32_t kTile = hopper::chunk_bytes(C);
   const int tid = threadIdx.x - 128 * kNC, lane = tid & 31;
   // a cursor over the block's chunks: its tile decoded once, on entering it
   struct Cursor {
@@ -709,7 +1011,7 @@ __device__ void f32_producer(const CUtensorMap* tq, const CUtensorMap* tk, const
 
     hopper::mbar_wait(bar.kf_full(f), f_parity);
     if (g >= kSplitStages) hopper::mbar_wait(bar.k_empty(s), e_parity);
-    split_chunk<D>(base + lay.kf + f * kF32Chunk, base + lay.khi + s * kTile, base + lay.klo + s * kTile, tid);
+    split_chunk<C>(base + lay.kf + f * kF32Chunk, base + lay.khi + s * kTile, base + lay.klo + s * kTile, tid);
     if (tid < 32) {
       const int* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(at.tile.bi) * p.sk;
       const int k0 = (at.tile.c0 + at.j) * kChunkRows + lane, k1 = k0 + 32;
@@ -731,7 +1033,7 @@ __device__ void f32_producer(const CUtensorMap* tq, const CUtensorMap* tk, const
 
     hopper::mbar_wait(bar.vf_full(f), f_parity);
     if (g >= kSplitStages) hopper::mbar_wait(bar.v_empty(s), e_parity);
-    split_chunk<D>(base + lay.vf + f * kF32Chunk, base + lay.vhi + s * kTile, base + lay.vlo + s * kTile, tid);
+    split_chunk<C>(base + lay.vf + f * kF32Chunk, base + lay.vhi + s * kTile, base + lay.vlo + s * kTile, tid);
     hopper::fence_proxy_async();
     producer_sync();
     if (tid == 0) {
@@ -788,11 +1090,14 @@ __device__ __forceinline__ void split_p(uint32_t (&ph)[kChunkRows / 16][4], uint
 
 // A consumer warpgroup: its 64 query rows of each of the block's tiles
 // against the tile's key chunks. The split rings and the Q barriers count
-// the block's chunks and tiles across its tiles, as the producer does.
+// the block's chunks and tiles across its tiles, as the producer does. At d
+// 80 it computes d 96's columns (box_cols) and stores 80, as the bf16
+// kernel does.
 template <int D, int kNC, bool kBias>
 __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base, const F32Layout& lay,
                              const F32Bars& bar) {
-  constexpr uint32_t kTile = hopper::chunk_bytes(D);
+  constexpr int C = box_cols(D);
+  constexpr uint32_t kTile = hopper::chunk_bytes(C);
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   auto tile = [&](int area, int c) { return base + area + (c % kSplitStages) * kTile; };
@@ -807,18 +1112,18 @@ __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base
 
     // Q rows as split A fragments, from the f32 rows TMA brought (rows past
     // sq are zeros); a range with no chunk has no Q either
-    uint32_t qh[D / 16][4], ql[D / 16][4];
+    uint32_t qh[C / 16][4], ql[C / 16][4];
     if (n > 0) {
       hopper::mbar_wait(bar.q_full(), tiles_begun & 1);
-      const uint32_t q = base + lay.q + wg * f32_chunk_bytes(D) + (warp * 16 + g) * D * 4;
+      const uint32_t q = base + lay.q + wg * f32_chunk_bytes(C) + (warp * 16 + g) * C * 4;
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
+      for (int ks = 0; ks < C / 16; ++ks) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           float x0, x1;
           asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
                        : "=f"(x0), "=f"(x1)
-                       : "r"(q + ((i & 1) * 8 * D + ks * 16 + 2 * t + (i >> 1) * 8) * 4)
+                       : "r"(q + ((i & 1) * 8 * C + ks * 16 + 2 * t + (i >> 1) * 8) * 4)
                        : "memory");
           split(x0, x1, qh[ks][i], ql[ks][i]);
         }
@@ -828,9 +1133,9 @@ __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base
       ++tiles_begun;
     }
 
-    float acc[D / 8][4];
+    float acc[C / 8][4];
 #pragma unroll
-    for (int nn = 0; nn < D / 8; ++nn) acc[nn][0] = acc[nn][1] = acc[nn][2] = acc[nn][3] = 0.f;
+    for (int nn = 0; nn < C / 8; ++nn) acc[nn][0] = acc[nn][1] = acc[nn][2] = acc[nn][3] = 0.f;
     float s[kChunkRows / 8][4] = {};
     uint32_t ph[kChunkRows / 16][4], pl[kChunkRows / 16][4];
     float m[2] = {-1e30f, -1e30f};  // running max of the scaled logits (base 2)
@@ -840,7 +1145,7 @@ __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base
     if (n > 0) {  // a key range past the last chunk has nothing to read
       // chunk 0: O is still zero, so it needs no P V beside it
       hopper::mbar_wait(bar.k_full(c0 % kSplitStages), parity(c0));
-      qk3_issue<D>(s, qh, ql, tile(lay.khi, c0), tile(lay.klo, c0));
+      qk3_issue<C>(s, qh, ql, tile(lay.khi, c0), tile(lay.klo, c0));
       uint64_t bits_j = valid(c0);
       hopper::wgmma_wait<0>();
       hopper::warp_arrive(bar.k_empty(c0 % kSplitStages));
@@ -848,9 +1153,9 @@ __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base
       split_p(ph, pl, s);
       for (int j = c0 + 1; j < c0 + n; ++j) {
         hopper::mbar_wait(bar.k_full(j % kSplitStages), parity(j));
-        qk3_issue<D>(s, qh, ql, tile(lay.khi, j), tile(lay.klo, j));
+        qk3_issue<C>(s, qh, ql, tile(lay.khi, j), tile(lay.klo, j));
         hopper::mbar_wait(bar.v_full((j - 1) % kSplitStages), parity(j - 1));
-        pv3_issue<D>(acc, ph, pl, tile(lay.vhi, j - 1), tile(lay.vlo, j - 1));
+        pv3_issue<C>(acc, ph, pl, tile(lay.vhi, j - 1), tile(lay.vlo, j - 1));
         bits_j = valid(j);
         hopper::wgmma_wait<1>();  // Q K^T of chunk j is done
         hopper::warp_arrive(bar.k_empty(j % kSplitStages));
@@ -859,7 +1164,7 @@ __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base
         hopper::fence_operands(acc);
         hopper::warp_arrive(bar.v_empty((j - 1) % kSplitStages));
 #pragma unroll
-        for (int nn = 0; nn < D / 8; ++nn) {
+        for (int nn = 0; nn < C / 8; ++nn) {
           acc[nn][0] *= alpha[0];
           acc[nn][1] *= alpha[0];
           acc[nn][2] *= alpha[1];
@@ -869,7 +1174,7 @@ __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base
       }
       const int last = c0 + n - 1;
       hopper::mbar_wait(bar.v_full(last % kSplitStages), parity(last));
-      pv3_issue<D>(acc, ph, pl, tile(lay.vhi, last), tile(lay.vlo, last));
+      pv3_issue<C>(acc, ph, pl, tile(lay.vhi, last), tile(lay.vlo, last));
       hopper::wgmma_wait<0>();
       hopper::fence_operands(acc);
       hopper::warp_arrive(bar.v_empty(last % kSplitStages));
@@ -1047,22 +1352,246 @@ cudaError_t launch_f32(const CUtensorMap (&maps)[3], const Params& p, F32Params 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32 at d 128 to 512: flash_f32_simt_kernel
+//
+// The hi/lo design above keeps a tile's f32 Q rows, two stages of f32 K and
+// V chunks and two of their bf16 hi/lo tiles in shared memory: 288 KB at d
+// 128, past the 227 KB a block may have. So these head dims (ViT-L/14's and
+// the RN decoders' f32 calls) take f32 FMA on the CUDA cores, in full f32,
+// a simple kernel that is right first: 67 TFLOP/s of f32 FMA on an H100
+// against the hi/lo path's 330, so it is bound by operations at every
+// decoder shape, and by its shared-memory reads before that.
+//   - A block is 8 warps over 32 query rows of one (batch, head), 4 rows a
+//     warp; 32-key chunks of K and V come by cp.async (16 bytes a thread,
+//     rows past sq or sk as zeros) into rows padded by 4 floats. K and V
+//     have one buffer each: K_{j+1} loads while chunk j's softmax and P V
+//     run, V_{j+1} while chunk j + 1's S does (cp.async groups in the
+//     order Q + K_0, V_0, K_1, V_1, ...; wait_group 1 before each use).
+//   - S: lane i takes key i of the chunk and its warp's 4 rows: float4
+//     reads of its K row (the padding puts a quarter-warp's 8 rows on
+//     distinct banks) against broadcast float4 reads of the Q rows.
+//   - The online softmax in base 2 with warp shuffles: a key out of range
+//     or masked gets -inf, the key bias (times log2(e)) is added before the
+//     max; each lane keeps its share of the running sum.
+//   - P V: lane i holds columns i, i + 32, ... of its warp's 4 rows (D / 32
+//     x 4 accumulators) and takes P's 32 values of a row by shuffle, V's
+//     rows read whole by the warp.
+// ---------------------------------------------------------------------------
+
+constexpr int kSimtRows = 32;   // query rows a block
+constexpr int kSimtKeys = 32;   // keys a chunk
+constexpr int kSimtThreads = 256;
+constexpr int kSimtPad = 4;     // floats after each row in shared memory
+
+__host__ __device__ constexpr int simt_row_floats(int d) { return d + kSimtPad; }
+// Q rows, one K chunk and one V chunk: 384 * (d + 4) bytes
+__host__ __device__ constexpr int simt_smem_bytes(int d) { return 3 * kSimtRows * simt_row_floats(d) * 4; }
+// The blocks an SM's 228 KB hold (each with its 1 KB reserve), at most the
+// 8 of 2,048 threads: the kernel's __launch_bounds__, so that registers
+// never hold fewer blocks than shared memory does, biased or not (4 at d
+// 128, 2 at 256, 1 from 320).
+__host__ __device__ constexpr int simt_min_blocks(int d) {
+  return 233472 / (simt_smem_bytes(d) + 1024) < 8 ? 233472 / (simt_smem_bytes(d) + 1024) : 8;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// 32 rows of D floats from `rows` (row r at rows + r * stride) into the
+// padded buffer at `dst`; rows from `valid_rows` on as zeros. All threads.
+template <int D>
+__device__ __forceinline__ void simt_load(uint32_t dst, const float* rows, long long stride, int valid_rows) {
+  constexpr int kVecs = D / 4;  // 16-byte pieces a row
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kSimtRows * kVecs; i += kSimtThreads) {
+    const int r = i / kVecs, c = i % kVecs;
+    const bool ok = r < valid_rows;
+    cp_async16(dst + (r * simt_row_floats(D) + 4 * c) * 4, rows + (ok ? r * stride : 0) + 4 * c, ok);
+  }
+}
+
+template <int D, bool kBias>
+__device__ __forceinline__ void flash_f32_simt_block(const Params& p, const float* key_bias, float* smem) {
+  constexpr int kLd = simt_row_floats(D);
+  constexpr int kCols = D / 32;  // columns of O a lane holds, per row
+  const int bi = blockIdx.z, hi = blockIdx.y, q0 = blockIdx.x * kSimtRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* q = static_cast<const float*>(p.q) + bi * p.q_sb + hi * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + bi * p.k_sb + hi * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + bi * p.v_sb + hi * p.v_sh;
+  const int* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(bi) * p.sk;
+  const float* bias = kBias ? key_bias + static_cast<long long>(bi) * p.sk : nullptr;
+  float* qs = smem;
+  float* ks = qs + kSimtRows * kLd;
+  float* vs = ks + kSimtRows * kLd;
+  const uint32_t qs_addr = hopper::smem_u32(qs), ks_addr = hopper::smem_u32(ks), vs_addr = hopper::smem_u32(vs);
+  const int n = (p.sk + kSimtKeys - 1) / kSimtKeys;
+
+  simt_load<D>(qs_addr, q + q0 * p.q_ss, p.q_ss, p.sq - q0);
+  simt_load<D>(ks_addr, k, p.k_ss, p.sk);
+  cp_async_commit();
+  simt_load<D>(vs_addr, v, p.v_ss, p.sk);
+  cp_async_commit();
+
+  float o[4][kCols];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) o[r][c] = 0.f;
+  }
+  float m[4], l[4];  // running max (base 2) of each row; this lane's share of its sum
+#pragma unroll
+  for (int r = 0; r < 4; ++r) m[r] = -1e30f, l[r] = 0.f;
+  const float* q_rows = qs + warp * 4 * kLd;
+  for (int j = 0; j < n; ++j) {
+    cp_async_wait_1();  // Q and K_j have landed
+    __syncthreads();
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* k_row = ks + lane * kLd;
+#pragma unroll 8
+    for (int c = 0; c < D; c += 4) {
+      const float4 kv = *reinterpret_cast<const float4*>(k_row + c);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 qv = *reinterpret_cast<const float4*>(q_rows + r * kLd + c);
+        s[r] = fmaf(qv.x, kv.x, fmaf(qv.y, kv.y, fmaf(qv.z, kv.z, fmaf(qv.w, kv.w, s[r]))));
+      }
+    }
+    __syncthreads();  // every warp is done with K_j
+    if (j + 1 < n) {
+      const int k0 = (j + 1) * kSimtKeys;
+      simt_load<D>(ks_addr, k + k0 * p.k_ss, p.k_ss, p.sk - k0);
+    }
+    cp_async_commit();
+
+    const int key = j * kSimtKeys + lane;
+    const bool ok = key < p.sk && (mask == nullptr || mask[key] != 0);
+    const float b = kBias && ok ? bias[key] * kLog2e : 0.f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = ok ? fmaf(s[r], p.scale_log2, b) : -CUDART_INF_F;
+      float mx = x;
+#pragma unroll
+      for (int w = 16; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      s[r] = exp2f(x - m_new);
+      l[r] = fmaf(l[r], alpha, s[r]);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) o[r][c] *= alpha;
+    }
+
+    cp_async_wait_1();  // V_j has landed
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kSimtKeys; ++kk) {
+      float pk[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pk[r] = __shfl_sync(0xffffffffu, s[r], kk);
+      const float* v_row = vs + kk * kLd + lane;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float vv = v_row[32 * c];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) o[r][c] = fmaf(pk[r], vv, o[r][c]);
+      }
+    }
+    __syncthreads();  // every warp is done with V_j
+    if (j + 1 < n) {
+      const int k0 = (j + 1) * kSimtKeys;
+      simt_load<D>(vs_addr, v + k0 * p.v_ss, p.v_ss, p.sk - k0);
+    }
+    cp_async_commit();
+  }
+
+  float* out = static_cast<float*>(p.o) + bi * p.o_sb + hi * p.o_sh;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float sum = l[r];
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);  // no valid key: l = 0 and o = 0
+    const int row = q0 + warp * 4 + r;
+    if (row < p.sq) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) out[row * p.o_ss + lane + 32 * c] = o[r][c] * inv;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSimtThreads, simt_min_blocks(D)) flash_f32_simt_kernel(const Params p) {
+  extern __shared__ __align__(16) float simt_smem[];
+  flash_f32_simt_block<D, false>(p, nullptr, simt_smem);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSimtThreads, simt_min_blocks(D))
+    flash_f32_simt_bias_kernel(const Params p, const float* key_bias) {
+  extern __shared__ __align__(16) float simt_smem[];
+  flash_f32_simt_block<D, true>(p, key_bias, simt_smem);
+}
+
+template <int D>
+cudaError_t launch_f32_simt(const Params& p, const float* key_bias, int b, int h, cudaStream_t stream) {
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      flash_f32_simt_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, simt_smem_bytes(D));
+  static const cudaError_t configured_bias = cudaFuncSetAttribute(
+      flash_f32_simt_bias_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, simt_smem_bytes(D));
+  if (configured != cudaSuccess) return configured;
+  if (configured_bias != cudaSuccess) return configured_bias;
+  const dim3 grid((p.sq + kSimtRows - 1) / kSimtRows, h, b);
+  if (key_bias != nullptr) {
+    flash_f32_simt_bias_kernel<D><<<grid, kSimtThreads, simt_smem_bytes(D), stream>>>(p, key_bias);
+  } else {
+    flash_f32_simt_kernel<D><<<grid, kSimtThreads, simt_smem_bytes(D), stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+// The kernel family of (dtype, d): bf16 at d 64, 80, 96, 128 and 256 runs
+// flash_wgmma_kernel, at 320, 384 and 512 flash_halves_kernel; f32 at 64, 80
+// and 96 flash_f32_kernel, at 128, 256, 320, 384 and 512
+// flash_f32_simt_kernel. Any other pair is no kernel's.
+enum class Family { kNone, kWgmma, kHalves, kF32, kSimt };
+
+Family family(int dtype, int d) {
+  if (dtype == 0) {
+    if (d == 64 || d == 80 || d == 96 || d == 128 || d == 256) return Family::kWgmma;
+    if (d == 320 || d == 384 || d == 512) return Family::kHalves;
+  } else if (dtype == 1) {
+    if (d == 64 || d == 80 || d == 96) return Family::kF32;
+    if (d == 128 || d == 256 || d == 320 || d == 384 || d == 512) return Family::kSimt;
+  }
+  return Family::kNone;
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = bfloat16 (flash_wgmma_kernel; d 64, 96 or 256), 1 = float32
-// (flash_f32_kernel; d 64 or 96);
+// dtype: 0 = bfloat16, 1 = float32; the kernel by head dim d as `family`
+// says (bf16: flash_wgmma_kernel at d 64, 80, 96, 128, 256,
+// flash_halves_kernel at 320, 384, 512; f32: flash_f32_kernel at 64, 80,
+// 96, flash_f32_simt_kernel at 128, 256, 320, 384, 512);
 // with a key_bias [b, sk] f32 (contiguous; null for none), their biased
-// instantiations flash_wgmma_bias_kernel and flash_f32_bias_kernel.
+// instantiations (flash_wgmma_bias_kernel, flash_halves_bias_kernel,
+// flash_f32_bias_kernel, flash_f32_simt_bias_kernel).
 // strides: 12 values, the (batch, head, sequence) strides in elements of q,
 // k, v and o in that order. bf16 takes 64 query rows a block; f32 takes 128
-// (64 for sq <= 64 and at d 96) and reads q, k and v through f32 tensor
-// maps.
-// splits (f32 only; 1 for bf16): key ranges of one call. Above 1, o_part
-// [splits, b, h, sq, d] and ml [splits, b, h, sq, 2] are the f32 workspace
-// the caller allocated, and a combine kernel follows the main one. Both read
-// tensor maps and need sk >= 1; a map the CUDA driver will not encode returns
+// at d 64 for sq > 64, 64 at d 64 to 96, 32 at d 128 and above; the TMA
+// kernels read q, k and v through tensor maps, the f32 CUDA-core one with
+// cp.async.
+// splits (f32 at d 64, 80, 96 only; else 1): key ranges of one call. Above 1,
+// o_part [splits, b, h, sq, d] and ml [splits, b, h, sq, 2] are the f32
+// workspace the caller allocated, and a combine kernel follows the main one.
+// All need sk >= 1; a map the CUDA driver will not encode returns
 // hopper::kErrTensorMapEncode, and a pipeline wait that never completes traps
 // the kernel, which fails the launch at the next synchronisation. Returns a
 // cudaError_t (0 on success), or cudaErrorInvalidValue for a dtype, head dim,
@@ -1072,10 +1601,9 @@ int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const
                               void* o,
                               int dtype, int b, int h, int sq, int sk, int d, const long long* strides,
                               float scale, int splits, float* o_part, float* ml, void* stream) {
-  if ((dtype != 0 && dtype != 1) || (d != 64 && d != 96 && (dtype != 0 || d != 256)) || sk < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (splits < 1 || splits > 65535 || (dtype == 0 && splits != 1) ||
+  const Family fam = family(dtype, d);
+  if (fam == Family::kNone || sk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits < 1 || splits > 65535 || (fam != Family::kF32 && splits != 1) ||
       (splits > 1 && (o_part == nullptr || ml == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1093,8 +1621,17 @@ int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const
   p.sk = sk;
   p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    CUtensorMap maps[3];
+  if (fam == Family::kSimt) {
+    switch (d) {
+      case 128: return launch_f32_simt<128>(p, key_bias, b, h, s);
+      case 256: return launch_f32_simt<256>(p, key_bias, b, h, s);
+      case 320: return launch_f32_simt<320>(p, key_bias, b, h, s);
+      case 384: return launch_f32_simt<384>(p, key_bias, b, h, s);
+      default: return launch_f32_simt<512>(p, key_bias, b, h, s);  // family: d 512
+    }
+  }
+  CUtensorMap maps[3];
+  if (fam == Family::kF32) {
     const int err = hopper::attention_maps(maps, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, q, k, v, b, h, sq, sk, d, strides);
     if (err != 0) return err;
     F32Params fp{};
@@ -1105,46 +1642,76 @@ int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const
     fp.b = b;
     fp.h = h;
     if (d == 96) return launch_f32<96, 1>(maps, p, fp, key_bias, s);
+    if (d == 80) return launch_f32<80, 1>(maps, p, fp, key_bias, s);
     if (f32_consumers(sq, d) == 1) return launch_f32<64, 1>(maps, p, fp, key_bias, s);
     return launch_f32<64, 2>(maps, p, fp, key_bias, s);
   }
-  CUtensorMap maps[3];
-  const int err = hopper::attention_maps(maps, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, b, h, sq, sk, d, strides);
+  const int kv_rows = fam == Family::kHalves ? kShort : kChunkRows;
+  const int err =
+      hopper::attention_maps(maps, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, b, h, sq, sk, d, strides, kv_rows);
   if (err != 0) return err;
-  if (d == 64) return launch_wgmma<64>(maps, p, key_bias, b, h, s);
-  if (d == 96) return launch_wgmma<96>(maps, p, key_bias, b, h, s);
-  return launch_wgmma<256>(maps, p, key_bias, b, h, s);
+  switch (d) {
+    case 64: return launch_wgmma<64>(maps, p, key_bias, b, h, s);
+    case 80: return launch_wgmma<80>(maps, p, key_bias, b, h, s);
+    case 96: return launch_wgmma<96>(maps, p, key_bias, b, h, s);
+    case 128: return launch_wgmma<128>(maps, p, key_bias, b, h, s);
+    case 256: return launch_wgmma<256>(maps, p, key_bias, b, h, s);
+    case 320: return launch_halves<320>(maps, p, key_bias, b, h, s);
+    case 384: return launch_halves<384>(maps, p, key_bias, b, h, s);
+    default: return launch_halves<512>(maps, p, key_bias, b, h, s);  // family: d 512
+  }
 }
 
 // The dynamic shared memory of one block of the kernel of `dtype` at head
-// dim d with block_q query rows (bf16: 64; f32: 64, or 128 at d 64), biased
-// (bias 1) or not, and the blocks of that kernel an SM holds
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// dim d with block_q query rows (bf16: 64; f32: 64, or 128 at d 64, or 32
+// at d 128 and above), biased (bias 1) or not, and the blocks of that
+// kernel an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 int zutis_flash_occupancy(int dtype, int d, int block_q, int bias, int* smem_bytes, int* blocks_per_sm) {
-  if (d != 64 && d != 96 && (dtype != 0 || d != 256)) return static_cast<int>(cudaErrorInvalidValue);
+  const Family fam = family(dtype, d);
   const void* kernel = nullptr;
   int threads = 0;
-  if (dtype == 0 && block_q == kChunkRows) {
-    if (d == 256) {
-      kernel = bias ? reinterpret_cast<const void*>(flash_wgmma_bias_kernel<256>)
-                    : reinterpret_cast<const void*>(flash_wgmma_kernel<256>);
-    } else {
-      kernel = bias ? reinterpret_cast<const void*>(d == 64 ? flash_wgmma_bias_kernel<64> : flash_wgmma_bias_kernel<96>)
-                    : reinterpret_cast<const void*>(d == 64 ? flash_wgmma_kernel<64> : flash_wgmma_kernel<96>);
+  auto pick = [&](const void* plain, const void* biased) { kernel = bias ? biased : plain; };
+  if (fam == Family::kWgmma && block_q == kChunkRows) {
+    switch (d) {
+      case 64: pick((const void*)flash_wgmma_kernel<64>, (const void*)flash_wgmma_bias_kernel<64>); break;
+      case 80: pick((const void*)flash_wgmma_kernel<80>, (const void*)flash_wgmma_bias_kernel<80>); break;
+      case 96: pick((const void*)flash_wgmma_kernel<96>, (const void*)flash_wgmma_bias_kernel<96>); break;
+      case 128: pick((const void*)flash_wgmma_kernel<128>, (const void*)flash_wgmma_bias_kernel<128>); break;
+      default: pick((const void*)flash_wgmma_kernel<256>, (const void*)flash_wgmma_bias_kernel<256>);
     }
     threads = kFlashThreads;
     *smem_bytes = flash_layout(d, bias != 0).total;
-  } else if (dtype == 1 && (block_q == kChunkRows || (d == 64 && block_q == 2 * kChunkRows))) {
+  } else if (fam == Family::kHalves && block_q == kChunkRows) {
+    switch (d) {
+      case 320: pick((const void*)flash_halves_kernel<320>, (const void*)flash_halves_bias_kernel<320>); break;
+      case 384: pick((const void*)flash_halves_kernel<384>, (const void*)flash_halves_bias_kernel<384>); break;
+      default: pick((const void*)flash_halves_kernel<512>, (const void*)flash_halves_bias_kernel<512>);
+    }
+    threads = kHalvesThreads;
+    *smem_bytes = halves_layout(d, bias != 0).total;
+  } else if (fam == Family::kF32 && (block_q == kChunkRows || (d == 64 && block_q == 2 * kChunkRows))) {
     const bool one = block_q == kChunkRows;
-    if (bias) {
-      kernel = reinterpret_cast<const void*>(
-          d == 96 ? flash_f32_bias_kernel<96, 1> : (one ? flash_f32_bias_kernel<64, 1> : flash_f32_bias_kernel<64, 2>));
+    if (d == 96) {
+      pick((const void*)flash_f32_kernel<96, 1>, (const void*)flash_f32_bias_kernel<96, 1>);
+    } else if (d == 80) {
+      pick((const void*)flash_f32_kernel<80, 1>, (const void*)flash_f32_bias_kernel<80, 1>);
+    } else if (one) {
+      pick((const void*)flash_f32_kernel<64, 1>, (const void*)flash_f32_bias_kernel<64, 1>);
     } else {
-      kernel = reinterpret_cast<const void*>(d == 96 ? flash_f32_kernel<96, 1>
-                                                     : (one ? flash_f32_kernel<64, 1> : flash_f32_kernel<64, 2>));
+      pick((const void*)flash_f32_kernel<64, 2>, (const void*)flash_f32_bias_kernel<64, 2>);
     }
     threads = f32_threads(one ? 1 : 2);
     *smem_bytes = f32_layout(d, bias != 0).total;
+  } else if (fam == Family::kSimt && block_q == kSimtRows) {
+    switch (d) {
+      case 128: pick((const void*)flash_f32_simt_kernel<128>, (const void*)flash_f32_simt_bias_kernel<128>); break;
+      case 256: pick((const void*)flash_f32_simt_kernel<256>, (const void*)flash_f32_simt_bias_kernel<256>); break;
+      case 320: pick((const void*)flash_f32_simt_kernel<320>, (const void*)flash_f32_simt_bias_kernel<320>); break;
+      case 384: pick((const void*)flash_f32_simt_kernel<384>, (const void*)flash_f32_simt_bias_kernel<384>); break;
+      default: pick((const void*)flash_f32_simt_kernel<512>, (const void*)flash_f32_simt_bias_kernel<512>);
+    }
+    threads = kSimtThreads;
+    *smem_bytes = simt_smem_bytes(d);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,9 +1,10 @@
 // PTX helpers for Hopper (sm_90a) kernels: mbarriers, TMA tensor loads,
-// wgmma with A from registers (and, for S = Q K^T at d 256, from shared
-// memory), shared-memory matrix descriptors, and the
+// wgmma with A from registers (and, for S = Q K^T at d 256 and above, from
+// shared memory), shared-memory matrix descriptors, and the
 // host side of a tensor map; then the 64-row attention chunks that the
 // `single` and max-free probes (attention_probes.cu) and the bf16 flash
-// forward (flash_attention.cu) load with TMA and feed to wgmma.
+// forward (flash_attention.cu) load with TMA and feed to wgmma, and the
+// 32-row ones of the bf16 flash forward at head dims 320-512.
 //
 // Conventions:
 //   - shared-memory addresses are 32-bit `.shared` addresses (smem_u32);
@@ -292,6 +293,117 @@ struct WgmmaRS<96> {
 };
 
 template <>
+struct WgmmaRS<128> {
+  template <int kTransB>
+  static __device__ __forceinline__ void mma(float (&d)[16][4], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<160> {
+  template <int kTransB>
+  static __device__ __forceinline__ void mma(float (&d)[20][4], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %86, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "{%80, %81, %82, %83}, %84, p, 1, 1, %85;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+          "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+          "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+          "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+          "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<192> {
+  template <int kTransB>
+  static __device__ __forceinline__ void mma(float (&d)[24][4], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %102, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, %101;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+          "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+          "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+          "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+          "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+          "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+          "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+          "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+          "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(scale_d));
+  }
+};
+
+template <>
 struct WgmmaRS<256> {
   template <int kTransB>
   static __device__ __forceinline__ void mma(float (&d)[32][4], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
@@ -365,61 +477,86 @@ __device__ __forceinline__ void wgmma_ss_64(float (&d)[8][4], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// wgmma_ss_64 at N = 32: S[64 x 32] of 64 query rows and a 32-key chunk,
+// as the bf16 flash forward at d 320-512 computes it.
+__device__ __forceinline__ void wgmma_ss_32(float (&d)[4][4], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
 // Attention chunks: 64 rows (keys, or one warpgroup's query rows) of a
 // [b, h, s, d] bf16 tensor, loaded by TMA as d / 32 boxes of [64 rows, 32
 // columns] with a 64-byte swizzle (box x holds columns 32x..32x+31, a row of
 // a box is 64 bytes), so a chunk is d * 128 bytes and every box starts on a
-// 4 KB step from the chunk's start.
+// 4 KB step from the chunk's start. A short chunk (kShortChunkRows = 32
+// keys) is the same at half the rows: d / 32 boxes of 2 KB.
 // ---------------------------------------------------------------------------
 
 constexpr int kChunkRows = 64;
+constexpr int kShortChunkRows = 32;
 constexpr int kBoxCols = 32;                                // a box row: 32 bf16 = 64 swizzled bytes
 constexpr int kBoxBytes = kChunkRows * kBoxCols * 2;        // one TMA box
 constexpr uint32_t kRowStrideBytes = kBoxCols * 2;          // a swizzled row
 constexpr uint32_t kGroupStrideBytes = 8 * kRowStrideBytes; // an 8-row group: the swizzle pattern
 
 __host__ __device__ constexpr int chunk_bytes(int d) { return d * kChunkRows * 2; }  // d / 32 boxes
+__host__ __device__ constexpr int box_bytes(int rows) { return rows * kBoxCols * 2; }
+__host__ __device__ constexpr int box_cols(int d) { return (d + kBoxCols - 1) / kBoxCols * kBoxCols; }
 
 // The tensor map of one [b, h, rows, d] tensor of `type` as rank 4 {d,
 // rows, h, b} with its (batch, head, row) strides in elements
 // (strides[0..2]), so that rows past the edge arrive as zeros. bf16 comes in
-// boxes of one chunk's 64 rows by 32 columns with a 64-byte swizzle, as wgmma
-// reads it; f32 in one unswizzled box of 64 rows by d columns (row-major, d * 4
-// bytes a row), which threads read. Returns 0 or an error code of encode_4d.
+// boxes of `box_rows` rows (one chunk's) by 32 columns with a 64-byte
+// swizzle, as wgmma reads it; f32 in one unswizzled box of 64 rows by d
+// columns rounded up to 32 (row-major, box_cols(d) * 4 bytes a row), which
+// threads read. Columns past d (d 80) arrive as zeros too. Returns 0 or an
+// error code of encode_4d.
 inline int rows_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int b, int h, int rows, int d,
-                    const long long* strides) {
+                    const long long* strides, int box_rows = kChunkRows) {
   const bool f32 = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const uint64_t size = f32 ? 4 : 2;
   const uint64_t dims[4] = {static_cast<uint64_t>(d), static_cast<uint64_t>(rows), static_cast<uint64_t>(h),
                             static_cast<uint64_t>(b)};
   const uint64_t bytes[3] = {static_cast<uint64_t>(strides[2]) * size, static_cast<uint64_t>(strides[1]) * size,
                              static_cast<uint64_t>(strides[0]) * size};
-  const uint32_t box[4] = {f32 ? static_cast<uint32_t>(d) : kBoxCols, kChunkRows, 1, 1};
+  const uint32_t box[4] = {f32 ? static_cast<uint32_t>(box_cols(d)) : kBoxCols, static_cast<uint32_t>(box_rows), 1,
+                           1};
   return encode_4d(map, type, ptr, dims, bytes, box, f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // rows_map of q, k and v (strides[3i..3i+2] for q, k, v), rows sq for q and
-// sk for k and v.
+// sk for k and v; k and v in boxes of `kv_box_rows` rows.
 inline int attention_maps(CUtensorMap (&maps)[3], CUtensorMapDataType type, const void* q, const void* k,
-                          const void* v, int b, int h, int sq, int sk, int d, const long long* strides) {
+                          const void* v, int b, int h, int sq, int sk, int d, const long long* strides,
+                          int kv_box_rows = kChunkRows) {
   const void* ptrs[3] = {q, k, v};
   const int rows[3] = {sq, sk, sk};
   for (int i = 0; i < 3; ++i) {
-    const int err = rows_map(&maps[i], type, ptrs[i], b, h, rows[i], d, strides + 3 * i);
+    const int err = rows_map(&maps[i], type, ptrs[i], b, h, rows[i], d, strides + 3 * i, i ? kv_box_rows : kChunkRows);
     if (err != 0) return err;
   }
   return 0;
 }
 
-// One chunk of a rows_map tensor, 64 rows from row0 and all D columns, into
-// `dst` as D / 32 boxes, completing on mbarrier `bar`; a block's one
+// One chunk of a rows_map tensor, kRows rows from row0 and all D columns,
+// into `dst` as D / 32 boxes, completing on mbarrier `bar`; a block's one
 // producer thread issues it.
-template <int D>
+template <int D, int kRows = kChunkRows>
 __device__ __forceinline__ void load_chunk(uint32_t dst, const CUtensorMap* map, uint32_t bar, int row0, int hi,
                                            int bi) {
 #pragma unroll
-  for (int x = 0; x < D / kBoxCols; ++x) tma_load_4d(dst + x * kBoxBytes, map, bar, x * kBoxCols, row0, hi, bi);
+  for (int x = 0; x < D / kBoxCols; ++x) {
+    tma_load_4d(dst + x * box_bytes(kRows), map, bar, x * kBoxCols, row0, hi, bi);
+  }
 }
 
 // The bf16 pair (row r, columns c and c + 1; c even) of a chunk, as a thread
@@ -454,6 +591,24 @@ __device__ __forceinline__ void qk_issue_ss(float (&s)[kChunkRows / 8][4], uint3
     const uint32_t step = (ks / 2) * kBoxBytes + (ks % 2) * 32;
     wgmma_ss_64(s, smem_desc(q_chunk + step, 16, kGroupStrideBytes, kSwizzle64B),
                 smem_desc(k_chunk + step, 16, kGroupStrideBytes, kSwizzle64B), ks > 0);
+  }
+  wgmma_commit();
+}
+
+// qk_issue_ss against a short chunk of K: S[64 x 32] for 32 keys (2 KB
+// boxes), Q's 64 rows in 4 KB boxes. Unrolled: ptxas serialises wgmma
+// issued from a loop that is not.
+template <int D>
+__device__ __forceinline__ void qk_issue_ss_short(float (&s)[kShortChunkRows / 8][4], uint32_t q_chunk,
+                                                  uint32_t k_chunk) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t in_row = (ks % 2) * 32;
+    wgmma_ss_32(s, smem_desc(q_chunk + (ks / 2) * kBoxBytes + in_row, 16, kGroupStrideBytes, kSwizzle64B),
+                smem_desc(k_chunk + (ks / 2) * box_bytes(kShortChunkRows) + in_row, 16, kGroupStrideBytes,
+                          kSwizzle64B),
+                ks > 0);
   }
   wgmma_commit();
 }
@@ -496,6 +651,23 @@ __device__ __forceinline__ void pv_issue(float (&acc)[D / 8][4], const uint32_t 
   wgmma_commit();
 }
 
+// Issue acc[64 x N] += P[64 x 32] V[32 x N] as one wgmma group for a short
+// chunk of V: its columns col0 .. col0 + N - 1, col0 on a 32-column box, so
+// that the MN-major descriptor starts on a box (LBO the 2 KB box step).
+template <int N>
+__device__ __forceinline__ void pv_issue_short(float (&acc)[N / 8][4], const uint32_t (&pa)[kShortChunkRows / 16][4],
+                                               uint32_t v_chunk, int col0) {
+  constexpr uint32_t kBox = box_bytes(kShortChunkRows);
+  const uint32_t first = v_chunk + (col0 / kBoxCols) * kBox;
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < kShortChunkRows / 16; ++c) {
+    WgmmaRS<N>::template mma<1>(acc, pa[c], smem_desc(first + c * 16 * kRowStrideBytes, kBox, kGroupStrideBytes,
+                                                      kSwizzle64B), 1);
+  }
+  wgmma_commit();
+}
+
 // Bytes of a shared-memory area of bf16 ones, 512-byte aligned: a wgmma B
 // operand whose every element is 1, whatever descriptor reads it from there.
 constexpr int kOnesBytes = 512;
@@ -524,10 +696,11 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {  // a in the
 }
 
 // bf16(p) as the A fragments of P V: m64n8 block nn of the S accumulator is
-// half of K step nn / 2.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[kChunkRows / 16][4], const float (&s)[kChunkRows / 8][4]) {
+// half of K step nn / 2; kKeys keys a chunk.
+template <int kKeys = kChunkRows>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kKeys / 16][4], const float (&s)[kKeys / 8][4]) {
 #pragma unroll
-  for (int nn = 0; nn < kChunkRows / 8; ++nn) {
+  for (int nn = 0; nn < kKeys / 8; ++nn) {
     pa[nn / 2][2 * (nn % 2)] = pack_bf16x2(s[nn][0], s[nn][1]);  // rounds p to bf16
     pa[nn / 2][2 * (nn % 2) + 1] = pack_bf16x2(s[nn][2], s[nn][3]);
   }

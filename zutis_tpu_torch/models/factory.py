@@ -15,9 +15,10 @@ RN50x64.pt, and the BPE merges file <assets>/bpe_simple_vocab_16e6.txt(.gz).
 Every arch the JAX package builds is built here: the CLIP ViTs, the
 ModifiedResNets (RN50 ... RN50x64; `dilatedRN*` is the same net without the
 x2 token upsample) and `encoder_type="dino"` (DINO ViT-B/16 bridged into
-the arch's text dim). On a card, the RN50 and RN101 decoders run the bf16
-flash kernel at head dim 256; RN50x4, RN50x16 and RN50x64 (head dims 320,
-384, 512) and f32 at 256 raise from the kernel's input check.
+the arch's text dim). On a card every arch runs the flash kernels at its
+decoder's head dim (its width over 8 heads: 128 for ViT-L/14, 256 for RN50
+and RN101, 320, 384 and 512 for RN50x4, RN50x16 and RN50x64; the DINO arm's
+64, 96, 128 or 80 at its text dim), in bf16 and in f32.
 `build_zutis` passes the opt-in levers `tome_r` (ViT only) and
 `decoder_pool` on to ZUTIS.
 """

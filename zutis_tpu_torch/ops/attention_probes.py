@@ -58,6 +58,7 @@ KEY_PAD = 128      # the JAX fns pad sk to a multiple of this
 KEY_TILE = 64      # keys per K/V chunk, and query rows per warpgroup
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 BLOCK_Q = (64, 128)  # one or two consumer warpgroups of 64 rows
+HEAD_DIMS = (64, 96)  # the probe kernels' instantiations
 SINGLE_V_STAGES = 2  # V chunks in `single`'s ring
 MAXFREE_STAGES = 4   # K and V chunks each in the max-free kernel's ring
 ONES_BYTES = 512     # the max-free kernel's tile of bf16 ones ("mxu" sum)
@@ -193,11 +194,15 @@ def check_kernel_inputs(q, k, v, block_q: int, family: str) -> None:
     """Raise on anything the probe kernels do not take: what
     `flash_attention.check_kernel_inputs` refuses (rank, shapes, head dims,
     devices, grid size, a head dim that is not contiguous, strides or
-    addresses not 16-byte aligned), and a dtype other than bf16, no keys, a
+    addresses not 16-byte aligned), a head dim outside HEAD_DIMS (the flash
+    kernels take more), and a dtype other than bf16, no keys, a
     `block_q` other than 64 or 128; for `single` also a block over the
     shared-memory limit (`fastsm` and `kt` stream K and V, so any sk
     fits)."""
     fa.check_kernel_inputs(q, k, v, None)
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[3]} not supported by the probe "
+                         f"kernels (supported: {HEAD_DIMS})")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"dtype {q.dtype}: the probe kernels take bfloat16")
     sk, d = k.shape[2], k.shape[3]

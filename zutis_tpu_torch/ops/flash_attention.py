@@ -11,18 +11,24 @@ which the JAX package sends to XLA's einsum attention: each kernel has a
 biased instantiation, chosen at compile time, and the unbiased ones are
 unchanged.
 
-Dispatch is by dtype; both kernels run on Hopper's TMA, mbarriers and
-wgmma. bf16, the serving path: one producer warp streams 64-key K and V
-chunks through a ring in shared memory (`STAGES` deep) to one consumer
-warpgroup of 64 query rows; at head dim 256 (the RN50 and RN101 decoders)
-the ring is `WIDE_STAGES` deep, Q stays in shared memory and one block
-fills an SM. f32 (head dims 64 and 96): every product takes three bf16 wgmma on
-hi/lo splits (~16 mantissa bits); a producer warpgroup loads f32 K and V
-chunks with TMA and splits each once into bf16 tiles for two consumer
-warpgroups (128 query rows a block; 64 for sq <= 64 and at d 96). An f32
-call whose blocks cannot fill the card splits its keys into `key_splits`
-ranges, whose partial results a second kernel combines
-(`flash_attention_split_reference` is its plain version).
+Both dtypes take every head dim of `HEAD_DIMS`: 64 (the ViT encoders and
+attnpool) and the ZUTIS decoders' width over 8 heads, 80 to 512. Dispatch is
+by dtype and head dim. bf16, the serving path, on Hopper's TMA, mbarriers
+and wgmma: one producer warp streams 64-key K and V chunks through a ring
+in shared memory (`stages(d)` deep) to one consumer warpgroup of 64 query
+rows (d 80 computes d 96's tiles, `box_cols`); at d 128 one block fills an
+SM, at d 256 (the RN50 and RN101 decoders) Q also stays in shared memory;
+at `HALVES_HEAD_DIMS` (RN50x4, RN50x16, RN50x64) chunks are 32 keys and two
+consumer warpgroups each hold half of O's columns, the first warp loading
+for both. f32 at `F32_HEAD_DIMS`
+(64 to 96): every product takes three bf16 wgmma on hi/lo splits (~16
+mantissa bits); a producer warpgroup loads f32 K and V chunks with TMA and
+splits each once into bf16 tiles for two consumer warpgroups (128 query
+rows a block; 64 for sq <= 64 and at d 80, 96). An f32 call whose blocks
+cannot fill the card splits its keys into `key_splits` ranges, whose
+partial results a second kernel combines (`flash_attention_split_reference`
+is its plain version). f32 at `SIMT_HEAD_DIMS` (128 to 512): f32 FMA on the
+CUDA cores, 32 query rows a block, 32-key chunks by cp.async.
 
 `flash_attention` takes the plain version only for tensors that lie on the
 CPU. For a CUDA tensor it launches a kernel or raises: an unsupported
@@ -48,15 +54,22 @@ from zutis_tpu_torch.ops import _build
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 STEM = "libzutis_flash"
-HEAD_DIMS = (64, 96, 256)  # the bf16 kernel's
-F32_HEAD_DIMS = (64, 96)   # the f32 kernel's
+HEAD_DIMS = (64, 80, 96, 128, 256, 320, 384, 512)  # both dtypes'
+HALVES_HEAD_DIMS = (320, 384, 512)  # bf16 on flash_halves_kernel
+F32_HEAD_DIMS = (64, 80, 96)        # f32 on flash_f32_kernel (hi/lo splits)
+SIMT_HEAD_DIMS = (128, 256, 320, 384, 512)  # f32 on flash_f32_simt_kernel
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _NEG_INF = -1e30
 KEY_CHUNK = 64        # keys per K/V chunk, and query rows per warpgroup
-STAGES = 4            # K/V chunks in the bf16 kernel's ring at d 64, 96
+SHORT_CHUNK = 32      # keys per K/V chunk at HALVES_HEAD_DIMS
+BOX_COLS = 32         # columns of a TMA box: d is computed in whole boxes
+STAGES = 4            # K/V chunks in the bf16 kernel's ring at d 64 to 128
 WIDE_STAGES = 3       # and at d 256, where a chunk is 32 KB
 F32_STAGES = 2        # f32 K/V chunks in the f32 kernel's TMA ring
 SPLIT_STAGES = 2      # bf16 hi/lo K/V tiles in its split ring
+SIMT_ROWS = 32        # query rows a block of the f32 CUDA-core kernel
+SIMT_KEYS = 32        # keys a chunk of it
+SIMT_PAD = 4          # floats after each of its shared-memory rows
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 SMS = 132             # streaming multiprocessors of an H100
 MIN_SPLIT_CHUNKS = 2  # key chunks a range of the split path takes at least
@@ -171,9 +184,11 @@ def flash_attention_split_reference(
 
 
 def block_rows(sq: int, d: int) -> int:
-    """Query rows a block of the f32 kernel takes: two consumer warpgroups
-    at d 64 for sq > 64, else one (f32_consumers in
-    csrc/flash_attention.cu)."""
+    """Query rows a block of the f32 kernel at head dim d takes: two
+    consumer warpgroups at d 64 for sq > 64, else one (f32_consumers in
+    csrc/flash_attention.cu); SIMT_ROWS on the CUDA-core kernel."""
+    if d in SIMT_HEAD_DIMS:
+        return SIMT_ROWS
     return 2 * KEY_CHUNK if d == 64 and sq > KEY_CHUNK else KEY_CHUNK
 
 
@@ -186,67 +201,88 @@ def split_chunks(sk: int, n_splits: int) -> int:
 
 def key_splits(b: int, h: int, sq: int, sk: int, d: int = 64) -> int:
     """Key ranges the f32 kernel cuts one call into: 1 when its
-    b * h * ceil(sq / block_rows) blocks fill an H100's SMS SMs; else
-    enough ranges of at least MIN_SPLIT_CHUNKS chunks each that the blocks
-    come to about one wave, and none of them empty."""
+    b * h * ceil(sq / block_rows) blocks fill an H100's SMS SMs, or at a
+    head dim the hi/lo kernel does not take (the CUDA-core kernel does not
+    split); else enough ranges of at least MIN_SPLIT_CHUNKS chunks each that
+    the blocks come to about one wave, and none of them empty."""
     blocks = b * h * -(-sq // block_rows(sq, d))
-    if blocks == 0 or blocks >= SMS:
+    if d not in F32_HEAD_DIMS or blocks == 0 or blocks >= SMS:
         return 1
     chunks = -(-sk // KEY_CHUNK)
     per = max(MIN_SPLIT_CHUNKS, -(-chunks // (SMS // blocks)))
     return -(-chunks // per)
 
 
+def box_cols(d: int) -> int:
+    """Columns the TMA kernels compute at head dim d: d in whole 32-column
+    boxes (96 at d 80, whose last 16 columns arrive as zeros)."""
+    return -(-d // BOX_COLS) * BOX_COLS
+
+
+def chunk_keys(d: int) -> int:
+    """Keys a K/V chunk of the bf16 kernels at head dim d: 64, or 32 at
+    HALVES_HEAD_DIMS."""
+    return SHORT_CHUNK if d in HALVES_HEAD_DIMS else KEY_CHUNK
+
+
 def stages(d: int) -> int:
-    """K/V chunks in the bf16 kernel's ring at head dim d (flash_stages in
-    csrc/flash_attention.cu)."""
+    """K/V chunks in the bf16 kernels' ring at head dim d (flash_stages and
+    halves_stages in csrc/flash_attention.cu): 4 at d 64 to 128, 3 at 256,
+    and at HALVES_HEAD_DIMS as many as fit beside Q, the barriers and a
+    2 KB reserve (4, 3, 2 at d 320, 384, 512)."""
+    if d in HALVES_HEAD_DIMS:
+        return (SMEM_LIMIT - KEY_CHUNK * d * 2 - 2048) // (2 * SHORT_CHUNK * d * 2)
     return WIDE_STAGES if d > 128 else STAGES
 
 
 def min_blocks(d: int) -> int:
-    """Blocks an SM the bf16 kernel is built to hold at head dim d (its
-    __launch_bounds__, flash_min_blocks): two at d 64 and 96, one at 256."""
-    return 1 if d > 128 else 2
+    """Blocks an SM the bf16 kernels are built to hold at head dim d (their
+    __launch_bounds__, flash_min_blocks): two at d 64 to 96, one from 128."""
+    return 2 if d < 128 else 1
 
 
-def _with_bias(layout: dict, slots: int) -> dict:
-    """`layout` with a ring of `slots` chunks' key biases (64 f32, already
-    times log2(e)) appended after its mbarriers."""
+def _with_bias(layout: dict, slots: int, keys: int = KEY_CHUNK) -> dict:
+    """`layout` with a ring of `slots` chunks' key biases (`keys` f32 a
+    chunk, already times log2(e)) appended after its mbarriers."""
     return dict(layout, bias=layout["total"],
-                total=layout["total"] + slots * KEY_CHUNK * 4)
+                total=layout["total"] + slots * keys * 4)
 
 
 def smem_layout(d: int, bias: bool = False) -> dict:
     """Byte offsets into one bf16 block's dynamic shared memory, as the
-    kernel lays it out (flash_layout in csrc/flash_attention.cu): the Q
-    tile, `stages(d)` K chunks, as many V chunks (each 64 rows of d bf16
-    columns, no padding), a 64-bit key-validity word per stage, then the
-    mbarriers: q_full and a full and an empty one per K and V stage. The
-    biased kernel appends 2 * stages(d) chunks' key biases. `total` is the
-    block's size."""
-    chunk, n = KEY_CHUNK * d * 2, stages(d)
-    k = chunk
+    kernels lay it out (flash_layout, halves_layout in
+    csrc/flash_attention.cu): the Q tile (64 rows), `stages(d)` K chunks,
+    as many V chunks (each `chunk_keys(d)` rows; every row `box_cols(d)`
+    bf16 columns, no padding), a 64-bit key-validity word per stage, then
+    the mbarriers: q_full and a full and an empty one per K and V stage.
+    The biased kernel appends 2 * stages(d) chunks' key biases. `total` is
+    the block's size."""
+    cols, keys, n = box_cols(d), chunk_keys(d), stages(d)
+    chunk = keys * cols * 2
+    k = KEY_CHUNK * cols * 2
     v = k + n * chunk
     valid = v + n * chunk
     bars = valid + n * 8
     layout = dict(q=0, k=k, v=v, valid=valid, bars=bars,
                   total=bars + (1 + 4 * n) * 8)
-    return _with_bias(layout, 2 * n) if bias else layout
+    return _with_bias(layout, 2 * n, keys) if bias else layout
 
 
 def f32_smem_layout(d: int, bias: bool = False) -> dict:
     """Byte offsets into one f32 block's dynamic shared memory (f32_layout
     in csrc/flash_attention.cu): a tile's f32 Q rows (a 64-row TMA box per
-    consumer warpgroup: two at d 64, one at d 96), F32_STAGES f32 K chunks
-    and as many V chunks (64 rows of d f32, unswizzled, as TMA writes them),
-    then SPLIT_STAGES bf16 tiles each of K hi, K lo, V hi and V lo (64 rows
-    of d bf16 in the swizzled chunk layout), a 64-bit key-validity word per
-    split stage, then the mbarriers: kf_full and vf_full per f32 stage,
-    k_full, k_empty, v_full and v_empty per split stage, q_full and
-    q_empty. The biased kernel appends 2 * SPLIT_STAGES chunks' key
-    biases."""
-    f32_chunk = KEY_CHUNK * d * 4
-    tile = KEY_CHUNK * d * 2
+    consumer warpgroup: two at d 64, one at d 80 and 96), F32_STAGES f32 K
+    chunks and as many V chunks (64 rows of box_cols(d) f32, unswizzled, as
+    TMA writes them), then SPLIT_STAGES bf16 tiles each of K hi, K lo, V hi
+    and V lo (64 rows of box_cols(d) bf16 in the swizzled chunk layout), a
+    64-bit key-validity word per split stage, then the mbarriers: kf_full
+    and vf_full per f32 stage, k_full, k_empty, v_full and v_empty per split
+    stage, q_full and q_empty. The biased kernel appends 2 * SPLIT_STAGES
+    chunks' key biases. At SIMT_HEAD_DIMS, `simt_smem_layout`."""
+    if d in SIMT_HEAD_DIMS:
+        return simt_smem_layout(d)
+    f32_chunk = KEY_CHUNK * box_cols(d) * 4
+    tile = KEY_CHUNK * box_cols(d) * 2
     kf = block_rows(2 * KEY_CHUNK, d) // KEY_CHUNK * f32_chunk
     vf = kf + F32_STAGES * f32_chunk
     khi = vf + F32_STAGES * f32_chunk
@@ -261,10 +297,19 @@ def f32_smem_layout(d: int, bias: bool = False) -> dict:
     return _with_bias(layout, 2 * SPLIT_STAGES) if bias else layout
 
 
+def simt_smem_layout(d: int) -> dict:
+    """Byte offsets into one block of the f32 CUDA-core kernel
+    (simt_smem_bytes in csrc/flash_attention.cu): SIMT_ROWS Q rows, one
+    chunk of SIMT_KEYS K rows and one of V rows, each row d + SIMT_PAD
+    floats. Its biased twin reads the biases from device memory: the same
+    layout."""
+    area = SIMT_ROWS * (d + SIMT_PAD) * 4
+    return dict(q=0, k=area, v=2 * area, total=3 * area)
+
+
 def check_kernel_inputs(q, k, v, kv_mask, key_bias=None) -> None:
     """Raise on anything the kernels do not take: dtype other than bf16 or
-    f32, head dim outside HEAD_DIMS (F32_HEAD_DIMS for f32: no f32 kernel
-    at d 256), no keys, mismatched shapes or devices,
+    f32, head dim outside HEAD_DIMS, no keys, mismatched shapes or devices,
     a head dim that is not contiguous, strides and addresses not 16-byte
     aligned, or a key_bias other than a contiguous f32 [b, sk]."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -285,10 +330,6 @@ def check_kernel_inputs(q, k, v, kv_mask, key_bias=None) -> None:
         raise TypeError(
             f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the kernel takes q, k, v "
             "all bfloat16 or all float32")
-    if q.dtype == torch.float32 and d not in F32_HEAD_DIMS:
-        raise ValueError(
-            f"head dim {d} not supported by the f32 kernel (supported: "
-            f"{F32_HEAD_DIMS}; bf16 also takes {HEAD_DIMS})")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one device")
     if b > 65535 or h > 65535:
@@ -321,8 +362,9 @@ def occupancy(d: int, dtype: torch.dtype = torch.bfloat16,
               bias: bool = False) -> tuple[int, int]:
     """(dynamic shared memory bytes, blocks per SM) of the kernel of `dtype`
     at this head dim, biased or not, from the current card's occupancy
-    calculator; block_q is 64 for bf16 (d 64, 96, 256) and for f32 at d 96,
-    64 or 128 (the default) for f32 at d 64."""
+    calculator; block_q is 64 for bf16 and for f32 at d 80 and 96, 64 or
+    128 (the default) for f32 at d 64, SIMT_ROWS for f32 at
+    SIMT_HEAD_DIMS."""
     if block_q is None:
         block_q = (block_rows(2 * KEY_CHUNK, d) if dtype == torch.float32
                    else KEY_CHUNK)
@@ -382,8 +424,8 @@ def flash_attention(
     given a mask are `flash_attention.masked_launches`, those given a key
     bias `flash_attention.biased_launches`, the f32 calls split by
     `key_splits`, each with a combine launch,
-    `flash_attention.split_launches`, and those at head dim 256 (the
-    kernel's wide instantiation) `flash_attention.wide_launches`."""
+    `flash_attention.split_launches`, and `flash_attention.launches_by_dim`
+    counts them by head dim ({d: launches})."""
     if not (torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
         return _flash_forward(q, k, v, kv_mask, key_bias=key_bias)
@@ -416,10 +458,11 @@ def _flash_forward(q, k, v, kv_mask, n_splits=None,
         if mask.dtype != torch.int32 or not mask.is_contiguous():
             mask = (kv_mask > 0).to(torch.int32).contiguous()
     splits = 1
-    if q.dtype == torch.float32:
+    if q.dtype == torch.float32 and d in F32_HEAD_DIMS:
         splits = key_splits(b, h, sq, sk, d) if n_splits is None else n_splits
     elif n_splits not in (None, 1):
-        raise ValueError("only the f32 kernel splits its keys")
+        raise ValueError("only the f32 kernel at head dims "
+                         f"{F32_HEAD_DIMS} splits its keys")
     o_part = ml = None
     if splits > 1:  # the split path's workspace; the library allocates nothing
         o_part = torch.empty((splits, b, h, sq, d), dtype=torch.float32,
@@ -444,7 +487,8 @@ def _flash_forward(q, k, v, kv_mask, n_splits=None,
     flash_attention.masked_launches += mask is not None
     flash_attention.biased_launches += key_bias is not None
     flash_attention.split_launches += splits > 1
-    flash_attention.wide_launches += d > 128
+    by_dim = flash_attention.launches_by_dim
+    by_dim[d] = by_dim.get(d, 0) + 1
     return o
 
 
@@ -452,4 +496,4 @@ flash_attention.launches = 0
 flash_attention.masked_launches = 0  # the launches given a kv_mask
 flash_attention.biased_launches = 0  # the launches given a key_bias
 flash_attention.split_launches = 0   # the f32 launches split, with a combine
-flash_attention.wide_launches = 0    # the launches at head dim 256
+flash_attention.launches_by_dim = {}  # {head dim: launches}

@@ -11,14 +11,19 @@ checkout compile to the same SASS.
   are timed at SHAPES, each run in a process of its own, in the order
   other, this, this, other; then the SASS of every kernel that both builds
   of csrc/flash_attention.cu and csrc/attention_probes.cu hold is compared
-  instruction by instruction.
+  instruction by instruction, and those that differ again with register
+  numbers dropped (a kernel that differs only in them runs the same
+  instructions on other registers).
 - `--ablations`: copies of csrc/ with one edit each (ABLATIONS), built with
-  nvcc and timed in turns with the unedited source.
+  nvcc and timed in turns with the unedited source; `d128_rings3` is the
+  bf16 kernel's other layout at head dim 128 (a 3-stage ring, two blocks
+  an SM, against 4 stages and one block).
 
 Times are device ms per call: 20 calls captured in a CUDA graph, the median
 of 21 replays, on [b, s, h, d] views as the models pass them; each run also
 times the bf16 kernel at the serving shapes (BF16_SHAPES: the encoder's, a
-control for the card's speed, and the decoder's at d 96), beside
+control for the card's speed, the decoder's at d 96, and ViT-L/14@336px's
+at d 128), beside
 nvidia-smi's SM clock and power. Prints one JSON line per measurement.
 Needs a card, nvcc and cuobjdump.
 """
@@ -46,16 +51,21 @@ SHAPES = {
     "bank encoder self": (32, 16, 577, 577, 64),
 }
 # bf16 calls timed beside them: the serving encoder shape (a control for
-# the card's speed) and the serving decoder's d 96 shapes
+# the card's speed), the serving decoder's d 96 shapes and the ViT-L/14@336px
+# decoder's d 128 ones (over 48 x 48 memory tokens)
 BF16_SHAPES = {
     "control bf16": (8, 12, 577, 577, 64),
     "decoder self bf16": (8, 8, 100, 100, 96),
     "decoder cross bf16": (8, 8, 100, 2304, 96),
+    "vitl decoder self bf16": (8, 8, 100, 100, 128),
+    "vitl decoder cross bf16": (8, 8, 100, 2304, 128),
 }
 # name -> [(text in csrc/flash_attention.cu, its replacement)]. The
 # ablations take a part out and compute a wrong result on purpose: their
 # time says what the part costs, nothing else. `rings3` is an alternative
-# that stays right (d 64 only: at d 96 the rings outgrow shared memory).
+# that stays right (d 64 only: at d 96 the rings outgrow shared memory), and
+# so is `d128_rings3`, the bf16 kernel at d 128 with a 3-stage ring and two
+# blocks an SM (112 KB a block) in place of 4 stages and one.
 ABLATIONS = {
     # the producer splits nothing: wgmma reads stale tiles
     "no_split": [
@@ -76,6 +86,11 @@ ABLATIONS = {
     "rings3": [("constexpr int kF32Stages = 2;", "constexpr int kF32Stages = 3;"),
                ("constexpr int kSplitStages = 2;",
                 "constexpr int kSplitStages = 3;")],
+    "d128_rings3": [
+        ("return flash_wide(d) ? kFlashStagesWide : kFlashStages; }",
+         "return d >= 128 ? kFlashStagesWide : kFlashStages; }"),
+        ("constexpr int flash_min_blocks(int d) { return d < 128 ? 2 : 1; }",
+         "constexpr int flash_min_blocks(int d) { return d <= 128 ? 2 : 1; }")],
 }
 
 
@@ -115,7 +130,8 @@ def flash_inputs(gen, shape, dtype):
 
 def time_shapes(shapes, bf16_shapes):
     """{name: device ms} of flash_attention at each f32 shape and each bf16
-    one, and nvidia-smi's SM clock, power draw and limit."""
+    one that the checkout's kernels take, and nvidia-smi's SM clock, power
+    draw and limit."""
     import subprocess
 
     import torch
@@ -128,6 +144,8 @@ def time_shapes(shapes, bf16_shapes):
         q, k, v = flash_inputs(gen, shape, torch.float32)
         out[name] = device_ms(lambda: fa.flash_attention(q, k, v))
     for name, shape in bf16_shapes.items():
+        if shape[4] not in fa.HEAD_DIMS:  # a checkout without this head dim
+            continue
         q, k, v = flash_inputs(gen, shape, torch.bfloat16)
         out[name] = device_ms(lambda: fa.flash_attention(q, k, v))
     out["nvidia-smi"] = subprocess.run(
@@ -243,9 +261,14 @@ def sass_functions(lib: Path) -> dict:
     return functions
 
 
+# a register's number (R, UR, P, UP): dropped by `registers_only`
+_REGISTER = re.compile(r"\b(U?[RP])\d+\b")
+
+
 def compare_sass(other: Path) -> None:
     """The SASS of every kernel both checkouts' flash and probe libraries
-    hold, instruction by instruction: one line a library."""
+    hold, instruction by instruction, and the differing ones again with
+    register numbers dropped: one line a library."""
     from zutis_tpu_torch.ops import _build
     from zutis_tpu_torch.ops import attention_probes as ap
     from zutis_tpu_torch.ops import flash_attention as fa
@@ -258,9 +281,16 @@ def compare_sass(other: Path) -> None:
             other / "zutis_tpu_torch" / "csrc" / module.SOURCE.name,
             work / f"{module.STEM}.so"))
         both = sorted(set(mine) & set(theirs))
+        differ = [n for n in both if mine[n] != theirs[n]]
+
+        def renamed(lines):
+            return [_REGISTER.sub(r"\1", ln) for ln in lines]
+
         _emit({"sass": module.SOURCE.name,
                "equal": sum(mine[n] == theirs[n] for n in both),
-               "differ": [n for n in both if mine[n] != theirs[n]],
+               "differ": differ,
+               "registers_only": [n for n in differ if renamed(mine[n])
+                                  == renamed(theirs[n])],
                "only_here": sorted(set(mine) - set(theirs)),
                "only_there": sorted(set(theirs) - set(mine))})
 
