@@ -522,7 +522,8 @@ SASS_OPS = ("UTMALDG", "HGMMA", "HMMA", "LDGSTS")  # TMA, wgmma, mma.sync, cp.as
 # the wgmma kernels of each library and their instantiations: flash's bf16
 # kernel per head dim (d 64 to 256 on one consumer warpgroup, 320 to 512 on
 # two), its f32 kernel at d 64 with one and two consumer warpgroups and at
-# d 80 and 96 with one, and the biased instantiations of each;
+# d 80 and 96 with one, its wide f32 kernel at d 128 to 512, and the biased
+# instantiations of each;
 # `single` per head dim, exp mode and layout; the max-free kernel per head
 # dim for fastsm (3 exp x 2 sum modes) and kt (3 exp modes, dots-only)
 WGMMA_HEAD_DIMS = len(fa.HEAD_DIMS) - len(fa.HALVES_HEAD_DIMS)
@@ -530,31 +531,28 @@ SASS_KERNELS = {
     "flash_wgmma_kernel": WGMMA_HEAD_DIMS,
     "flash_halves_kernel": len(fa.HALVES_HEAD_DIMS),
     "flash_f32_kernel": len(fa.F32_HEAD_DIMS) + 1,
+    "flash_f32_wide_kernel": len(fa.F32_WIDE_HEAD_DIMS),
     "flash_wgmma_bias_kernel": WGMMA_HEAD_DIMS,
     "flash_halves_bias_kernel": len(fa.HALVES_HEAD_DIMS),
     "flash_f32_bias_kernel": len(fa.F32_HEAD_DIMS) + 1,
+    "flash_f32_wide_bias_kernel": len(fa.F32_WIDE_HEAD_DIMS),
     "single_kernel": 2 * len(ap.EXP_MODES) * 2,
     "maxfree_kernel": 2 * (len(ap.EXP_MODES) * len(ap.SUM_MODES)
                            + len(ap.EXP_MODES) + 1),
 }
 
 
-# the f32 flash forward at d 128 and above, on the CUDA cores: cp.async
-# (LDGSTS) and no tensor-core product, one per head dim, biased and not
-SIMT_KERNELS = {"flash_f32_simt_kernel": len(fa.SIMT_HEAD_DIMS),
-                "flash_f32_simt_bias_kernel": len(fa.SIMT_HEAD_DIMS)}
-
-
-# kernels that a redesign replaced: the f32 flash forward on mma.sync
-GONE_KERNELS = ("flash_fwd_kernel",)
+# kernels that a redesign replaced: the f32 flash forward on mma.sync, and
+# at d 128 to 512 on the CUDA cores
+GONE_KERNELS = ("flash_fwd_kernel", "flash_f32_simt_kernel",
+                "flash_f32_simt_bias_kernel")
 
 
 def sass_check(libs: list) -> dict:
     """Opcode counts of each wgmma kernel in the built libraries (every
     instantiation of SASS_KERNELS), from cuobjdump's SASS; each must load
     through TMA (UTMALDG) and multiply on wgmma (HGMMA), with no mma.sync
-    (HMMA) and no cp.async (LDGSTS). The f32 CUDA-core kernels
-    (SIMT_KERNELS) must load by cp.async and hold no tensor-core product.
+    (HMMA) and no cp.async (LDGSTS); none of GONE_KERNELS may be left.
     cuobjdump ships beside nvcc; fails without it."""
     tool = shutil.which("cuobjdump")
     if tool is None:
@@ -570,10 +568,10 @@ def sass_check(libs: list) -> dict:
         for block in out.stdout.split("Function : ")[1:]:
             name = _kernel_name(block.split()[0])
             names.append(name)
-            if name.split("<")[0] in {**SASS_KERNELS, **SIMT_KERNELS}:
+            if name.split("<")[0] in SASS_KERNELS:
                 counts[name] = {op: len(re.findall(rf"\b{op}\b", block))
                                 for op in SASS_OPS}
-    for kernel, n in {**SASS_KERNELS, **SIMT_KERNELS}.items():
+    for kernel, n in SASS_KERNELS.items():
         found = sorted(k for k in counts if k.split("<")[0] == kernel)
         check(len(found) == n,
               f"cuobjdump found {found} for {kernel}, expected {n}")
@@ -581,10 +579,6 @@ def sass_check(libs: list) -> dict:
           f"the libraries still hold one of {GONE_KERNELS}")
     for name, c in counts.items():
         print(f"sass: {name}: {json.dumps(c)}", flush=True)
-        if name.split("<")[0] in SIMT_KERNELS:
-            check(c["LDGSTS"] > 0 and c["HGMMA"] == 0 and c["HMMA"] == 0,
-                  f"{name} is not a cp.async kernel on the CUDA cores")
-            continue
         check(c["UTMALDG"] > 0 and c["HGMMA"] > 0,
               f"{name} has no TMA load or no wgmma")
         check(c["HMMA"] == 0 and c["LDGSTS"] == 0,
@@ -603,13 +597,11 @@ def _inputs(gen, b, h, sq, sk, d, dtype, strided=False):
 
 
 # (dtype, head dim, query rows a block) of every flash kernel the library
-# launches: bf16 at 64 rows; f32 at 128 and 64 rows at d 64, 64 at d 80
-# and 96, 32 on the CUDA-core kernel
+# launches: bf16 at 64 rows; f32 at 128 and 64 rows at d 64, else 64
 FLASH_BLOCKS = ([(torch.bfloat16, d, 64) for d in fa.HEAD_DIMS]
                 + [(torch.float32, 64, 128), (torch.float32, 64, 64),
                    (torch.float32, 80, 64), (torch.float32, 96, 64)]
-                + [(torch.float32, d, fa.SIMT_ROWS)
-                   for d in fa.SIMT_HEAD_DIMS])
+                + [(torch.float32, d, 64) for d in fa.F32_WIDE_HEAD_DIMS])
 
 
 def flash_occupancy() -> dict:
@@ -990,10 +982,9 @@ TOL_F32_FORWARD = 1e-3  # of the largest |output|: see f32_kernel_forward
 def f32_kernel_forward(model: ZUTIS, x: torch.Tensor, want: dict,
                        label: str) -> dict:
     """An f32 `model`'s forward on the kernel attention path against
-    `want`, its forward on the "torch" path: every flash call at d 64 to 96
-    takes hi/lo bf16 splits (~16 mantissa bits), from d 128 full f32, so the
-    outputs agree within TOL_F32_FORWARD of their largest |value| after
-    dozens of layers. Returns the launches by head dim and the differences
+    `want`, its forward on the "torch" path: every f32 flash call takes
+    hi/lo bf16 splits (~16 mantissa bits), so the outputs agree within
+    TOL_F32_FORWARD of their largest |value| after dozens of layers. Returns the launches by head dim and the differences
     (every f32 kernel of the model's head dims on a main path)."""
     impl = next(m.attn_impl for m in model.modules()
                 if isinstance(m, (MultiHeadAttention, AttentionPool2d)))
@@ -4138,7 +4129,9 @@ def wide_flash_cases() -> list:
     """check_flash_case's (name, shape, mask, dtype, strided, biased) for
     each new (dtype, d): the decoder's self- and cross-attention at batch 8,
     the cross as [b, s, h, d] views, a ragged last chunk (577 keys) under a
-    kv_mask with an all-masked item, and the cross masked and biased."""
+    kv_mask with an all-masked item, and the cross masked and biased; in
+    f32 also the cross of two images, masked and biased, whose 32 blocks
+    take split keys (checked against the unsplit launch too)."""
     cases = []
     for dtype, d, sk in WIDE_DIMS:
         tag = f"{str(dtype)[6:]} d{d}"
@@ -4151,19 +4144,20 @@ def wide_flash_cases() -> list:
              True, False),
             (f"{tag} cross biased", (BATCH, 8, 100, sk, d), "mask", dtype, True,
              True)]
+        if dtype == torch.float32:
+            cases.append((f"{tag} cross split", (2, 8, 100, sk, d), "mask",
+                          dtype, True, True))
     return cases
 
 
 # the new pairs' calls, timed: a batch forward's self- and cross-attention
-# in bf16, the cross-attention of the f32 forward
-WIDE_FLASH_SHAPES = (
-    [(f"{WIDE_ARCH_OF[d]} decoder {kind}", (BATCH, 8, 100, s, d),
-      torch.bfloat16, 6)
-     for dtype, d, sk in WIDE_DIMS if dtype == torch.bfloat16
-     for kind, s in (("self", 100), ("cross", sk))]
-    + [(f"{WIDE_ARCH_OF[d]} decoder cross f32", (BATCH, 8, 100, sk, d),
-        torch.float32, 6) for dtype, d, sk in WIDE_DIMS
-       if dtype == torch.float32])
+# in both dtypes
+WIDE_FLASH_SHAPES = [
+    (f"{WIDE_ARCH_OF[d]} decoder {kind}"
+     + (" f32" if dtype == torch.float32 else ""), (BATCH, 8, 100, s, d),
+     dtype, 6)
+    for dtype, d, sk in WIDE_DIMS
+    for kind, s in (("self", 100), ("cross", sk))]
 ENCODER_REQUESTS = 16  # two batch forwards and one synchronous infer
 ENCODER_TRAIN_STEPS = 5  # after one warm-up
 ENCODER_EVAL_SIZES = [(384, 384)] * 4 + [(352, 480)] * 4
@@ -4376,8 +4370,8 @@ def kernel_instantiation(dtype, d: int) -> str:
     if dtype == torch.bfloat16:
         return (f"flash_halves_kernel<{d}>" if d in fa.HALVES_HEAD_DIMS
                 else f"flash_wgmma_kernel<{d}>")
-    if d in fa.SIMT_HEAD_DIMS:
-        return f"flash_f32_simt_kernel<{d}>"
+    if d in fa.F32_WIDE_HEAD_DIMS:
+        return f"flash_f32_wide_kernel<{d}>"
     return f"flash_f32_kernel<{d},{fa.block_rows(2 * fa.KEY_CHUNK, d) // 64}>"
 
 

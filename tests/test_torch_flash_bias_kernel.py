@@ -1,6 +1,6 @@
 """The flash kernels' biased instantiations (flash_wgmma_bias_kernel,
 flash_halves_bias_kernel, flash_f32_bias_kernel and
-flash_f32_simt_bias_kernel in csrc/flash_attention.cu) against their plain
+flash_f32_wide_bias_kernel in csrc/flash_attention.cu) against their plain
 version on the card, and their shared-memory layouts on the CPU.
 
 The file imports no JAX, so that it runs on a machine with a card and no
@@ -115,17 +115,42 @@ def test_cuda_biased_kernel_at_the_new_head_dims(d, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_zero_bias_is_the_unbiased_kernel():
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_zero_bias_is_the_unbiased_kernel(d):
+    """A zero bias gives the unbiased kernel's output: in f32 bit for bit
+    (the biased softmax forms each weight with the unbiased one's single
+    fmaf), at d 64 on flash_f32_kernel and d 128, 256 on the wide one; in
+    bf16 at d 64 within 2e-3 of the largest |output| (the bf16 kernels'
+    biased softmax rounds twice, and at d 256 that flips an output's last
+    bf16 bit past that bound)."""
     _needs_card()
-    q, k, v, bias, mask = _inputs(12, (4, 6, 200, 333, 64), True)
+    q, k, v, bias, mask = _inputs(12, (4, 6, 200, 333, d), True)
     q, k, v, mask = (x.cuda() for x in (q, k, v, mask))
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32) if d == 64 else (torch.float32,):
         args = [x.to(dtype) for x in (q, k, v)]
         plain = fa.flash_attention(*args, mask)
         zero = fa.flash_attention(*args, mask, torch.zeros_like(bias).cuda())
         torch.cuda.synchronize()
-        tol = 1e-6 if dtype == torch.float32 else 2e-3 * plain.abs().max().item()
+        tol = 0.0 if dtype == torch.float32 else 2e-3 * plain.abs().max().item()
         torch.testing.assert_close(zero.float(), plain.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", fa.F32_WIDE_HEAD_DIMS)
+def test_cuda_f32_wide_biased_kernel_split_and_unsplit(d):
+    """flash_f32_wide_bias_kernel on the padded pooled cross-attention's
+    keys at the decoder's 100 queries, unsplit and in 3 key ranges: a bias
+    of log(size) range, item 0's masked keys given a large one, item 1 all
+    masked."""
+    _needs_card()
+    q, k, v, bias, mask = _inputs(15, (3, 8, 100, 1280, d), True)
+    q, k, v, bias, mask = (x.cuda() for x in (q, k, v, bias, mask))
+    want = fa.flash_attention_reference(q, k, v, mask, bias)
+    for n in (1, 3):
+        got = fa._flash_forward(q, k, v, mask, n, key_bias=bias)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=TOL_F32)
+        assert (got[1] == 0).all()
 
 
 @pytest.mark.cuda
@@ -135,8 +160,8 @@ def test_cuda_zero_bias_is_the_unbiased_kernel():
     (torch.bfloat16, 256, 64), (torch.bfloat16, 80, 64),
     (torch.bfloat16, 128, 64), (torch.bfloat16, 320, 64),
     (torch.bfloat16, 384, 64), (torch.bfloat16, 512, 64),
-    (torch.float32, 80, 64), (torch.float32, 128, 32),
-    (torch.float32, 512, 32)])
+    (torch.float32, 80, 64), (torch.float32, 128, 64),
+    (torch.float32, 512, 64)])
 def test_cuda_biased_occupancy(dtype, d, block_q):
     _needs_card()
     smem, blocks = fa.occupancy(d, dtype, block_q, bias=True)
@@ -155,22 +180,20 @@ def test_cuda_biased_occupancy(dtype, d, block_q):
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_bias_ring_follows_the_unbiased_layout(d, f32):
     """The unbiased layout is unchanged and the bias ring (2 x stages slots
-    of a chunk's keys in f32) comes after its mbarriers. The f32 CUDA-core
-    kernel (d 128 and above) reads its biases from device memory: its
-    biased layout is the unbiased one."""
+    of a chunk's keys in f32) comes after its mbarriers. The wide f32
+    kernel (d 128 and above) keeps one chunk's biases: each chunk's are
+    written after the softmax of the chunk before has read its slot."""
     layout = fa.f32_smem_layout if f32 else fa.smem_layout
-    stages = fa.SPLIT_STAGES if f32 else fa.stages(d)
+    slots = 2 * (fa.SPLIT_STAGES if f32 else fa.stages(d))
     keys = fa.KEY_CHUNK if f32 else fa.chunk_keys(d)
-    if f32 and d in fa.SIMT_HEAD_DIMS:
-        assert layout(d, bias=True) == layout(d)
-        assert layout(d)["total"] <= fa.SMEM_LIMIT
-        return
+    if f32 and d in fa.F32_WIDE_HEAD_DIMS:
+        slots, keys = 1, fa.f32_chunk_keys(d)
     plain, biased = layout(d), layout(d, bias=True)
     assert {k: v for k, v in biased.items() if k not in ("bias", "total")} \
         == {k: v for k, v in plain.items() if k != "total"}
     assert biased["bias"] == plain["total"]
     assert biased["bias"] % 8 == 0  # 8-byte float2 reads, 4-byte stores
-    assert biased["total"] == plain["total"] + 2 * stages * keys * 4
+    assert biased["total"] == plain["total"] + slots * keys * 4
     assert biased["total"] <= fa.SMEM_LIMIT
 
 
@@ -180,7 +203,7 @@ def test_biased_layouts_keep_their_blocks_an_sm():
         # SM's 228 KB
         assert fa.min_blocks(d) * (fa.smem_layout(d, bias=True)["total"]
                                    + 1024) <= 228 * 1024
-    for d in fa.F32_HEAD_DIMS:
+    for d in fa.HEAD_DIMS:
         assert fa.f32_smem_layout(d, bias=True)["total"] + 1024 <= 228 * 1024
 
 
@@ -191,6 +214,6 @@ def test_bias_ring_mirrors_the_source():
     assert "constexpr int kBiasSlotBytes = kChunkRows * 4;" in text
     assert "constexpr int kShortBiasSlotBytes = kShort * 4;" in text
     for kernel in ("flash_wgmma_bias_kernel", "flash_f32_bias_kernel",
-                   "flash_halves_bias_kernel", "flash_f32_simt_bias_kernel"):
+                   "flash_halves_bias_kernel", "flash_f32_wide_bias_kernel"):
         assert re.search(rf"__global__ void __launch_bounds__\(.*\)\s+"
                          rf"{kernel}\(", text), kernel

@@ -16,8 +16,7 @@ kernel rounds P to bf16 before P V and the output to bf16, about 2^-9
 relative each, and reads at most 3.1e-3 of it on an H100. Giving the zero
 keys past a ragged edge any weight, or skipping a 64-key chunk, costs
 several times that. f32 inputs take hi/lo bf16 splits (~16 mantissa bits)
-at d 64 to 96 and full f32 on the CUDA cores from d 128, and are held to
-1e-4 absolute, split and unsplit alike.
+at every head dim, and are held to 1e-4 absolute, split and unsplit alike.
 """
 import re
 
@@ -298,14 +297,42 @@ def test_cuda_f32_occupancy_reports_the_launched_kernel(d, block_q):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", fa.SIMT_HEAD_DIMS)
-def test_cuda_simt_occupancy_reports_the_launched_kernel(d):
+@pytest.mark.parametrize("d", fa.F32_WIDE_HEAD_DIMS)
+def test_cuda_f32_wide_occupancy_reports_the_launched_kernel(d):
     _needs_card()
     smem, blocks = fa.occupancy(d, torch.float32)
-    assert smem == fa.simt_smem_layout(d)["total"]
-    # 256 threads a block: at least one, at most what the shared memory and
-    # the SM's 2,048 threads hold
-    assert 1 <= blocks <= min(8, 228 * 1024 // (smem + 1024))
+    assert smem == fa.wide_smem_layout(d)["total"]
+    assert blocks == 1  # the block takes nearly all of an SM's shared memory
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", fa.F32_WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+def test_cuda_f32_wide_split_and_unsplit_launches_agree(d, masked):
+    """The wide f32 kernel's split path (a combine after it) at each head
+    dim: the decoder's 100 queries over a ragged 577 keys as [b, s, h, d]
+    views, cut into 3 ranges, and the count `key_splits` gives one head's
+    cross-attention, against the unsplit launch and the plain split
+    version; masked, item 1 has no valid key and item 0 a whole range
+    without one."""
+    _needs_card()
+    b, h, sq, sk = 3, 4, 100, 577
+    q, k, v = (x.cuda() for x in _qkv(14, b, h, sq, sk, d, strided=True))
+    mask = None
+    if masked:
+        mask = _mask(14, b, sk, all_masked=1).cuda()
+        mask[0, 64:320] = 0
+    whole = fa._flash_forward(q, k, v, mask, 1)
+    for splits in (3, fa.key_splits(1, 8, sq, sk, d)):
+        before = fa.flash_attention.split_launches
+        split = fa._flash_forward(q, k, v, mask, splits)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.split_launches == before + (splits > 1)
+        torch.testing.assert_close(split, whole, rtol=0, atol=TOL_F32)
+        want = fa.flash_attention_split_reference(q, k, v, mask, splits)
+        torch.testing.assert_close(split, want, rtol=0, atol=TOL_F32)
+        if masked:
+            assert (split[1] == 0).all()
 
 
 # ---------------------------------------------------------------- on the CPU
@@ -430,19 +457,96 @@ def test_f32_smem_layout_holds_one_block_an_sm():
         assert fa.f32_smem_layout(d)["total"] + 1024 <= 228 * 1024
 
 
-def test_simt_layout_fits_a_block():
-    # Q rows, one K and one V chunk, rows padded by SIMT_PAD floats; the
-    # padded row keeps 16-byte cp.async stores aligned and puts the 8 rows
-    # a quarter-warp reads as float4 on distinct banks
-    for d in fa.SIMT_HEAD_DIMS:
-        lay = fa.simt_smem_layout(d)
-        row = (d + fa.SIMT_PAD) * 4
-        assert row % 16 == 0
-        assert {(r * row // 4) % 32 // 4 for r in range(8)} == set(range(8))
-        assert lay["k"] == fa.SIMT_ROWS * row
-        assert lay["v"] == lay["k"] + fa.SIMT_KEYS * row
-        assert lay["total"] == lay["v"] + fa.SIMT_KEYS * row <= fa.SMEM_LIMIT
-        assert fa.f32_smem_layout(d) == fa.f32_smem_layout(d, bias=True) == lay
+@pytest.mark.parametrize("d", fa.F32_WIDE_HEAD_DIMS)
+def test_f32_wide_layout_keeps_tiles_on_the_swizzle_pattern(d):
+    lay = fa.f32_smem_layout(d)
+    assert lay == fa.wide_smem_layout(d)
+    keys, slots = fa.f32_chunk_keys(d), fa.wide_slots(d)
+    q_tile, tile, piece = 64 * d * 2, keys * d * 2, keys * d * 4
+    # the bf16 tiles: Q's boxes are 4 KB (64 rows), K's and V's keys * 64
+    # bytes, each on the 64-byte swizzle's 512-byte pattern and on its size
+    for area, size in (("qhi", q_tile), ("qlo", q_tile), ("khi", tile),
+                       ("klo", tile), ("vhi", tile), ("vlo", tile)):
+        box = (64 if area[0] == "q" else keys) * 64
+        assert lay[area] % box == 0 and box % 512 == 0
+        assert size % box == 0
+    # TMA writes the f32 pieces: 32-column boxes of 128-byte rows
+    assert all((lay["f32"] + s * piece) % 128 == 0 for s in range(slots))
+    # areas in order, none overlapping the next
+    order = [("qhi", q_tile), ("qlo", q_tile), ("khi", tile), ("klo", tile),
+             ("vhi", tile), ("vlo", tile), ("f32", slots * piece),
+             ("valid", 8), ("bars", slots * 8)]
+    assert lay["qhi"] == 0
+    for (a, size), (b, _) in zip(order, order[1:]):
+        assert lay[a] + size == lay[b]
+    assert lay["total"] == lay["bars"] + slots * 8
+    assert lay["valid"] % 8 == 0 and lay["bars"] % 8 == 0
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["plain", "biased"])
+@pytest.mark.parametrize("d", fa.F32_WIDE_HEAD_DIMS)
+def test_f32_wide_layouts_fit_a_block(d, bias):
+    """Every wide layout, biased or not, fits in a block's 232,448 bytes
+    with its ring of at least one f32 piece, at most WIDE_SLOTS_MAX, as
+    many as fit (one more would not), and one block an SM."""
+    lay = fa.f32_smem_layout(d, bias)
+    slots, piece = fa.wide_slots(d), fa.f32_chunk_keys(d) * d * 4
+    assert lay["total"] <= fa.SMEM_LIMIT
+    assert lay["total"] + 1024 <= 228 * 1024
+    assert 1 <= slots <= fa.WIDE_SLOTS_MAX
+    assert (slots == fa.WIDE_SLOTS_MAX
+            or lay["total"] + piece > fa.SMEM_LIMIT - fa.WIDE_RESERVE)
+    assert [fa.wide_slots(x) for x in fa.F32_WIDE_HEAD_DIMS] == [4, 3, 1, 3, 1]
+    assert 64 % fa.f32_chunk_keys(d) == 0  # Q's 64 rows are whole pieces
+    if bias:  # one chunk's key biases after the mbarriers
+        plain = fa.f32_smem_layout(d)
+        assert lay["bias"] == plain["total"] and lay["bias"] % 8 == 0
+        assert lay["total"] == plain["total"] + fa.f32_chunk_keys(d) * 4
+
+
+@pytest.mark.parametrize("d", fa.F32_WIDE_HEAD_DIMS)
+def test_f32_wide_split_writes_fill_the_tile_that_wgmma_reads(d):
+    """split_rows, mirrored: item i = it * 256 + thread takes columns
+    4 (i % 8) .. + 3 of row (i / 8) % rows of 32-column box (i / 8) / rows,
+    reading 16 bytes of the f32 piece (boxes of rows x 128 bytes, as TMA
+    writes them) and writing 8 bytes to each bf16 tile at box * tile rows *
+    64 + swizzle((row0 + row) * 64 + (i % 8) * 8). Every element lands
+    where TMA's 64-byte swizzle puts it in a bf16 chunk of the tile's rows
+    (where the K-major and MN-major descriptors read it), the pieces of a
+    K or V chunk and of Q's 64 rows (row0 = piece * rows) cover its tile
+    once, a warp reads 512 contiguous bytes and its stores fill whole
+    128-byte lines."""
+    keys = rows = fa.f32_chunk_keys(d)
+    items = rows * d // 4
+    assert items % fa.WIDE_THREADS == 0
+    for rows_in_tile in (keys, 64):
+        seen = np.zeros(rows_in_tile * d * 2, np.int32)
+        for piece in range(rows_in_tile // rows):
+            row0 = piece * rows
+            for it in range(items // fa.WIDE_THREADS):
+                reads, stores = [], []
+                for thread in range(fa.WIDE_THREADS):
+                    i = it * fa.WIDE_THREADS + thread
+                    q, r, box = i & 7, (i >> 3) % rows, (i >> 3) // rows
+                    src = (box * rows + r) * 128 + q * 16
+                    assert src == box * rows * 128 + (r * 32 + 4 * q) * 4
+                    off = box * rows_in_tile * 64 + _swizzle_64b(
+                        (row0 + r) * 64 + q * 8)
+                    assert off // 16 == (off + 7) // 16  # one swizzle unit
+                    for e in range(4):
+                        c = box * 32 + 4 * q + e
+                        assert off + 2 * e == (c // 32) * rows_in_tile * 64 \
+                            + _swizzle_64b((row0 + r) * 64 + (c % 32) * 2)
+                    seen[off:off + 8] += 1
+                    reads.append(src)
+                    stores.append(off)
+                for w in range(0, fa.WIDE_THREADS, 32):
+                    lo = min(reads[w:w + 32])
+                    assert sorted(reads[w:w + 32]) == list(
+                        range(lo, lo + 512, 16))
+                    lines = {s // 128 for s in stores[w:w + 32]}
+                    assert len(lines) == 2
+        assert (seen == 1).all()
 
 
 def test_f32_register_split_fills_the_register_file():
@@ -467,9 +571,9 @@ def test_f32_register_split_fills_the_register_file():
     ("flash_attention.cu", "kSplitStages", "SPLIT_STAGES"),
     ("hopper.cuh", "kShortChunkRows", "SHORT_CHUNK"),
     ("hopper.cuh", "kBoxCols", "BOX_COLS"),
-    ("flash_attention.cu", "kSimtRows", "SIMT_ROWS"),
-    ("flash_attention.cu", "kSimtKeys", "SIMT_KEYS"),
-    ("flash_attention.cu", "kSimtPad", "SIMT_PAD"),
+    ("flash_attention.cu", "kWideThreads", "WIDE_THREADS"),
+    ("flash_attention.cu", "kWideSlotsMax", "WIDE_SLOTS_MAX"),
+    ("flash_attention.cu", "kWideReserve", "WIDE_RESERVE"),
 ])
 def test_smem_layout_mirrors_the_kernels_constants(source, name, attr):
     text = (_build.CSRC / source).read_text()
@@ -490,18 +594,18 @@ def test_kernel_families_mirror_the_head_dims():
     very d (its last case the family's last dim)."""
     text = (_build.CSRC / "flash_attention.cu").read_text()
     wgmma, halves = _family_dims(text, "kWgmma"), _family_dims(text, "kHalves")
-    f32, simt = _family_dims(text, "kF32"), _family_dims(text, "kSimt")
+    f32, wide = _family_dims(text, "kF32"), _family_dims(text, "kF32Wide")
     assert halves == fa.HALVES_HEAD_DIMS
     assert wgmma + halves == fa.HEAD_DIMS
-    assert f32 == fa.F32_HEAD_DIMS and simt == fa.SIMT_HEAD_DIMS
-    assert tuple(sorted(f32 + simt)) == fa.HEAD_DIMS
+    assert f32 == fa.F32_HEAD_DIMS and wide == fa.F32_WIDE_HEAD_DIMS
+    assert tuple(sorted(f32 + wide)) == fa.HEAD_DIMS
     for case, d in re.findall(r"case (\d+): [^\n]*?<(\d+)", text):
         assert case == d
     for d, launched in re.findall(r"default: [^\n]*?<(\d+)>[^\n]*// family: d (\d+)", text):
         assert d == launched
     fwd = text[text.index("int zutis_flash_attention_fwd"):]
     for family, dims in (("wgmma", wgmma), ("halves", halves),
-                         ("f32_simt", simt)):
+                         ("f32_wide", wide)):
         launched = re.findall(rf"launch_{family}<(\d+)>", fwd)
         assert tuple(int(x) for x in launched) == dims, family
     assert set(re.findall(r"launch_f32<(\d+), \d>", fwd)) == {

@@ -30,6 +30,13 @@ CASES = {
     "d64 masked": ((3, 2, 20, 333, 64), 4, True),
     "d96 masked": ((3, 2, 40, 260, 96), 3, True),
     "d64 masked one range": ((3, 1, 20, 200, 64), 1, True),
+    # the wide f32 kernel's chunks: 64 keys at d 128, 32 at 256 and 320,
+    # 16 above
+    "d128 three ranges": ((1, 2, 20, 333, 128), 3, False),
+    "d256 masked": ((3, 2, 20, 300, 256), 4, True),
+    "d320 ragged five ranges": ((1, 2, 30, 161, 320), 5, False),
+    "d384 masked": ((3, 1, 20, 200, 384), 3, True),
+    "d512 ranges past the last chunk": ((1, 1, 20, 40, 512), 4, False),
 }
 
 
@@ -132,18 +139,42 @@ def test_key_splits_fills_one_wave_at_the_selfmask_cross_shape():
 
 @pytest.mark.parametrize("sq,d,rows", [
     (1, 64, 64), (20, 64, 64), (64, 64, 64), (65, 64, 128), (5505, 64, 128),
-    (20, 96, 64), (5505, 96, 64), (100, 80, 64), (100, 128, 32),
-    (5505, 512, 32),
+    (20, 96, 64), (5505, 96, 64), (100, 80, 64), (100, 128, 64),
+    (5505, 512, 64),
 ])
 def test_block_rows_takes_one_warpgroup_for_short_queries_and_d96(sq, d, rows):
     assert fa.block_rows(sq, d) == rows
 
 
-@pytest.mark.parametrize("d", fa.SIMT_HEAD_DIMS)
-def test_key_splits_leaves_the_cuda_core_kernel_whole(d):
-    # the f32 kernel at d 128 and above does not split its keys, however
-    # few its blocks (SelfMask's cross-attention shape at d 64 takes 22)
-    assert fa.key_splits(1, 6, 20, 5504, d) == 1
+@pytest.mark.parametrize("d,keys", [(64, 64), (80, 64), (96, 64), (128, 64),
+                                    (256, 32), (320, 32), (384, 16),
+                                    (512, 16)])
+def test_f32_chunk_keys_follow_the_kernels(d, keys):
+    assert fa.f32_chunk_keys(d) == keys
+
+
+@pytest.mark.parametrize("d", fa.F32_WIDE_HEAD_DIMS)
+def test_key_splits_fills_one_wave_at_the_wide_heads(d):
+    """One image's wide decoder cross-attention (8 heads of 100 queries:
+    16 blocks) splits into ranges of at least MIN_SPLIT_KEYS keys, about one
+    wave and none empty; a batch of 8 (128 blocks) stays whole."""
+    sk = 2304 if d == 128 else 576
+    n = fa.key_splits(1, 8, 100, sk, d)
+    per = fa.split_chunks(sk, n, d)
+    keys = fa.f32_chunk_keys(d)
+    assert n > 1
+    assert per >= fa.MIN_SPLIT_CHUNKS and per * keys >= fa.MIN_SPLIT_KEYS
+    assert (n - 1) * per < -(-sk // keys)   # no range is empty
+    assert 16 * n <= fa.SMS                  # one wave
+    assert fa.key_splits(8, 8, 100, sk, d) == 1
+
+
+@pytest.mark.parametrize("sk,n,d,per", [
+    (576, 5, 512, 8), (576, 4, 256, 5), (2304, 8, 128, 5), (33, 2, 320, 1),
+    (1, 3, 384, 1),
+])
+def test_split_chunks_count_the_wide_kernels_chunks(sk, n, d, per):
+    assert fa.split_chunks(sk, n, d) == per
 
 
 @pytest.mark.parametrize("b,h,sq,sk", [
@@ -154,4 +185,4 @@ def test_key_splits_leaves_the_cuda_core_kernel_whole(d):
 def test_key_splits_never_makes_an_empty_range(b, h, sq, sk, d):
     n = fa.key_splits(b, h, sq, sk, d)
     assert n >= 1
-    assert (n - 1) * fa.split_chunks(sk, n) < -(-sk // fa.KEY_CHUNK)
+    assert (n - 1) * fa.split_chunks(sk, n, d) < -(-sk // fa.f32_chunk_keys(d))

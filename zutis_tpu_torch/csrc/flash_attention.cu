@@ -26,7 +26,10 @@
 // times log2(e), to a ring in shared memory, with -inf for a key out of
 // range or masked; chunk_softmax adds them to s * scale_log2 before the row
 // max, since a bias a key does not commute with the max as the positive
-// scale does.
+// scale does. The f32 kernels (flash_f32_bias_kernel,
+// flash_f32_wide_bias_kernel) take f32_chunk_softmax, which forms each
+// weight with one fmaf, so that a zero bias gives the unbiased kernel's
+// output bit for bit.
 //
 // What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s):
 //   - encoder self-attention, d=64, 577 tokens: ~1.0 GFLOP against ~3.5 MB of
@@ -36,21 +39,26 @@
 //     against ~7.4 MB (~96 FLOP/byte), bound by memory: K and V dominate.
 // The [sq, sk] logits never leave the chip in either kernel.
 //
-// Four kernels, chosen by dtype and head dim (`family`):
-//   - bf16 (the serving path): flash_wgmma_kernel at d 64 to 256, on
-//     Hopper's TMA, mbarriers and wgmma (helpers in hopper.cuh; design note
-//     at the kernel), and flash_halves_kernel at d 320 to 512, the same
-//     loop with O's columns split between two consumer warpgroups.
-//   - f32 at d 128 and above (the f32 checks of the wide decoders):
-//     flash_f32_simt_kernel, f32 FMA on the CUDA cores.
+// Four kernels, chosen by dtype and head dim (`family`), all on Hopper's
+// TMA, mbarriers and wgmma (helpers in hopper.cuh; design notes at the
+// kernels):
+//   - bf16 (the serving path): flash_wgmma_kernel at d 64 to 256, and
+//     flash_halves_kernel at d 320 to 512, the same loop with O's columns
+//     split between two consumer warpgroups.
 //   - f32 at d 64 to 96 (SelfMask, the f32 image bank, the f32 checks):
-//     flash_f32_kernel, on the same TMA, mbarriers and wgmma. Inputs are
-//     split into bf16 high and low parts (x = hi + lo) and each product takes
-//     three bf16 wgmma (hi*hi + hi*lo + lo*hi), which keeps about 16 mantissa
-//     bits: close to f32 attention without a slow f32 datapath. A producer
-//     warpgroup splits each f32 K/V chunk once for two consumer warpgroups;
-//     calls too small to fill the card split their keys into ranges and
-//     merge them in flash_combine_kernel (design note at the kernel).
+//     flash_f32_kernel. Inputs are split into bf16 high and low parts (x =
+//     hi + lo) and each product takes three bf16 wgmma (hi*hi + hi*lo +
+//     lo*hi), which keeps about 16 mantissa bits: close to f32 attention
+//     without a slow f32 datapath. A producer warpgroup splits each f32 K/V
+//     chunk once for two consumer warpgroups; calls too small to fill the
+//     card split their keys into ranges and merge them in
+//     flash_combine_kernel.
+//   - f32 at d 128 to 512 (the wide decoders' f32 forwards):
+//     flash_f32_wide_kernel, the same numerics in a block of two consumer
+//     warpgroups that split each chunk themselves and hold O's column
+//     halves, Q's hi/lo tiles in shared memory; split keys as above. It is
+//     bound by shared memory: its capacity sets the chunk (16 to 64 keys),
+//     its bandwidth the time (the 16-key S products reread Q's tiles).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -305,6 +313,56 @@ __device__ __forceinline__ void chunk_softmax(float (&s)[kKeys / 8][4], uint64_t
     for (int e = 0; e < 4; ++e) {
       s[nn][e] = kBias ? exp2f(s[nn][e] + neg_m[e >> 1]) : exp2f(fmaf(s[nn][e], scale_log2, neg_m[e >> 1]));
       l[e >> 1] += s[nn][e];
+    }
+  }
+}
+
+// chunk_softmax for the f32 kernels. Unbiased, it is chunk_softmax. With
+// kBias the row max is taken over s * scale_log2 + b (one fmaf, not stored
+// over s) and the weight is exp2(s * scale_log2 + (b - m_new)), one fmaf:
+// with b = 0 that is the unbiased kernel's arithmetic bit for bit (its max
+// of s times the positive scale is the max of the rounded products); adding
+// b and subtracting m_new in two steps would round twice. A key out of
+// range or masked has b = -inf, which stays -inf against the finite
+// running max, so its weight is exactly zero.
+template <bool kBias, int kKeys = kChunkRows>
+__device__ __forceinline__ void f32_chunk_softmax(float (&s)[kKeys / 8][4], uint64_t valid, float scale_log2,
+                                                  float (&m)[2], float (&l)[2], float (&alpha)[2], uint32_t bias) {
+  if constexpr (!kBias) {
+    chunk_softmax<false, kKeys>(s, valid, scale_log2, m, l, alpha, bias);
+  } else {
+    const int t = threadIdx.x & 3;
+    float b[kKeys / 8][2];
+#pragma unroll
+    for (int nn = 0; nn < kKeys / 8; ++nn) {
+      const float2 x = ld_shared_f32x2(bias + 4 * (nn * 8 + 2 * t));
+      b[nn][0] = x.x;
+      b[nn][1] = x.y;
+    }
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nn = 0; nn < kKeys / 8; ++nn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], fmaf(s[nn][e], scale_log2, b[nn][e & 1]));
+    }
+    float neg_m[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+      neg_m[r] = -m_new;
+    }
+#pragma unroll
+    for (int nn = 0; nn < kKeys / 8; ++nn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nn][e] = exp2f(fmaf(s[nn][e], scale_log2, b[nn][e & 1] + neg_m[e >> 1]));
+        l[e >> 1] += s[nn][e];
+      }
     }
   }
 }
@@ -845,9 +903,9 @@ struct F32Tile {
   int bi, hi, q0, split, c0, n;  // key chunks c0 .. c0 + n - 1
 };
 
-template <int kNC>
+template <int kNC, int kKeys = kChunkRows>
 __device__ __forceinline__ F32Tile f32_tile(const Params& p, const F32Params& fp, int t) {
-  const int chunks = flash_chunks(p.sk);
+  const int chunks = (p.sk + kKeys - 1) / kKeys;  // of kKeys keys
   F32Tile tile;
   tile.q0 = (t % fp.q_tiles) * kNC * kChunkRows;
   t /= fp.q_tiles;
@@ -1078,11 +1136,13 @@ __device__ __forceinline__ void pv3_issue(float (&acc)[D / 8][4], const uint32_t
   hopper::wgmma_commit();
 }
 
-// p split into the hi and lo A fragments of P V (pack_p's layout).
-__device__ __forceinline__ void split_p(uint32_t (&ph)[kChunkRows / 16][4], uint32_t (&pl)[kChunkRows / 16][4],
-                                        const float (&s)[kChunkRows / 8][4]) {
+// p split into the hi and lo A fragments of P V (pack_p's layout); kKeys
+// keys a chunk.
+template <int kKeys = kChunkRows>
+__device__ __forceinline__ void split_p(uint32_t (&ph)[kKeys / 16][4], uint32_t (&pl)[kKeys / 16][4],
+                                        const float (&s)[kKeys / 8][4]) {
 #pragma unroll
-  for (int nn = 0; nn < kChunkRows / 8; ++nn) {
+  for (int nn = 0; nn < kKeys / 8; ++nn) {
     split(s[nn][0], s[nn][1], ph[nn / 2][2 * (nn % 2)], pl[nn / 2][2 * (nn % 2)]);
     split(s[nn][2], s[nn][3], ph[nn / 2][2 * (nn % 2) + 1], pl[nn / 2][2 * (nn % 2) + 1]);
   }
@@ -1149,7 +1209,7 @@ __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base
       uint64_t bits_j = valid(c0);
       hopper::wgmma_wait<0>();
       hopper::warp_arrive(bar.k_empty(c0 % kSplitStages));
-      chunk_softmax<kBias>(s, bits_j, p.scale_log2, m, l, alpha, bias(c0));
+      f32_chunk_softmax<kBias>(s, bits_j, p.scale_log2, m, l, alpha, bias(c0));
       split_p(ph, pl, s);
       for (int j = c0 + 1; j < c0 + n; ++j) {
         hopper::mbar_wait(bar.k_full(j % kSplitStages), parity(j));
@@ -1159,7 +1219,7 @@ __device__ void f32_consumer(const Params& p, const F32Params& fp, uint32_t base
         bits_j = valid(j);
         hopper::wgmma_wait<1>();  // Q K^T of chunk j is done
         hopper::warp_arrive(bar.k_empty(j % kSplitStages));
-        chunk_softmax<kBias>(s, bits_j, p.scale_log2, m, l, alpha, bias(j));
+        f32_chunk_softmax<kBias>(s, bits_j, p.scale_log2, m, l, alpha, bias(j));
         hopper::wgmma_wait<0>();  // P V of chunk j - 1 is done with ph, pl and V
         hopper::fence_operands(acc);
         hopper::warp_arrive(bar.v_empty((j - 1) % kSplitStages));
@@ -1353,213 +1413,415 @@ cudaError_t launch_f32(const CUtensorMap (&maps)[3], const Params& p, F32Params 
 }
 
 // ---------------------------------------------------------------------------
-// f32 at d 128 to 512: flash_f32_simt_kernel
+// f32 at d 128 to 512: flash_f32_wide_kernel
 //
-// The hi/lo design above keeps a tile's f32 Q rows, two stages of f32 K and
-// V chunks and two of their bf16 hi/lo tiles in shared memory: 288 KB at d
-// 128, past the 227 KB a block may have. So these head dims (ViT-L/14's and
-// the RN decoders' f32 calls) take f32 FMA on the CUDA cores, in full f32,
-// a simple kernel that is right first: 67 TFLOP/s of f32 FMA on an H100
-// against the hi/lo path's 330, so it is bound by operations at every
-// decoder shape, and by its shared-memory reads before that.
-//   - A block is 8 warps over 32 query rows of one (batch, head), 4 rows a
-//     warp; 32-key chunks of K and V come by cp.async (16 bytes a thread,
-//     rows past sq or sk as zeros) into rows padded by 4 floats. K and V
-//     have one buffer each: K_{j+1} loads while chunk j's softmax and P V
-//     run, V_{j+1} while chunk j + 1's S does (cp.async groups in the
-//     order Q + K_0, V_0, K_1, V_1, ...; wait_group 1 before each use).
-//   - S: lane i takes key i of the chunk and its warp's 4 rows: float4
-//     reads of its K row (the padding puts a quarter-warp's 8 rows on
-//     distinct banks) against broadcast float4 reads of the Q rows.
-//   - The online softmax in base 2 with warp shuffles: a key out of range
-//     or masked gets -inf, the key bias (times log2(e)) is added before the
-//     max; each lane keeps its share of the running sum.
-//   - P V: lane i holds columns i, i + 32, ... of its warp's 4 rows (D / 32
-//     x 4 accumulators) and takes P's 32 values of a row by shuffle, V's
-//     rows read whole by the warp.
+// The wide decoders' f32 calls (ViT-L/14@336px at d 128, the RN decoders at
+// 256-512). Numerics as flash_f32_kernel's: every product takes three bf16
+// wgmma on hi/lo splits with f32 accumulation, K and V split once a chunk
+// into bf16 tiles in the 64-byte-swizzled chunk layout of hopper.cuh.
+//
+// Design (Hopper). Shared memory decides it: flash_f32_kernel's rings (f32
+// Q, two f32 and two hi/lo stages of 64-key K and V chunks) take 288 KB at
+// d 128, past a block's 227 KB, and one warpgroup's O accumulator (D / 2
+// registers a thread) is past ptxas's 255 from d 320. So:
+//   - A block is two consumer warpgroups (256 threads, no producer
+//     warpgroup: a 384-thread block keeps 168 registers a thread) over 64
+//     query rows of one (batch, head) and one key range. Each holds O's
+//     columns of one half (D / 4 registers: 32 to 128), as
+//     flash_halves_kernel does, and computes the whole S = Q K^T itself:
+//     the two copies are the same instructions on the same tiles, so they
+//     are bit-equal and the online-softmax statistics need no exchange.
+//   - Q is split once into bf16 hi and lo tiles in shared memory (256 d
+//     bytes) and S reads them through descriptors (SS wgmma): as A
+//     fragments they would take d / 2 registers a thread.
+//   - Chunks are wide_keys(d) keys: 64 at d 128, 32 at 256 and 320, 16 at
+//     384 and 512, the widest whose hi/lo K and V tiles (8 x keys x d
+//     bytes) leave room beside Q for at least one f32 piece (m64n16k16 is
+//     the smallest S tile, and P V needs k16). A wider chunk rereads Q's
+//     tiles less often: 32 keys at d 320 with one f32 slot beat 16 keys with
+//     four (PERF.md).
+//   - f32 rows arrive by TMA (boxes of 32 columns, rows past sq or sk as
+//     zeros) into a ring of wide_slots(d) pieces (4, 3, 1, 3, 1 at d 128,
+//     256, 320, 384, 512), a piece being one chunk of K or V or that many
+//     rows of Q, in the order they are split: Q, K_0, V_0, K_1, V_1, ...
+//     Thread 0 refills a slot after the block barrier that follows its
+//     split, so loads run up to wide_slots(d) pieces ahead; with one slot
+//     (d 320, 512) a barrier after V_j's split lets K_{j+1} load under S_j.
+//     Tried on an H100 and not kept, as they were slower: pieces of 8 or
+//     16 rows with a barrier between (more slots), refills on per-slot
+//     empty mbarriers that thread 0 waits for, TMA prefetches into L2
+//     ahead of the ring.
+//   - All 256 threads split each piece (split_rows: 16-byte reads, 8-byte
+//     stores to each tile, no bank conflict) between the products, so that
+//     the split runs under the tensor cores: chunk j's iteration issues S_j,
+//     splits V_j, waits for S_j, takes the softmax and splits P; a block
+//     barrier publishes V_j's tiles (and frees K's); it issues P_j V_j on
+//     its half of V's columns, splits K_{j+1} and its validity word and
+//     biases, waits, and a second barrier publishes K_{j+1} (and frees V's).
+//     One hi/lo stage each of K and V is enough for that order.
+//   - Split keys: a call whose 64-row tiles cannot fill the card cuts its
+//     keys into ranges, one block a tile, and flash_combine_kernel merges
+//     the ranges' unnormalised O, m and l, as for flash_f32_kernel.
+// What bounds it is shared memory, not the bytes from device memory (29-41%
+// of that bound, PERF.md): its capacity sets the chunk and the ring, and
+// its bandwidth the time. The split reads and writes each f32 chunk once
+// more (a quarter of the time at d 128); the S products reread Q's 2 KB A
+// tile a k-step for 0.5-2 KB of K, from both warpgroups and three times
+// (hi/lo); the softmax and the K split run beside the short P V only; at d
+// 320 and 512 one f32 slot leaves each K load's latency exposed.
+// flash_halves_kernel can take from it the loading by one thread between
+// block barriers (in place of its first warp holding both warpgroups to
+// its pace) and the split of each chunk's work between the two
+// warpgroups by columns, with S computed by both.
 // ---------------------------------------------------------------------------
 
-constexpr int kSimtRows = 32;   // query rows a block
-constexpr int kSimtKeys = 32;   // keys a chunk
-constexpr int kSimtThreads = 256;
-constexpr int kSimtPad = 4;     // floats after each row in shared memory
+constexpr int kWideThreads = 256;   // two consumer warpgroups
+constexpr int kWideSlotsMax = 4;    // f32 pieces in the TMA ring, at most
+constexpr int kWideReserve = 1024;  // bytes kept for the validity word, the mbarriers and a chunk's key biases
 
-__host__ __device__ constexpr int simt_row_floats(int d) { return d + kSimtPad; }
-// Q rows, one K chunk and one V chunk: 384 * (d + 4) bytes
-__host__ __device__ constexpr int simt_smem_bytes(int d) { return 3 * kSimtRows * simt_row_floats(d) * 4; }
-// The blocks an SM's 228 KB hold (each with its 1 KB reserve), at most the
-// 8 of 2,048 threads: the kernel's __launch_bounds__, so that registers
-// never hold fewer blocks than shared memory does, biased or not (4 at d
-// 128, 2 at 256, 1 from 320).
-__host__ __device__ constexpr int simt_min_blocks(int d) {
-  return 233472 / (simt_smem_bytes(d) + 1024) < 8 ? 233472 / (simt_smem_bytes(d) + 1024) : 8;
+__host__ __device__ constexpr int wide_keys(int d) { return d <= 128 ? 64 : d <= 320 ? 32 : 16; }
+// one f32 piece: a chunk of K or V, or wide_keys(d) rows of Q
+__host__ __device__ constexpr int wide_piece_bytes(int d) { return 4 * wide_keys(d) * d; }
+// the bf16 hi or lo tile of one chunk of K or V
+__host__ __device__ constexpr int wide_tile_bytes(int d) { return 2 * wide_keys(d) * d; }
+// f32 pieces that fit beside Q's hi/lo tiles, the K and V hi/lo tiles and
+// the reserve, at most kWideSlotsMax
+__host__ __device__ constexpr int wide_room(int d) {
+  return kSmemLimit - 2 * hopper::chunk_bytes(d) - 4 * wide_tile_bytes(d) - kWideReserve;
+}
+__host__ __device__ constexpr int wide_slots(int d) {
+  return wide_room(d) / wide_piece_bytes(d) < kWideSlotsMax ? wide_room(d) / wide_piece_bytes(d) : kWideSlotsMax;
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool fill) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(fill ? 16 : 0)
+// Byte offsets into a block's dynamic shared memory (mirrored by
+// ops/flash_attention.py::f32_smem_layout): Q's bf16 hi and lo tiles (64
+// rows each, chunk layout), the hi and lo tiles of one K and one V chunk,
+// wide_slots(d) f32 pieces, every one a multiple of 1 KB from the 1
+// KB-aligned base; the chunk's 64-bit key-validity word; a full mbarrier
+// per slot; the biased kernel appends one chunk's key biases.
+struct WideLayout {
+  int qhi, qlo, khi, klo, vhi, vlo, f32, valid, bars, bias, total;
+};
+
+__host__ __device__ constexpr WideLayout wide_layout(int d, bool bias = false) {
+  const int q = hopper::chunk_bytes(d), t = wide_tile_bytes(d);
+  const int khi = 2 * q, klo = khi + t, vhi = klo + t, vlo = vhi + t, f32 = vlo + t;
+  const int valid = f32 + wide_slots(d) * wide_piece_bytes(d), bars = valid + 8;
+  const int end = bars + wide_slots(d) * 8;
+  return WideLayout{0, q, khi, klo, vhi, vlo, f32, valid, bars, end, end + (bias ? wide_keys(d) * 4 : 0)};
+}
+
+__device__ __forceinline__ float4 ld_shared_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n" : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
                : "memory");
+  return v;
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 
-// 32 rows of D floats from `rows` (row r at rows + r * stride) into the
-// padded buffer at `dst`; rows from `valid_rows` on as zeros. All threads.
-template <int D>
-__device__ __forceinline__ void simt_load(uint32_t dst, const float* rows, long long stride, int valid_rows) {
-  constexpr int kVecs = D / 4;  // 16-byte pieces a row
-#pragma unroll 4
-  for (int i = threadIdx.x; i < kSimtRows * kVecs; i += kSimtThreads) {
-    const int r = i / kVecs, c = i % kVecs;
-    const bool ok = r < valid_rows;
-    cp_async16(dst + (r * simt_row_floats(D) + 4 * c) * 4, rows + (ok ? r * stride : 0) + 4 * c, ok);
+// kRows f32 rows of D columns at `src`, as TMA wrote them (D / 32 boxes of
+// kRows rows x 32 floats, 128 bytes a row), as bf16 tiles hi and lo in the
+// chunk layout (D / 32 boxes `box` bytes apart, 64-byte rows, 64-byte
+// swizzle) from row row0 of each box, by the block's 256 threads. An item
+// is 4 columns of one row: a warp reads four whole 128-byte rows of a box
+// and writes four whole 64-byte rows of each tile, which the swizzle only
+// permutes, so neither has a bank conflict.
+template <int D, int kRows>
+__device__ __forceinline__ void split_rows(uint32_t src, uint32_t hi, uint32_t lo, uint32_t box, int row0) {
+  constexpr int kItems = kRows * D / 4;
+  static_assert(kItems % kWideThreads == 0, "the block's threads must tile the piece");
+#pragma unroll
+  for (int it = 0; it < kItems / kWideThreads; ++it) {
+    const int i = it * kWideThreads + threadIdx.x;
+    const int q = i & 7, r = (i >> 3) % kRows, x = (i >> 3) / kRows;
+    const float4 f = ld_shared_f32x4(src + (x * kRows + r) * 128 + q * 16);
+    uint32_t h0, l0, h1, l1;
+    split(f.x, f.y, h0, l0);
+    split(f.z, f.w, h1, l1);
+    const uint32_t off = x * box + hopper::swizzle_64b((row0 + r) * hopper::kRowStrideBytes + q * 8);
+    asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(hi + off), "r"(h0), "r"(h1) : "memory");
+    asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(lo + off), "r"(l0), "r"(l1) : "memory");
   }
 }
 
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  if constexpr (N == 64) {
+    hopper::wgmma_ss_64(d, desc_a, desc_b, scale_d);
+  } else if constexpr (N == 32) {
+    hopper::wgmma_ss_32(d, desc_a, desc_b, scale_d);
+  } else {
+    static_assert(N == 16, "S tiles are 16, 32 or 64 keys");
+    hopper::wgmma_ss_16(d, desc_a, desc_b, scale_d);
+  }
+}
+
+// Issue S[64 x kKeys] = Q K^T as one wgmma group of three SS products a K
+// step: Q_hi K_hi, Q_hi K_lo, Q_lo K_hi; Q's tiles 64 rows, K's kKeys.
+template <int D, int kKeys>
+__device__ __forceinline__ void wide_qk3_issue(float (&s)[kKeys / 8][4], uint32_t q_hi, uint32_t q_lo, uint32_t k_hi,
+                                               uint32_t k_lo) {
+  constexpr uint32_t kBox = hopper::box_bytes(kKeys);
+  auto desc = [](uint32_t addr) {
+    return hopper::smem_desc(addr, 16, hopper::kGroupStrideBytes, hopper::kSwizzle64B);
+  };
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t in_row = (ks % 2) * 32;
+    const uint32_t qo = (ks / 2) * hopper::kBoxBytes + in_row, ko = (ks / 2) * kBox + in_row;
+    const uint64_t qh = desc(q_hi + qo), ql = desc(q_lo + qo), kh = desc(k_hi + ko);
+    wgmma_ss<kKeys>(s, qh, kh, ks > 0);
+    wgmma_ss<kKeys>(s, qh, desc(k_lo + ko), 1);
+    wgmma_ss<kKeys>(s, ql, kh, 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// Issue acc[64 x N] += P V on V's columns col0 .. col0 + N - 1 (col0 on a
+// 32-column box) as one wgmma group of three products a 16-key step: P_hi
+// V_hi, P_hi V_lo, P_lo V_hi (MN-major, LBO the tile's box step).
+template <int N, int kKeys>
+__device__ __forceinline__ void wide_pv3_issue(float (&acc)[N / 8][4], const uint32_t (&ph)[kKeys / 16][4],
+                                               const uint32_t (&pl)[kKeys / 16][4], uint32_t v_hi, uint32_t v_lo,
+                                               int col0) {
+  constexpr uint32_t kBox = hopper::box_bytes(kKeys);
+  const uint32_t first = (col0 / hopper::kBoxCols) * kBox;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < kKeys / 16; ++c) {
+    const uint32_t off = first + c * 16 * hopper::kRowStrideBytes;
+    const uint64_t dh = hopper::smem_desc(v_hi + off, kBox, hopper::kGroupStrideBytes, hopper::kSwizzle64B);
+    const uint64_t dl = hopper::smem_desc(v_lo + off, kBox, hopper::kGroupStrideBytes, hopper::kSwizzle64B);
+    hopper::WgmmaRS<N>::template mma<1>(acc, ph[c], dh, 1);
+    hopper::WgmmaRS<N>::template mma<1>(acc, ph[c], dl, 1);
+    hopper::WgmmaRS<N>::template mma<1>(acc, pl[c], dh, 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// The block of flash_f32_wide_kernel (kBias false) and
+// flash_f32_wide_bias_kernel: one tile (64 query rows of one head against
+// one key range) by both warpgroups.
 template <int D, bool kBias>
-__device__ __forceinline__ void flash_f32_simt_block(const Params& p, const float* key_bias, float* smem) {
-  constexpr int kLd = simt_row_floats(D);
-  constexpr int kCols = D / 32;  // columns of O a lane holds, per row
-  const int bi = blockIdx.z, hi = blockIdx.y, q0 = blockIdx.x * kSimtRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* q = static_cast<const float*>(p.q) + bi * p.q_sb + hi * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + bi * p.k_sb + hi * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + bi * p.v_sb + hi * p.v_sh;
-  const int* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(bi) * p.sk;
-  const float* bias = kBias ? key_bias + static_cast<long long>(bi) * p.sk : nullptr;
-  float* qs = smem;
-  float* ks = qs + kSimtRows * kLd;
-  float* vs = ks + kSimtRows * kLd;
-  const uint32_t qs_addr = hopper::smem_u32(qs), ks_addr = hopper::smem_u32(ks), vs_addr = hopper::smem_u32(vs);
-  const int n = (p.sk + kSimtKeys - 1) / kSimtKeys;
-
-  simt_load<D>(qs_addr, q + q0 * p.q_ss, p.q_ss, p.sq - q0);
-  simt_load<D>(ks_addr, k, p.k_ss, p.sk);
-  cp_async_commit();
-  simt_load<D>(vs_addr, v, p.v_ss, p.sk);
-  cp_async_commit();
-
-  float o[4][kCols];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) o[r][c] = 0.f;
+__device__ __forceinline__ void flash_f32_wide_block(const CUtensorMap* tq, const CUtensorMap* tk,
+                                                     const CUtensorMap* tv, const Params& p, const F32Params& fp,
+                                                     const float* key_bias, unsigned char* smem) {
+  constexpr int kKeys = wide_keys(D), kSlots = wide_slots(D), kHalf = D / 2, kQPieces = kChunkRows / kKeys;
+  constexpr uint32_t kPiece = wide_piece_bytes(D), kBox = hopper::box_bytes(kKeys);
+  constexpr WideLayout kLay = wide_layout(D, kBias);
+  const uint32_t base = hopper::smem_u32(smem), bars = base + kLay.bars;
+  auto full = [&](int s) { return bars + 8 * s; };
+  const int half = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  if (threadIdx.x == 0) {
+    if (base % 1024 != 0) __trap();  // the swizzled tiles need the pattern's alignment
+    for (int s = 0; s < kSlots; ++s) hopper::mbar_init(full(s), 1);
+    hopper::fence_barrier_init();
   }
-  float m[4], l[4];  // running max (base 2) of each row; this lane's share of its sum
+  __syncthreads();
+  const F32Tile tl = f32_tile<1, kKeys>(p, fp, blockIdx.x);
+  const int n = tl.n;
+  const int pieces = n > 0 ? kQPieces + 2 * n : 0;  // a range past the last chunk loads nothing
+  const int* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(tl.bi) * p.sk;
+
+  // piece i into its slot, by thread 0: Q's rows, then K_j and V_j in turn
+  auto issue = [&](int i) {
+    const bool is_q = i < kQPieces;
+    const CUtensorMap* map = is_q ? tq : ((i - kQPieces) & 1) ? tv : tk;
+    const int row = is_q ? tl.q0 + i * kKeys : (tl.c0 + (i - kQPieces) / 2) * kKeys;
+    const uint32_t slot = base + kLay.f32 + (i % kSlots) * kPiece;
+    hopper::mbar_arrive_expect_tx(full(i % kSlots), kPiece);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) m[r] = -1e30f, l[r] = 0.f;
-  const float* q_rows = qs + warp * 4 * kLd;
-  for (int j = 0; j < n; ++j) {
-    cp_async_wait_1();  // Q and K_j have landed
+    for (int x = 0; x < D / hopper::kBoxCols; ++x) {
+      hopper::tma_load_4d(slot + x * kKeys * 128, map, full(i % kSlots), x * hopper::kBoxCols, row, tl.hi, tl.bi);
+    }
+  };
+  int issued = 0, taken = 0;  // pieces loaded (thread 0's count) and split
+  if (threadIdx.x == 0) {
+    hopper::prefetch_tensormap(tq);
+    hopper::prefetch_tensormap(tk);
+    hopper::prefetch_tensormap(tv);
+    for (; issued < kSlots && issued < pieces; ++issued) issue(issued);
+  }
+  // the next piece, once TMA has written it, split into rows row0.. of the
+  // hi and lo tiles
+  auto take = [&](uint32_t hi, uint32_t lo, uint32_t box, int row0) {
+    const int s = taken % kSlots;
+    hopper::mbar_wait(full(s), static_cast<uint32_t>((taken / kSlots) & 1));
+    split_rows<D, kKeys>(base + kLay.f32 + s * kPiece, hi, lo, box, row0);
+    hopper::fence_proxy_async();  // the tiles, to wgmma; the slot's reads, before TMA refills it
+    ++taken;
+  };
+  // the block barrier, after which thread 0 refills the slots whose pieces
+  // every thread has split
+  auto sync_refill = [&]() {
     __syncthreads();
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    const float* k_row = ks + lane * kLd;
-#pragma unroll 8
-    for (int c = 0; c < D; c += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(k_row + c);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(q_rows + r * kLd + c);
-        s[r] = fmaf(qv.x, kv.x, fmaf(qv.y, kv.y, fmaf(qv.z, kv.z, fmaf(qv.w, kv.w, s[r]))));
+    if (threadIdx.x == 0) {
+      for (; issued < taken + kSlots && issued < pieces; ++issued) issue(issued);
+    }
+  };
+  // chunk j's key validity (in range, not masked; the bits past kKeys set)
+  // and with kBias its key biases, by the first warp
+  auto mark = [&](int j) {
+    const int k0 = (tl.c0 + j) * kKeys + lane;
+    uint64_t valid;
+    if constexpr (kKeys == kChunkRows) {
+      const bool ok0 = k0 < p.sk && (mask == nullptr || mask[k0] != 0);
+      const bool ok1 = k0 + 32 < p.sk && (mask == nullptr || mask[k0 + 32] != 0);
+      valid = __ballot_sync(0xffffffffu, ok0) | (static_cast<uint64_t>(__ballot_sync(0xffffffffu, ok1)) << 32);
+      if constexpr (kBias) {
+        store_chunk_bias(base + kLay.bias, key_bias + static_cast<long long>(tl.bi) * p.sk, k0 - lane, ok0, ok1);
+      }
+    } else {
+      const bool ok = lane < kKeys && k0 < p.sk && (mask == nullptr || mask[k0] != 0);
+      valid = __ballot_sync(0xffffffffu, ok) | (~0ull << kKeys);
+      if constexpr (kBias) {
+        if (lane < kKeys) {
+          st_shared_f32(base + kLay.bias + 4 * lane,
+                        ok ? key_bias[static_cast<long long>(tl.bi) * p.sk + k0] * kLog2e : -CUDART_INF_F);
+        }
       }
     }
-    __syncthreads();  // every warp is done with K_j
-    if (j + 1 < n) {
-      const int k0 = (j + 1) * kSimtKeys;
-      simt_load<D>(ks_addr, k + k0 * p.k_ss, p.k_ss, p.sk - k0);
-    }
-    cp_async_commit();
+    if (lane == 0) hopper::st_shared_u64(base + kLay.valid, valid);
+  };
 
-    const int key = j * kSimtKeys + lane;
-    const bool ok = key < p.sk && (mask == nullptr || mask[key] != 0);
-    const float b = kBias && ok ? bias[key] * kLog2e : 0.f;
+  const uint32_t q_hi = base + kLay.qhi, q_lo = base + kLay.qlo, k_hi = base + kLay.khi, k_lo = base + kLay.klo;
+  const uint32_t v_hi = base + kLay.vhi, v_lo = base + kLay.vlo;
+  float acc[kHalf / 8][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float x = ok ? fmaf(s[r], p.scale_log2, b) : -CUDART_INF_F;
-      float mx = x;
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      s[r] = exp2f(x - m_new);
-      l[r] = fmaf(l[r], alpha, s[r]);
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) o[r][c] *= alpha;
+  for (int nn = 0; nn < kHalf / 8; ++nn) acc[nn][0] = acc[nn][1] = acc[nn][2] = acc[nn][3] = 0.f;
+  float s[kKeys / 8][4] = {};
+  uint32_t ph[kKeys / 16][4], pl[kKeys / 16][4];
+  float m[2] = {-1e30f, -1e30f};  // running max of the scaled logits (base 2)
+  float l[2] = {0.f, 0.f};
+  float alpha[2];
+  if (n > 0) {
+    for (int i = 0; i < kQPieces; ++i) {
+      take(q_hi, q_lo, hopper::kBoxBytes, i * kKeys);
+      sync_refill();
     }
+    take(k_hi, k_lo, kBox, 0);
+    if (threadIdx.x < 32) mark(0);
+    sync_refill();  // Q's and K_0's tiles, chunk 0's validity and biases
+    for (int j = 0; j < n; ++j) {
+      wide_qk3_issue<D, kKeys>(s, opaque(q_hi), opaque(q_lo), k_hi, k_lo);
+      take(v_hi, v_lo, kBox, 0);  // V_j, while S_j is on the tensor cores
+      // with one slot, K_{j+1}'s load starts under S_j rather than after
+      // the softmax: the short P V would not hide its latency
+      if constexpr (kSlots == 1) sync_refill();
+      hopper::wgmma_wait<0>();
+      f32_chunk_softmax<kBias, kKeys>(s, hopper::ld_shared_u64(base + kLay.valid), p.scale_log2, m, l, alpha,
+                                      base + kLay.bias);
+#pragma unroll
+      for (int nn = 0; nn < kHalf / 8; ++nn) {
+        acc[nn][0] *= alpha[0];
+        acc[nn][1] *= alpha[0];
+        acc[nn][2] *= alpha[1];
+        acc[nn][3] *= alpha[1];
+      }
+      split_p<kKeys>(ph, pl, s);
+      sync_refill();  // V_j's tiles; K's tiles, its validity word and biases are free
+      wide_pv3_issue<kHalf, kKeys>(acc, ph, pl, v_hi, v_lo, half * kHalf);
+      if (j + 1 < n) {  // K_{j+1}, while P_j V_j is on the tensor cores
+        take(k_hi, k_lo, kBox, 0);
+        if (threadIdx.x < 32) mark(j + 1);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(acc);
+      sync_refill();  // K_{j+1}'s tiles; V's are free
+    }
+  }
 
-    cp_async_wait_1();  // V_j has landed
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kSimtKeys; ++kk) {
-      float pk[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) pk[r] = __shfl_sync(0xffffffffu, s[r], kk);
-      const float* v_row = vs + kk * kLd + lane;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const int row_a = tl.q0 + warp * 16 + g, row_b = row_a + 8;
+  if (fp.o_part == nullptr) {
+    float* o = static_cast<float*>(p.o) + tl.bi * p.o_sb + tl.hi * p.o_sh + half * kHalf;
+    const float inv_a = 1.f / fmaxf(l[0], 1e-30f), inv_b = 1.f / fmaxf(l[1], 1e-30f);  // no valid key: 0
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float vv = v_row[32 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) o[r][c] = fmaf(pk[r], vv, o[r][c]);
+    for (int nn = 0; nn < kHalf / 8; ++nn) {
+      const int col = nn * 8 + 2 * t;
+      if (row_a < p.sq) {
+        *reinterpret_cast<float2*>(o + row_a * p.o_ss + col) = make_float2(acc[nn][0] * inv_a, acc[nn][1] * inv_a);
+      }
+      if (row_b < p.sq) {
+        *reinterpret_cast<float2*>(o + row_b * p.o_ss + col) = make_float2(acc[nn][2] * inv_b, acc[nn][3] * inv_b);
       }
     }
-    __syncthreads();  // every warp is done with V_j
-    if (j + 1 < n) {
-      const int k0 = (j + 1) * kSimtKeys;
-      simt_load<D>(vs_addr, v + k0 * p.v_ss, p.v_ss, p.sk - k0);
-    }
-    cp_async_commit();
+    return;
   }
-
-  float* out = static_cast<float*>(p.o) + bi * p.o_sb + hi * p.o_sh;
+  // the split path: unnormalised O, m and l of this key range
+  const long long item = (static_cast<long long>(tl.split) * fp.b + tl.bi) * fp.h + tl.hi;
+  float* o = fp.o_part + item * p.sq * D + half * kHalf;
+  float* ml = fp.ml + item * p.sq * 2;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    float sum = l[r];
-#pragma unroll
-    for (int w = 16; w > 0; w >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
-    const float inv = 1.f / fmaxf(sum, 1e-30f);  // no valid key: l = 0 and o = 0
-    const int row = q0 + warp * 4 + r;
-    if (row < p.sq) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) out[row * p.o_ss + lane + 32 * c] = o[r][c] * inv;
-    }
+  for (int nn = 0; nn < kHalf / 8; ++nn) {
+    const int col = nn * 8 + 2 * t;
+    if (row_a < p.sq) *reinterpret_cast<float2*>(o + row_a * D + col) = make_float2(acc[nn][0], acc[nn][1]);
+    if (row_b < p.sq) *reinterpret_cast<float2*>(o + row_b * D + col) = make_float2(acc[nn][2], acc[nn][3]);
+  }
+  if (half == 0 && t == 0) {  // both warpgroups hold the same m and l
+    if (row_a < p.sq) *reinterpret_cast<float2*>(ml + 2 * row_a) = make_float2(m[0], l[0]);
+    if (row_b < p.sq) *reinterpret_cast<float2*>(ml + 2 * row_b) = make_float2(m[1], l[1]);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kSimtThreads, simt_min_blocks(D)) flash_f32_simt_kernel(const Params p) {
-  extern __shared__ __align__(16) float simt_smem[];
-  flash_f32_simt_block<D, false>(p, nullptr, simt_smem);
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_f32_wide_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const Params p, const F32Params fp) {
+  extern __shared__ __align__(1024) unsigned char flash_wide_smem[];
+  flash_f32_wide_block<D, false>(&tq, &tk, &tv, p, fp, nullptr, flash_wide_smem);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kSimtThreads, simt_min_blocks(D))
-    flash_f32_simt_bias_kernel(const Params p, const float* key_bias) {
-  extern __shared__ __align__(16) float simt_smem[];
-  flash_f32_simt_block<D, true>(p, key_bias, simt_smem);
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_f32_wide_bias_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv, const Params p, const F32Params fp,
+                               const float* key_bias) {
+  extern __shared__ __align__(1024) unsigned char flash_wide_smem[];
+  flash_f32_wide_block<D, true>(&tq, &tk, &tv, p, fp, key_bias, flash_wide_smem);
 }
 
+// The f32 launch at d 128 to 512: flash_f32_wide_kernel
+// (flash_f32_wide_bias_kernel given a key bias), one block a tile, then
+// the combine when the call is split into fp.splits key ranges.
 template <int D>
-cudaError_t launch_f32_simt(const Params& p, const float* key_bias, int b, int h, cudaStream_t stream) {
-  static const cudaError_t configured = cudaFuncSetAttribute(
-      flash_f32_simt_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, simt_smem_bytes(D));
-  static const cudaError_t configured_bias = cudaFuncSetAttribute(
-      flash_f32_simt_bias_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, simt_smem_bytes(D));
+cudaError_t launch_f32_wide(const CUtensorMap (&maps)[3], const Params& p, F32Params fp, const float* key_bias,
+                            cudaStream_t stream) {
+  static const cudaError_t configured =
+      cudaFuncSetAttribute(flash_f32_wide_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  static const cudaError_t configured_bias =
+      cudaFuncSetAttribute(flash_f32_wide_bias_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (configured != cudaSuccess) return configured;
   if (configured_bias != cudaSuccess) return configured_bias;
-  const dim3 grid((p.sq + kSimtRows - 1) / kSimtRows, h, b);
+  const int chunks = (p.sk + wide_keys(D) - 1) / wide_keys(D);
+  fp.per = (chunks + fp.splits - 1) / fp.splits;
+  fp.q_tiles = (p.sq + kChunkRows - 1) / kChunkRows;
+  const long long tiles = static_cast<long long>(fp.q_tiles) * fp.splits * fp.h * fp.b;
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  fp.tiles = static_cast<int>(tiles);
   if (key_bias != nullptr) {
-    flash_f32_simt_bias_kernel<D><<<grid, kSimtThreads, simt_smem_bytes(D), stream>>>(p, key_bias);
+    flash_f32_wide_bias_kernel<D>
+        <<<fp.tiles, kWideThreads, wide_layout(D, true).total, stream>>>(maps[0], maps[1], maps[2], p, fp, key_bias);
   } else {
-    flash_f32_simt_kernel<D><<<grid, kSimtThreads, simt_smem_bytes(D), stream>>>(p);
+    flash_f32_wide_kernel<D><<<fp.tiles, kWideThreads, wide_layout(D).total, stream>>>(maps[0], maps[1], maps[2], p, fp);
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || fp.splits == 1) return err;
+  const long long rows = static_cast<long long>(fp.b) * fp.h * p.sq;
+  flash_combine_kernel<D><<<static_cast<unsigned>((rows + 3) / 4), 128, 0, stream>>>(p, fp);
   return cudaGetLastError();
 }
 
 // The kernel family of (dtype, d): bf16 at d 64, 80, 96, 128 and 256 runs
 // flash_wgmma_kernel, at 320, 384 and 512 flash_halves_kernel; f32 at 64, 80
 // and 96 flash_f32_kernel, at 128, 256, 320, 384 and 512
-// flash_f32_simt_kernel. Any other pair is no kernel's.
-enum class Family { kNone, kWgmma, kHalves, kF32, kSimt };
+// flash_f32_wide_kernel. Any other pair is no kernel's.
+enum class Family { kNone, kWgmma, kHalves, kF32, kF32Wide };
 
 Family family(int dtype, int d) {
   if (dtype == 0) {
@@ -1567,7 +1829,7 @@ Family family(int dtype, int d) {
     if (d == 320 || d == 384 || d == 512) return Family::kHalves;
   } else if (dtype == 1) {
     if (d == 64 || d == 80 || d == 96) return Family::kF32;
-    if (d == 128 || d == 256 || d == 320 || d == 384 || d == 512) return Family::kSimt;
+    if (d == 128 || d == 256 || d == 320 || d == 384 || d == 512) return Family::kF32Wide;
   }
   return Family::kNone;
 }
@@ -1579,16 +1841,15 @@ extern "C" {
 // dtype: 0 = bfloat16, 1 = float32; the kernel by head dim d as `family`
 // says (bf16: flash_wgmma_kernel at d 64, 80, 96, 128, 256,
 // flash_halves_kernel at 320, 384, 512; f32: flash_f32_kernel at 64, 80,
-// 96, flash_f32_simt_kernel at 128, 256, 320, 384, 512);
+// 96, flash_f32_wide_kernel at 128, 256, 320, 384, 512);
 // with a key_bias [b, sk] f32 (contiguous; null for none), their biased
 // instantiations (flash_wgmma_bias_kernel, flash_halves_bias_kernel,
-// flash_f32_bias_kernel, flash_f32_simt_bias_kernel).
+// flash_f32_bias_kernel, flash_f32_wide_bias_kernel).
 // strides: 12 values, the (batch, head, sequence) strides in elements of q,
 // k, v and o in that order. bf16 takes 64 query rows a block; f32 takes 128
-// at d 64 for sq > 64, 64 at d 64 to 96, 32 at d 128 and above; the TMA
-// kernels read q, k and v through tensor maps, the f32 CUDA-core one with
-// cp.async.
-// splits (f32 at d 64, 80, 96 only; else 1): key ranges of one call. Above 1,
+// at d 64 for sq > 64, else 64; every kernel reads q, k and v through
+// tensor maps.
+// splits (f32 only; else 1): key ranges of one call. Above 1,
 // o_part [splits, b, h, sq, d] and ml [splits, b, h, sq, 2] are the f32
 // workspace the caller allocated, and a combine kernel follows the main one.
 // All need sk >= 1; a map the CUDA driver will not encode returns
@@ -1603,7 +1864,7 @@ int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const
                               float scale, int splits, float* o_part, float* ml, void* stream) {
   const Family fam = family(dtype, d);
   if (fam == Family::kNone || sk < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (splits < 1 || splits > 65535 || (fam != Family::kF32 && splits != 1) ||
+  if (splits < 1 || splits > 65535 || (fam != Family::kF32 && fam != Family::kF32Wide && splits != 1) ||
       (splits > 1 && (o_part == nullptr || ml == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1621,26 +1882,31 @@ int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const
   p.sk = sk;
   p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fam == Family::kSimt) {
+  CUtensorMap maps[3];
+  F32Params fp{};
+  fp.o_part = splits > 1 ? o_part : nullptr;
+  fp.ml = splits > 1 ? ml : nullptr;
+  fp.splits = splits;
+  fp.b = b;
+  fp.h = h;
+  if (fam == Family::kF32Wide) {
+    // f32 rows in boxes of one piece's rows by 32 columns
+    const int rows = wide_keys(d);
+    const int err = hopper::attention_maps(maps, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, q, k, v, b, h, sq, sk, d, strides,
+                                           rows, rows, hopper::kBoxCols);
+    if (err != 0) return err;
     switch (d) {
-      case 128: return launch_f32_simt<128>(p, key_bias, b, h, s);
-      case 256: return launch_f32_simt<256>(p, key_bias, b, h, s);
-      case 320: return launch_f32_simt<320>(p, key_bias, b, h, s);
-      case 384: return launch_f32_simt<384>(p, key_bias, b, h, s);
-      default: return launch_f32_simt<512>(p, key_bias, b, h, s);  // family: d 512
+      case 128: return launch_f32_wide<128>(maps, p, fp, key_bias, s);
+      case 256: return launch_f32_wide<256>(maps, p, fp, key_bias, s);
+      case 320: return launch_f32_wide<320>(maps, p, fp, key_bias, s);
+      case 384: return launch_f32_wide<384>(maps, p, fp, key_bias, s);
+      default: return launch_f32_wide<512>(maps, p, fp, key_bias, s);  // family: d 512
     }
   }
-  CUtensorMap maps[3];
   if (fam == Family::kF32) {
     const int err = hopper::attention_maps(maps, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, q, k, v, b, h, sq, sk, d, strides);
     if (err != 0) return err;
-    F32Params fp{};
-    fp.o_part = splits > 1 ? o_part : nullptr;
-    fp.ml = splits > 1 ? ml : nullptr;
     fp.per = (flash_chunks(sk) + splits - 1) / splits;
-    fp.splits = splits;
-    fp.b = b;
-    fp.h = h;
     if (d == 96) return launch_f32<96, 1>(maps, p, fp, key_bias, s);
     if (d == 80) return launch_f32<80, 1>(maps, p, fp, key_bias, s);
     if (f32_consumers(sq, d) == 1) return launch_f32<64, 1>(maps, p, fp, key_bias, s);
@@ -1663,8 +1929,8 @@ int zutis_flash_attention_fwd(const void* q, const void* k, const void* v, const
 }
 
 // The dynamic shared memory of one block of the kernel of `dtype` at head
-// dim d with block_q query rows (bf16: 64; f32: 64, or 128 at d 64, or 32
-// at d 128 and above), biased (bias 1) or not, and the blocks of that
+// dim d with block_q query rows (bf16: 64; f32: 64, or 128 at d 64),
+// biased (bias 1) or not, and the blocks of that
 // kernel an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 int zutis_flash_occupancy(int dtype, int d, int block_q, int bias, int* smem_bytes, int* blocks_per_sm) {
   const Family fam = family(dtype, d);
@@ -1702,16 +1968,16 @@ int zutis_flash_occupancy(int dtype, int d, int block_q, int bias, int* smem_byt
     }
     threads = f32_threads(one ? 1 : 2);
     *smem_bytes = f32_layout(d, bias != 0).total;
-  } else if (fam == Family::kSimt && block_q == kSimtRows) {
+  } else if (fam == Family::kF32Wide && block_q == kChunkRows) {
     switch (d) {
-      case 128: pick((const void*)flash_f32_simt_kernel<128>, (const void*)flash_f32_simt_bias_kernel<128>); break;
-      case 256: pick((const void*)flash_f32_simt_kernel<256>, (const void*)flash_f32_simt_bias_kernel<256>); break;
-      case 320: pick((const void*)flash_f32_simt_kernel<320>, (const void*)flash_f32_simt_bias_kernel<320>); break;
-      case 384: pick((const void*)flash_f32_simt_kernel<384>, (const void*)flash_f32_simt_bias_kernel<384>); break;
-      default: pick((const void*)flash_f32_simt_kernel<512>, (const void*)flash_f32_simt_bias_kernel<512>);
+      case 128: pick((const void*)flash_f32_wide_kernel<128>, (const void*)flash_f32_wide_bias_kernel<128>); break;
+      case 256: pick((const void*)flash_f32_wide_kernel<256>, (const void*)flash_f32_wide_bias_kernel<256>); break;
+      case 320: pick((const void*)flash_f32_wide_kernel<320>, (const void*)flash_f32_wide_bias_kernel<320>); break;
+      case 384: pick((const void*)flash_f32_wide_kernel<384>, (const void*)flash_f32_wide_bias_kernel<384>); break;
+      default: pick((const void*)flash_f32_wide_kernel<512>, (const void*)flash_f32_wide_bias_kernel<512>);
     }
-    threads = kSimtThreads;
-    *smem_bytes = simt_smem_bytes(d);
+    threads = kWideThreads;
+    *smem_bytes = wide_layout(d, bias != 0).total;
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,6 +1,7 @@
 // PTX helpers for Hopper (sm_90a) kernels: mbarriers, TMA tensor loads,
-// wgmma with A from registers (and, for S = Q K^T at d 256 and above, from
-// shared memory), shared-memory matrix descriptors, and the
+// wgmma with A from registers (and, for S = Q K^T at d 256 and above and in
+// the f32 forward from d 128, from shared memory), shared-memory matrix
+// descriptors, and the
 // host side of a tensor map; then the 64-row attention chunks that the
 // `single` and max-free probes (attention_probes.cu) and the bf16 flash
 // forward (flash_attention.cu) load with TMA and feed to wgmma, and the
@@ -492,6 +493,19 @@ __device__ __forceinline__ void wgmma_ss_32(float (&d)[4][4], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// wgmma_ss_64 at N = 16: S[64 x 16] of 64 query rows and a 16-key chunk,
+// as the f32 flash forward at d 320-512 computes it.
+__device__ __forceinline__ void wgmma_ss_16(float (&d)[2][4], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
 // Attention chunks: 64 rows (keys, or one warpgroup's query rows) of a
 // [b, h, s, d] bf16 tensor, loaded by TMA as d / 32 boxes of [64 rows, 32
@@ -516,32 +530,35 @@ __host__ __device__ constexpr int box_cols(int d) { return (d + kBoxCols - 1) / 
 // rows, h, b} with its (batch, head, row) strides in elements
 // (strides[0..2]), so that rows past the edge arrive as zeros. bf16 comes in
 // boxes of `box_rows` rows (one chunk's) by 32 columns with a 64-byte
-// swizzle, as wgmma reads it; f32 in one unswizzled box of 64 rows by d
-// columns rounded up to 32 (row-major, box_cols(d) * 4 bytes a row), which
-// threads read. Columns past d (d 80) arrive as zeros too. Returns 0 or an
-// error code of encode_4d.
+// swizzle, as wgmma reads it; f32 unswizzled, which threads read, in boxes
+// of `box_rows` rows by `f32_cols` columns (row-major, f32_cols * 4 bytes a
+// row), or with f32_cols 0 in one box of d columns rounded up to 32. Columns
+// past d (d 80) arrive as zeros too. Returns 0 or an error code of
+// encode_4d.
 inline int rows_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int b, int h, int rows, int d,
-                    const long long* strides, int box_rows = kChunkRows) {
+                    const long long* strides, int box_rows = kChunkRows, int f32_cols = 0) {
   const bool f32 = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const uint64_t size = f32 ? 4 : 2;
   const uint64_t dims[4] = {static_cast<uint64_t>(d), static_cast<uint64_t>(rows), static_cast<uint64_t>(h),
                             static_cast<uint64_t>(b)};
   const uint64_t bytes[3] = {static_cast<uint64_t>(strides[2]) * size, static_cast<uint64_t>(strides[1]) * size,
                              static_cast<uint64_t>(strides[0]) * size};
-  const uint32_t box[4] = {f32 ? static_cast<uint32_t>(box_cols(d)) : kBoxCols, static_cast<uint32_t>(box_rows), 1,
-                           1};
+  const int cols = f32 ? (f32_cols > 0 ? f32_cols : box_cols(d)) : kBoxCols;
+  const uint32_t box[4] = {static_cast<uint32_t>(cols), static_cast<uint32_t>(box_rows), 1, 1};
   return encode_4d(map, type, ptr, dims, bytes, box, f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // rows_map of q, k and v (strides[3i..3i+2] for q, k, v), rows sq for q and
-// sk for k and v; k and v in boxes of `kv_box_rows` rows.
+// sk for k and v; q in boxes of `q_box_rows` rows, k and v of
+// `kv_box_rows`; f32 boxes `f32_cols` wide (rows_map).
 inline int attention_maps(CUtensorMap (&maps)[3], CUtensorMapDataType type, const void* q, const void* k,
                           const void* v, int b, int h, int sq, int sk, int d, const long long* strides,
-                          int kv_box_rows = kChunkRows) {
+                          int kv_box_rows = kChunkRows, int q_box_rows = kChunkRows, int f32_cols = 0) {
   const void* ptrs[3] = {q, k, v};
   const int rows[3] = {sq, sk, sk};
   for (int i = 0; i < 3; ++i) {
-    const int err = rows_map(&maps[i], type, ptrs[i], b, h, rows[i], d, strides + 3 * i, i ? kv_box_rows : kChunkRows);
+    const int err = rows_map(&maps[i], type, ptrs[i], b, h, rows[i], d, strides + 3 * i,
+                             i ? kv_box_rows : q_box_rows, f32_cols);
     if (err != 0) return err;
   }
   return 0;

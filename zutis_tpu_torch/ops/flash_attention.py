@@ -20,15 +20,17 @@ rows (d 80 computes d 96's tiles, `box_cols`); at d 128 one block fills an
 SM, at d 256 (the RN50 and RN101 decoders) Q also stays in shared memory;
 at `HALVES_HEAD_DIMS` (RN50x4, RN50x16, RN50x64) chunks are 32 keys and two
 consumer warpgroups each hold half of O's columns, the first warp loading
-for both. f32 at `F32_HEAD_DIMS`
-(64 to 96): every product takes three bf16 wgmma on hi/lo splits (~16
-mantissa bits); a producer warpgroup loads f32 K and V chunks with TMA and
-splits each once into bf16 tiles for two consumer warpgroups (128 query
-rows a block; 64 for sq <= 64 and at d 80, 96). An f32 call whose blocks
-cannot fill the card splits its keys into `key_splits` ranges, whose
-partial results a second kernel combines (`flash_attention_split_reference`
-is its plain version). f32 at `SIMT_HEAD_DIMS` (128 to 512): f32 FMA on the
-CUDA cores, 32 query rows a block, 32-key chunks by cp.async.
+for both. f32 at every head dim: every product takes three bf16 wgmma on
+hi/lo splits (~16 mantissa bits). At `F32_HEAD_DIMS` (64 to 96) a producer
+warpgroup loads f32 K and V chunks with TMA and splits each once into bf16
+tiles for two consumer warpgroups (128 query rows a block; 64 for sq <= 64
+and at d 80, 96). At `F32_WIDE_HEAD_DIMS` (128 to 512) a block is two
+consumer warpgroups over 64 query rows that split each chunk of
+`f32_chunk_keys(d)` keys themselves, each holding half of O's columns,
+with Q's hi/lo tiles in shared memory and TMA's f32 pieces in a ring of
+`wide_slots(d)`. An f32 call whose blocks cannot fill the card splits its
+keys into `key_splits` ranges, whose partial results a second kernel
+combines (`flash_attention_split_reference` is its plain version).
 
 `flash_attention` takes the plain version only for tensors that lie on the
 CPU. For a CUDA tensor it launches a kernel or raises: an unsupported
@@ -57,7 +59,7 @@ STEM = "libzutis_flash"
 HEAD_DIMS = (64, 80, 96, 128, 256, 320, 384, 512)  # both dtypes'
 HALVES_HEAD_DIMS = (320, 384, 512)  # bf16 on flash_halves_kernel
 F32_HEAD_DIMS = (64, 80, 96)        # f32 on flash_f32_kernel (hi/lo splits)
-SIMT_HEAD_DIMS = (128, 256, 320, 384, 512)  # f32 on flash_f32_simt_kernel
+F32_WIDE_HEAD_DIMS = (128, 256, 320, 384, 512)  # f32 on flash_f32_wide_kernel
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _NEG_INF = -1e30
 KEY_CHUNK = 64        # keys per K/V chunk, and query rows per warpgroup
@@ -67,12 +69,13 @@ STAGES = 4            # K/V chunks in the bf16 kernel's ring at d 64 to 128
 WIDE_STAGES = 3       # and at d 256, where a chunk is 32 KB
 F32_STAGES = 2        # f32 K/V chunks in the f32 kernel's TMA ring
 SPLIT_STAGES = 2      # bf16 hi/lo K/V tiles in its split ring
-SIMT_ROWS = 32        # query rows a block of the f32 CUDA-core kernel
-SIMT_KEYS = 32        # keys a chunk of it
-SIMT_PAD = 4          # floats after each of its shared-memory rows
+WIDE_THREADS = 256    # threads of a flash_f32_wide_kernel block
+WIDE_SLOTS_MAX = 4    # f32 pieces in its TMA ring, at most
+WIDE_RESERVE = 1024   # bytes it keeps for the validity word, mbarriers, biases
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 SMS = 132             # streaming multiprocessors of an H100
 MIN_SPLIT_CHUNKS = 2  # key chunks a range of the split path takes at least
+MIN_SPLIT_KEYS = 128  # and keys
 
 
 def build():
@@ -148,17 +151,17 @@ def flash_attention_split_reference(
     n_splits: int = 1,
     key_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of the f32 kernel's split path, in f32: the keys cut
-    into `n_splits` ranges of `split_chunks` 64-key chunks (a range past the
-    last chunk is empty), each range's unnormalised output O_s, row max m_s
-    and sum l_s, then the combine
+    """Plain version of the f32 kernels' split path, in f32: the keys cut
+    into `n_splits` ranges of `split_chunks` chunks of `f32_chunk_keys(d)`
+    keys (a range past the last chunk is empty), each range's unnormalised
+    output O_s, row max m_s and sum l_s, then the combine
     O = sum_s e^(m_s - M) O_s / max(sum_s e^(m_s - M) l_s, 1e-30), the
-    logits taking `key_bias` before the ranges' maxima, M the
-    largest m_s of the ranges with l_s > 0. A range with no valid key gets
+    logits taking `key_bias` before the ranges' maxima, M the largest m_s
+    of the ranges with l_s > 0. A range with no valid key gets
     weight 0 (its m_s never enters an exponent); an item with no valid key
     comes out zero."""
-    sk = k.shape[2]
-    per = split_chunks(sk, n_splits) * KEY_CHUNK
+    sk, d = k.shape[2], k.shape[3]
+    per = split_chunks(sk, n_splits, d) * f32_chunk_keys(d)
     s = _scaled_logits(q, k, key_bias)
     if kv_mask is not None:
         s = s.masked_fill(~(kv_mask > 0)[:, None, None, :], float("-inf"))
@@ -184,32 +187,41 @@ def flash_attention_split_reference(
 
 
 def block_rows(sq: int, d: int) -> int:
-    """Query rows a block of the f32 kernel at head dim d takes: two
-    consumer warpgroups at d 64 for sq > 64, else one (f32_consumers in
-    csrc/flash_attention.cu); SIMT_ROWS on the CUDA-core kernel."""
-    if d in SIMT_HEAD_DIMS:
-        return SIMT_ROWS
+    """Query rows a block of the f32 kernels at head dim d takes: two
+    consumer warpgroups of their own rows at d 64 for sq > 64, else one
+    warpgroup's 64 (f32_consumers in csrc/flash_attention.cu; at
+    F32_WIDE_HEAD_DIMS two warpgroups share the 64 rows)."""
     return 2 * KEY_CHUNK if d == 64 and sq > KEY_CHUNK else KEY_CHUNK
 
 
-def split_chunks(sk: int, n_splits: int) -> int:
-    """64-key chunks in each of `n_splits` key ranges (the last may hold
-    fewer, and ranges past the last chunk none), as the kernel cuts them."""
-    chunks = -(-sk // KEY_CHUNK)
+def f32_chunk_keys(d: int) -> int:
+    """Keys a K/V chunk of the f32 kernels at head dim d (wide_keys in
+    csrc/flash_attention.cu): 64 to d 128, 32 at 256 and 320, 16 at 384
+    and 512, as wide as Q's hi/lo tiles leave room for."""
+    return KEY_CHUNK if d <= 128 else 32 if d <= 320 else 16
+
+
+def split_chunks(sk: int, n_splits: int, d: int = 64) -> int:
+    """Chunks of `f32_chunk_keys(d)` keys in each of `n_splits` key ranges
+    (the last may hold fewer, and ranges past the last chunk none), as the
+    kernel cuts them."""
+    chunks = -(-sk // f32_chunk_keys(d))
     return -(-chunks // n_splits)
 
 
 def key_splits(b: int, h: int, sq: int, sk: int, d: int = 64) -> int:
-    """Key ranges the f32 kernel cuts one call into: 1 when its
-    b * h * ceil(sq / block_rows) blocks fill an H100's SMS SMs, or at a
-    head dim the hi/lo kernel does not take (the CUDA-core kernel does not
-    split); else enough ranges of at least MIN_SPLIT_CHUNKS chunks each that
-    the blocks come to about one wave, and none of them empty."""
+    """Key ranges the f32 kernel at head dim d cuts one call into: 1 when
+    its b * h * ceil(sq / block_rows) blocks fill an H100's SMS SMs; else
+    enough ranges of at least MIN_SPLIT_CHUNKS chunks and MIN_SPLIT_KEYS
+    keys each that the blocks come to about one wave, and none of them
+    empty."""
     blocks = b * h * -(-sq // block_rows(sq, d))
-    if d not in F32_HEAD_DIMS or blocks == 0 or blocks >= SMS:
+    if blocks == 0 or blocks >= SMS:
         return 1
-    chunks = -(-sk // KEY_CHUNK)
-    per = max(MIN_SPLIT_CHUNKS, -(-chunks // (SMS // blocks)))
+    keys = f32_chunk_keys(d)
+    chunks = -(-sk // keys)
+    least = max(MIN_SPLIT_CHUNKS, -(-MIN_SPLIT_KEYS // keys))
+    per = max(least, -(-chunks // (SMS // blocks)))
     return -(-chunks // per)
 
 
@@ -278,9 +290,9 @@ def f32_smem_layout(d: int, bias: bool = False) -> dict:
     64-bit key-validity word per split stage, then the mbarriers: kf_full
     and vf_full per f32 stage, k_full, k_empty, v_full and v_empty per split
     stage, q_full and q_empty. The biased kernel appends 2 * SPLIT_STAGES
-    chunks' key biases. At SIMT_HEAD_DIMS, `simt_smem_layout`."""
-    if d in SIMT_HEAD_DIMS:
-        return simt_smem_layout(d)
+    chunks' key biases. At F32_WIDE_HEAD_DIMS, `wide_smem_layout`."""
+    if d in F32_WIDE_HEAD_DIMS:
+        return wide_smem_layout(d, bias)
     f32_chunk = KEY_CHUNK * box_cols(d) * 4
     tile = KEY_CHUNK * box_cols(d) * 2
     kf = block_rows(2 * KEY_CHUNK, d) // KEY_CHUNK * f32_chunk
@@ -297,14 +309,36 @@ def f32_smem_layout(d: int, bias: bool = False) -> dict:
     return _with_bias(layout, 2 * SPLIT_STAGES) if bias else layout
 
 
-def simt_smem_layout(d: int) -> dict:
-    """Byte offsets into one block of the f32 CUDA-core kernel
-    (simt_smem_bytes in csrc/flash_attention.cu): SIMT_ROWS Q rows, one
-    chunk of SIMT_KEYS K rows and one of V rows, each row d + SIMT_PAD
-    floats. Its biased twin reads the biases from device memory: the same
-    layout."""
-    area = SIMT_ROWS * (d + SIMT_PAD) * 4
-    return dict(q=0, k=area, v=2 * area, total=3 * area)
+def wide_slots(d: int) -> int:
+    """f32 pieces (a chunk of K or V, or f32_chunk_keys(d) rows of Q) in
+    flash_f32_wide_kernel's TMA ring at head dim d (wide_slots in
+    csrc/flash_attention.cu): as many as fit beside Q's hi/lo tiles, the K
+    and V hi/lo tiles and WIDE_RESERVE, at most WIDE_SLOTS_MAX (4, 3, 1, 3,
+    1 at d 128, 256, 320, 384, 512)."""
+    keys = f32_chunk_keys(d)
+    room = SMEM_LIMIT - 2 * KEY_CHUNK * d * 2 - 4 * keys * d * 2 - WIDE_RESERVE
+    return min(WIDE_SLOTS_MAX, room // (keys * d * 4))
+
+
+def wide_smem_layout(d: int, bias: bool = False) -> dict:
+    """Byte offsets into one block of flash_f32_wide_kernel (wide_layout
+    in csrc/flash_attention.cu): Q's bf16 hi and lo tiles (64 rows of d
+    each, the swizzled chunk layout), the hi and lo tiles of one K and one
+    V chunk (f32_chunk_keys(d) rows), `wide_slots(d)` f32 pieces (as TMA
+    writes them: d / 32 boxes of f32_chunk_keys(d) rows by 32 floats), the
+    chunk's 64-bit key-validity word, then a full mbarrier per slot. The
+    biased kernel appends one chunk's key biases. `total` is the block's
+    size."""
+    keys, slots = f32_chunk_keys(d), wide_slots(d)
+    q, tile = KEY_CHUNK * d * 2, keys * d * 2
+    khi = 2 * q
+    klo, vhi, vlo = khi + tile, khi + 2 * tile, khi + 3 * tile
+    f32 = khi + 4 * tile
+    valid = f32 + slots * keys * d * 4
+    bars = valid + 8
+    layout = dict(qhi=0, qlo=q, khi=khi, klo=klo, vhi=vhi, vlo=vlo, f32=f32,
+                  valid=valid, bars=bars, total=bars + slots * 8)
+    return _with_bias(layout, 1, keys) if bias else layout
 
 
 def check_kernel_inputs(q, k, v, kv_mask, key_bias=None) -> None:
@@ -362,9 +396,8 @@ def occupancy(d: int, dtype: torch.dtype = torch.bfloat16,
               bias: bool = False) -> tuple[int, int]:
     """(dynamic shared memory bytes, blocks per SM) of the kernel of `dtype`
     at this head dim, biased or not, from the current card's occupancy
-    calculator; block_q is 64 for bf16 and for f32 at d 80 and 96, 64 or
-    128 (the default) for f32 at d 64, SIMT_ROWS for f32 at
-    SIMT_HEAD_DIMS."""
+    calculator; block_q is 64 for bf16 and for f32 from d 80, 64 or 128
+    (the default) for f32 at d 64."""
     if block_q is None:
         block_q = (block_rows(2 * KEY_CHUNK, d) if dtype == torch.float32
                    else KEY_CHUNK)
@@ -458,11 +491,10 @@ def _flash_forward(q, k, v, kv_mask, n_splits=None,
         if mask.dtype != torch.int32 or not mask.is_contiguous():
             mask = (kv_mask > 0).to(torch.int32).contiguous()
     splits = 1
-    if q.dtype == torch.float32 and d in F32_HEAD_DIMS:
+    if q.dtype == torch.float32:
         splits = key_splits(b, h, sq, sk, d) if n_splits is None else n_splits
     elif n_splits not in (None, 1):
-        raise ValueError("only the f32 kernel at head dims "
-                         f"{F32_HEAD_DIMS} splits its keys")
+        raise ValueError("only the f32 kernels split their keys")
     o_part = ml = None
     if splits > 1:  # the split path's workspace; the library allocates nothing
         o_part = torch.empty((splits, b, h, sq, d), dtype=torch.float32,

@@ -4,7 +4,7 @@ source with one part taken out, and whether the other kernels of that
 checkout compile to the same SASS.
 
     python -m zutis_tpu_torch.tools.flash_f32_bench [--against DIR] \\
-        [--ablations no_split,no_softmax,one_product,rings3]
+        [--ablations no_split,no_softmax,one_product,rings3,wide_no_split]
 
 - `--against DIR`: a checkout of another commit (`git archive` of it,
   unpacked into a directory git ignores). Both checkouts' `flash_attention`
@@ -17,7 +17,9 @@ checkout compile to the same SASS.
 - `--ablations`: copies of csrc/ with one edit each (ABLATIONS), built with
   nvcc and timed in turns with the unedited source; `d128_rings3` is the
   bf16 kernel's other layout at head dim 128 (a 3-stage ring, two blocks
-  an SM, against 4 stages and one block).
+  an SM, against 4 stages and one block); the `wide_` ones take a part out
+  of the f32 kernel at d 128-512, and `d320_keys16` is its other chunk
+  size at d 320.
 
 Times are device ms per call: 20 calls captured in a CUDA graph, the median
 of 21 replays, on [b, s, h, d] views as the models pass them; each run also
@@ -42,13 +44,33 @@ from typing import Optional, Sequence
 from unittest import mock
 
 # [b, h, sq, sk, d] of the f32 calls on the main paths: SelfMask's encoder
-# self-attention, decoder cross- and self-attention (a 683 x 512 photo), and
-# the ViT-L/14@336px image bank's encoder at batch 32
+# self-attention, decoder cross- and self-attention (a 683 x 512 photo), the
+# ViT-L/14@336px image bank's encoder at batch 32, and the wide decoders'
+# self- and cross-attention at batch 8 (ViT-L/14@336px over 48 x 48 memory
+# tokens at d 128; RN50, RN50x4, RN50x16, RN50x64 over 24 x 24 at d 256,
+# 320, 384, 512)
 SHAPES = {
     "selfmask encoder self": (1, 6, 5505, 5505, 64),
     "selfmask decoder cross": (1, 6, 20, 5504, 64),
     "selfmask decoder self": (1, 6, 20, 20, 64),
     "bank encoder self": (32, 16, 577, 577, 64),
+    **{f"d{d} decoder {kind}": (8, 8, 100, sk if kind == "cross" else 100, d)
+       for d, sk in ((128, 2304), (256, 576), (320, 576), (384, 576),
+                     (512, 576))
+       for kind in ("self", "cross")},
+}
+# f32 forwards timed whole beside the calls, --against only: one batch-8
+# forward of factory.build_zutis(arch) at its default f32 on the kernel
+# path, at the image size the smoke serves it
+FORWARDS = {
+    "RN50 f32 forward": ("RN50", 384),
+    "ViT-L/14@336px f32 forward": ("ViT-L/14@336px", 336),
+}
+# f32 calls given a key bias (log of a size): the ToMe encoder's first
+# block and the pooled decoder's cross-attention (the levers' shapes)
+BIASED_SHAPES = {
+    "tome encoder biased": (8, 12, 577, 577, 64),
+    "pooled cross biased": (8, 8, 100, 576, 96),
 }
 # bf16 calls timed beside them: the serving encoder shape (a control for
 # the card's speed), the serving decoder's d 96 shapes and the ViT-L/14@336px
@@ -73,7 +95,7 @@ ABLATIONS = {
          "    for (int pass = 0; pass < 0; ++pass) {")],
     # p = the raw logits, O never rescaled
     "no_softmax": [
-        (f"chunk_softmax<kBias>(s, bits_j, p.scale_log2, m, l, alpha, bias({c}));",
+        (f"f32_chunk_softmax<kBias>(s, bits_j, p.scale_log2, m, l, alpha, bias({c}));",
          "alpha[0] = alpha[1] = 1.f;") for c in ("c0", "j")],
     # one bf16 product for each f32 one (hi * hi), in both products
     "one_product": [
@@ -91,6 +113,42 @@ ABLATIONS = {
          "return d >= 128 ? kFlashStagesWide : kFlashStages; }"),
         ("constexpr int flash_min_blocks(int d) { return d < 128 ? 2 : 1; }",
          "constexpr int flash_min_blocks(int d) { return d <= 128 ? 2 : 1; }")],
+    # the wide kernel (d 128-512): no piece split (Q's neither: wgmma reads
+    # stale tiles)
+    "wide_no_split": [
+        ("  for (int it = 0; it < kItems / kWideThreads; ++it) {",
+         "  for (int it = 0; it < 0; ++it) {")],
+    # one bf16 product for each f32 one, in S and in P V
+    "wide_one_product": [
+        ("    wgmma_ss<kKeys>(s, qh, desc(k_lo + ko), 1);\n"
+         "    wgmma_ss<kKeys>(s, ql, kh, 1);\n", ""),
+        ("    hopper::WgmmaRS<N>::template mma<1>(acc, ph[c], dl, 1);\n"
+         "    hopper::WgmmaRS<N>::template mma<1>(acc, pl[c], dh, 1);\n", "")],
+    # S over the first half of the head dim only: what S's products cost
+    "wide_half_s": [
+        ("  for (int ks = 0; ks < D / 16; ++ks) {\n"
+         "    const uint32_t in_row = (ks % 2) * 32;\n"
+         "    const uint32_t qo =",
+         "  for (int ks = 0; ks < D / 32; ++ks) {\n"
+         "    const uint32_t in_row = (ks % 2) * 32;\n"
+         "    const uint32_t qo =")],
+    # p = the raw logits, O never rescaled
+    "wide_no_softmax": [
+        ("      f32_chunk_softmax<kBias, kKeys>(s, hopper::ld_shared_u64(base + "
+         "kLay.valid), p.scale_log2, m, l, alpha,\n"
+         "                                      base + kLay.bias);",
+         "      alpha[0] = alpha[1] = 1.f;")],
+    # with one f32 slot (d 320, 512), K_{j+1}'s load issued at the barrier
+    # after the softmax, not under S_j (stays right)
+    "wide_late_refill": [
+        ("      if constexpr (kSlots == 1) sync_refill();\n", "")],
+    # an alternative that stays right: 16-key chunks at d 320 (four f32
+    # slots of 20 KB) in place of 32 (one of 40 KB)
+    "d320_keys16": [
+        ("constexpr int wide_keys(int d) { return d <= 128 ? 64 : d <= 320 ? "
+         "32 : 16; }",
+         "constexpr int wide_keys(int d) { return d <= 128 ? 64 : d <= 256 ? "
+         "32 : 16; }")],
 }
 
 
@@ -128,10 +186,42 @@ def flash_inputs(gen, shape, dtype):
             .transpose(1, 2) for s in (sq, sk, sk)]
 
 
-def time_shapes(shapes, bf16_shapes):
-    """{name: device ms} of flash_attention at each f32 shape and each bf16
-    one that the checkout's kernels take, and nvidia-smi's SM clock, power
-    draw and limit."""
+def forward_busy(forwards):
+    """{name: device busy ms} of one f32 forward of each (arch, image
+    size) in `forwards`: the sum of the kernel durations that
+    torch.profiler sees, after two warm-up forwards; seeded weights and
+    images, batch 8."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zutis_tpu_torch.models import factory
+
+    out = {}
+    for name, (arch, size) in forwards.items():
+        model = factory.build_zutis(arch, device="cuda").init_params(
+            torch.Generator().manual_seed(0)).eval()
+        x = torch.randn(8, 3, size, size,
+                        generator=torch.Generator().manual_seed(1)).cuda()
+        with torch.inference_mode():
+            for _ in range(2):
+                model(x, inference=True)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                model(x, inference=True)
+                torch.cuda.synchronize()
+        out[name] = sum(e.time_range.elapsed_us() for e in prof.events()
+                        if str(e.device_type).endswith("CUDA")) / 1e3
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_shapes(shapes, bf16_shapes, biased_shapes, forwards=None):
+    """{name: device ms} of flash_attention at each f32 shape, each f32
+    one given a key bias, and each bf16 one that the checkout's kernels
+    take, of each of `forwards` (forward_busy), and nvidia-smi's SM clock,
+    power draw and limit."""
     import subprocess
 
     import torch
@@ -143,11 +233,18 @@ def time_shapes(shapes, bf16_shapes):
     for name, shape in shapes.items():
         q, k, v = flash_inputs(gen, shape, torch.float32)
         out[name] = device_ms(lambda: fa.flash_attention(q, k, v))
+    for name, shape in biased_shapes.items():
+        q, k, v = flash_inputs(gen, shape, torch.float32)
+        bias = torch.rand(shape[0], shape[3], generator=gen,
+                          device="cuda").add(1.0).log()
+        out[name] = device_ms(
+            lambda: fa.flash_attention(q, k, v, key_bias=bias))
     for name, shape in bf16_shapes.items():
         if shape[4] not in fa.HEAD_DIMS:  # a checkout without this head dim
             continue
         q, k, v = flash_inputs(gen, shape, torch.bfloat16)
         out[name] = device_ms(lambda: fa.flash_attention(q, k, v))
+    out.update(forward_busy(forwards or {}))
     out["nvidia-smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -157,13 +254,15 @@ def time_shapes(shapes, bf16_shapes):
 
 def timer_script() -> str:
     """time_shapes as a `python -c` script: run from a checkout's root, it
-    imports that checkout's package; argv holds the f32 and bf16 shapes."""
+    imports that checkout's package; argv holds the f32, biased and bf16
+    shapes and the forwards."""
     return "\n\n".join(
         ["import json, sys",
          *(inspect.getsource(f) for f in (device_ms, flash_inputs,
-                                          time_shapes)),
+                                          forward_busy, time_shapes)),
          "print(json.dumps(time_shapes(json.loads(sys.argv[1]), "
-         "json.loads(sys.argv[2]))))"])
+         "json.loads(sys.argv[2]), json.loads(sys.argv[3]), "
+         "json.loads(sys.argv[4]))))"])
 
 
 def _emit(record: dict) -> None:
@@ -174,7 +273,8 @@ def time_checkout(root: Path) -> dict:
     """time_shapes in a process of its own, run from `root`."""
     proc = subprocess.run(
         [sys.executable, "-c", timer_script(), json.dumps(SHAPES),
-         json.dumps(BF16_SHAPES)],
+         json.dumps(BF16_SHAPES), json.dumps(BIASED_SHAPES),
+         json.dumps(FORWARDS)],
         cwd=root, capture_output=True, text=True, timeout=1200)
     if proc.returncode != 0:
         raise RuntimeError(f"timing {root} failed:\n{proc.stderr[-3000:]}")
@@ -233,7 +333,8 @@ def run_ablations(names: Sequence[str], rounds: int) -> None:
             with mock.patch.object(_build, "load",
                                    lambda *a, _lib=libs[name]: _lib):
                 _emit({"ablation": name, "round": r,
-                       "ms": time_shapes(SHAPES, BF16_SHAPES)})
+                       "ms": time_shapes(SHAPES, BF16_SHAPES,
+                                         BIASED_SHAPES)})
 
 
 # the anonymous namespace's name in a mangled symbol, which differs between
