@@ -3388,26 +3388,34 @@ def retrieval_tokenizer(path: Path):
 
 
 def flash_rows(gen, cases, label: str) -> list:
-    """Flash at each (name, [b, h, sq, sk, d], dtype, launches a forward)
-    case as the model passes it ([b, s, h, d] views) against its plain
-    version (of the largest |output|: 1e-4 f32, 8e-3 bf16); times beside
-    the plain version, SDPA and the bound at the rate of the path the
+    """Flash at each (name, [b, h, sq, sk, d], dtype, launches a forward[,
+    biased]) case as the model passes it ([b, s, h, d] views) against its
+    plain version (of the largest |output|: 1e-4 f32, 8e-3 bf16); times
+    beside the plain version, SDPA and the bound at the rate of the path the
     kernel takes (bf16: 989 TFLOP/s; f32: 989 / 3, its three bf16 MMAs a
     product), bytes counting q and o [b, h, sq, d], k and v [b, h, sk, d]
-    once each. An f32 row carries its key ranges (`key_splits`) and, where
-    there are several, the same call on one range (`unsplit_ms`)."""
+    once each. A biased case takes a key bias, the log of counts 1 to 4,
+    whose bytes the bound counts and which SDPA takes as a float mask. An
+    f32 row carries its key ranges (`key_splits`) and, where there are
+    several, the same call on one range (`unsplit_ms`)."""
     rows = []
-    for name, (b, h, sq, sk, d), dtype, per_forward in cases:
+    for name, (b, h, sq, sk, d), dtype, per_forward, *biased in cases:
         f32 = dtype == torch.float32
         tol = TOL_F32 if f32 else TOL_FLASH_BF16
         peak = PEAK_F32_FLASH_FLOPS if f32 else kernel_tune.PEAK_BF16_FLOPS
         q, k, v = _inputs(gen, b, h, sq, sk, d, dtype, strided=True)
+        bias = float_mask = None
+        if biased and biased[0]:
+            bias = torch.randint(1, 5, (b, sk), generator=gen,
+                                 device="cuda").float().log()
+            float_mask = bias[:, None, None, :].to(dtype)
         before = fa.flash_attention.launches
-        got = fa.flash_attention(q, k, v)
+        got = fa.flash_attention(q, k, v, key_bias=bias)
         torch.cuda.synchronize()
         check(fa.flash_attention.launches == before + 1,
               f"{label} flash: no launch")
-        want = fa.flash_attention_reference(q.float(), k.float(), v.float())
+        want = fa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                            key_bias=bias)
         err = (got.float() - want).abs().max().item()
         rel = err / want.abs().max().item()
         del got, want
@@ -3417,27 +3425,34 @@ def flash_rows(gen, cases, label: str) -> list:
               "version")
         flops = 4 * b * h * sq * sk * d
         nbytes = q.element_size() * 2 * b * h * (sq + sk) * d
+        if bias is not None:
+            nbytes += 4 * b * sk
         t_ops = flops / peak * 1e3
         t_bytes = nbytes / kernel_tune.PEAK_BYTES * 1e3
         splits = fa.key_splits(b, h, sq, sk, d) if f32 else 1
         row = dict(name=name, shape=[b, h, sq, sk, d],
                    dtype=str(dtype)[6:], per_forward=per_forward,
+                   biased=bias is not None,
                    max_abs_err=err, max_rel_err=rel, splits=splits,
-                   ms=cuda_ms(lambda: fa.flash_attention(q, k, v)),
+                   ms=cuda_ms(lambda: fa.flash_attention(q, k, v,
+                                                         key_bias=bias)),
                    plain_ms=cuda_ms(
-                       lambda: fa.flash_attention_reference(q, k, v),
+                       lambda: fa.flash_attention_reference(
+                           q, k, v, key_bias=bias),
                        calls=3, reps=5, warmup=1),
                    library_ms=cuda_ms(
-                       lambda: F.scaled_dot_product_attention(q, k, v),
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=float_mask),
                        calls=3, reps=5, warmup=1),
                    bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
                    peak_flops=peak)
         if splits > 1:
             row["unsplit_ms"] = cuda_ms(
-                lambda: fa._flash_forward(q, k, v, None, 1))
+                lambda: fa._flash_forward(q, k, v, None, 1, key_bias=bias))
         rows.append(row)
-        print(f"kernel time {label} {name} {[b, h, sq, sk, d]}: kernel "
+        print(f"kernel time {label} {name} {[b, h, sq, sk, d]}"
+              f"{' biased' if bias is not None else ''}: kernel "
               f"{row['ms']:.4f} ms ({splits} key range(s); one range "
               f"{row.get('unsplit_ms', row['ms']):.4f} ms), plain "
               f"{row['plain_ms']:.4f} ms, sdpa "
@@ -4131,7 +4146,10 @@ def wide_flash_cases() -> list:
     the cross as [b, s, h, d] views, a ragged last chunk (577 keys) under a
     kv_mask with an all-masked item, and the cross masked and biased; in
     f32 also the cross of two images, masked and biased, whose 32 blocks
-    take split keys (checked against the unsplit launch too)."""
+    take split keys (checked against the unsplit launch too); in bf16 at
+    HALVES_HEAD_DIMS also one 32-key chunk, two chunks (fewer than the
+    ring's stages at d 320 and 384) under a mask, and 2,304 keys wrapping
+    the ring, masked and biased."""
     cases = []
     for dtype, d, sk in WIDE_DIMS:
         tag = f"{str(dtype)[6:]} d{d}"
@@ -4147,17 +4165,28 @@ def wide_flash_cases() -> list:
         if dtype == torch.float32:
             cases.append((f"{tag} cross split", (2, 8, 100, sk, d), "mask",
                           dtype, True, True))
+        elif d in fa.HALVES_HEAD_DIMS:
+            cases += [
+                (f"{tag} one chunk", (BATCH, 8, 100, 20, d), None, dtype,
+                 True, False),
+                (f"{tag} two chunks kv_mask", (BATCH, 8, 100, 40, d), "mask",
+                 dtype, True, False),
+                (f"{tag} long biased", (2, 8, 100, 2304, d), "mask", dtype,
+                 True, True)]
     return cases
 
 
 # the new pairs' calls, timed: a batch forward's self- and cross-attention
-# in both dtypes
+# in both dtypes; and RN50x4's bf16 cross given a key bias (the log of a
+# pooled memory token's count), which no forward on the paths launches
 WIDE_FLASH_SHAPES = [
     (f"{WIDE_ARCH_OF[d]} decoder {kind}"
      + (" f32" if dtype == torch.float32 else ""), (BATCH, 8, 100, s, d),
      dtype, 6)
     for dtype, d, sk in WIDE_DIMS
-    for kind, s in (("self", 100), ("cross", sk))]
+    for kind, s in (("self", 100), ("cross", sk))] + [
+    ("RN50x4 decoder cross biased", (BATCH, 8, 100, 576, 320),
+     torch.bfloat16, 0, True)]
 ENCODER_REQUESTS = 16  # two batch forwards and one synchronous infer
 ENCODER_TRAIN_STEPS = 5  # after one warm-up
 ENCODER_EVAL_SIZES = [(384, 384)] * 4 + [(352, 480)] * 4

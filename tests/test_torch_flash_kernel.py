@@ -70,19 +70,29 @@ def _needs_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
 
 
-def _check(shape, dtype=torch.bfloat16, masked=False, strided=False):
+def _bias(seed, b, sk):
+    """A key bias [b, sk]: the log of counts 1 to 4, as the pooled decoder
+    memory's log(count)."""
+    counts = np.random.RandomState(seed).randint(1, 5, (b, sk))
+    return torch.from_numpy(np.log(counts).astype(np.float32))
+
+
+def _check(shape, dtype=torch.bfloat16, masked=False, strided=False,
+           biased=False):
     """One launch against the plain version on f32 copies of its inputs."""
     _needs_card()
     b, h, sq, sk, d = shape
     q, k, v = (x.cuda().to(dtype) for x in _qkv(8, *shape, strided=strided))
     mask = _mask(8, b, sk, all_masked=1).cuda() if masked else None
+    bias = _bias(8, b, sk).cuda() if biased else None
     before = fa.flash_attention.launches
-    got = fa.flash_attention(q, k, v, mask)
+    got = fa.flash_attention(q, k, v, mask, bias)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     assert got.shape == q.shape and got.dtype == dtype
     assert got.stride() == q.stride()  # written in place of the caller's layout
-    want = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask)
+    want = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask,
+                                        bias)
     if dtype == torch.bfloat16:
         tol = TOL_BF16 * want.abs().max().item()
     else:
@@ -144,6 +154,46 @@ def test_cuda_kernel_at_the_new_head_dims(dtype, d, case):
     before = dict(fa.flash_attention.launches_by_dim)
     _check(shape, dtype, masked, strided)
     assert fa.flash_attention.launches_by_dim[d] == before.get(d, 0) + 1
+
+
+# flash_halves_kernel's edges (d 320-512, 32-key chunks in a ring of 4, 3,
+# 2 stages): one chunk, fewer chunks than stages, 72 chunks wrapping the ring
+# many times, the cross masked and biased
+HALVES_CASES = {
+    "one chunk": ((2, 8, 100, 20, None), False, False),
+    "one whole chunk masked": ((3, 4, 70, 32, None), True, False),
+    "fewer chunks than stages": ((2, 8, 100, 40, None), True, False),
+    "long": ((2, 8, 100, 2304, None), False, False),
+    "cross masked biased": ((8, 8, 100, 576, None), True, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(HALVES_CASES))
+@pytest.mark.parametrize("d", fa.HALVES_HEAD_DIMS)
+def test_cuda_halves_kernel_edges(d, case):
+    (b, h, sq, sk, _), masked, biased = HALVES_CASES[case]
+    if case == "fewer chunks than stages":
+        assert -(-sk // fa.SHORT_CHUNK) < fa.stages(320)
+    _check((b, h, sq, sk, d), masked=masked, strided=True, biased=biased)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("biased", [False, True], ids=["plain", "biased"])
+@pytest.mark.parametrize("d", fa.HALVES_HEAD_DIMS)
+def test_cuda_halves_kernel_launches_repeat_bit_for_bit(d, biased):
+    """Launches of one call give the same bits: a race between the
+    warpgroups' exchange of S's halves, or in the ring, would not."""
+    _needs_card()
+    b, h, sq, sk = 8, 8, 100, 576
+    q, k, v = (x.cuda().to(torch.bfloat16)
+               for x in _qkv(15, b, h, sq, sk, d, strided=True))
+    mask = _mask(15, b, sk, all_masked=1).cuda()
+    bias = _bias(15, b, sk).cuda() if biased else None
+    outs = [fa.flash_attention(q, k, v, mask, bias) for _ in range(8)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
 
 
 # The bucketed eval's shapes at batch 32 in the 512 x 640 bucket: encoder
@@ -364,6 +414,72 @@ def test_smem_layout_keeps_tiles_on_the_swizzle_pattern(d):
         assert lay["total"] + 2 * chunk > fa.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("bias", [False, True], ids=["plain", "biased"])
+@pytest.mark.parametrize("d", fa.HALVES_HEAD_DIMS)
+def test_halves_layout_holds_the_exchange_slots(d, bias):
+    """flash_halves_kernel's layout (halves_layout): Q, the K and V rings,
+    the two warpgroups' 8 KB exchange slots of partial S (16-byte words),
+    the validity words and mbarriers, then with a bias 2 * stages chunks'
+    32 key biases; it fits one block an SM, and its ring is as deep as
+    room beside Q, the slots and the reserve allows."""
+    lay, n = fa.smem_layout(d, bias), fa.stages(d)
+    chunk = fa.SHORT_CHUNK * d * 2
+    assert lay["k"] == fa.KEY_CHUNK * d * 2
+    assert lay["v"] == lay["k"] + n * chunk
+    assert lay["xchg"] == lay["v"] + n * chunk
+    assert lay["xchg"] % 16 == 0
+    assert fa.EXCHANGE_BYTES == 2 * fa.KEY_CHUNK * fa.SHORT_CHUNK * 4
+    assert lay["valid"] == lay["xchg"] + fa.EXCHANGE_BYTES
+    assert lay["bars"] == lay["valid"] + n * 8
+    plain_total = lay["bars"] + (1 + 4 * n) * 8
+    if bias:
+        assert lay["bias"] == plain_total
+        assert lay["total"] == plain_total + 2 * n * fa.SHORT_CHUNK * 4
+    else:
+        assert lay["total"] == plain_total
+    assert lay["total"] - lay["valid"] <= fa.HALVES_RESERVE
+    assert lay["total"] <= fa.SMEM_LIMIT
+    assert lay["total"] + 1024 <= 228 * 1024  # one block an SM
+    assert lay["k"] + 2 * (n + 1) * chunk + fa.EXCHANGE_BYTES \
+        + fa.HALVES_RESERVE > fa.SMEM_LIMIT
+    assert [fa.stages(x) for x in fa.HALVES_HEAD_DIMS] == [4, 3, 2]
+
+
+@pytest.mark.parametrize("d", fa.HALVES_HEAD_DIMS)
+def test_halves_stages_mirror_the_kernels_formula(d):
+    """halves_stages in csrc/flash_attention.cu, evaluated in Python over
+    its own constants, gives stages(d)."""
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    body = re.search(r"constexpr int halves_stages\(int d\) \{\s*return "
+                     r"([^;]*);", text).group(1)
+    names = {"kSmemLimit": fa.SMEM_LIMIT,
+             "kExchangeBytes": fa.EXCHANGE_BYTES,
+             "kHalvesReserve": fa.HALVES_RESERVE,
+             "halves_q_bytes": lambda d: d * fa.KEY_CHUNK * 2,
+             "halves_chunk_bytes": lambda d: d * fa.SHORT_CHUNK * 2, "d": d}
+    assert eval(body.replace("/", "//"), {}, names) == fa.stages(d)
+    for fn, rows in (("halves_q_bytes", "hopper::chunk_bytes(d)"),
+                     ("halves_chunk_bytes", "d * kShort * 2")):
+        assert re.search(rf"constexpr int {fn}\(int d\) \{{ return "
+                         rf"{re.escape(rows)}; }}", text), fn
+
+
+def test_halves_threads_mirror_the_kernels_choice():
+    """The producer warp's head dims and the block's threads, against
+    halves_producer_warp and halves_threads in the source."""
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    below = re.findall(r"constexpr bool halves_producer_warp\(int d\) \{ "
+                       r"return d < (\d+); \}", text)
+    assert below == [str(fa.HALVES_PRODUCER_BELOW)]
+    assert "return halves_producer_warp(d) ? kHalvesThreads : " \
+        "kHalvesConsumers;" in text
+    assert "constexpr int kHalvesConsumers = 2 * 128;" in text
+    assert [fa.halves_threads(d) for d in fa.HALVES_HEAD_DIMS] == [288, 288,
+                                                                   256]
+    # one warp past two warpgroups: the block of a producer warp
+    assert fa.HALVES_THREADS == 2 * 128 + 32
+
+
 def test_smem_layout_leaves_room_for_two_blocks():
     # two blocks (plus the 1 KB each block reserves) must fit in the SM's
     # 228 KB at head dims 64 to 96; from 128 the block is built for one
@@ -574,6 +690,11 @@ def test_f32_register_split_fills_the_register_file():
     ("flash_attention.cu", "kWideThreads", "WIDE_THREADS"),
     ("flash_attention.cu", "kWideSlotsMax", "WIDE_SLOTS_MAX"),
     ("flash_attention.cu", "kWideReserve", "WIDE_RESERVE"),
+    ("flash_attention.cu", "kHalvesThreads", "HALVES_THREADS"),
+    ("flash_attention.cu", "kExchangeBytes", "EXCHANGE_BYTES"),
+    ("flash_attention.cu", "kHalvesReserve", "HALVES_RESERVE"),
+    ("flash_attention.cu", "kHalvesCluster", "HALVES_CLUSTER"),
+    ("flash_attention.cu", "kHalvesClusterChunks", "HALVES_CLUSTER_CHUNKS"),
 ])
 def test_smem_layout_mirrors_the_kernels_constants(source, name, attr):
     text = (_build.CSRC / source).read_text()

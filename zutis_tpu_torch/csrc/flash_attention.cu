@@ -43,8 +43,11 @@
 // TMA, mbarriers and wgmma (helpers in hopper.cuh; design notes at the
 // kernels):
 //   - bf16 (the serving path): flash_wgmma_kernel at d 64 to 256, and
-//     flash_halves_kernel at d 320 to 512, the same loop with O's columns
-//     split between two consumer warpgroups.
+//     flash_halves_kernel at d 320 to 512, the same loop with two consumer
+//     warpgroups that split O's columns and S's product over the head dim,
+//     exchanging S's halves in shared memory, a producer warp at d 320 and
+//     384, and a head's two q tiles in a cluster that shares each K and V
+//     chunk by TMA multicast.
 //   - f32 at d 64 to 96 (SelfMask, the f32 image bank, the f32 checks):
 //     flash_f32_kernel. Inputs are split into bf16 high and low parts (x =
 //     hi + lo) and each product takes three bf16 wgmma (hi*hi + hi*lo +
@@ -549,52 +552,96 @@ cudaError_t launch_wgmma(const CUtensorMap (&maps)[3], const Params& p, const fl
 // over 8 heads). One warpgroup's O accumulator, 64 rows x D f32, would take
 // D / 2 registers a thread (160-256): past ptxas's 255 beside S and P. So a
 // block is two consumer warpgroups over the same 64 query rows, each holding
-// O's columns of one half (D / 4 registers: 80, 96, 128): 256 threads, one
-// block an SM, and no producer warpgroup. With one (384 threads), ptxas gave
-// every thread the launch's 168 registers whatever setmaxnreg asked, and
-// spilled and serialised the wgmma at d 512; at 256 threads it may give 255.
-//   - Each consumer computes the whole S = Q K^T itself, Q read from its tile
-//     by SS wgmma (as at d 256): the two copies are the same instructions on
-//     the same tiles, so they are bit-equal and both warpgroups keep the same
-//     online-softmax statistics with no exchange. That costs 1.5x the minimal
-//     tensor-core work in a kernel bound by bytes, and no barrier between
-//     the two.
+// O's columns of one half (D / 4 registers: 80, 96, 128), one block an SM.
+//   - Loads: at d 320 and 384 a producer warp (288 threads) loads with TMA
+//     as flash_producer does: Q's tile once, then each chunk of K and of V
+//     into a ring of halves_stages(D) stages once the consumers have
+//     released the stage, with the chunk's validity word and key biases.
+//     Only it waits on the empty barriers, so no consumer warp waits for a
+//     load to be issued. The card allocates a wgmma kernel's registers by
+//     whole warpgroups, so 288 threads leave a thread 168 registers, as 384
+//     do: at d 512 (128 accumulator registers) ptxas spilled and serialised
+//     the wgmma. There the block is the 256 consumer threads
+//     (halves_producer_warp) and the first consumer warp loads, waiting on
+//     the empty barriers where the stage is most likely free already:
+//     K_{j+S} after the exchange of chunk j, V_{j-1+S} after P_{j-1}
+//     V_{j-1}. It reads the next chunk's mask and biases before they are
+//     needed.
+//   - A call of kHalvesClusterChunks chunks or more launches in clusters
+//     of kHalvesCluster = 2 blocks, a head's two 64-row q tiles (the grid
+//     padded to whole clusters: a tile past sq computes and stores
+//     nothing), which share every K and V chunk: each block issues half of
+//     a chunk's boxes by TMA multicast into both, and each consumer warp
+//     releases a stage on both blocks' empty barriers, so a loader waits
+//     until the whole cluster is done with it; it waits at the end for the
+//     last releases, after which nothing reaches its block. That halves the
+//     traffic from L2 into the SMs, which bounded the kernel (PERF.md). A
+//     shorter call (the decoders' self-attention, 4 chunks) launches block
+//     by block: a cluster's launch and first barrier cost it more than its
+//     few loads save.
+//   - S = Q K^T is computed once. Each warpgroup takes the product over its
+//     half of the head dim (SS wgmma m64n32k16 over D / 32 steps: Q's and
+//     K's boxes of that half, Q read from its tile), writes its 64 x 32 f32
+//     partial to its exchange slot and, after a named barrier of the 256
+//     consumer threads, adds the other's. Addition commutes, so both
+//     warpgroups hold bit-equal S and keep the same online-softmax
+//     statistics; the sum differs from one accumulation in rounding only.
+//     That halves S's tensor-core work and the reads of Q's tile against
+//     both computing all of S. A second named barrier a slot tells its
+//     writer that the other warpgroup has read the partial it overwrites
+//     next, so the two 8 KB slots need no double buffer and cost no stage.
 //   - Chunks are 32 keys (hopper.cuh's short chunks: D / 32 boxes of 32 rows
 //     x 32 columns), so that the ring keeps two or more stages beside Q's 64
-//     rows: halves_stages(D) = 4, 3, 2 at d 320, 384, 512 (Q 40-64 KB and
-//     the ring 160-192 KB of the 227 KB).
+//     rows and the slots: halves_stages(D) = 4, 3, 2 at d 320, 384, 512 (Q
+//     40-64 KB and the ring 160-192 KB of the 227 KB).
 //   - P V of a chunk is two m64n{D/2}k16 (16 keys each) on the V chunk's
 //     columns of the warpgroup's half, an MN-major descriptor that starts on
 //     a 32-column box: D / 2 = 160, 192 and 256 are 5, 6 and 8 boxes.
 //   - The loop is flash_consumer's: Q K_j^T and P_{j-1} V_{j-1} issued
-//     together, chunk j's softmax while P V runs. The first warp of the
-//     first warpgroup loads for the block: Q and the first stages before the
-//     loop, then K_{j+S} once all 8 warps have released K_j and V_{j-1+S}
-//     once they have released V_{j-1}, with each chunk's validity word and
-//     key biases, as flash_producer does.
+//     together, chunk j's exchange and softmax while P V runs.
 // ---------------------------------------------------------------------------
 
 constexpr int kShort = hopper::kShortChunkRows;
-constexpr int kHalvesThreads = 2 * 128;  // two consumer warpgroups
+constexpr int kHalvesThreads = 288;      // two consumer warpgroups and the producer warp
+constexpr int kHalvesConsumers = 2 * 128;
+constexpr int kExchangeBytes = 16384;    // the two warpgroups' partial S, 64 x 32 f32 each
+constexpr int kHalvesReserve = 2048;     // bytes kept for the validity words, mbarriers and key biases
 constexpr int kShortBiasSlotBytes = kShort * 4;
+constexpr int kHalvesCluster = 2;        // blocks (q tiles of a head) sharing each K/V chunk
+constexpr int kHalvesClusterChunks = 8;  // chunks a call needs to launch in clusters
+// named barriers of the consumer warpgroups (__syncthreads is 0): the
+// exchange, and kSlotReadBar + h once the other has read slot h
+constexpr int kExchangeBar = 1, kSlotReadBar = 2;
 
+// Whether the block has a producer warp at head dim d (see above).
+__host__ __device__ constexpr bool halves_producer_warp(int d) { return d < 512; }
+__host__ __device__ constexpr int halves_threads(int d) {
+  return halves_producer_warp(d) ? kHalvesThreads : kHalvesConsumers;
+}
 __host__ __device__ constexpr int halves_q_bytes(int d) { return hopper::chunk_bytes(d); }
 __host__ __device__ constexpr int halves_chunk_bytes(int d) { return d * kShort * 2; }
-// K/V stages that fit beside Q, the barriers and a key-bias ring: as many as
-// the block's shared memory allows (4, 3, 2 at d 320, 384, 512)
+// K/V stages that fit beside Q, the exchange slots and the reserve: as many
+// as the block's shared memory allows (4, 3, 2 at d 320, 384, 512)
 __host__ __device__ constexpr int halves_stages(int d) {
-  return (kSmemLimit - halves_q_bytes(d) - 2048) / (2 * halves_chunk_bytes(d));
+  return (kSmemLimit - halves_q_bytes(d) - kExchangeBytes - kHalvesReserve) / (2 * halves_chunk_bytes(d));
 }
 
 // Byte offsets into a block's dynamic shared memory (mirrored by
-// ops/flash_attention.py::smem_layout): flash_layout's areas with 32-key
-// chunks of d * 64 bytes and halves_stages(d) stages; the biased kernel
-// appends bias_slots(S) chunks' 32 key biases.
-__host__ __device__ constexpr FlashLayout halves_layout(int d, bool bias = false) {
+// ops/flash_attention.py::smem_layout): the Q tile, halves_stages(d) K
+// chunks of 32 keys (d * 64 bytes), as many V chunks, the exchange slots
+// (warpgroup h's at xchg + h * kExchangeBytes / 2), a 64-bit key-validity
+// word per stage and the mbarriers q_full, k_full[S], k_empty[S],
+// v_full[S], v_empty[S]; the biased kernel appends bias_slots(S) chunks'
+// 32 key biases.
+struct HalvesLayout {
+  int q, k, v, xchg, valid, bars, bias, total;
+};
+
+__host__ __device__ constexpr HalvesLayout halves_layout(int d, bool bias = false) {
   const int c = halves_chunk_bytes(d), s = halves_stages(d);
-  const int k = halves_q_bytes(d), v = k + s * c, valid = v + s * c;
+  const int k = halves_q_bytes(d), v = k + s * c, xchg = v + s * c, valid = xchg + kExchangeBytes;
   const int bars = valid + s * 8, end = bars + (1 + 4 * s) * 8;
-  return FlashLayout{0, k, v, valid, bars, end, end + (bias ? bias_slots(s) * kShortBiasSlotBytes : 0)};
+  return HalvesLayout{0, k, v, xchg, valid, bars, end, end + (bias ? bias_slots(s) * kShortBiasSlotBytes : 0)};
 }
 
 // `x`, as a value the compiler cannot see through: an address from it is
@@ -604,97 +651,270 @@ __device__ __forceinline__ uint32_t opaque(uint32_t x) {
   return x;
 }
 
-// The loads of one block, by its first warp (lane 0 issues; the warp forms a
-// chunk's validity word, one ballot with the upper 32 bits set for
-// chunk_softmax<.., 32>, and with kBias its key biases).
+// A named barrier of `threads` threads, whole warps: bar_sync waits for
+// them all; bar_arrive counts this warp in and goes on. Both order this
+// thread's earlier shared-memory accesses before the barrier completes.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_f32x4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
+}
+
+__device__ __forceinline__ float4 ld_shared_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// This block's rank in its cluster, and the cluster's blocks (1 for a
+// launch without clusters).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// Every thread of the cluster, after thread 0's mbarrier inits and their
+// fence (fence_barrier_init): the other blocks' loads and arrives then
+// reach initialised barriers. The arrive orders nothing else.
+__device__ __forceinline__ void cluster_sync_inits() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// One warp's release of a stage that every block of the cluster loads into:
+// lane 0 arrives on this block's mbarrier and, in a cluster of two, on the
+// other's (`peer` its rank). The wgmma that read the stage are done, so the
+// arrive orders no memory access across the cluster: a release at cluster
+// scope, a fence, would only hold the warp up.
+__device__ __forceinline__ void cluster_warp_arrive(uint32_t bar, uint32_t peer, uint32_t blocks) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) {
+    hopper::mbar_arrive(bar);
+    if (blocks > 1) {
+      uint32_t remote;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(bar), "r"(peer));
+      asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
+    }
+  }
+}
+
+// tma_load_4d into every block of the cluster in `mask`, at the same offset
+// `dst` of each, completing its bytes on each one's mbarrier at `bar`.
+__device__ __forceinline__ void tma_load_4d_multicast(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                                      int c1, int c2, int c3, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "h"(mask)
+      : "memory");
+}
+
+// The loads of one flash_halves_kernel block, by one warp (lane 0 issues
+// the TMA): Q's tile, and each chunk's K with its validity word (one ballot
+// over kv_mask, the upper 32 bits set for chunk_softmax<.., 32>) and with
+// kBias its key biases, and its V. The blocks of a cluster are a head's q
+// tiles: each issues its 1 / kHalvesCluster of a chunk's boxes into all of
+// them, once every consumer warp of the cluster has released the stage.
 template <int D, bool kBias>
 struct HalvesLoader {
   static constexpr int kStages = halves_stages(D);
   static constexpr uint32_t kChunk = halves_chunk_bytes(D);
-  const CUtensorMap *tk, *tv;
+  const CUtensorMap *tq, *tk, *tv;
   const Params& p;
-  const float* key_bias;
-  const int* mask;
+  const float* key_bias;  // the item's row
+  const int* mask;        // the item's row, or null
   uint32_t base;
-  const FlashLayout& lay;
+  const HalvesLayout& lay;
   const FlashBars<kStages>& bar;
   int bi, hi;
+  uint32_t rank, blocks;  // in the cluster, and its blocks
 
-  // K chunk c into its stage, once every consumer warp has released chunk
-  // c - kStages there (its validity word read, and its bias slot's last
-  // reader, the softmax of chunk c - 2 * kStages, done before that).
-  __device__ void k(int c) const {
-    const int lane = threadIdx.x & 31, s = c % kStages;
-    if (lane == 0 && c >= kStages) hopper::mbar_wait(bar.k_empty(s), ((c / kStages) + 1) & 1);
-    __syncwarp();
-    const int key = c * kShort + lane;
+  // this lane's key of chunk c: valid (in range, not masked), and its bias
+  // times log2(e), or -inf where it is not valid; read ahead of k()
+  struct Mark {
+    bool ok;
+    float bias;
+  };
+  __device__ Mark mark(int c) const {
+    const int key = c * kShort + (threadIdx.x & 31);
     const bool ok = key < p.sk && (mask == nullptr || mask[key] != 0);
-    const uint64_t valid = __ballot_sync(0xffffffffu, ok) | (~0ull << 32);
-    if constexpr (kBias) {
-      st_shared_f32(base + lay.bias + (c % bias_slots(kStages)) * kShortBiasSlotBytes + 4 * lane,
-                    ok ? key_bias[static_cast<long long>(bi) * p.sk + key] * kLog2e : -CUDART_INF_F);
+    return Mark{ok, kBias && ok ? key_bias[key] * kLog2e : -CUDART_INF_F};
+  }
+
+  __device__ void q(int q0) const {
+    if ((threadIdx.x & 31) == 0) {
+      hopper::prefetch_tensormap(tq);
+      hopper::prefetch_tensormap(tk);
+      hopper::prefetch_tensormap(tv);
+      hopper::mbar_arrive_expect_tx(bar.q_full(), halves_q_bytes(D));
+      hopper::load_chunk<D>(base + lay.q, tq, bar.q_full(), q0, hi, bi);
     }
+  }
+
+  // until the cluster's consumers have released chunk c - kStages from
+  // `empty` (a k_empty or v_empty of chunk c's stage)
+  __device__ void wait_free(uint32_t empty, int c) const {
+    if ((threadIdx.x & 31) == 0 && c >= kStages) hopper::mbar_wait(empty, ((c / kStages) + 1) & 1);
     __syncwarp();
-    if (lane == 0) {  // released with the arrive, acquired by the consumers' k_full wait
+  }
+
+  // this block's boxes of chunk c of `map` into the stage at `dst` of every
+  // block of the cluster: all of them alone, in a cluster the rank's 1 /
+  // kHalvesCluster; each block expects the whole chunk on `full`. Both
+  // loops are unrolled: issued from a loop that is not, the TMA loads of a
+  // chunk took longer than the consumers' work on it.
+  __device__ void chunk(uint32_t dst, const CUtensorMap* map, uint32_t full, int c) const {
+    constexpr int kBoxes = D / hopper::kBoxCols, kShare = kBoxes / kHalvesCluster;
+    constexpr uint32_t kBox = hopper::box_bytes(kShort);
+    hopper::mbar_arrive_expect_tx(full, kChunk);
+    if (blocks > 1) {
+#pragma unroll
+      for (int i = 0; i < kShare; ++i) {
+        const int x = static_cast<int>(rank) * kShare + i;
+        tma_load_4d_multicast(dst + x * kBox, map, full, x * hopper::kBoxCols, c * kShort, hi, bi,
+                              (1u << kHalvesCluster) - 1);
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x) {
+        hopper::tma_load_4d(dst + x * kBox, map, full, x * hopper::kBoxCols, c * kShort, hi, bi);
+      }
+    }
+  }
+
+  // in a cluster, until its consumers have released the last chunks, which
+  // every arrive from the other block comes before: then this block may
+  // leave. Alone, a block leaves when it is done.
+  __device__ void tail(int n) const {
+    if (blocks == 1) return;
+    for (int c = n; c < n + kStages; ++c) {
+      wait_free(bar.k_empty(c % kStages), c);
+      wait_free(bar.v_empty(c % kStages), c);
+    }
+  }
+
+  // the bias slot of chunk c was last read by the softmax of chunk c - 2 *
+  // kStages, which comes before the consumers release chunk c - kStages
+  // (bias_slots); the validity word is released with the arrive, acquired
+  // by the consumers' k_full wait
+  __device__ void k(int c, Mark mk) const {
+    const int s = c % kStages;
+    const uint64_t valid = __ballot_sync(0xffffffffu, mk.ok) | (~0ull << 32);
+    if constexpr (kBias) {
+      st_shared_f32(base + lay.bias + (c % bias_slots(kStages)) * kShortBiasSlotBytes + 4 * (threadIdx.x & 31),
+                    mk.bias);
+      __syncwarp();
+    }
+    if ((threadIdx.x & 31) == 0) {
       hopper::st_shared_u64(base + lay.valid + 8 * s, valid);
-      hopper::mbar_arrive_expect_tx(bar.k_full(s), kChunk);
-      hopper::load_chunk<D, kShort>(base + lay.k + s * kChunk, tk, bar.k_full(s), c * kShort, hi, bi);
+      chunk(base + lay.k + s * kChunk, tk, bar.k_full(s), c);
     }
     __syncwarp();
   }
 
-  // V chunk c into its stage, once every consumer warp has released chunk
-  // c - kStages there.
   __device__ void v(int c) const {
     const int s = c % kStages;
-    if ((threadIdx.x & 31) == 0) {
-      if (c >= kStages) hopper::mbar_wait(bar.v_empty(s), ((c / kStages) + 1) & 1);
-      hopper::mbar_arrive_expect_tx(bar.v_full(s), kChunk);
-      hopper::load_chunk<D, kShort>(base + lay.v + s * kChunk, tv, bar.v_full(s), c * kShort, hi, bi);
-    }
+    if ((threadIdx.x & 31) == 0) chunk(base + lay.v + s * kChunk, tv, bar.v_full(s), c);
     __syncwarp();
   }
 };
 
-// A consumer warpgroup: the block's 64 query rows against every key chunk,
-// O's columns half * D / 2 .. + D / 2; its first warp in the first
-// warpgroup also loads. Q's tile address goes through `opaque` each chunk:
-// hoisted, Q K^T's descriptors stayed live across the loop.
+// The producer warp (halves_producer_warp): every load of the block, each
+// chunk's K and V once the cluster's consumer warps have released its
+// stage; the chunk's mask and biases are read before the wait.
 template <int D, bool kBias>
-__device__ __forceinline__ void halves_consumer(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
-                                                const Params& p, const float* key_bias, uint32_t base,
-                                                const FlashLayout& lay, const FlashBars<halves_stages(D)>& bar,
-                                                int bi, int hi, int q0) {
-  constexpr int kHalf = D / 2;
+__device__ void halves_producer(const HalvesLoader<D, kBias>& load, int n, int q0) {
+  constexpr int kStages = halves_stages(D);
+  load.q(q0);
+  for (int c = 0; c < n; ++c) {
+    const int s = c % kStages;
+    const auto mk = load.mark(c);
+    load.wait_free(load.bar.k_empty(s), c);
+    load.k(c, mk);
+    load.wait_free(load.bar.v_empty(s), c);
+    load.v(c);
+  }
+  load.tail(n);
+}
+
+// S = this warpgroup's partial of chunk j plus the other's, through the
+// exchange slots: each thread's 16 sums as four 16-byte words, strided by
+// the warpgroup's 128 threads (no bank conflict), in `slot` + h *
+// kExchangeBytes / 2 for warpgroup h. The other warpgroup's thread of the
+// same rank holds the same 16 entries of S. Past the exchange barrier both
+// warpgroups are done with chunk j's K.
+__device__ __forceinline__ void add_other_half(float (&s)[kShort / 8][4], uint32_t slot, int half, int j, int n) {
+  constexpr uint32_t kSlot = kExchangeBytes / 2, kWord = 128 * 16;
+  const uint32_t mine = slot + half * kSlot, theirs = slot + (half ^ 1) * kSlot;
+  if (j > 0) bar_sync(kSlotReadBar + half, kHalvesConsumers);  // chunk j - 1's partial here is read
+#pragma unroll
+  for (int nn = 0; nn < kShort / 8; ++nn) st_shared_f32x4(mine + nn * kWord, s[nn][0], s[nn][1], s[nn][2], s[nn][3]);
+  bar_sync(kExchangeBar, kHalvesConsumers);
+#pragma unroll
+  for (int nn = 0; nn < kShort / 8; ++nn) {
+    const float4 o = ld_shared_f32x4(theirs + nn * kWord);
+    s[nn][0] += o.x;
+    s[nn][1] += o.y;
+    s[nn][2] += o.z;
+    s[nn][3] += o.w;
+  }
+  if (j + 1 < n) bar_arrive(kSlotReadBar + (half ^ 1), kHalvesConsumers);
+}
+
+// A consumer warpgroup: the block's 64 query rows against every key chunk,
+// S over its half of the head dim, O's columns half * D / 2 .. + D / 2.
+// Without a producer warp the first warp also loads (spreading the loads
+// over both warpgroups' first warps was slower, PERF.md). Q's address goes
+// through `opaque` each chunk: hoisted, Q K^T's descriptors stayed live
+// across the loop.
+template <int D, bool kBias>
+__device__ __forceinline__ void halves_consumer(const HalvesLoader<D, kBias>& load, int n, int q0) {
+  constexpr int kHalf = D / 2, kHalfBoxes = kHalf / hopper::kBoxCols;
   constexpr uint32_t kChunk = halves_chunk_bytes(D);
   constexpr int kStages = halves_stages(D);
-  const int n = (p.sk + kShort - 1) / kShort;
+  constexpr bool kWarp = halves_producer_warp(D);
+  const Params& p = load.p;
+  const uint32_t base = load.base;
+  const HalvesLayout& lay = load.lay;
+  const FlashBars<kStages>& bar = load.bar;
   const int half = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const bool loads = threadIdx.x < 32;  // the block's loading warp
-  const HalvesLoader<D, kBias> load{tk, tv, p, key_bias,
-                                    p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(bi) * p.sk,
-                                    base, lay, bar, bi, hi};
+  const bool loads = !kWarp && threadIdx.x < 32;  // the loading warp, without a producer warp
+  const uint32_t peer = load.rank ^ 1, blocks = load.blocks;
   auto k_chunk = [&](int j) { return base + lay.k + (j % kStages) * kChunk; };
   auto v_chunk = [&](int j) { return base + lay.v + (j % kStages) * kChunk; };
   auto valid = [&](int j) { return hopper::ld_shared_u64(base + lay.valid + 8 * (j % kStages)); };
   auto parity = [](int j) { return static_cast<uint32_t>((j / kStages) & 1); };
   auto bias = [&](int j) { return base + lay.bias + (j % bias_slots(kStages)) * kShortBiasSlotBytes; };
-  const uint32_t q_tile = base + lay.q;
+  auto k_ready = [&](int j) { hopper::mbar_wait(bar.k_full(j % kStages), parity(j)); };
+  auto v_ready = [&](int j) { hopper::mbar_wait(bar.v_full(j % kStages), parity(j)); };
+  auto refills = [&](bool mine, int c) { return mine && c < n; };  // chunk c's loads, if this warp's
+  // this warpgroup's half of the head dim: its boxes of Q's tile and of a K chunk
+  const uint32_t q_half = base + lay.q + half * kHalfBoxes * hopper::kBoxBytes;
+  const uint32_t k_half = half * kHalfBoxes * hopper::box_bytes(kShort);
+  const uint32_t slot = base + lay.xchg + 16 * (threadIdx.x & 127);
   if (loads) {
-    if (lane == 0) {
-      hopper::prefetch_tensormap(tq);
-      hopper::prefetch_tensormap(tk);
-      hopper::prefetch_tensormap(tv);
-      hopper::mbar_arrive_expect_tx(bar.q_full(), halves_q_bytes(D));
-      hopper::load_chunk<D>(q_tile, tq, bar.q_full(), q0, hi, bi);
-    }
+    load.q(q0);
     for (int c = 0; c < kStages && c < n; ++c) {
-      load.k(c);
+      load.k(c, load.mark(c));
       load.v(c);
     }
   }
-  hopper::mbar_wait(bar.q_full(), 0);
+  hopper::mbar_wait(bar.q_full(), 0);  // rows past sq arrived as zeros
 
   float acc[kHalf / 8][4];
 #pragma unroll
@@ -704,30 +924,44 @@ __device__ __forceinline__ void halves_consumer(const CUtensorMap* tq, const CUt
   float m[2] = {-1e30f, -1e30f};  // running max of the scaled logits (base 2)
   float l[2] = {0.f, 0.f};
   float alpha[2];
+  typename HalvesLoader<D, kBias>::Mark next{};  // the next K refill's, read ahead
 
   // chunk 0: O is still zero, so it needs no P V beside it
-  hopper::mbar_wait(bar.k_full(0), 0);
-  hopper::qk_issue_ss_short<D>(s, q_tile, k_chunk(0));
+  if (refills(loads, kStages)) next = load.mark(kStages);
+  k_ready(0);
+  hopper::qk_issue_ss_short<kHalf>(s, q_half, k_chunk(0) + k_half);
   uint64_t bits = valid(0);
   hopper::wgmma_wait<0>();
-  hopper::warp_arrive(bar.k_empty(0));
-  if (loads && kStages < n) load.k(kStages);
+  cluster_warp_arrive(bar.k_empty(0), peer, blocks);
+  add_other_half(s, slot, half, 0, n);
+  if (refills(loads, kStages)) {
+    load.wait_free(bar.k_empty(0), kStages);
+    load.k(kStages, next);
+  }
   chunk_softmax<kBias, kShort>(s, bits, p.scale_log2, m, l, alpha, bias(0));
   hopper::pack_p<kShort>(pa, s);
   for (int j = 1; j < n; ++j) {
-    hopper::mbar_wait(bar.k_full(j % kStages), parity(j));
-    hopper::qk_issue_ss_short<D>(s, opaque(q_tile), k_chunk(j));
-    hopper::mbar_wait(bar.v_full((j - 1) % kStages), parity(j - 1));
+    if (refills(loads, j + kStages)) next = load.mark(j + kStages);
+    k_ready(j);
+    hopper::qk_issue_ss_short<kHalf>(s, opaque(q_half), k_chunk(j) + k_half);
+    v_ready(j - 1);
     hopper::pv_issue_short<kHalf>(acc, pa, v_chunk(j - 1), half * kHalf);
     bits = valid(j);
-    hopper::wgmma_wait<1>();  // Q K^T of chunk j is done
-    hopper::warp_arrive(bar.k_empty(j % kStages));
-    if (loads && j + kStages < n) load.k(j + kStages);
+    hopper::wgmma_wait<1>();  // this half's Q K^T of chunk j is done
+    cluster_warp_arrive(bar.k_empty(j % kStages), peer, blocks);
+    add_other_half(s, slot, half, j, n);
+    if (refills(loads, j + kStages)) {  // past the exchange: this block is done with K_j
+      load.wait_free(bar.k_empty(j % kStages), j + kStages);
+      load.k(j + kStages, next);
+    }
     chunk_softmax<kBias, kShort>(s, bits, p.scale_log2, m, l, alpha, bias(j));
     hopper::wgmma_wait<0>();  // P V of chunk j - 1 is done with pa and V
     hopper::fence_operands(acc);
-    hopper::warp_arrive(bar.v_empty((j - 1) % kStages));
-    if (loads && j - 1 + kStages < n) load.v(j - 1 + kStages);
+    cluster_warp_arrive(bar.v_empty((j - 1) % kStages), peer, blocks);
+    if (refills(loads, j - 1 + kStages)) {
+      load.wait_free(bar.v_empty((j - 1) % kStages), j - 1 + kStages);
+      load.v(j - 1 + kStages);
+    }
 #pragma unroll
     for (int nn = 0; nn < kHalf / 8; ++nn) {
       acc[nn][0] *= alpha[0];
@@ -737,10 +971,12 @@ __device__ __forceinline__ void halves_consumer(const CUtensorMap* tq, const CUt
     }
     hopper::pack_p<kShort>(pa, s);
   }
-  hopper::mbar_wait(bar.v_full((n - 1) % kStages), parity(n - 1));
+  v_ready(n - 1);
   hopper::pv_issue_short<kHalf>(acc, pa, v_chunk(n - 1), half * kHalf);
   hopper::wgmma_wait<0>();
   hopper::fence_operands(acc);
+  cluster_warp_arrive(bar.v_empty((n - 1) % kStages), peer, blocks);
+  if (loads) load.tail(n);
 
   float inv[2];
 #pragma unroll
@@ -749,7 +985,7 @@ __device__ __forceinline__ void halves_consumer(const CUtensorMap* tq, const CUt
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);  // no valid key: l = 0 and acc = 0
   }
-  bf16* o = static_cast<bf16*>(p.o) + bi * p.o_sb + hi * p.o_sh + half * kHalf;
+  bf16* o = static_cast<bf16*>(p.o) + load.bi * p.o_sb + load.hi * p.o_sh + half * kHalf;
   const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
 #pragma unroll
   for (int nn = 0; nn < kHalf / 8; ++nn) {
@@ -771,26 +1007,41 @@ __device__ __forceinline__ void flash_halves_block(const CUtensorMap* tq, const 
                                                    const CUtensorMap* tv, const Params& p, const float* key_bias,
                                                    unsigned char* flash_smem) {
   const uint32_t base = hopper::smem_u32(flash_smem);
-  const FlashLayout lay = halves_layout(D, kBias);
+  const HalvesLayout lay = halves_layout(D, kBias);
   const FlashBars<halves_stages(D)> bar{base + static_cast<uint32_t>(lay.bars)};
+  const uint32_t blocks = cluster_blocks();
   if (threadIdx.x == 0) {
     if (base % 1024 != 0) __trap();  // the swizzled tiles need the pattern's alignment
     hopper::mbar_init(bar.q_full(), 1);
     for (int s = 0; s < halves_stages(D); ++s) {
+      // an empty barrier takes one arrive per consumer warp of the cluster
       hopper::mbar_init(bar.k_full(s), 1);
-      hopper::mbar_init(bar.k_empty(s), 8);  // one arrive per consumer warp, both warpgroups
+      hopper::mbar_init(bar.k_empty(s), 8 * blocks);
       hopper::mbar_init(bar.v_full(s), 1);
-      hopper::mbar_init(bar.v_empty(s), 8);
+      hopper::mbar_init(bar.v_empty(s), 8 * blocks);
     }
     hopper::fence_barrier_init();
   }
-  __syncthreads();
-  halves_consumer<D, kBias>(tq, tk, tv, p, key_bias, base, lay, bar, blockIdx.z, blockIdx.y,
-                            blockIdx.x * kChunkRows);
+  if (blocks > 1) {
+    cluster_sync_inits();
+  } else {
+    __syncthreads();
+  }
+  const int bi = blockIdx.z, hi = blockIdx.y, q0 = blockIdx.x * kChunkRows;
+  const long long row = static_cast<long long>(bi) * p.sk;
+  const HalvesLoader<D, kBias> load{tq,   tk,  tv,  p,  kBias ? key_bias + row : nullptr,
+                                    p.mask == nullptr ? nullptr : p.mask + row,
+                                    base, lay, bar, bi, hi, cluster_rank(), blocks};
+  const int n = (p.sk + kShort - 1) / kShort;
+  if (halves_producer_warp(D) && threadIdx.x >= kHalvesConsumers) {
+    halves_producer<D, kBias>(load, n, q0);
+  } else {
+    halves_consumer<D, kBias>(load, n, q0);
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kHalvesThreads, 1)
+__global__ void __launch_bounds__(halves_threads(D), 1)
     flash_halves_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv, const Params p) {
   extern __shared__ __align__(1024) unsigned char flash_smem[];
@@ -798,7 +1049,7 @@ __global__ void __launch_bounds__(kHalvesThreads, 1)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kHalvesThreads, 1)
+__global__ void __launch_bounds__(halves_threads(D), 1)
     flash_halves_bias_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv, const Params p, const float* key_bias) {
   extern __shared__ __align__(1024) unsigned char flash_smem[];
@@ -814,14 +1065,36 @@ cudaError_t launch_halves(const CUtensorMap (&maps)[3], const Params& p, const f
       cudaFuncSetAttribute(flash_halves_bias_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (configured != cudaSuccess) return configured;
   if (configured_bias != cudaSuccess) return configured_bias;
-  const dim3 grid((p.sq + kChunkRows - 1) / kChunkRows, h, b);
-  if (key_bias != nullptr) {
-    flash_halves_bias_kernel<D>
-        <<<grid, kHalvesThreads, halves_layout(D, true).total, stream>>>(maps[0], maps[1], maps[2], p, key_bias);
-  } else {
-    flash_halves_kernel<D><<<grid, kHalvesThreads, halves_layout(D).total, stream>>>(maps[0], maps[1], maps[2], p);
+  // in clusters from kHalvesClusterChunks chunks, the q tiles in whole
+  // clusters (a tile past sq loads and computes, and stores nothing)
+  const int tiles = (p.sq + kChunkRows - 1) / kChunkRows;
+  const int cluster = (p.sk + kShort - 1) / kShort >= kHalvesClusterChunks ? kHalvesCluster : 1;
+  cudaLaunchAttribute attr{};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  const dim3 grid((tiles + cluster - 1) / cluster * cluster, h, b);
+  const int smem = halves_layout(D, key_bias != nullptr).total;
+  if (cluster == 1) {
+    if (key_bias != nullptr) {
+      flash_halves_bias_kernel<D><<<grid, halves_threads(D), smem, stream>>>(maps[0], maps[1], maps[2], p, key_bias);
+    } else {
+      flash_halves_kernel<D><<<grid, halves_threads(D), smem, stream>>>(maps[0], maps[1], maps[2], p);
+    }
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(halves_threads(D));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (key_bias != nullptr) {
+    return cudaLaunchKernelEx(&cfg, flash_halves_bias_kernel<D>, maps[0], maps[1], maps[2], p, key_bias);
+  }
+  return cudaLaunchKernelEx(&cfg, flash_halves_kernel<D>, maps[0], maps[1], maps[2], p);
 }
 
 // ---------------------------------------------------------------------------
@@ -1469,10 +1742,10 @@ cudaError_t launch_f32(const CUtensorMap (&maps)[3], const Params& p, F32Params 
 // tile a k-step for 0.5-2 KB of K, from both warpgroups and three times
 // (hi/lo); the softmax and the K split run beside the short P V only; at d
 // 320 and 512 one f32 slot leaves each K load's latency exposed.
-// flash_halves_kernel can take from it the loading by one thread between
-// block barriers (in place of its first warp holding both warpgroups to
-// its pace) and the split of each chunk's work between the two
-// warpgroups by columns, with S computed by both.
+// flash_halves_kernel, which has no split to share, computes S once, each
+// warpgroup over its half of the head dim, the halves added through shared
+// memory; here that exchange would cost room the rings take (S is 64 x 16
+// to 64 x 64 f32, and Q's hi/lo tiles fill 256 d bytes).
 // ---------------------------------------------------------------------------
 
 constexpr int kWideThreads = 256;   // two consumer warpgroups
@@ -1509,13 +1782,6 @@ __host__ __device__ constexpr WideLayout wide_layout(int d, bool bias = false) {
   const int valid = f32 + wide_slots(d) * wide_piece_bytes(d), bars = valid + 8;
   const int end = bars + wide_slots(d) * 8;
   return WideLayout{0, q, khi, klo, vhi, vlo, f32, valid, bars, end, end + (bias ? wide_keys(d) * 4 : 0)};
-}
-
-__device__ __forceinline__ float4 ld_shared_f32x4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n" : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
-               : "memory");
-  return v;
 }
 
 // kRows f32 rows of D columns at `src`, as TMA wrote them (D / 32 boxes of
@@ -1953,7 +2219,7 @@ int zutis_flash_occupancy(int dtype, int d, int block_q, int bias, int* smem_byt
       case 384: pick((const void*)flash_halves_kernel<384>, (const void*)flash_halves_bias_kernel<384>); break;
       default: pick((const void*)flash_halves_kernel<512>, (const void*)flash_halves_bias_kernel<512>);
     }
-    threads = kHalvesThreads;
+    threads = halves_threads(d);
     *smem_bytes = halves_layout(d, bias != 0).total;
   } else if (fam == Family::kF32 && (block_q == kChunkRows || (d == 64 && block_q == 2 * kChunkRows))) {
     const bool one = block_q == kChunkRows;

@@ -18,9 +18,11 @@ and wgmma: one producer warp streams 64-key K and V chunks through a ring
 in shared memory (`stages(d)` deep) to one consumer warpgroup of 64 query
 rows (d 80 computes d 96's tiles, `box_cols`); at d 128 one block fills an
 SM, at d 256 (the RN50 and RN101 decoders) Q also stays in shared memory;
-at `HALVES_HEAD_DIMS` (RN50x4, RN50x16, RN50x64) chunks are 32 keys and two
-consumer warpgroups each hold half of O's columns, the first warp loading
-for both. f32 at every head dim: every product takes three bf16 wgmma on
+at `HALVES_HEAD_DIMS` (RN50x4, RN50x16, RN50x64) chunks are 32 keys, two
+consumer warpgroups each hold half of O's columns and compute S over half
+of the head dim, adding the other's half through shared memory, a producer
+warp loads below `HALVES_PRODUCER_BELOW`, and the `HALVES_CLUSTER` q tiles
+of a head share each K/V chunk by TMA multicast. f32 at every head dim: every product takes three bf16 wgmma on
 hi/lo splits (~16 mantissa bits). At `F32_HEAD_DIMS` (64 to 96) a producer
 warpgroup loads f32 K and V chunks with TMA and splits each once into bf16
 tiles for two consumer warpgroups (128 query rows a block; 64 for sq <= 64
@@ -67,6 +69,12 @@ SHORT_CHUNK = 32      # keys per K/V chunk at HALVES_HEAD_DIMS
 BOX_COLS = 32         # columns of a TMA box: d is computed in whole boxes
 STAGES = 4            # K/V chunks in the bf16 kernel's ring at d 64 to 128
 WIDE_STAGES = 3       # and at d 256, where a chunk is 32 KB
+HALVES_THREADS = 288  # threads of a flash_halves_kernel block: 2 x 128 + 32
+HALVES_PRODUCER_BELOW = 512  # its head dims below this have the producer warp
+HALVES_CLUSTER = 2    # its blocks a cluster: a head's q tiles share K/V loads
+HALVES_CLUSTER_CHUNKS = 8  # 32-key chunks a call needs to launch in clusters
+EXCHANGE_BYTES = 16_384  # its two warpgroups' partial S, 64 x 32 f32 each
+HALVES_RESERVE = 2048  # bytes it keeps for validity words, mbarriers, biases
 F32_STAGES = 2        # f32 K/V chunks in the f32 kernel's TMA ring
 SPLIT_STAGES = 2      # bf16 hi/lo K/V tiles in its split ring
 WIDE_THREADS = 256    # threads of a flash_f32_wide_kernel block
@@ -240,11 +248,21 @@ def chunk_keys(d: int) -> int:
 def stages(d: int) -> int:
     """K/V chunks in the bf16 kernels' ring at head dim d (flash_stages and
     halves_stages in csrc/flash_attention.cu): 4 at d 64 to 128, 3 at 256,
-    and at HALVES_HEAD_DIMS as many as fit beside Q, the barriers and a
-    2 KB reserve (4, 3, 2 at d 320, 384, 512)."""
+    and at HALVES_HEAD_DIMS as many as fit beside Q, the exchange slots and
+    HALVES_RESERVE (4, 3, 2 at d 320, 384, 512)."""
     if d in HALVES_HEAD_DIMS:
-        return (SMEM_LIMIT - KEY_CHUNK * d * 2 - 2048) // (2 * SHORT_CHUNK * d * 2)
+        room = SMEM_LIMIT - KEY_CHUNK * d * 2 - EXCHANGE_BYTES - HALVES_RESERVE
+        return room // (2 * SHORT_CHUNK * d * 2)
     return WIDE_STAGES if d > 128 else STAGES
+
+
+def halves_threads(d: int) -> int:
+    """Threads of a flash_halves_kernel block at head dim d (halves_threads
+    in csrc/flash_attention.cu): two consumer warpgroups and a producer warp
+    below HALVES_PRODUCER_BELOW; from it the consumers alone, whose first
+    warp loads (the card gives a 288-thread wgmma block a 384-thread one's
+    registers, too few for d 512's accumulator)."""
+    return HALVES_THREADS if d < HALVES_PRODUCER_BELOW else 2 * 128
 
 
 def min_blocks(d: int) -> int:
@@ -265,18 +283,22 @@ def smem_layout(d: int, bias: bool = False) -> dict:
     kernels lay it out (flash_layout, halves_layout in
     csrc/flash_attention.cu): the Q tile (64 rows), `stages(d)` K chunks,
     as many V chunks (each `chunk_keys(d)` rows; every row `box_cols(d)`
-    bf16 columns, no padding), a 64-bit key-validity word per stage, then
-    the mbarriers: q_full and a full and an empty one per K and V stage.
-    The biased kernel appends 2 * stages(d) chunks' key biases. `total` is
-    the block's size."""
+    bf16 columns, no padding), at HALVES_HEAD_DIMS the exchange slots
+    (`xchg`: EXCHANGE_BYTES, the two warpgroups' partial S), a 64-bit
+    key-validity word per stage, then the mbarriers: q_full and a full and
+    an empty one per K and V stage. The biased kernel appends 2 * stages(d)
+    chunks' key biases. `total` is the block's size."""
     cols, keys, n = box_cols(d), chunk_keys(d), stages(d)
     chunk = keys * cols * 2
     k = KEY_CHUNK * cols * 2
     v = k + n * chunk
     valid = v + n * chunk
+    layout = dict(q=0, k=k, v=v)
+    if d in HALVES_HEAD_DIMS:
+        layout["xchg"] = valid
+        valid += EXCHANGE_BYTES
     bars = valid + n * 8
-    layout = dict(q=0, k=k, v=v, valid=valid, bars=bars,
-                  total=bars + (1 + 4 * n) * 8)
+    layout.update(valid=valid, bars=bars, total=bars + (1 + 4 * n) * 8)
     return _with_bias(layout, 2 * n, keys) if bias else layout
 
 

@@ -1,10 +1,11 @@
-"""Where the f32 flash kernel's time goes, on the card: its time at the
-main-path f32 shapes against another checkout's, against copies of its
-source with one part taken out, and whether the other kernels of that
-checkout compile to the same SASS.
+"""Where the flash kernels' time goes, on the card: their time at the
+main-path f32 shapes and at the wide decoders' bf16 ones against another
+checkout's, against copies of the source with one part taken out, and
+whether the other kernels of that checkout compile to the same SASS.
 
     python -m zutis_tpu_torch.tools.flash_f32_bench [--against DIR] \\
-        [--ablations no_split,no_softmax,one_product,rings3,wide_no_split]
+        [--ablations no_split,no_softmax,one_product,rings3,wide_no_split] \\
+        [--match REGEX]
 
 - `--against DIR`: a checkout of another commit (`git archive` of it,
   unpacked into a directory git ignores). Both checkouts' `flash_attention`
@@ -19,14 +20,18 @@ checkout compile to the same SASS.
   bf16 kernel's other layout at head dim 128 (a 3-stage ring, two blocks
   an SM, against 4 stages and one block); the `wide_` ones take a part out
   of the f32 kernel at d 128-512, and `d320_keys16` is its other chunk
-  size at d 320.
+  size at d 320; the `halves_` ones take a part out of the bf16 kernel at
+  d 320-512 (flash_halves_kernel), and `halves_s_twice` is its design
+  with S computed whole by both warpgroups and no exchange.
+- `--match REGEX`: time only the shapes and forwards whose names match.
 
 Times are device ms per call: 20 calls captured in a CUDA graph, the median
 of 21 replays, on [b, s, h, d] views as the models pass them; each run also
 times the bf16 kernel at the serving shapes (BF16_SHAPES: the encoder's, a
-control for the card's speed, the decoder's at d 96, and ViT-L/14@336px's
-at d 128), beside
-nvidia-smi's SM clock and power. Prints one JSON line per measurement.
+control for the card's speed, the decoder's at d 96, ViT-L/14@336px's at d
+128 and the RN50x4 / x16 / x64 decoders' at d 320 / 384 / 512; one of
+those given a key bias), beside nvidia-smi's SM clock and power; a
+forward is its device busy in ms. Prints one JSON line per measurement.
 Needs a card, nvcc and cuobjdump.
 """
 from __future__ import annotations
@@ -66,6 +71,12 @@ FORWARDS = {
     "RN50 f32 forward": ("RN50", 384),
     "ViT-L/14@336px f32 forward": ("ViT-L/14@336px", 336),
 }
+# bf16 serving forwards, --against only: one batch-8 forward of the arch's
+# ZUTIS as the smoke serves it (bf16 matrices, seeded), device busy
+BF16_FORWARDS = {
+    "RN50x4 bf16 forward": ("RN50x4", 384),
+    "RN50x64 bf16 forward": ("RN50x64", 384),
+}
 # f32 calls given a key bias (log of a size): the ToMe encoder's first
 # block and the pooled decoder's cross-attention (the levers' shapes)
 BIASED_SHAPES = {
@@ -73,15 +84,30 @@ BIASED_SHAPES = {
     "pooled cross biased": (8, 8, 100, 576, 96),
 }
 # bf16 calls timed beside them: the serving encoder shape (a control for
-# the card's speed), the serving decoder's d 96 shapes and the ViT-L/14@336px
-# decoder's d 128 ones (over 48 x 48 memory tokens)
+# the card's speed), the serving decoder's d 96 shapes, the ViT-L/14@336px
+# decoder's d 128 ones (over 48 x 48 memory tokens) and the RN50x4 / x16 /
+# x64 decoders' d 320 / 384 / 512 ones (over 24 x 24)
 BF16_SHAPES = {
     "control bf16": (8, 12, 577, 577, 64),
     "decoder self bf16": (8, 8, 100, 100, 96),
     "decoder cross bf16": (8, 8, 100, 2304, 96),
     "vitl decoder self bf16": (8, 8, 100, 100, 128),
     "vitl decoder cross bf16": (8, 8, 100, 2304, 128),
+    **{f"rn50x{x} decoder {kind} bf16": (8, 8, 100, sk, d)
+       for x, d in ((4, 320), (16, 384), (64, 512))
+       for kind, sk in (("self", 100), ("cross", 576))},
 }
+# bf16 calls given a key bias (the log of a pooled memory token's count of
+# valid tokens, 1 to 4): RN50x4's cross-attention
+BF16_BIASED_SHAPES = {
+    "rn50x4 decoder cross biased bf16": (8, 8, 100, 576, 320),
+}
+# the bf16 d 320-512 kernel's exchange of S's halves, whose body the
+# halves_ ablations skip after its barrier
+_EXCHANGE = ("__device__ __forceinline__ void add_other_half(float "
+             "(&s)[kShort / 8][4], uint32_t slot, int half, int j, int n) {\n")
+_EXCHANGE_BARRIER_ONLY = ("  bar_sync(kExchangeBar, kHalvesConsumers);\n"
+                          "  return;\n")
 # name -> [(text in csrc/flash_attention.cu, its replacement)]. The
 # ablations take a part out and compute a wrong result on purpose: their
 # time says what the part costs, nothing else. `rings3` is an alternative
@@ -149,6 +175,55 @@ ABLATIONS = {
          "32 : 16; }",
          "constexpr int wide_keys(int d) { return d <= 128 ? 64 : d <= 256 ? "
          "32 : 16; }")],
+    # the bf16 kernel at d 320-512: S from each warpgroup's half of the head
+    # dim alone, no exchange (its barrier stays: without a producer warp
+    # the loads wait for it)
+    "halves_no_exchange": [(_EXCHANGE, _EXCHANGE + _EXCHANGE_BARRIER_ONLY)],
+    # no loads past the first ring and no wait for them: the producer warp
+    # (or the loading consumer warp) stops after halves_stages(d) chunks,
+    # the consumers reuse their tiles (what the K/V loads cost)
+    "halves_no_refill": [
+        ("  for (int c = 0; c < n; ++c) {\n    const int s = c % kStages;",
+         "  for (int c = 0; c < n && c < kStages; ++c) {\n"
+         "    const int s = c % kStages;"),
+        ("auto refills = [&](bool mine, int c) { return mine && c < n; };",
+         "auto refills = [&](bool mine, int c) { return false && c < n; };"),
+        *((f"auto {x}_ready = [&](int j) {{ hopper::mbar_wait(",
+           f"auto {x}_ready = [&](int j) {{ if (j < kStages) hopper::mbar_wait(")
+          for x in ("k", "v"))],
+    # with no cluster multicast, half the bytes of every K and V chunk (its
+    # first D / 64 boxes): the same waits and barriers with half the
+    # traffic from L2 into the SMs
+    "halves_half_loads": [
+        ("constexpr int kHalvesCluster = 2;", "constexpr int kHalvesCluster = 1;"),
+        ("    constexpr int kBoxes = D / hopper::kBoxCols, kShare = kBoxes / "
+         "kHalvesCluster;",
+         "    constexpr int kBoxes = D / hopper::kBoxCols / 2, kShare = kBoxes / "
+         "kHalvesCluster;"),
+        ("    hopper::mbar_arrive_expect_tx(full, kChunk);\n    if (blocks > 1)",
+         "    hopper::mbar_arrive_expect_tx(full, kChunk / 2);\n    if (blocks > 1)")],
+    # an alternative that stays right: each block loads its whole chunks,
+    # no cluster multicast (twice the traffic from L2 into the SMs)
+    "halves_no_multicast": [
+        ("constexpr int kHalvesCluster = 2;", "constexpr int kHalvesCluster = 1;")],
+    # p = the raw logits past chunk 0, O never rescaled
+    "halves_no_softmax": [
+        ("chunk_softmax<kBias, kShort>(s, bits, p.scale_log2, m, l, alpha, "
+         "bias(j));", "alpha[0] = alpha[1] = 1.f;")],
+    # alternatives that stay right: each warpgroup computes all of S (Q
+    # read whole), as before the exchange; no producer warp at any head
+    # dim (the first consumer warp loads between barriers, as at d 512)
+    "halves_s_twice": [
+        (_EXCHANGE, _EXCHANGE + _EXCHANGE_BARRIER_ONLY),
+        ("hopper::qk_issue_ss_short<kHalf>(s, ",
+         "hopper::qk_issue_ss_short<D>(s, "),
+        ("const uint32_t q_half = base + lay.q + half * kHalfBoxes * "
+         "hopper::kBoxBytes;", "const uint32_t q_half = base + lay.q;"),
+        ("const uint32_t k_half = half * kHalfBoxes * "
+         "hopper::box_bytes(kShort);", "const uint32_t k_half = 0;")],
+    "halves_no_producer": [
+        ("constexpr bool halves_producer_warp(int d) { return d < 512; }",
+         "constexpr bool halves_producer_warp(int d) { return false; }")],
 }
 
 
@@ -186,20 +261,25 @@ def flash_inputs(gen, shape, dtype):
             .transpose(1, 2) for s in (sq, sk, sk)]
 
 
-def forward_busy(forwards):
-    """{name: device busy ms} of one f32 forward of each (arch, image
-    size) in `forwards`: the sum of the kernel durations that
-    torch.profiler sees, after two warm-up forwards; seeded weights and
-    images, batch 8."""
+def forward_busy(forwards, dtype):
+    """{name: device busy ms} of one forward of each (arch, image size) in
+    `forwards`: the sum of the kernel durations that torch.profiler sees,
+    after two warm-up forwards; seeded weights and images, batch 8. dtype
+    "f32" is factory.build_zutis(arch) at its default f32; "bf16" the
+    arch's ZUTIS with bf16 matrices, as the smoke serves it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from zutis_tpu_torch.models import factory
+    from zutis_tpu_torch.tools.instance_eval_bench import build_model
 
     out = {}
     for name, (arch, size) in forwards.items():
-        model = factory.build_zutis(arch, device="cuda").init_params(
-            torch.Generator().manual_seed(0)).eval()
+        if dtype == "f32":
+            model = factory.build_zutis(arch, device="cuda").init_params(
+                torch.Generator().manual_seed(0)).eval()
+        else:
+            model = build_model(factory.zutis_config(arch), "cuda")
         x = torch.randn(8, 3, size, size,
                         generator=torch.Generator().manual_seed(1)).cuda()
         with torch.inference_mode():
@@ -217,11 +297,13 @@ def forward_busy(forwards):
     return out
 
 
-def time_shapes(shapes, bf16_shapes, biased_shapes, forwards=None):
-    """{name: device ms} of flash_attention at each f32 shape, each f32
-    one given a key bias, and each bf16 one that the checkout's kernels
-    take, of each of `forwards` (forward_busy), and nvidia-smi's SM clock,
-    power draw and limit."""
+def time_shapes(plan):
+    """{name: device ms} of flash_attention at each shape of `plan` ("f32"
+    and "bf16": {name: [b, h, sq, sk, d]}; "f32_biased" and "bf16_biased"
+    the same given a key bias), the device busy of each forward of
+    "f32_forwards" and "bf16_forwards" (forward_busy), and nvidia-smi's SM
+    clock, power draw and limit. A shape at a head dim the checkout's
+    kernels do not take is left out."""
     import subprocess
 
     import torch
@@ -230,21 +312,23 @@ def time_shapes(shapes, bf16_shapes, biased_shapes, forwards=None):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    for name, shape in shapes.items():
-        q, k, v = flash_inputs(gen, shape, torch.float32)
-        out[name] = device_ms(lambda: fa.flash_attention(q, k, v))
-    for name, shape in biased_shapes.items():
-        q, k, v = flash_inputs(gen, shape, torch.float32)
-        bias = torch.rand(shape[0], shape[3], generator=gen,
-                          device="cuda").add(1.0).log()
-        out[name] = device_ms(
-            lambda: fa.flash_attention(q, k, v, key_bias=bias))
-    for name, shape in bf16_shapes.items():
-        if shape[4] not in fa.HEAD_DIMS:  # a checkout without this head dim
-            continue
-        q, k, v = flash_inputs(gen, shape, torch.bfloat16)
-        out[name] = device_ms(lambda: fa.flash_attention(q, k, v))
-    out.update(forward_busy(forwards or {}))
+    for key in ("f32", "f32_biased", "bf16", "bf16_biased"):
+        dtype = torch.float32 if key.startswith("f32") else torch.bfloat16
+        for name, shape in plan.get(key, {}).items():
+            if shape[4] not in fa.HEAD_DIMS:
+                continue
+            q, k, v = flash_inputs(gen, shape, dtype)
+            bias = None
+            if key == "f32_biased":  # the log of a size in [1, 2)
+                bias = torch.rand(shape[0], shape[3], generator=gen,
+                                  device="cuda").add(1.0).log()
+            elif key == "bf16_biased":  # the log of a count, 1 to 4
+                bias = torch.randint(1, 5, (shape[0], shape[3]),
+                                     generator=gen, device="cuda").float().log()
+            out[name] = device_ms(
+                lambda: fa.flash_attention(q, k, v, key_bias=bias))
+    for key in ("f32", "bf16"):
+        out.update(forward_busy(plan.get(f"{key}_forwards", {}), key))
     out["nvidia-smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -252,29 +336,36 @@ def time_shapes(shapes, bf16_shapes, biased_shapes, forwards=None):
     return out
 
 
+def timing_plan(match: str = "", forwards: bool = True) -> dict:
+    """time_shapes' plan: every shape (and with `forwards` every forward)
+    whose name the regular expression `match` finds."""
+    parts = {"f32": SHAPES, "f32_biased": BIASED_SHAPES, "bf16": BF16_SHAPES,
+             "bf16_biased": BF16_BIASED_SHAPES}
+    if forwards:
+        parts.update(f32_forwards=FORWARDS, bf16_forwards=BF16_FORWARDS)
+    found = re.compile(match)
+    return {key: {name: x for name, x in part.items() if found.search(name)}
+            for key, part in parts.items()}
+
+
 def timer_script() -> str:
     """time_shapes as a `python -c` script: run from a checkout's root, it
-    imports that checkout's package; argv holds the f32, biased and bf16
-    shapes and the forwards."""
+    imports that checkout's package; argv[1] holds the plan as JSON."""
     return "\n\n".join(
         ["import json, sys",
          *(inspect.getsource(f) for f in (device_ms, flash_inputs,
                                           forward_busy, time_shapes)),
-         "print(json.dumps(time_shapes(json.loads(sys.argv[1]), "
-         "json.loads(sys.argv[2]), json.loads(sys.argv[3]), "
-         "json.loads(sys.argv[4]))))"])
+         "print(json.dumps(time_shapes(json.loads(sys.argv[1]))))"])
 
 
 def _emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
-def time_checkout(root: Path) -> dict:
-    """time_shapes in a process of its own, run from `root`."""
+def time_checkout(root: Path, plan: dict) -> dict:
+    """time_shapes(plan) in a process of its own, run from `root`."""
     proc = subprocess.run(
-        [sys.executable, "-c", timer_script(), json.dumps(SHAPES),
-         json.dumps(BF16_SHAPES), json.dumps(BIASED_SHAPES),
-         json.dumps(FORWARDS)],
+        [sys.executable, "-c", timer_script(), json.dumps(plan)],
         cwd=root, capture_output=True, text=True, timeout=1200)
     if proc.returncode != 0:
         raise RuntimeError(f"timing {root} failed:\n{proc.stderr[-3000:]}")
@@ -309,9 +400,10 @@ def nvcc(source: Path, out: Path) -> Path:
     return out
 
 
-def run_ablations(names: Sequence[str], rounds: int) -> None:
-    """Each ablation and the unedited source, built side by side, timed in
-    turns (forward, then backward) within this process."""
+def run_ablations(names: Sequence[str], rounds: int, plan: dict) -> None:
+    """Each ablation and the unedited source, built side by side, timed at
+    `plan`'s shapes in turns (forward, then backward) within this
+    process."""
     from zutis_tpu_torch.ops import _build
     from zutis_tpu_torch.ops import flash_attention as fa
 
@@ -333,8 +425,7 @@ def run_ablations(names: Sequence[str], rounds: int) -> None:
             with mock.patch.object(_build, "load",
                                    lambda *a, _lib=libs[name]: _lib):
                 _emit({"ablation": name, "round": r,
-                       "ms": time_shapes(SHAPES, BF16_SHAPES,
-                                         BIASED_SHAPES)})
+                       "ms": time_shapes(plan)})
 
 
 # the anonymous namespace's name in a mangled symbol, which differs between
@@ -404,6 +495,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         help=f"comma-separated, of {', '.join(ABLATIONS)}")
     parser.add_argument("--rounds", type=int, default=2,
                         help="turns of the ablation timings")
+    parser.add_argument("--match", default="",
+                        help="time only the shapes and forwards whose names "
+                             "this regular expression finds")
     args = parser.parse_args(argv)
     names = [n for n in args.ablations.split(",") if n]
     unknown = set(names) - set(ABLATIONS)
@@ -412,12 +506,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     here = Path(__file__).resolve().parents[2]
     if args.against is not None:
         other = args.against.resolve()
+        plan = timing_plan(args.match)
         for who in ("other", "this", "this", "other"):
             root = other if who == "other" else here
-            _emit({"checkout": who, "ms": time_checkout(root)})
+            _emit({"checkout": who, "ms": time_checkout(root, plan)})
         compare_sass(other)
     if names:
-        run_ablations(names, args.rounds)
+        run_ablations(names, args.rounds, timing_plan(args.match, False))
 
 
 if __name__ == "__main__":
