@@ -266,6 +266,7 @@ from zutis_tpu_torch.ops import _build
 from zutis_tpu_torch.ops import attention_probes as ap
 from zutis_tpu_torch.ops import flash_attention as fa
 from zutis_tpu_torch.ops import hungarian as hg
+from zutis_tpu_torch.ops import nms as nms_ops
 from zutis_tpu_torch.ops import rle
 from zutis_tpu_torch.ops.dynamic_shapes import token_valid_mask
 from zutis_tpu_torch.ops.nms import mask_nms
@@ -374,6 +375,7 @@ def counted_wrappers() -> dict:
     """Every wrapper that counts its kernel's launches, by kernel name."""
     return {"flash_attention": fa.flash_attention,
             "batched_hungarian": hg.batched_hungarian,
+            "mask_nms": mask_nms,
             **{name: w for name, (w, _, _) in PROBES.items()}}
 
 
@@ -492,14 +494,15 @@ def phase_card() -> tuple[str, list]:
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
-    # one compiler per source, together: nvcc for the three kernel
+    # one compiler per source, together: nvcc for the four kernel
     # libraries, g++ for the RLE codec, the image library and the hole
     # fill and labelling
-    with ThreadPoolExecutor(6) as pool:
-        builds = [pool.submit(m.build)
-                  for m in (fa, ap, hg, native, native_image, native_labels)]
+    cuda_libs = (fa, ap, hg, nms_ops)
+    with ThreadPoolExecutor(7) as pool:
+        builds = [pool.submit(m.build) for m in (*cuda_libs, native,
+                                                 native_image, native_labels)]
         results = [b.result() for b in builds]
-    print(f"build: all six libraries in {time.perf_counter() - t0:.1f} s",
+    print(f"build: all seven libraries in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for path, seconds, log in results:
         print(f"build: {path.name} in {seconds:.1f} s", flush=True)
@@ -511,11 +514,20 @@ def phase_card() -> tuple[str, list]:
         serialised = [line for line in report if "serialized" in line]
         check(not serialised, f"{path.name}: ptxas serialised wgmma: "
               f"{serialised[:2]}")
+    # the selection loops' kernels keep their per-lane arrays in registers:
+    # a register array indexed at run time would go to local memory
+    for module, (path, _, log) in zip(cuda_libs, results):
+        if module in (hg, nms_ops):
+            local = [line.strip() for line in log.splitlines()
+                     if "stack frame" in line and not re.search(
+                         r"\b0 bytes stack frame, 0 bytes spill stores, "
+                         r"0 bytes spill loads", line)]
+            check(not local, f"{path.name}: local memory or spills: {local[:2]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
-    return card, [path for path, _, _ in results[:3]]  # the CUDA libraries
+    return card, [path for path, _, _ in results[:len(cuda_libs)]]
 
 
 SASS_OPS = ("UTMALDG", "HGMMA", "HMMA", "LDGSTS")  # TMA, wgmma, mma.sync, cp.async
@@ -1013,11 +1025,94 @@ def f32_kernel_forward(model: ZUTIS, x: torch.Tensor, want: dict,
     return out
 
 
+# NMS on the card against a CPU rerun, relative to each score: gaussian's
+# weight differs by an ulp or so (the card divides by sigma as a product with
+# its reciprocal, and the two exps round differently); hard and linear run
+# the same f32 operations on both
+TOL_NMS_CPU = 1e-6
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, a NaN's payload aside."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+@contextlib.contextmanager
+def nms_inputs():
+    """Records the inputs of every selection (nms_rounds) that mask_nms
+    runs: (iou, areas, scores, category_ids, options)."""
+    real, seen = nms_ops.nms_rounds, []
+
+    def capture(iou, areas, scores, category_ids, **options):
+        seen.append((iou, areas, scores, category_ids, options))
+        return real(iou, areas, scores, category_ids, **options)
+
+    nms_ops.nms_rounds = capture
+    try:
+        yield seen
+    finally:
+        nms_ops.nms_rounds = real
+
+
+def check_nms_kernel(inputs: tuple, label: str) -> dict:
+    """The NMS kernel against its plain version on the same card tensors
+    (a selection's captured inputs), for every NMS type: keep equal, scores
+    bit-equal. {type: kept}."""
+    iou, areas, conf, cats, options = inputs
+    options = {k: v for k, v in options.items() if k != "nms_type"}
+    kept = {}
+    for nms_type in nms_ops.NMS_TYPES:
+        keep, out = nms_ops.nms_rounds(iou, areas, conf, cats,
+                                       nms_type=nms_type, **options)
+        want_keep, want_out = nms_ops.nms_rounds_reference(
+            iou, areas, conf, cats, nms_type=nms_type, **options)
+        torch.cuda.synchronize()
+        check(torch.equal(keep, want_keep) and same_bits(out, want_out),
+              f"{label}: the NMS kernel differs from its plain version "
+              f"({nms_type})")
+        kept[nms_type] = int(keep.sum())
+    print(f"{label}: NMS kernel equals its plain version on the card "
+          f"{list(conf.shape)} (keep equal, scores bit for bit), kept "
+          f"{json.dumps(kept)}", flush=True)
+    return kept
+
+
+def time_nms(inputs: tuple, masks: torch.Tensor, label: str) -> dict:
+    """The NMS kernel's device time on a selection's captured inputs beside
+    its bound (the IoU block and the per-candidate arrays read once, keep
+    and the scores written once), the plain rounds' device time in a CUDA
+    graph and their host time with a sync (what a call of the Python loop
+    costs), and pairwise_iou's device time on `masks`."""
+    iou, areas, conf, cats, options = inputs
+    b, q = conf.shape
+
+    def plain():
+        nms_ops.nms_rounds_reference(iou, areas, conf, cats, **options)
+
+    ms = cuda_ms(lambda: nms_ops.nms_rounds(iou, areas, conf, cats, **options))
+    plain_ms = cuda_ms(plain, calls=3, reps=5, warmup=1)
+    plain_host_ms = host_ms(plain, masks.device, reps=3, warmup=1)
+    iou_ms = cuda_ms(lambda: nms_ops.pairwise_iou(masks), calls=3, reps=5,
+                     warmup=1)
+    bound_ms = (iou.numel() * 4 + b * q * (4 + 4 + 8 + 1 + 4)) / 3.35e12 * 1e3
+    row = dict(shape=[b, q], ms=ms, plain_ms=plain_ms,
+               plain_host_ms=plain_host_ms, iou_ms=iou_ms, bound_ms=bound_ms,
+               bound_by="bytes",
+               iou_in_shared_memory=nms_ops.iou_in_shared_memory(q))
+    print(f"{label}: NMS kernel {[b, q]}: {ms:.4f} ms, bound {bound_ms:.6f} "
+          f"ms (bytes), plain rounds {plain_ms:.3f} ms on the card in a CUDA "
+          f"graph, {plain_host_ms:.3f} ms of host clock; pairwise_iou "
+          f"{iou_ms:.3f} ms", flush=True)
+    return row
+
+
 def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
                   n_categories: int = N_CATEGORIES, n_requests: int = 20,
                   device="cuda", launches_per_forward: int = LAUNCHES_PER_FORWARD,
                   dims_per_forward: dict = MAIN_DIMS, model=None,
-                  new_arch: bool = False) -> dict:
+                  new_arch: bool = False, nms_checks: bool = True) -> dict:
     """InferenceServer at full width: `cfg` is ZUTIS's keyword arguments
     (the model is `build_model`'s seeded one unless given); each batch
     forward must launch flash `launches_per_forward` times, by head dim
@@ -1025,7 +1120,10 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     to 64, 96 and 256) is held to its "torch" path's semantic agreement
     less 0.1 point where that falls below MIN_SEMANTIC_AGREEMENT on random
     weights (rounding, not the kernel), and also runs the f32 forward on
-    the kernel path against the f32 "torch" one (`f32_kernel_forward`)."""
+    the kernel path against the f32 "torch" one (`f32_kernel_forward`).
+    Every serving step must launch the NMS kernel once; `nms_checks` adds
+    the decode's CPU rerun for the soft NMS types (hard is always rerun),
+    the NMS kernel against its plain version on the card and its times."""
     device = torch.device(device)
     rng = np.random.RandomState(0)
     if model is None:
@@ -1045,7 +1143,8 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     threshold = float(torch.quantile(proposals.flatten()[::7].float(), 0.9))
     print(f"serving: threshold {threshold:.6f}", flush=True)
 
-    for w in (fa.flash_attention, *(w for w, _, _ in PROBES.values())):
+    for w in (fa.flash_attention, mask_nms,
+              *(w for w, _, _ in PROBES.values())):
         w.launches = 0
     fa.flash_attention.launches_by_dim = {}
     server = InferenceServer(model, text, image_size=image_size,
@@ -1057,11 +1156,13 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     server.stop()
     sync = server.infer(images[:BATCH])
     launches = fa.flash_attention.launches
+    nms_launches = mask_nms.launches
     by_dim = dict(fa.flash_attention.launches_by_dim)
     probe_launches = sum(w.launches for w, _, _ in PROBES.values())
     batches = server.batches
     print(f"serving: {len(results)} async + {len(sync)} sync requests in "
-          f"{batches} batch forwards, {launches} kernel launches", flush=True)
+          f"{batches} batch forwards, {launches} kernel launches, "
+          f"{nms_launches} NMS launches", flush=True)
 
     check(len(results) == n_requests, "not every request was answered")
     n_inst = 0
@@ -1088,6 +1189,8 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
         check(by_dim == {d: n * batches for d, n in dims_per_forward.items()},
               f"flash launches by head dim {by_dim} for {batches} batch "
               f"forwards, expected {dims_per_forward} each")
+        check(nms_launches == batches,
+              f"{nms_launches} NMS launches for {batches} serving steps")
 
     # the kernel path against the "torch" attention path on one batch, and
     # both against an f32 forward of the same (bf16-rounded) weights with
@@ -1152,25 +1255,39 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     check(agree_kf >= agree_tf - SEMANTIC_SLACK,
           "kernel path is further from the f32 forward than the torch path")
 
-    # the instance decode on the device against a CPU rerun
+    # the instance decode on the device against a CPU rerun, for every NMS
+    # type, and the NMS kernel against its plain version on the card
     binary = proposals > threshold
     check(bool(binary.any()), "no proposal pixel binarised")
-    decoded = []
-    for dev in (device, torch.device("cpu")):
-        with torch.inference_mode():
-            conf, cats = classify_proposals(
-                proposals.to(dev), binary.to(dev),
-                out_k["patch_tokens"].to(dev), text_d.to(dev),
-                server.temperature)
-            keep, scores = mask_nms(binary.to(dev), conf, cats,
-                                    nms_threshold=server.nms_threshold)
-        decoded.append((keep.cpu(), cats.cpu(), scores.cpu()))
-    (keep_d, cats_d, sc_d), (keep_c, cats_c, sc_c) = decoded
-    print(f"decode: {int(keep_d.sum())} kept on the device, "
-          f"{int(keep_c.sum())} on the CPU, score max diff "
-          f"{(sc_d - sc_c).abs().max().item():.3e}", flush=True)
-    check(torch.equal(keep_d, keep_c), "NMS keep differs between card and CPU")
-    check(torch.equal(cats_d, cats_c), "categories differ between card and CPU")
+    for nms_type in nms_ops.NMS_TYPES if nms_checks else ("hard",):
+        decoded = []
+        for dev in (device, torch.device("cpu")):
+            with torch.inference_mode():
+                conf, cats = classify_proposals(
+                    proposals.to(dev), binary.to(dev),
+                    out_k["patch_tokens"].to(dev), text_d.to(dev),
+                    server.temperature)
+                keep, scores = mask_nms(binary.to(dev), conf, cats,
+                                        nms_threshold=server.nms_threshold,
+                                        nms_type=nms_type)
+            decoded.append((keep.cpu(), cats.cpu(), scores.cpu()))
+        (keep_d, cats_d, sc_d), (keep_c, cats_c, sc_c) = decoded
+        rel = ((sc_d - sc_c).abs() / sc_c.abs().clamp(min=1e-30)).max().item()
+        print(f"decode {nms_type}: {int(keep_d.sum())} kept on the device, "
+              f"{int(keep_c.sum())} on the CPU, score max diff "
+              f"{(sc_d - sc_c).abs().max().item():.3e} ({rel:.3e} relative)",
+              flush=True)
+        check(torch.equal(keep_d, keep_c),
+              f"NMS {nms_type} keep differs between card and CPU")
+        check(torch.equal(cats_d, cats_c), "categories differ between card and CPU")
+        check(rel <= TOL_NMS_CPU, f"NMS {nms_type} scores differ between card "
+              f"and CPU by {rel:.3e} relative")
+    nms_row = None
+    if nms_checks and device.type == "cuda":
+        with torch.inference_mode(), nms_inputs() as seen:
+            server.step(x)
+        check_nms_kernel(seen[0], "serving")
+        nms_row = time_nms(seen[0], binary, "serving")
 
     # serving rate of the synchronous path, and where a batch's time goes
     rate_images = images[:2 * BATCH]
@@ -1184,9 +1301,15 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     per_batch = infer_ms / 2
     busy_ms, kernels, by_name = profile_device(lambda: server.step(x), device)
     flash_ms = sum(ms for k, (ms, _) in by_name.items() if "flash" in k)
+    step_kernels = sum(n for _, n in by_name.values())
+    step_nms = sum(n for k, (_, n) in by_name.items() if "nms_kernel" in k)
+    print(f"serving: the step runs {step_kernels} kernels, {step_nms} of them "
+          "the NMS kernel", flush=True)
     stats = dict(img_per_s=len(rate_images) / (infer_ms / 1e3),
                  ms_per_batch=per_batch, forward_ms=fwd_ms, step_ms=step_ms,
                  forward_torch_attention_ms=fwd_torch_ms, launches=launches,
+                 nms_launches=nms_launches, nms=nms_row,
+                 step_kernels=step_kernels, step_nms_kernels=step_nms,
                  launches_by_dim=by_dim, f32_kernel_forward=f32_check,
                  semantic_floor=floor,
                  batches=batches, instances=n_inst, step_device_busy_ms=busy_ms,
@@ -1475,7 +1598,8 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
         thr = _threshold(model.forward_padded(x, grid)["mask_proposals"][:, -1])
     print(f"eval: threshold {thr:.6f}", flush=True)
 
-    counted = (fa.flash_attention, *(w for w, _, _ in PROBES.values()))
+    counted = (fa.flash_attention, mask_nms,
+               *(w for w, _, _ in PROBES.values()))
     for w in counted:
         w.launches = 0
     fa.flash_attention.masked_launches = 0
@@ -1485,14 +1609,18 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     wall = time.perf_counter() - t0
     launches = fa.flash_attention.launches
     masked = fa.flash_attention.masked_launches
+    nms_launches = mask_nms.launches
     probe_launches = sum(w.launches for w, _, _ in PROBES.values())
     batches = EVAL_IMAGES // EVAL_BATCH
     print(f"eval: evaluate_instances on {EVAL_IMAGES} images: {len(preds)} "
           f"predictions in {wall:.2f} s, {launches} flash launches "
-          f"({masked} masked) for {batches} padded forwards", flush=True)
+          f"({masked} masked) and {nms_launches} NMS launches for {batches} "
+          "padded forwards", flush=True)
     check(launches == EVAL_LAUNCHES * batches,
           f"{launches} flash launches for {batches} padded forwards, expected "
           f"{EVAL_LAUNCHES} each")
+    check(nms_launches == batches,
+          f"{nms_launches} NMS launches for {batches} eval steps")
     check(masked == EVAL_MASKED_LAUNCHES * batches,
           f"{masked} masked flash launches, expected {EVAL_MASKED_LAUNCHES} "
           "a forward (12 encoder, 6 cross)")
@@ -1519,7 +1647,11 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     stream = torch.cuda.Stream(device)
     with torch.inference_mode():
         out = model.forward_padded(x, grid)
-        res = BE.decode_instances(out, text_d, pix, EVAL_SHAPE, thr)
+        with nms_inputs() as seen:
+            res = BE.decode_instances(out, text_d, pix, EVAL_SHAPE, thr)
+        nms_kept = check_nms_kernel(seen[0], "eval")
+        nms_row = time_nms(seen[0], res["masks"], "eval")
+        del seen
         forward_ms = host_ms(lambda: model.forward_padded(x, grid), device, reps=5)
         decode_ms = host_ms(lambda: BE.decode_instances(
             out, text_d, pix, EVAL_SHAPE, thr), device, reps=5)
@@ -1537,12 +1669,16 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     step(padded, grid, pix)
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    busy_ms, kernels, _ = profile_device(lambda: step(padded, grid, pix), device)
+    busy_ms, kernels, by_name = profile_device(lambda: step(padded, grid, pix),
+                                               device)
     rates = {f"depth {d}": eval_bench.run(
         EVAL_BATCH, "counts", 12, d, device, model=model, threshold=thr)["value"]
         for d in (1, 2)}
     stats = dict(img_per_s=rates, forward_ms=forward_ms, decode_ms=decode_ms,
-                 nms_ms=nms_ms, assembly_ms=assembly_ms, step_ms=step_ms,
+                 nms_ms=nms_ms, nms=nms_row, nms_kept=nms_kept,
+                 nms_launches=nms_launches,
+                 step_kernels=sum(n for _, (_, n) in by_name.items()),
+                 assembly_ms=assembly_ms, step_ms=step_ms,
                  step_device_busy_ms=busy_ms, step_top_kernels=kernels,
                  peak_memory_gib=peak_gib, threshold=thr, launches=launches,
                  masked_launches=masked, batches=batches,
@@ -2256,6 +2392,9 @@ def phase_levers_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
                   f"{batches} batch forwards")
             check(sum(counts[p] for p in PROBES) == 0,
                   f"{key}: serving launched a probe kernel")
+            check(counts["mask_nms"] == batches,
+                  f"{key}: {counts['mask_nms']} NMS launches for {batches} "
+                  "serving steps")
         agree_kf, agree_tf, differ = _semantic_agreement(model, ref, x,
                                                          text_d)
         print(f"levers serving {key}: {batches} batch forwards, "
@@ -2292,6 +2431,7 @@ def phase_levers_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
             flash_in_step_ms=sum(ms for k, (ms, _) in by_name.items()
                                  if "flash" in k),
             launches=counts["flash_attention"], biased_launches=biased,
+            nms_launches=counts["mask_nms"],
             batches=batches, agreement_kernel_f32=agree_kf,
             agreement_torch_f32=agree_tf, f32_blocks_merging_otherwise=differ,
             kept=int(keep_d.sum()))
@@ -2369,6 +2509,8 @@ def phase_levers_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
               f"{masked} masked and {biased} biased launches: expected 18 "
               "and 18 a forward (12 encoder, 6 pooled cross)")
         check(sum(counts[p] for p in PROBES) == 0, "the eval launched a probe")
+        check(counts["mask_nms"] == batches,
+              f"{counts['mask_nms']} NMS launches for {batches} eval steps")
     check(len(preds) > 0, "evaluate_instances returned no prediction")
     rate = eval_bench.run(EVAL_BATCH, "counts", 12, 1, device, model=model,
                           threshold=thr)["value"]
@@ -2381,6 +2523,7 @@ def phase_levers_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     torch.cuda.empty_cache()
     return dict(img_per_s_depth_1=rate, launches=counts["flash_attention"],
                 masked_launches=masked, biased_launches=biased,
+                nms_launches=counts["mask_nms"],
                 batches=batches, predictions=len(preds),
                 f32_check=dict(worst, merges_differ=differ),
                 step_device_busy_ms=busy, step_top_kernels=top,
@@ -4515,7 +4658,7 @@ def phase_encoders(device="cuda", archs=None, image_size: int = IMAGE_SIZE,
             res["serving"] = phase_serving(
                 cfg, size, n_categories, ENCODER_REQUESTS, device,
                 launches_per_forward=per_forward, dims_per_forward=by_dim,
-                model=model, new_arch=new_arch)
+                model=model, new_arch=new_arch, nms_checks=False)
             if on_card:
                 res["serving"]["peak_memory_gib"] = (
                     torch.cuda.max_memory_allocated(device) / 2 ** 30)
@@ -4860,6 +5003,40 @@ def main() -> None:
         "host_yardstick_ms": matcher["scipy_ms"],  # scipy, 48 problems
         "in_step_ms": tr["matcher_in_step_ms"],
         "shape": matcher["shape"],
+    })
+    nms_by_path = {
+        "serving": stats["nms_launches"],
+        "eval": ev["nms_launches"],
+        "levers_serving": sum(r["nms_launches"]
+                              for r in lev["serving"].values()),
+        "levers_eval": lev["eval"]["nms_launches"],
+        "encoders_serving": {label: res["serving"]["nms_launches"]
+                             for label, res in enc.items()
+                             if isinstance(res, dict) and "serving" in res},
+        "trainer": trainer["launches"]["mask_nms"],
+        "cli_train": cli["launches"]["mask_nms"],
+        "cli_resumed": cli["resumed_launches"]["mask_nms"],
+        "cli_eval": {d: e["mask_nms"] for d, e in cli["eval_launches"].items()},
+    }
+    kernels.append({
+        "name": "mask_nms",
+        "route": "cuda",
+        "source": "zutis_tpu_torch/csrc/nms.cu",
+        "replaces": "zutis_tpu/ops/nms.py:58",
+        # one a serving or eval step, each path counted from 0
+        "launches": sum(sum(n.values()) if isinstance(n, dict) else n
+                        for n in nms_by_path.values()),
+        "launches_by_path": nms_by_path,
+        "max_abs_err": 0.0,  # keep equal, scores bit-equal to the plain rounds
+        # one call on a serving step's [8, 100] selection
+        "ms": stats["nms"]["ms"],
+        "plain_ms": stats["nms"]["plain_ms"],
+        "bound_ms": stats["nms"]["bound_ms"],
+        "bound_by": stats["nms"]["bound_by"],
+        "library_ms": None,  # no PyTorch call runs greedy NMS
+        "plain_host_ms": stats["nms"]["plain_host_ms"],
+        "shape": stats["nms"]["shape"],
+        "eval": ev["nms"],  # the eval step's [32, 100]
     })
     print("tune runs: " + json.dumps(
         [{k: r[k] for k in ("variant", "exp_mode", "dots_only", "max_err", "ms")}

@@ -2,7 +2,8 @@
 library is keyed by a digest of its source, the headers beside it and the
 compiler's flags, so an edit to a header alone rebuilds every library that
 includes it. For the CUDA sources no nvcc is needed: only the digest is
-computed (both include the shared header, so each test runs for each). The
+computed (the three that include the shared header: each test runs for
+each). The
 host C++ source (the RLE codec) is built with g++ here: a missing g++ or a
 failed build raises, and six processes loading it at once from an empty
 build directory all get a working library."""
@@ -16,7 +17,7 @@ import pytest
 
 from zutis_tpu_torch.ops import _build
 
-SOURCES = ["attention_probes.cu", "flash_attention.cu"]
+SOURCES = ["attention_probes.cu", "flash_attention.cu", "nms.cu"]
 REPO = Path(__file__).resolve().parents[1]
 
 

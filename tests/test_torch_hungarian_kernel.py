@@ -9,8 +9,8 @@ machine with a card and no JAX:
 
 The kernel runs the plain version's f32 operations in the same order with
 no multiply to contract, so col4row must be equal bit for bit, also on
-integer costs full of ties and on padded rows; a cost set with NaN must
-terminate."""
+integer costs full of ties and on padded rows, at every number of columns
+a lane holds (C = 1 to 1024); a cost set with NaN must terminate."""
 import numpy as np
 import pytest
 import torch
@@ -24,7 +24,15 @@ SETS = {  # name -> [P, R, C], as the training step's 48 problems of 10 x 100
     "padded rows": (48, 10, 100),
     "square": (16, 33, 33),
     "wide": (8, 12, 1024),
-    "large shared memory": (4, 64, 300),  # 77 KB: above the 48 KB default
+    "large shared memory": (4, 64, 300),  # 80 KB: above the 48 KB default
+    # every columns-per-lane instantiation (1, 2, 4, 8, 16, 32), square
+    # problems among them
+    "one column": (16, 1, 1),
+    "square 31": (16, 31, 31),
+    "33 columns": (16, 5, 33),
+    "square 129": (4, 129, 129),
+    "129 columns": (8, 10, 129),
+    "1024 columns, 50 rows": (2, 50, 1024),  # 218 KB of shared memory
 }
 
 
@@ -110,4 +118,5 @@ def test_source_carries_its_note_and_c_interface():
     src = (_build.CSRC / "hungarian.cu").read_text()
     assert "zutis_tpu/ops/hungarian.py" in src and "Bound:" in src
     assert "int zutis_hungarian(" in src
+    assert "one warp a problem" in src and "__syncthreads" not in src
     assert "const char* zutis_cuda_error_string(" in src

@@ -1,7 +1,9 @@
 """The port's instance decode and RLE codec against the JAX package:
 classify_proposals and predict_semantic (f32 at rtol/atol 1e-6, summation
 order), mask_nms for all three NMS types on hand-made overlapping proposals
-(`keep` equal, scores at 1e-6), and the RLE codec (strings equal)."""
+(`keep` equal, scores at 1e-6), its selection rounds' plain version fed
+with JAX's own IoU (the same tolerance, sets whose candidates run out
+before round Q and a NaN score), and the RLE codec (strings equal)."""
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,7 @@ from zutis_tpu.ops.nms import mask_nms as jmask_nms
 from zutis_tpu.postproc.instance import classify_proposals as jclassify
 from zutis_tpu.postproc.instance import predict_semantic as jpredict_semantic
 from zutis_tpu_torch.ops import rle as trle
-from zutis_tpu_torch.ops.nms import mask_nms, pairwise_iou
+from zutis_tpu_torch.ops.nms import mask_nms, nms_rounds_reference, pairwise_iou
 from zutis_tpu_torch.postproc.instance import classify_proposals, predict_semantic
 
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -74,6 +76,51 @@ def test_mask_nms_matches_jax(nms_type, seed):
     np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
     assert keep.any() and not keep[:, -1].any()
+
+
+def _jax_iou(masks):
+    """zutis_tpu/ops/nms.py's IoU, batched: int8 intersections in int32."""
+    m8 = jnp.asarray(masks).astype(jnp.int8)
+    inter = jnp.einsum("bqhw,bphw->bqp", m8, m8,
+                       preferred_element_type=jnp.int32).astype(jnp.float32)
+    areas = jnp.diagonal(inter, axis1=1, axis2=2)
+    union = areas[:, :, None] + areas[:, None, :] - inter
+    iou = jnp.where(union > 0, inter / jnp.maximum(union, 1e-12), 0.0)
+    return np.array(iou), np.array(areas)
+
+
+@pytest.mark.parametrize("nms_type", ["hard", "linear", "gaussian"])
+@pytest.mark.parametrize("seed", [0, 1, 2, "nan"])
+def test_nms_rounds_reference_on_jax_iou_matches_jax(nms_type, seed):
+    """The plain rounds (the kernel's yardstick on the card) against the
+    JAX fori_loop: with category 0 and empty masks, each image runs out of
+    candidates before round Q; a live NaN score wins every round and is
+    never selected, so its image keeps nothing."""
+    b, q, h, w = 4, 24, 16, 16
+    masks = _boxes(0 if seed == "nan" else seed, b, q, h, w)
+    masks[:, ::5] = False
+    rng = np.random.RandomState(200 + (7 if seed == "nan" else seed))
+    scores = rng.rand(b, q).astype(np.float32)
+    scores[:, 3] = 0.0005  # below the floor from the start: still selectable
+    cats = rng.randint(0, 4, (b, q))
+    if seed == "nan":
+        scores[0, 6], cats[0, 6] = np.nan, 2  # live
+        scores[1, 7], cats[1, 7] = np.nan, 0  # never live
+    iou, areas = _jax_iou(masks)
+    keep, out = nms_rounds_reference(
+        *map(torch.from_numpy, (iou, areas, scores, cats)), nms_type=nms_type)
+    jkeep, jout = jax.vmap(lambda m, s, c: jmask_nms(m, s, c, nms_type=nms_type))(
+        *map(jnp.asarray, (masks, scores, cats)))
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), equal_nan=True,
+                               **TOL)
+    eligible = (cats != 0) & (areas > 0)
+    assert (keep.numpy().sum(1) < q).all() and (eligible.sum(1) < q).all()
+    assert not keep.numpy()[~eligible].any()
+    if seed == "nan":
+        assert not keep[0].any() and keep[1].any()
+    else:
+        assert keep.any()
 
 
 def test_pairwise_iou_counts_are_exact_past_tf32_range():

@@ -6,7 +6,7 @@ The port of zutis_tpu/ops/hungarian.py (`hungarian`, `batched_hungarian`),
 which runs the matcher on the device inside the training step with two
 `lax.while_loop`s. In eager PyTorch those data-dependent loops would need a
 host sync per iteration, so on a card one kernel solves every problem, one
-block each, with no host round trip.
+warp each, with no host round trip.
 
 Rows are inserted one at a time; each insertion is a Dijkstra search over
 reduced costs that adds one column per step (the unscanned column of least
@@ -29,7 +29,7 @@ from zutis_tpu_torch.ops import _build
 
 SOURCE = _build.CSRC / "hungarian.cu"
 STEM = "libzutis_hungarian"
-MAX_COLS = 1024  # one thread a column
+MAX_COLS = 1024  # 32 columns a lane, in registers
 
 
 def build():
