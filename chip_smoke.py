@@ -81,8 +81,8 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
   8. The Trainer at the shipped config
      (configs/coco2017_val_imagenet_pass_n500_vit_b_16.yaml through the
      port's Config.load: ViT-B/16, 384 px, batch 8, 81 categories,
-     ignore_index 255, bf16; mesh_axes dropped) over 6 iterations of
-     seeded batches, logging at 2, 4, 6 and evaluating and checkpointing
+     ignore_index 255, bf16; mesh_axes dropped here, a mesh of one in
+     phase 14) over 6 iterations of seeded batches, logging at 2, 4, 6 and evaluating and checkpointing
      the full state at 3 and 6 (16 in-memory coco2017 images at the eval
      bench's native sizes, COCO scoring against their box annotations),
      every launch count set to 0 before and read after (24 flash launches
@@ -209,6 +209,22 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
      moved); dilatedRN50's batch forward (attnpool over 1 + 12 x 12 tokens,
      the cross over 144 keys, 13 launches); build_zutis("RN50") at its
      default f32 on the kernel path (13 launches) against the torch path.
+
+ 14. The parallel layer (`phase_parallel`, at the end of phase 11, on its
+     fixture): this script under `python -m torch.distributed.run
+     --standalone --nproc_per_node 1` (`--parallel <job.json>`: one rank,
+     NCCL), with every launch count set to 0 before each part and read
+     after: the training CLI on phase 11's YAML with `mesh_axes: {data: 1,
+     model: 1}`, its final parameters held against phase 11's straight run
+     within 4 x phase 8's spread of two runs without a mesh; the training
+     step at phase 7's configuration with and without the mesh (two models
+     from one seed), in turns, a warm-up and 5 steps each, the first
+     losses equal to 1e-6; InferenceServer with `mesh=` (16 queued
+     requests, 8 synchronous) against the server without, equal to the
+     bit; `topk_sharded` against `topk_local` over phase 9's seeded 80 x
+     2,721,167 x 768 bank (seeded text), indices and values equal, both
+     timed; ring and Ulysses attention at [8,12,577,64] bf16 against dense
+     attention (8e-3 of the largest |output|), Ulysses' one flash launch.
 
 Prints the kernel record (flash's launches on the main paths, its eval,
 retrieval, SelfMask, lever and encoder shapes; each instantiation past d 64
@@ -2599,7 +2615,7 @@ def phase_levers(device="cuda") -> dict:
 # the Trainer at the shipped config configs/coco2017_val_imagenet_pass_n500_
 # vit_b_16.yaml (ViT-B/16, 384 px, batch 8, coco81, ignore_index 255, bf16),
 # with a 6-iteration schedule that logs, evaluates and checkpoints twice;
-# mesh_axes dropped (ROADMAP.md, queue 1, item 6)
+# mesh_axes dropped (phase_parallel trains the CLI on a mesh of one)
 TRAINER_CONFIG = Path(__file__).resolve().parent / "configs" / (
     "coco2017_val_imagenet_pass_n500_vit_b_16.yaml")
 TRAINER_SCHEDULE = dict(n_iters=6, iter_log=2, iter_eval=3,
@@ -3112,7 +3128,7 @@ def generation_record():
 
 
 def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
-              model_kwargs=None, image_size: int = 0) -> dict:
+              model_kwargs=None, image_size: int = 0, parallel=None) -> dict:
     """The two CLIs on images from disk, fed by phase_retrieval. The
     decoder against Pillow's pinned hashes; the loader's rates over the
     images combined_retrieval chose; `cli.main.main` training 6 iterations
@@ -3123,8 +3139,10 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
     phase_retrieval's), its artifacts, and the run resumed from step 3
     (which reads the cache) against the straight one;
     `cli.coco20k_eval.main` on the trained final_model.npz, batched at
-    depth 1 and 2. `model_kwargs` and `image_size` shrink the model for a
-    rehearsal on the CPU, where the card's checks are left out."""
+    depth 1 and 2; then `parallel(root, cfg_fp, straight final parameters,
+    phase_trainer's spread)` where given (phase_parallel). `model_kwargs`
+    and `image_size` shrink the model for a rehearsal on the CPU, where the
+    card's checks are left out."""
     from zutis_tpu_torch.cli import coco20k_eval as cli_eval
     from zutis_tpu_torch.cli import main as cli_main
     from zutis_tpu_torch.core.config import checkpoint_dir
@@ -3357,6 +3375,10 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
         print(f"cli: eval: coco20k_eval on {CLI_VAL_IMAGES} JPEGs, "
               f"{json.dumps({f'depth {d}': r for d, r in eval_rates.items()})}"
               f" img/s; AP {res['AP']:.4f}", flush=True)
+        par = None
+        if parallel is not None:
+            par = parallel(root, cfg_fp, straight,
+                           trainer_stats.get("straight_spread", 0.0))
 
     rate = logs[-1]["iters_per_sec"]
     out = dict(decoder=decoder, loader=loader, fit_s=fit_s,
@@ -3376,7 +3398,7 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
                eval_launches=eval_launches, resume_max_diff=diff,
                resume_s=resume_s, losses=[r["loss"] for r in logs],
                peak_memory_gib=peak_gib, val_forwards_per_eval=forwards,
-               phase_s=time.perf_counter() - t_phase)
+               parallel=par, phase_s=time.perf_counter() - t_phase)
     print(f"cli rate: fit {rate:.3f} iters/s on batches from disk against "
           f"{out['trainer_fit_iters_per_sec']} on synthetic batches "
           f"(phase_trainer, same schedule; bare step "
@@ -3632,6 +3654,18 @@ def _topk_swaps(idx, idx_cpu, vals_cpu, bank_cpu, text_cpu) -> int:
     return swaps
 
 
+def topk_bank(n_rows: int, dim: int, device, seed: int) -> torch.Tensor:
+    """A seeded unit-norm [n_rows, dim] bank made on the device, its last
+    TOPK_SHARED rows copies of its first (images both archives hold)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bank = torch.randn(n_rows, dim, generator=gen, device=device)
+    bank /= torch.linalg.vector_norm(bank, dim=1, keepdim=True)
+    shared = min(TOPK_SHARED, n_rows // 4)
+    bank[n_rows - shared:] = bank[:shared]
+    _sync(device)
+    return bank
+
+
 def time_topk(name, text, n_rows, device, seed) -> dict:
     """Top-k over a seeded unit-norm bank of `n_rows` x 768 made on the
     device, its last TOPK_SHARED rows copies of its first (images both
@@ -3640,12 +3674,7 @@ def time_topk(name, text, n_rows, device, seed) -> dict:
     from zutis_tpu_torch.retrieval.bank import topk_local
 
     on_card = device.type == "cuda"
-    gen = torch.Generator(device=device).manual_seed(seed)
-    bank = torch.randn(n_rows, text.shape[1], generator=gen, device=device)
-    bank /= torch.linalg.vector_norm(bank, dim=1, keepdim=True)
-    shared = min(TOPK_SHARED, n_rows // 4)
-    bank[n_rows - shared:] = bank[:shared]
-    _sync(device)
+    bank = topk_bank(n_rows, text.shape[1], device, seed)
     peak = None
     if on_card:
         torch.cuda.empty_cache()
@@ -4780,7 +4809,316 @@ def encoder_kernel_entries(enc: dict, flash_occ: dict, sass: dict) -> list:
     return entries
 
 
+# -------------------------------------------------------------- parallel
+
+PARALLEL_MESH = {"data": 1, "model": 1}  # one card: NCCL at world size 1
+PARALLEL_TURNS = ("plain", "mesh", "mesh", "plain")
+PARALLEL_STEPS = 5  # a turn: a warm-up step, then 5 back to back
+PARALLEL_REQUESTS = 16  # two batch forwards, and one synchronous infer
+PARALLEL_TOPK = (80, IMAGENET_TRAIN_ROWS + PASS_ROWS, 768, 30)  # C, N, D, seed
+SP_SHAPE = (8, 12, 577, 64)  # the serving encoder's self-attention
+TOL_SP_BF16 = 8e-3  # of the largest |output|, as flash's bf16 checks
+PARALLEL_TIMEOUT = 900
+
+
+def parallel_job(root: Path, cfg_fp: Path, device, model_cfg=VIT_B16,
+                 image_size: int = IMAGE_SIZE, n_categories: int = N_CATEGORIES,
+                 topk=PARALLEL_TOPK, sp_shape=SP_SHAPE) -> dict:
+    """phase_parallel's job: phase_cli's YAML with `mesh_axes` of one, and
+    the shapes of the step, the server, the top-k and the attentions."""
+    from zutis_tpu_torch.core.config import parse_yaml
+
+    raw = parse_yaml(cfg_fp.read_text())
+    raw.update(mesh_axes=PARALLEL_MESH, dir_ckpt=str(root / "ckpt_mesh"))
+    mesh_fp = root / "cli_mesh.yaml"
+    mesh_fp.write_text("".join(f"{k}: {json.dumps(v)}\n"
+                               for k, v in raw.items()))
+    check(parse_yaml(mesh_fp.read_text()) == raw, "the mesh YAML reads back")
+    return {"device": str(device), "out": str(root),
+            "cli_args": ["--p_config", str(mesh_fp), "--device", str(device)],
+            "cli_config": str(mesh_fp), "model": model_cfg,
+            "image_size": image_size, "n_categories": n_categories,
+            "topk": list(topk), "sp_shape": list(sp_shape)}
+
+
+def phase_parallel(root: Path, cfg_fp: Path, straight: dict, spread: float,
+                   device="cuda", **job_kw) -> dict:
+    """The parallel layer at world size 1: this script under `python -m
+    torch.distributed.run --standalone --nproc_per_node 1` (NCCL on a
+    card, gloo on the CPU), `parallel_rank` running the training CLI on
+    phase_cli's YAML with `mesh_axes: {data: 1, model: 1}`, the training
+    step with and without the mesh in turns, the server on the mesh
+    against the server without, `topk_sharded` against `topk_local` over
+    the retrieval phase's seeded bank, ring and Ulysses attention against
+    dense attention. Here: the CLI's final parameters against phase_cli's
+    straight run, within RESUME_SPREAD_FACTOR x what two runs without a
+    mesh differ by (`spread`; bit-equal where that is 0)."""
+    t_phase = time.perf_counter()
+    device = torch.device(device)
+    out = root / "parallel"
+    out.mkdir()
+    job = parallel_job(out, cfg_fp, device, **job_kw)
+    job_fp = out / "job.json"
+    job_fp.write_text(json.dumps(job))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the rank's process has the card to fill
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", str(Path(__file__).resolve()),
+         "--parallel", str(job_fp)],
+        capture_output=True, text=True, timeout=PARALLEL_TIMEOUT,
+        cwd=Path(__file__).resolve().parent)
+    for line in proc.stdout.splitlines():
+        if line.startswith("parallel"):
+            print(line, flush=True)
+    check(proc.returncode == 0, "phase_parallel's rank failed:\n"
+          + proc.stdout[-3000:] + proc.stderr[-6000:])
+    res = json.loads((out / "result.json").read_text())
+
+    from zutis_tpu_torch.core.config import checkpoint_dir
+
+    final = os.path.join(checkpoint_dir(Config.load(job["cli_config"])),
+                         "final_model.npz")
+    with np.load(final) as f:
+        check(set(f.files) == set(straight), "the mesh run's final_model.npz "
+              "holds other parameters")
+        diff = max(float(np.abs(f[k] - v).max()) for k, v in straight.items())
+    bound = RESUME_SPREAD_FACTOR * spread
+    print(f"parallel: cli: mesh_axes {PARALLEL_MESH} under torchrun on "
+          f"{res['backend']}: final parameters differ from phase_cli's "
+          f"straight run by {diff:.3e}; two runs without a mesh "
+          f"(phase_trainer's) by {spread:.3e}, bound "
+          f"{'0 (bit-equal)' if spread == 0 else f'{bound:.3e}'}", flush=True)
+    check(diff <= bound if spread > 0 else diff == 0.0,
+          "the training CLI on a mesh of one left the straight runs' spread")
+    res["cli"].update(max_diff=diff, straight_spread=spread)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"parallel: phase {res['phase_s']:.1f} s (the rank's process "
+          f"{res['rank_s']:.1f} s)", flush=True)
+    return res
+
+
+def _parallel_step_turns(mesh, job, device) -> dict:
+    """The training step at phase_train's configuration with and without
+    the mesh (two models from one seed), in turns: a warm-up step, then
+    PARALLEL_STEPS back to back and one read of the loss."""
+    from zutis_tpu_torch.parallel import shard_model
+
+    cfg, n_cat = job["model"], job["n_categories"]
+    text, host = train_batch(cfg, job["image_size"], TRAIN_BATCH, TRAIN_N_MAX,
+                             TRAIN_VALID, n_cat)
+    data = upload_batch(host, device)
+    runs = {}
+    for name in ("plain", "mesh"):
+        model = ZUTIS(**cfg, dtype=torch.bfloat16, device=device).init_params(
+            torch.Generator().manual_seed(0))
+        if name == "mesh":
+            shard_model(model, mesh)
+        state = TrainState.create(model, base_lr=TRAIN_LR, n_iters=TRAIN_ITERS)
+        runs[name] = (state, make_train_step(
+            model, text, n_cat, ignore_index=TRAIN_IGNORE, device=device))
+    step_ms = {name: [] for name in runs}
+    first_loss, launches = {}, {name: [] for name in runs}
+    for name in PARALLEL_TURNS:
+        state, step = runs[name]
+        zero_counts()
+        m = step(state, data)
+        first_loss.setdefault(name, m["loss"].item())
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(PARALLEL_STEPS):
+            m = step(state, data)
+        m["loss"].item()
+        step_ms[name].append((time.perf_counter() - t0) * 1e3 / PARALLEL_STEPS)
+        launches[name].append(read_counts()[0])
+        check(np.isfinite(m["loss"].item()), f"{name} step: non-finite loss")
+        if device.type == "cuda":
+            n = launches[name][-1]
+            check(n["flash_attention"] == LAUNCHES_PER_FORWARD
+                  * (PARALLEL_STEPS + 1) and n["batched_hungarian"]
+                  == PARALLEL_STEPS + 1, f"{name} steps' launches {n}")
+    rel = abs(first_loss["mesh"] - first_loss["plain"]) / abs(first_loss["plain"])
+    print(f"parallel: step: {TRAIN_BATCH} x {job['image_size']} px, "
+          f"{PARALLEL_STEPS} steps a turn in turns {'/'.join(PARALLEL_TURNS)}:"
+          f" ms a step {json.dumps(step_ms)}; first losses {first_loss['plain']}"
+          f" without, {first_loss['mesh']} on the mesh (rel {rel:.3e})",
+          flush=True)
+    check(rel <= 1e-6, "the first step's loss differs on the mesh")
+    del runs
+    return dict(step_ms=step_ms, first_loss=first_loss, launches=launches)
+
+
+def _parallel_serve(mesh, job, device) -> dict:
+    """InferenceServer with `mesh=` (queued, then sync) against the server
+    without, on one seeded model at the serving shapes."""
+    from zutis_tpu_torch.tools.parallel_check import _same_results
+
+    cfg, size = job["model"], job["image_size"]
+    model = build_model(cfg, device)
+    rng = np.random.RandomState(0)
+    text = rng.randn(job["n_categories"], cfg["text_dim"]).astype(np.float32)
+    text /= np.linalg.norm(text, axis=1, keepdims=True)
+    images = [rng.randn(3, size, size).astype(np.float32)
+              for _ in range(PARALLEL_REQUESTS)]
+    with torch.inference_mode():
+        proposals = model(torch.from_numpy(np.stack(images[:BATCH])).to(
+            device), inference=True)["mask_proposals"][:, -1]
+    kw = dict(image_size=size, batch_size=BATCH, max_wait_ms=50,
+              threshold=float(torch.quantile(
+                  proposals.flatten()[::7].float(), 0.9)))
+    want = InferenceServer(model, text, device=device, **kw).infer(images)
+    served = InferenceServer(model, text, mesh=mesh, **kw)
+    zero_counts()
+    served.start()
+    futures = [served.submit(im) for im in images]
+    queued = [f.result(timeout=600) for f in futures]
+    served.stop()
+    sync = served.infer(images[:BATCH])
+    launches = read_counts()[0]
+    res = dict(queued=_same_results(queued, want),
+               sync=_same_results(sync, want[:BATCH]),
+               batches=served.batches, launches=launches)
+    print(f"parallel: serve: {PARALLEL_REQUESTS} queued + {BATCH} sync "
+          f"requests on the mesh in {served.batches} batch forwards "
+          f"({json.dumps(launches)}) against the server without: "
+          f"{json.dumps({k: res[k] for k in ('queued', 'sync')})}",
+          flush=True)
+    for api in ("queued", "sync"):
+        r = res[api]
+        check(r["semantic_agreement"] == 1.0 and r["same_instances"]
+              and r["max_score_diff"] == 0.0,
+              f"the server on the mesh ({api}) differs from the one without")
+    if device.type == "cuda":
+        check(launches["flash_attention"] == LAUNCHES_PER_FORWARD
+              * served.batches and launches["mask_nms"] == served.batches,
+              f"the mesh server's launches {launches}")
+    return res
+
+
+def _parallel_topk(mesh, job, device) -> dict:
+    """`topk_sharded` on the mesh against `topk_local` over the retrieval
+    phase's seeded bank (seeded text in place of its prompt embeddings)."""
+    from zutis_tpu_torch.retrieval.bank import topk_local, topk_sharded
+
+    n_cat, n_rows, dim, seed = job["topk"]
+    bank = topk_bank(n_rows, dim, device, seed)
+    g = torch.Generator(device=device).manual_seed(25)
+    text = torch.randn(n_cat, dim, generator=g, device=device)
+    text /= torch.linalg.vector_norm(text, dim=1, keepdim=True)
+    vals, idx = topk_sharded(text, bank, TOPK_K, mesh)
+    lv, li = topk_local(text, bank, TOPK_K)
+    equal = bool(np.array_equal(idx, li.cpu().numpy()))
+    same_vals = bool(np.array_equal(vals, lv.cpu().numpy()))
+    ms = host_ms(lambda: topk_sharded(text, bank, TOPK_K, mesh), device,
+                 reps=5, warmup=1)
+    local_ms = host_ms(lambda: topk_local(text, bank, TOPK_K), device,
+                       reps=5, warmup=1)
+    print(f"parallel: topk: top-{TOPK_K} of {n_cat} categories over "
+          f"{n_rows} x {dim}: topk_sharded {ms:.3f} ms, topk_local "
+          f"{local_ms:.3f} ms; indices equal {equal}, values equal "
+          f"{same_vals}", flush=True)
+    check(equal and same_vals, "topk_sharded differs from topk_local")
+    del bank
+    return dict(ms=ms, local_ms=local_ms, rows=n_rows, categories=n_cat,
+                k=TOPK_K, indices_equal=equal)
+
+
+def _parallel_sp(mesh, job, device) -> dict:
+    """Ring and Ulysses attention over the model axis against dense
+    attention (ops/attention.py) at the serving encoder's shape in bf16;
+    Ulysses' flash launches counted."""
+    from zutis_tpu_torch.ops.attention import dot_product_attention
+    from zutis_tpu_torch.parallel import sp
+
+    b, h, s, d = job["sp_shape"]
+    g = torch.Generator(device=device).manual_seed(26)
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device=device).to(
+        torch.bfloat16) for _ in range(3))
+    with torch.no_grad():
+        dense = dot_product_attention(q, k, v).float()
+    ring_fn, ulysses_fn = (sp.make_ring_attention(mesh),
+                           sp.make_ulysses_attention(mesh))
+    ring = ring_fn(q, k, v).float()
+    zero_counts()
+    ulysses = ulysses_fn(q, k, v).float()
+    launches = read_counts()[0]["flash_attention"]
+    top = float(dense.abs().max())
+    err = {"ring": float((ring - dense).abs().max()) / top,
+           "ulysses": float((ulysses - dense).abs().max()) / top}
+    ms = {"ring": host_ms(lambda: ring_fn(q, k, v), device),
+          "ulysses": host_ms(lambda: ulysses_fn(q, k, v), device),
+          "dense": host_ms(lambda: dot_product_attention(q, k, v), device)}
+    print(f"parallel: sp: {[b, h, s, d]} bf16: error of the largest |output| "
+          f"{json.dumps(err)} (bound {TOL_SP_BF16}); Ulysses' flash launches "
+          f"{launches}; ms {json.dumps(ms)}", flush=True)
+    check(max(err.values()) <= TOL_SP_BF16, "ring or Ulysses left dense "
+          "attention")
+    if device.type == "cuda":
+        check(launches == 1, f"Ulysses launched flash {launches} times")
+    return dict(max_rel_err=err, ulysses_flash_launches=launches, ms=ms,
+                shape=[b, h, s, d])
+
+
+def parallel_rank(job_fp: Path) -> None:
+    """One rank of phase_parallel, under torchrun; writes result.json."""
+    import torch.distributed as dist
+
+    from zutis_tpu_torch.cli import main as cli_main
+    from zutis_tpu_torch.parallel import close_mesh, create_mesh
+
+    t0 = time.perf_counter()
+    job = json.loads(job_fp.read_text())
+    device = torch.device(job["device"])
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    mesh = create_mesh(PARALLEL_MESH, device=device)
+    device = mesh.device
+    backend = dist.get_backend()
+    check(mesh.size == 1 and backend == ("nccl" if device.type == "cuda"
+                                         else "gloo"),
+          f"{mesh} on {backend}")
+    res = {"backend": backend, "world_size": dist.get_world_size()}
+    print(f"parallel: {mesh} on {backend}", flush=True)
+    zero_counts()
+    t1 = time.perf_counter()
+    cli_main.main(job["cli_args"])
+    _sync(device)
+    launches, masked = read_counts()
+    res["cli"] = dict(s=time.perf_counter() - t1, launches=launches,
+                      masked_launches=masked)
+    print(f"parallel: cli: {res['cli']['s']:.1f} s, launches "
+          f"{json.dumps(launches)}", flush=True)
+    res["step"] = _parallel_step_turns(mesh, job, device)
+    res["serve"] = _parallel_serve(mesh, job, device)
+    res["topk"] = _parallel_topk(mesh, job, device)
+    res["sp"] = _parallel_sp(mesh, job, device)
+    res["rank_s"] = time.perf_counter() - t0
+    (Path(job["out"]) / "result.json").write_text(json.dumps(res))
+    close_mesh(mesh)
+
+
+def parallel_launches(par: dict) -> dict:
+    """The parallel phase's launches by kernel and path, each counted from
+    0: the training CLI on the mesh (its steps and evaluations), the step
+    turns with and without the mesh, the server on the mesh, Ulysses."""
+    turns = par["step"]["launches"]
+    out = {}
+    for kernel in ("flash_attention", "batched_hungarian", "mask_nms"):
+        out[kernel] = {
+            "cli_mesh": par["cli"]["launches"][kernel],
+            "step_turns": sum(t[kernel] for name in turns
+                              for t in turns[name]),
+            "serve_mesh": par["serve"]["launches"][kernel]}
+    out["flash_attention"]["ulysses"] = par["sp"]["ulysses_flash_launches"]
+    return out
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--parallel"]:  # phase_parallel's rank
+        parallel_rank(Path(sys.argv[2]))
+        return
     card, libs = phase_card()
     sass = sass_check(libs)
     max_err, rows, flash_occ = phase_kernel()
@@ -4818,8 +5156,11 @@ def main() -> None:
         print(f"pseudo-masks on {card}: " + json.dumps(
             {k: v for k, v in pseudo.items() if k != "flash_rows"}),
             flush=True)
-        cli = phase_cli(trainer, ret)
+        cli = phase_cli(trainer, ret, parallel=phase_parallel)
+    par = cli.pop("parallel")
     print(f"cli on {card}: {json.dumps(cli)}", flush=True)
+    print(f"parallel on {card}: {json.dumps(par)}", flush=True)
+    par_launches = parallel_launches(par)
     cli_generation = cli["pseudo_masks"]["launches"]
 
     def per_forward(key):
@@ -4857,7 +5198,8 @@ def main() -> None:
                      + sum(e["flash_attention"]
                            for e in cli["eval_launches"].values())
                      + sum(lev_launches.values())
-                     + sum(encoder_launches(enc).values())),
+                     + sum(encoder_launches(enc).values())
+                     + sum(par_launches["flash_attention"].values())),
         "launches_by_path": {"serving": stats["launches"],
                              "eval": ev["launches"],
                              "eval_masked": ev["masked_launches"],
@@ -4876,7 +5218,8 @@ def main() -> None:
                              "cli_eval": {d: e["flash_attention"] for d, e in
                                           cli["eval_launches"].items()},
                              **lev_launches,
-                             "encoders": encoder_launches(enc)},
+                             "encoders": encoder_launches(enc),
+                             "parallel": par_launches["flash_attention"]},
         # the launches given a key bias (the levers' ToMe encoder and
         # padded pooled cross-attention), by path
         "biased_launches": {
@@ -4986,13 +5329,15 @@ def main() -> None:
                      + lev["train"]["launches"]["batched_hungarian"]
                      + trainer["launches"]["batched_hungarian"]
                      + cli["launches"]["batched_hungarian"]
-                     + cli["resumed_launches"]["batched_hungarian"]),
+                     + cli["resumed_launches"]["batched_hungarian"]
+                     + sum(par_launches["batched_hungarian"].values())),
         "launches_by_path": {
             "train": tr["launches"]["batched_hungarian"],
             "levers_train": lev["train"]["launches"]["batched_hungarian"],
             "trainer": trainer["launches"]["batched_hungarian"],
             "cli_train": cli["launches"]["batched_hungarian"],
-            "cli_resumed": cli["resumed_launches"]["batched_hungarian"]},
+            "cli_resumed": cli["resumed_launches"]["batched_hungarian"],
+            "parallel": par_launches["batched_hungarian"]},
         "max_abs_err": 0.0,  # col4row bit-equal to the plain version
         # one call on a training step's [48, 10, 100] costs
         "ms": matcher["ms"],
@@ -5017,6 +5362,7 @@ def main() -> None:
         "cli_train": cli["launches"]["mask_nms"],
         "cli_resumed": cli["resumed_launches"]["mask_nms"],
         "cli_eval": {d: e["mask_nms"] for d, e in cli["eval_launches"].items()},
+        "parallel": par_launches["mask_nms"],
     }
     kernels.append({
         "name": "mask_nms",

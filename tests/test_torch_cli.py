@@ -10,7 +10,9 @@ encoder on a synthetic CLIP-layout checkpoint; the training CLI makes missing
 pseudo-masks from a synthetic SelfMask checkpoint in the flat and ImageNet
 layouts, equal to the JAX package's, and refuses without one; both CLIs
 build the config's `tome_r` / `decoder_pool` extras into the model (the port
-of tests/test_cli_levers.py); the other refusals name their ROADMAP item. The text embeddings computed from a checkpoint are in
+of tests/test_cli_levers.py); the other refusals name their ROADMAP item
+or, for a mesh larger than the process group, the world size. The text
+embeddings computed from a checkpoint are in
 tests/test_torch_text_embeddings.py."""
 import json
 import math
@@ -610,7 +612,8 @@ def test_text_embeddings_from_the_npz_and_the_jax_cache(fixture, tmp_path):
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    (dict(mesh_axes={"data": 2, "model": 1}), NotImplementedError, "item 6"),
+    (dict(mesh_axes={"data": 2, "model": 1}), ValueError,
+     "a mesh of 2 ranks, but the world size is 1"),
     (dict(visualise=True), NotImplementedError, "matplotlib"),
     (dict(category_to_p_images_fp="MISSING_PM"), FileNotFoundError,
      "1 pseudo-masks missing and no SelfMask weights at .*selfmask_nq20.pt"),

@@ -99,6 +99,16 @@ PSEUDO_MASK_SLICE = ("zutis_tpu_torch.models.selfmask",
                      "zutis_tpu_torch.data.pseudo_masks")
 
 
+# the parallel layer: the mesh and its sharding, DP's gradient reduction,
+# TP's collectives, sequence parallelism and the tool that drives them
+PARALLEL_SLICE = ("zutis_tpu_torch.parallel",
+                  "zutis_tpu_torch.parallel.mesh",
+                  "zutis_tpu_torch.parallel.dp",
+                  "zutis_tpu_torch.parallel.tp",
+                  "zutis_tpu_torch.parallel.sp",
+                  "zutis_tpu_torch.tools.parallel_check")
+
+
 def test_port_imports_without_jax_flax_pil_or_zutis_tpu():
     proc = _run(_PROBE.replace('print("imported", len(names))',
                                'print(*names)\nprint("imported", len(names))'))
@@ -110,6 +120,7 @@ def test_port_imports_without_jax_flax_pil_or_zutis_tpu():
     assert set(DATA_SLICE) <= set(proc.stdout.split()), proc.stdout
     assert set(RETRIEVAL_SLICE) <= set(proc.stdout.split()), proc.stdout
     assert set(PSEUDO_MASK_SLICE) <= set(proc.stdout.split()), proc.stdout
+    assert set(PARALLEL_SLICE) <= set(proc.stdout.split()), proc.stdout
 
 
 @pytest.mark.parametrize("name", ["cv2", "matplotlib", "yaml", "scipy"])

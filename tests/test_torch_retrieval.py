@@ -9,7 +9,8 @@ the JAX package's on the CPU:
   * retrieve_category_paths, combined_retrieval, PASS.retrieve_images and
     ImageNet1KDataset's retrieval: the JAX package's lists and cache JSON,
     byte for byte, duplicates included (mirroring tests/test_imagenet_pass.py);
-  * a mesh over more than one device raises, naming ROADMAP item 6.
+  * in one process, a mesh over more than one rank raises, naming the
+    world size.
 """
 import json
 import os
@@ -133,8 +134,12 @@ def test_retrieve_category_paths_equals_jax(tmp_path):
 
 @pytest.mark.parametrize("mesh", [{"data": 2}, {"data": 1, "model": 4}])
 def test_a_mesh_over_devices_raises(mesh):
+    # one process: a mesh of more ranks than the world refuses, naming the
+    # world size (tests/test_torch_parallel_sp.py runs the sharded top-k)
     text, bank_ = _bank_with_duplicates(5, n=20)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    n = mesh.get("data", 1) * mesh.get("model", 1)
+    with pytest.raises(ValueError,
+                       match=f"a mesh of {n} ranks, but the world size is 1"):
         bank.retrieve_category_paths({"c": text[0]}, bank_, list("x" * 20),
                                      3, mesh=mesh, device="cpu")
     one = bank.retrieve_category_paths({"c": text[0]}, bank_,

@@ -27,12 +27,27 @@ and `dilatedRN*`), and `encoder_type: dino` (the DINO ViT-B/16 arm). The
 pretrained CLIP visual tower (ViT or RN) loads from `<clip_assets_dir>/<arch>.pt`
 unless the `skip_pretrained` extra is set.
 
+`mesh_axes: {data: D, model: M}` trains on a mesh of D x M processes, one
+a device (parallel/mesh.py): each data rank takes its slice of every
+global batch of `batch_size` and the gradients are summed over the data
+axis; the attentions' heads and the MLPs' hidden features split over the
+model axis. Launch one process a device with torchrun:
+
+  python -m torch.distributed.run --nproc_per_node D*M \
+      -m zutis_tpu_torch.cli.main --p_config <cfg>.yaml
+
+The product of the axes must equal the number of processes (a mesh of one
+needs no launcher); on "cuda" each process takes the card of its
+LOCAL_RANK. Every rank trains and evaluates; the first writes the
+artifacts and the checkpoints, whose tensors are whole, so a resume may
+run on another factorisation. The eval path (--p_state_dict) runs without
+a mesh, as the JAX CLI's does.
+
 What the port does not do, and raises on:
   - `encoder_type: dino` without `skip_pretrained`: the JAX CLI puts the
     CLIP visual tree into the DINO arm's DeiT encoder there
     (zutis_tpu/cli/main.py:262-268), which cannot load; the DINO encoder's
     own weights go in through `models.factory.load_dino_encoder`;
-  - `mesh_axes` over more than one device: the parallel layer is item 6;
   - `visualise`: the JAX CLI defaults it to True and renders figures with
     matplotlib, which the port does not use; here it defaults to False and
     a config that sets it raises.
@@ -150,15 +165,32 @@ def build_model(cfg, device, seed: int = 0, init: bool = True):
     return model
 
 
-def check_single_device(cfg) -> None:
-    n_mesh = 1
-    for size in (cfg.mesh_axes or {}).values():
-        n_mesh *= int(size)
-    if n_mesh > 1:
-        raise NotImplementedError(
-            f"mesh_axes {cfg.mesh_axes} spans {n_mesh} devices: the parallel "
-            "layer is not ported yet (ROADMAP.md, queue 1, item 6); drop "
-            "mesh_axes to train on one card")
+def training_mesh(cfg, device):
+    """The config's `mesh_axes` as a mesh of this process group (None
+    without the key); the data axis must divide the batch."""
+    if not cfg.mesh_axes:
+        return None
+    from zutis_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(cfg.mesh_axes, device=device)
+    batch_size = cfg.train_dataloader_kwargs.get("batch_size", 8)
+    if batch_size % mesh.data_size:
+        raise ValueError(f"batch_size {batch_size} must divide by the data "
+                         f"axis ({mesh.data_size})")
+    return mesh
+
+
+def rank0_first(mesh, fn):
+    """fn() on the mesh's first rank, then on the others: what the first
+    writes (a cache, pseudo-masks) the others read."""
+    if mesh is None:
+        return fn()
+    if mesh.is_writer:
+        out = fn()
+        mesh.barrier()
+        return out
+    mesh.barrier()
+    return fn()
 
 
 def check_pretrained(cfg) -> None:
@@ -261,23 +293,9 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    from zutis_tpu_torch.core.checkpoint import (
-        latest_step_dir,
-        load_params_any,
-        restore_train_state,
-    )
     from zutis_tpu_torch.core.config import Config, checkpoint_dir
-    from zutis_tpu_torch.core.device import resolve_device
-    from zutis_tpu_torch.data.datasets import get_eval_dataset
-    from zutis_tpu_torch.data.index_dataset import batch_iterator
-    from zutis_tpu_torch.engine.train_step import TrainState
-    from zutis_tpu_torch.engine.trainer import Trainer
-    from zutis_tpu_torch.models.factory import (
-        clip_checkpoint_path,
-        load_clip_visual,
-    )
+    from zutis_tpu_torch.parallel import close_mesh
 
-    device = resolve_device(args.device)
     cfg = Config.load(
         args.p_config, p_state_dict=args.p_state_dict, debug=args.debug,
         seed=args.seed, weight_ce_loss=args.weight_ce_loss,
@@ -292,36 +310,69 @@ def main(argv=None):
             and not args.p_state_dict):
         print(f"final model already exists at {dir_ckpt}/final_model.npz")
         return
+    mesh = None if args.p_state_dict else training_mesh(cfg, args.device)
+    try:
+        return _run(args, cfg, dir_ckpt, mesh)
+    finally:
+        close_mesh(mesh)
+
+
+def _run(args, cfg, dir_ckpt, mesh):
+    from zutis_tpu_torch.core.checkpoint import (
+        latest_step_dir,
+        load_params_any,
+        restore_train_state,
+    )
+    from zutis_tpu_torch.core.device import resolve_device
+    from zutis_tpu_torch.data.datasets import get_eval_dataset
+    from zutis_tpu_torch.data.index_dataset import batch_iterator
+    from zutis_tpu_torch.engine.train_step import TrainState
+    from zutis_tpu_torch.engine.trainer import Trainer
+    from zutis_tpu_torch.models.factory import (
+        clip_checkpoint_path,
+        load_clip_visual,
+    )
+    from zutis_tpu_torch.parallel import shard_model
+
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    writer = mesh is None or mesh.is_writer
     os.makedirs(dir_ckpt, exist_ok=True)
-    cfg.to_json(f"{dir_ckpt}/config.json")
+    if writer:
+        cfg.to_json(f"{dir_ckpt}/config.json")
     set_matmul_precision(cfg)
 
     model = build_model(cfg, device, seed=args.seed,
                         init=not args.p_state_dict)
-    text_embeddings = build_text_embeddings(cfg, device)
+    text_embeddings = rank0_first(
+        mesh, lambda: build_text_embeddings(cfg, device))
     val_dataset = get_eval_dataset(
         cfg.dataset_name, cfg.dir_val_dataset, split=cfg.split,
         n_categories=cfg.n_categories
         if cfg.dataset_name == "imagenet-s" else None,
     )
-    trainer = Trainer(model, text_embeddings, dir_ckpt=dir_ckpt,
-                      debug=args.debug, device=device)
-
     if args.p_state_dict:
         model.load_state_dict(load_params_any(args.p_state_dict), strict=True)
+        trainer = Trainer(model, text_embeddings, dir_ckpt=dir_ckpt,
+                          debug=args.debug, device=device)
         scores = trainer.evaluate(model, val_dataset, num_iter=0,
                                   max_images=args.max_eval_images)
         print(json.dumps(scores, indent=2))
         return scores
 
     # ---- training path ----
-    check_single_device(cfg)
     check_pretrained(cfg)
-    dataset = build_index_dataset(cfg, args.seed, device)
+    dataset = rank0_first(
+        mesh, lambda: build_index_dataset(cfg, args.seed, device))
     batch_size = cfg.train_dataloader_kwargs.get("batch_size", 8)
     if not cfg.extras.get("skip_pretrained"):
         load_clip_visual(model, clip_checkpoint_path(cfg.clip_arch,
                                                      cfg.clip_assets_dir))
+    if mesh is not None:
+        # after the pretrained load and before the optimiser: every rank
+        # slices the same full parameters
+        shard_model(model, mesh)
+    trainer = Trainer(model, text_embeddings, dir_ckpt=dir_ckpt,
+                      debug=args.debug, device=device)
     # reference base lr 5e-5 (utils/utils.py:179-192); test/diagnosis
     # configs may override through the extras
     state = TrainState.create(model,
@@ -333,9 +384,15 @@ def main(argv=None):
     resume_dir = latest_step_dir(ckpt_base)
     if resume_dir is not None:
         restore_train_state(resume_dir, state)
-        print(f"resumed train state from {resume_dir} (step {state.step})")
-    batches = batch_iterator(dataset, batch_size, seed=args.seed,
-                             start_step=state.step, device=device)
+        if writer:
+            print(f"resumed train state from {resume_dir} "
+                  f"(step {state.step})")
+    # a data rank's slice of each global batch: the model ranks of one
+    # data index see the same images
+    batches = batch_iterator(
+        dataset, batch_size, seed=args.seed, start_step=state.step,
+        device=device, process_index=0 if mesh is None else mesh.data_rank,
+        process_count=1 if mesh is None else mesh.data_size)
     try:
         trainer.fit(
             state, batches, n_iters=cfg.n_iters,

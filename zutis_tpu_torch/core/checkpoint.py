@@ -10,6 +10,12 @@ leaves the previous checkpoint as the newest. With a batch stream that is a
 function of the step, a run restored from it continues as the
 uninterrupted run would have.
 
+On a mesh (parallel/mesh.py) the checkpoint holds full tensors: every rank
+gathers its model axis' shards of the parameters and of AdamW's moments,
+the mesh's first rank writes, and a restore slices the full tensors by the
+mesh it runs on, which may be factorised otherwise than the one that
+saved.
+
 `load_params_any` reads the weights that `export_params` (and the JAX
 package's `export_zutis`) writes to a `.npz` — the reference layout for a
 ViT model, the raw flax tree under `__flax_raw__/` for an RN or DINO one —
@@ -26,23 +32,49 @@ import torch
 STATE_FILE = "state.pt"
 
 
+def _train_state_dict(state) -> dict:
+    return {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "scheduler": state.scheduler.state_dict(),
+            "step": int(state.step)}
+
+
 def save_train_state(path: str, state) -> None:
-    """Write `state` (engine.train_step.TrainState) to `path`/state.pt."""
-    os.makedirs(path, exist_ok=True)
-    final = os.path.join(path, STATE_FILE)
-    tmp = f"{final}.{os.getpid()}.tmp"
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "scheduler": state.scheduler.state_dict(),
-                "step": int(state.step)}, tmp)
-    os.replace(tmp, final)
+    """Write `state` (engine.train_step.TrainState) to `path`/state.pt; on
+    a mesh every rank calls it."""
+    from zutis_tpu_torch.parallel.mesh import (
+        gather_train_state,
+        mesh_of,
+        optimizer_param_names,
+    )
+
+    ckpt = _train_state_dict(state)
+    mesh = mesh_of(state.model)
+    if mesh is not None and state.model.tp_specs:
+        ckpt = gather_train_state(
+            ckpt, state.model.tp_specs,
+            optimizer_param_names(state.optimizer, state.model), mesh)
+    if mesh is None or mesh.is_writer:
+        os.makedirs(path, exist_ok=True)
+        final = os.path.join(path, STATE_FILE)
+        tmp = f"{final}.{os.getpid()}.tmp"
+        torch.save(ckpt, tmp)
+        os.replace(tmp, final)
+    if mesh is not None:
+        mesh.barrier()  # no rank looks for the checkpoint before it is there
 
 
 def restore_train_state(path: str, target):
     """Load the checkpoint at `path` into `target` (a TrainState whose model
     and optimiser have the checkpoint's structure), onto the device its
-    model lies on; returns `target`, or None when `path` holds no
-    checkpoint."""
+    model lies on, sliced by the mesh it is sharded over; returns `target`,
+    or None when `path` holds no checkpoint."""
+    from zutis_tpu_torch.parallel.mesh import (
+        mesh_of,
+        optimizer_param_names,
+        shard_train_state,
+    )
+
     final = os.path.join(path, STATE_FILE)
     if not os.path.exists(final):
         return None
@@ -51,6 +83,11 @@ def restore_train_state(path: str, target):
     # stay host scalars, as in a fresh optimiser (one on the card would be
     # read back to the host, a sync, at every step)
     saved = torch.load(final, map_location="cpu", weights_only=True)
+    mesh = mesh_of(target.model)
+    if mesh is not None and target.model.tp_specs:
+        saved = shard_train_state(
+            saved, target.model.tp_specs,
+            optimizer_param_names(target.optimizer, target.model), mesh)
     target.model.load_state_dict(saved["model"], strict=True)
     target.optimizer.load_state_dict(saved["optimizer"])
     target.scheduler.load_state_dict(saved["scheduler"])

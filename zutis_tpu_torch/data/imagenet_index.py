@@ -16,9 +16,10 @@ Behavioural contracts:
     bank with ImageNet's before the one retrieval product (the reference's
     index_dataset.py:138-158).
 
-Retrieval runs on one device (retrieval/bank.py); a mesh over more than
-one device raises (ROADMAP.md, queue 1, item 6). Every sample is a pure
-function of (seed, epoch, index), as in IndexDataset.
+Retrieval runs on one device, or with `mesh=` over a mesh's data axis,
+the bank's rows split over its ranks (retrieval/bank.py::topk_sharded).
+Every sample is a pure function of (seed, epoch, index), as in
+IndexDataset.
 """
 from __future__ import annotations
 
@@ -222,7 +223,9 @@ def combined_retrieval(
     """Multi-archive retrieval: concatenate the banks (ImageNet + PASS, the
     reference's index_dataset.py:138-158) and take the global top-k per
     category in one product; `path_resolvers[i](filename)` maps bank i's
-    filenames to image paths."""
+    filenames to image paths. With a mesh, the rows shard over its data
+    axis and the top-k merges the gathered candidates
+    (retrieval/bank.py::topk_sharded)."""
     if cache_fp and os.path.exists(cache_fp):
         with open(cache_fp) as f:
             return json.load(f)

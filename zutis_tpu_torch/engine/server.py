@@ -1,5 +1,4 @@
-"""Batched dense-inference server (the port of zutis_tpu/engine/server.py,
-without the mesh).
+"""Batched dense-inference server (the port of zutis_tpu/engine/server.py).
 
 Requests are single images at the service resolution. A worker thread
 drains them into fixed-size batches, padding the tail with the first
@@ -15,6 +14,18 @@ queued API, returning a Future per request. A request whose Future the
 client cancels while it is queued is dropped from its batch; a batch whose
 every request was cancelled runs no step. (The JAX server instead hands the
 batch-mates of a cancelled request an `InvalidStateError`.)
+
+With `mesh=` (parallel/mesh.py) the server runs on every rank of the mesh,
+each stepping its data rank's slice of the padded batch (the batch size
+must divide by the data axis; the model is whole or sharded over the model
+axis alike on the ranks of a data index); the outputs are gathered over
+the data group, so every rank returns what the one-device server returns.
+`infer` is called on every rank with the same requests. Of the queued API,
+the mesh's first rank owns the queue and the worker: each batch it forms
+goes to the other ranks by broadcast, behind a header with its count and
+a stop flag; their `start()` runs a follower thread that steps what
+arrives, and `stop()` on the first rank broadcasts the stop (every rank
+calls `start()` and `stop()`; only the first takes `submit`).
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from zutis_tpu_torch.core.device import resolve_device
 from zutis_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
@@ -48,13 +60,18 @@ class InferenceServer:
         encode_rle: bool = True,
         uint8_transport: bool = False,
         device="cuda",
+        mesh=None,
     ):
-        """`model` is moved to `device`. `encode_rle=False`: each instance
-        carries its boolean [h, w] `"mask"` instead of an RLE
-        `"segmentation"`. `uint8_transport=True`: requests are raw [3, S, S]
-        uint8 RGB and ImageNet normalisation runs on the device (4x less
-        host-to-device traffic than f32 requests)."""
-        self.device = resolve_device(device)
+        """`model` is moved to `device` (to the rank's device on a `mesh`).
+        `encode_rle=False`: each instance carries its boolean [h, w]
+        `"mask"` instead of an RLE `"segmentation"`. `uint8_transport=True`:
+        requests are raw [3, S, S] uint8 RGB and ImageNet normalisation runs
+        on the device (4x less host-to-device traffic than f32 requests)."""
+        if mesh is not None and batch_size % mesh.data_size:
+            raise ValueError(f"batch_size {batch_size} must divide by the "
+                             f"data axis ({mesh.data_size})")
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.model = model.to(self.device)
         self.image_size = image_size
         self.batch_size = batch_size
@@ -115,11 +132,27 @@ class InferenceServer:
             while len(chunk) < B:
                 chunk.append(chunk[0])
             batch = torch.from_numpy(np.stack(chunk)).to(self.device)
-            out = {k: v.cpu().numpy() for k, v in self.step(batch).items()}
+            if self.mesh is None:
+                out = self.step(batch)
+            else:
+                out = self._gather(self.step(
+                    batch.chunk(self.mesh.data_size)[self.mesh.data_rank]))
+            out = {k: v.cpu().numpy() for k, v in out.items()}
             self.batches += 1
             for j in range(n):
                 results.append(self._finish(out, j))
         return results
+
+    def _gather(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The data ranks' step outputs, concatenated in rank order."""
+        full = {}
+        for k, v in out.items():
+            v = v.contiguous()
+            wire = v.to(torch.uint8) if v.dtype == torch.bool else v
+            parts = [torch.empty_like(wire) for _ in range(self.mesh.data_size)]
+            dist.all_gather(parts, wire, group=self.mesh.data_group)
+            full[k] = torch.cat(parts).to(v.dtype)
+        return full
 
     def _finish(self, out: Dict[str, np.ndarray], j: int) -> Dict:
         instances = []
@@ -140,20 +173,30 @@ class InferenceServer:
 
     # ---------------- async (queued) API ----------------
 
+    def _leads(self) -> bool:
+        """Whether this rank owns the queue (always, without a mesh)."""
+        return self.mesh is None or self.mesh.is_writer
+
     def start(self) -> None:
         if self._worker is not None:
             raise RuntimeError("server already started")
         self._stop.clear()
-        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker = threading.Thread(
+            target=self._run if self._leads() else self._follow, daemon=True)
         self._worker.start()
 
     def stop(self) -> None:
         with self._lifecycle:
             if self._worker is None:
                 return
-            self._stop.set()
-            self._queue.put(None)  # wake the worker
-            self._worker.join()
+            if self._leads():
+                self._stop.set()
+                self._queue.put(None)  # wake the worker
+                self._worker.join()
+                if self.mesh is not None:
+                    self._broadcast_header(0, stop=True)
+            else:
+                self._worker.join()  # the first rank's stop ends it
             self._worker = None
             # cancel anything still queued so no Future is left unresolved
             while True:
@@ -168,9 +211,50 @@ class InferenceServer:
         with self._lifecycle:
             if self._worker is None:
                 raise RuntimeError("call start() first")
+            if not self._leads():
+                raise RuntimeError("on a mesh the first rank takes the "
+                                   "requests")
             fut: Future = Future()
             self._queue.put((image, fut))
             return fut
+
+    # ---------------- the mesh's batches ----------------
+
+    def _broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        dist.broadcast(t, src=self.mesh.ranks[0], group=self.mesh.group)
+        return t
+
+    def _broadcast_header(self, n: int, stop: bool = False) -> int:
+        header = torch.tensor([n, int(stop)], dtype=torch.int64)
+        header = self._broadcast(header.to(self.mesh.device)).tolist()
+        return -1 if header[1] else header[0]
+
+    def _wire(self) -> tuple:
+        dtype = torch.uint8 if self.uint8_transport else torch.float32
+        return (3, self.image_size, self.image_size), dtype
+
+    def _send(self, images: List[np.ndarray]) -> List[np.ndarray]:
+        """Broadcast a batch the first rank formed; -> the requests as the
+        other ranks receive them."""
+        shape, dtype = self._wire()
+        batch = torch.from_numpy(np.stack(images)).to(dtype)
+        if tuple(batch.shape[1:]) != shape:
+            raise ValueError(f"requests of shape {tuple(batch.shape[1:])}, "
+                             f"the server takes {shape}")
+        self._broadcast_header(len(images))
+        self._broadcast(batch.to(self.mesh.device))
+        return list(batch.numpy())
+
+    def _follow(self) -> None:
+        """A rank's part in the first rank's batches, until its stop."""
+        shape, dtype = self._wire()
+        while True:
+            n = self._broadcast_header(0)
+            if n < 0:
+                return
+            batch = self._broadcast(
+                torch.empty((n, *shape), dtype=dtype, device=self.device))
+            self.infer(list(batch.cpu().numpy()))
 
     def _run(self) -> None:
         while not self._stop.is_set():
@@ -193,7 +277,10 @@ class InferenceServer:
             if not pending:
                 continue
             try:
-                results = self.infer([p[0] for p in pending])
+                images = [p[0] for p in pending]
+                if self.mesh is not None:
+                    images = self._send(images)
+                results = self.infer(images)
             except Exception as exc:  # the worker must outlive a failed batch
                 for _, fut in pending:
                     if not fut.done():

@@ -11,6 +11,14 @@ Batches are dicts of host arrays or tensors:
   instance_masks: [b, N_max, H, W] float {0, 1} (padded)
   instance_valid: [b, N_max] bool
   semantic_mask:  [b, H, W] int32 (ignore_index outside labels)
+
+A model that `parallel.shard_model` placed on a mesh trains data-parallel
+over its data axis (and tensor-parallel over its model axis, inside the
+model): each data rank passes its slice of the global batch, the
+gradients, views of a few flat buckets, are summed over the data group
+where they lie (parallel/dp.py), and the metrics returned are the global
+batch's, summed over the data group on the device. The matcher runs on
+each rank's slice.
 """
 from __future__ import annotations
 
@@ -19,13 +27,17 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from zutis_tpu_torch.core.device import resolve_device, to_device
 from zutis_tpu_torch.engine.metrics import confusion_update
 from zutis_tpu_torch.engine.optim import make_optimizer
 from zutis_tpu_torch.losses.criterion import criterion_loss
+from zutis_tpu_torch.parallel.dp import GradientBuckets
+from zutis_tpu_torch.parallel.mesh import mesh_of
 
 BATCH_KEYS = ("image", "instance_masks", "instance_valid", "semantic_mask")
+LOSS_KEYS = ("loss", "ce_loss", "mask_loss")
 
 
 @dataclass
@@ -74,6 +86,9 @@ def make_train_step(
         raise ValueError(f"the model lies on {param.device}, not on {device}")
     text = to_device(torch.as_tensor(np.asarray(text_embeddings),
                                      dtype=torch.float32), device)
+    mesh = mesh_of(model)
+    buckets = None if mesh is None else GradientBuckets(model.parameters(),
+                                                        mesh.data_group)
 
     def step(state: TrainState, batch: Dict,
              confusion_acc: Optional[torch.Tensor] = None
@@ -85,10 +100,15 @@ def make_train_step(
             out["patch_tokens"], b["semantic_mask"], text,
             weight_ce_loss=weight_ce_loss, weight_mask_loss=weight_mask_loss,
             weight_dice_loss=weight_dice_loss, weight_bce_loss=weight_bce_loss,
-            ignore_index=ignore_index)
+            ignore_index=ignore_index, mesh=mesh)
         del out
-        state.optimizer.zero_grad(set_to_none=True)
+        if buckets is None:
+            state.optimizer.zero_grad(set_to_none=True)
+        else:
+            buckets.zero()
         losses["loss"].backward()
+        if buckets is not None:
+            buckets.all_reduce()
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
@@ -96,11 +116,13 @@ def make_train_step(
         # full-resolution resize)
         confusion = confusion_update(b["semantic_mask"], losses["sem_pred"],
                                      n_categories)
+        scalars = torch.stack([losses[k].detach() for k in LOSS_KEYS])
+        if mesh is not None:
+            dist.all_reduce(confusion, group=mesh.data_group)
+            dist.all_reduce(scalars, group=mesh.data_group)
         if confusion_acc is not None:
             confusion = confusion_acc + confusion
-        return {"loss": losses["loss"].detach(),
-                "ce_loss": losses["ce_loss"].detach(),
-                "mask_loss": losses["mask_loss"].detach(),
+        return {**dict(zip(LOSS_KEYS, scalars.unbind())),
                 "confusion": confusion}
 
     return step

@@ -20,6 +20,12 @@ later (the finiteness guard still names the step that produced a NaN), and
 the confusion histogram accumulates on the device until a log, evaluation
 or checkpoint reads it.
 
+On a mesh (a model that `parallel.shard_model` placed) every rank runs
+`fit` and `evaluate`, since the model axis' collectives need every rank;
+each data rank is given its slice of the batches, and the whole evaluation
+runs on every rank. Only the mesh's first rank writes logs, artifacts and
+checkpoints; the checkpoints' tensors are gathered whole first.
+
 Not carried by this port (raises NotImplementedError): `visualise=True`
 (engine/visualiser.py needs matplotlib, queue 1, item 4); `debug` writes no
 images.
@@ -49,6 +55,7 @@ from zutis_tpu_torch.engine.metrics import (
 )
 from zutis_tpu_torch.engine.train_step import TrainState, make_train_step
 from zutis_tpu_torch.models.weights import export_params
+from zutis_tpu_torch.parallel.mesh import mesh_of
 from zutis_tpu_torch.postproc.instance import (
     instances_to_coco_counts,
     predict_instances_device,
@@ -104,6 +111,8 @@ class Trainer:
                                self.device)
         self.dir_ckpt = dir_ckpt
         self.debug = debug
+        mesh = mesh_of(model)
+        self._writer = mesh is None or mesh.is_writer
         self.best_miou = 0.0
         # the artifact files this Trainer has (re)started: the first write
         # of a run that is not resumed truncates, every later one appends
@@ -119,15 +128,20 @@ class Trainer:
 
     def _write_artifact(self, name: str, record: dict,
                         resumed: bool = False) -> None:
+        if not self._writer:
+            return
         first = name not in self._fresh_artifacts and not resumed
         self._fresh_artifacts.add(name)
         _append_jsonl(f"{self.dir_ckpt}/{name}", record, first=first)
 
     def save_checkpoint(self, state: TrainState, name: str) -> None:
-        """The model's reference-layout weights to `<dir_ckpt>/<name>.npz`."""
+        """The model's reference-layout weights to `<dir_ckpt>/<name>.npz`
+        (on a mesh every rank gathers them, the first writes)."""
         if self.dir_ckpt is None:
             return
-        np.savez(f"{self.dir_ckpt}/{name}.npz", **export_params(state.model))
+        params = export_params(state.model)
+        if self._writer:
+            np.savez(f"{self.dir_ckpt}/{name}.npz", **params)
 
     # ---------------- training ----------------
 
@@ -230,9 +244,11 @@ class Trainer:
                     if self.dir_ckpt is not None:
                         self._write_artifact("training_metrics.json", record,
                                              resumed=start_iter > 0)
-                    print(f"({num_iter}/{n_iters}) loss {loss_meter.avg:.3f} "
-                          f"mIoU {scores['Mean IoU']:.3f} "
-                          f"pix-acc {scores['Pixel Acc']:.3f}", flush=True)
+                    if self._writer:
+                        print(f"({num_iter}/{n_iters}) loss "
+                              f"{loss_meter.avg:.3f} "
+                              f"mIoU {scores['Mean IoU']:.3f} "
+                              f"pix-acc {scores['Pixel Acc']:.3f}", flush=True)
 
                 if ((self.debug or (iter_eval and num_iter % iter_eval == 0))
                         and val_dataset is not None
@@ -463,7 +479,7 @@ class Trainer:
 
     def _finish_evaluate(self, scores, cls_iu, dataset, dataset_name,
                          instance_predictions, num_iter) -> Dict[str, float]:
-        if self.dir_ckpt is not None:
+        if self.dir_ckpt is not None and self._writer:
             record = {"num_iter": num_iter, "timestamp": str(datetime.now())}
             record.update(scores)
             record.update({str(k): v for k, v in cls_iu.items()})

@@ -14,12 +14,18 @@ over every decoder layer.
     matching, and ONE matcher call solves all L * b problems; the matched,
     unguarded costs are summed over layers and valid rows, an image whose
     GT holds no pixel adds nothing, and the sum is divided by b.
+
+On a mesh (parallel/mesh.py) each data rank holds a slice of the batch:
+the CE's count of valid pixels is summed over the data group before it
+divides, and the mask loss divides by the global batch, so the data ranks'
+losses, and their gradients, sum to the one-device ones.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from zutis_tpu_torch.core.device import to_device
@@ -69,8 +75,11 @@ def cross_entropy_ignore(
     ignore_index: int,
     channels_last: bool = False,
     bounded: bool = False,
+    group=None,
 ) -> torch.Tensor:
-    """Mean cross-entropy over the pixels whose label is not `ignore_index`.
+    """Mean cross-entropy over the pixels whose label is not `ignore_index`;
+    with a process `group`, the pixels of its ranks' batches: this rank's
+    sum over the group's count.
 
     bounded=True asserts |logits| is small (unit-norm tokens against
     unit-norm text give |x| <= 1) and takes the max-free log(sum exp(x)) -
@@ -81,7 +90,10 @@ def cross_entropy_ignore(
     x = logits.float()
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long().unsqueeze(axis)
-    count = valid.sum().clamp(min=1)
+    count = valid.sum()
+    if group is not None:
+        dist.all_reduce(count, group=group)
+    count = count.clamp(min=1)
     if bounded:
         xc = x + (x.detach().clamp(max=30.0) - x.detach())
         sumexp = torch.exp(xc).sum(dim=axis)
@@ -131,10 +143,12 @@ def criterion_loss(
     weight_dice_loss: float = 1.0,
     weight_bce_loss: float = 1.0,
     ignore_index: int = 255,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """-> {"loss", "ce_loss", "mask_loss"} scalars, "sem_pred" [b, H, W]
     int32 (no gradient) and "query_indices" [L, b, N] int32, the query
-    matched to each instance."""
+    matched to each instance. On a `mesh` the batch is this data rank's
+    slice and the losses its share of the global batch's."""
     b, L, Q = mask_proposals.shape[:3]
     n_max = gt_instance_masks.shape[1]
     H, W = gt_instance_masks.shape[-2:]
@@ -149,7 +163,8 @@ def criterion_loss(
     logits = torch.einsum("nc,bchw->bhwn", text_embeddings.float(), tokens.float())
     del tokens
     ce = cross_entropy_ignore(logits, gt_semantic_masks, ignore_index,
-                              channels_last=True, bounded=True)
+                              channels_last=True, bounded=True,
+                              group=None if mesh is None else mesh.data_group)
     # argmax(resize(einsum)) == argmax(einsum(resize)): the resize is
     # linear per channel, so the CE's logits give the semantic prediction
     sem_pred = logits.detach().argmax(dim=-1).to(torch.int32)
@@ -205,7 +220,7 @@ def criterion_loss(
     # an image whose valid GT masks hold no pixel adds nothing
     gt_pixels = (gt4 * valid[..., None, None]).sum(dim=(1, 2, 3))
     per_image = torch.where(gt_pixels > 0, per_image_layers.sum(0), 0.0)
-    mask_loss = per_image.sum() / b
+    mask_loss = per_image.sum() / (b if mesh is None else b * mesh.data_size)
 
     loss = weight_mask_loss * mask_loss + weight_ce_loss * ce
     return {"loss": loss, "ce_loss": ce, "mask_loss": mask_loss,

@@ -7,6 +7,14 @@ state_dict loads with `strict=True`. Parameters may be stored in any dtype;
 each product casts weight, bias and input to the module's compute dtype, as
 the flax modules do. LayerNorm runs in f32 with flax's eps of 1e-6 (not
 torch's 1e-5) and casts back.
+
+Under tensor parallelism (parallel/mesh.py::shard_model) a `Dense` is
+"column" (its output features sliced, its input entering through
+`copy_to_model`) or "row" (its input features sliced, the partial products
+summed by `reduce_from_model` before the bias), and a `MultiHeadAttention`
+holds this rank's heads: their rows of each of q, k and v in
+`in_proj_weight`, a column-parallel projection followed by its row-parallel
+`out_proj`.
 """
 from __future__ import annotations
 
@@ -14,10 +22,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from zutis_tpu_torch.ops.attention import dot_product_attention_bshd
+from zutis_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -45,8 +55,19 @@ class Dense(nn.Module):
         super().__init__()
         self.weight = empty_param(features_out, features_in, device=device)
         self.bias = empty_param(features_out, device=device)
+        self.tp_mode, self.tp_group = None, None  # "column" or "row"
+
+    def set_model_parallel(self, group, mode: str) -> None:
+        """Run as a `mode` ("column" or "row") layer over `group`; the
+        weight (and a column layer's bias) already hold this rank's slice."""
+        self.tp_mode, self.tp_group = mode, group
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self.tp_mode == "row":
+            y = F.linear(x.to(dtype), self.weight.to(dtype))
+            return reduce_from_model(y, self.tp_group) + self.bias.to(dtype)
+        if self.tp_mode == "column":
+            x = copy_to_model(x, self.tp_group)
         return F.linear(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
 
     def init_params(self, generator: torch.Generator) -> None:
@@ -86,25 +107,45 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_weight = empty_param(3 * dim, dim, device=device)
         self.in_proj_bias = empty_param(3 * dim, device=device)
         self.out_proj = Dense(dim, dim, device=device)
+        # this rank's heads and their width (all of them without TP)
+        self.local_heads, self.local_dim, self.tp_group = heads, dim, None
+
+    def set_model_parallel(self, group, n: int) -> None:
+        """Run this rank's heads / n over `group`; `in_proj_*` already hold
+        their rows of q, k and v, and `out_proj` its columns."""
+        self.local_heads, self.local_dim = self.heads // n, self.dim // n
+        self.tp_group = group
+        self.out_proj.set_model_parallel(group, "row")
+
+    def _enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A whole input entering the (column-parallel) projections."""
+        return x if self.tp_group is None else copy_to_model(x, self.tp_group)
 
     def _project(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        d, dt = self.dim, self.dtype
+        d, dt = self.local_dim, self.dtype
         w = self.in_proj_weight[i * d:(i + 1) * d]
         b = self.in_proj_bias[i * d:(i + 1) * d]
         return F.linear(x.to(dt), w.to(dt), b.to(dt))
 
     def q_proj(self, x: torch.Tensor) -> torch.Tensor:
-        return self._project(x, 0)
+        return self._project(self._enter(x), 0)
 
     def k_proj(self, x: torch.Tensor) -> torch.Tensor:
-        return self._project(x, 1)
+        return self._project(self._enter(x), 1)
 
     def v_proj(self, x: torch.Tensor) -> torch.Tensor:
-        return self._project(x, 2)
+        return self._project(self._enter(x), 2)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
-        return x.reshape(b, s, self.heads, self.dim // self.heads)
+        return x.reshape(b, s, self.local_heads, self.dim // self.heads)
+
+    def _attend(self, q, k, v, kv_mask, bias) -> torch.Tensor:
+        out = dot_product_attention_bshd(
+            self._split(q), self._split(k), self._split(v), bias=bias,
+            kv_mask=kv_mask, impl=self.attn_impl)
+        b, sq = out.shape[:2]
+        return self.out_proj(out.reshape(b, sq, self.local_dim), self.dtype)
 
     def attend_kv(
         self,
@@ -114,24 +155,32 @@ class MultiHeadAttention(nn.Module):
         kv_mask: Optional[torch.Tensor] = None,  # [b, sk], nonzero = valid key
         bias: Optional[torch.Tensor] = None,  # additive, to [b, h, sq, sk]
     ) -> torch.Tensor:
-        q = self.q_proj(q_in)
-        out = dot_product_attention_bshd(
-            self._split(q), self._split(k), self._split(v), bias=bias,
-            kv_mask=kv_mask, impl=self.attn_impl)
-        b, sq = out.shape[:2]
-        return self.out_proj(out.reshape(b, sq, self.dim), self.dtype)
+        return self._attend(self.q_proj(q_in), k, v, kv_mask, bias)
 
     def forward(self, q_in, k_in, v_in, kv_mask=None, bias=None,
                 return_k: bool = False):
         """-> the attention's output [b, sq, dim]; with `return_k`, also
         the head-mean keys [b, sk, dim // heads] in the compute dtype (the
-        similarity ToMe merges on, ops/tome.py)."""
-        k = self.k_proj(k_in)
-        out = self.attend_kv(q_in, k, self.v_proj(v_in), kv_mask=kv_mask,
-                             bias=bias)
-        if return_k:
+        similarity ToMe merges on, ops/tome.py; without gradient under TP,
+        where the mean sums over the model group)."""
+        entered = {}  # one copy_to_model an input object, however many use it
+
+        def enter(x):
+            if id(x) not in entered:
+                entered[id(x)] = self._enter(x)
+            return entered[id(x)]
+
+        k = self._project(enter(k_in), 1)
+        out = self._attend(self._project(enter(q_in), 0), k,
+                           self._project(enter(v_in), 2), kv_mask, bias)
+        if not return_k:
+            return out
+        if self.tp_group is None:
             return out, self._split(k).mean(dim=2)
-        return out
+        # every rank must merge the same tokens: the mean over all heads
+        k_sum = self._split(k).detach().float().sum(dim=2)
+        dist.all_reduce(k_sum, group=self.tp_group)
+        return out, (k_sum / self.heads).to(k.dtype)
 
     def init_params(self, generator: torch.Generator) -> None:
         fill_normal_(self.in_proj_weight, 1.0 / math.sqrt(self.dim), generator)

@@ -417,8 +417,11 @@ def export_params(model: nn.Module) -> Dict[str, np.ndarray]:
     `final_model.npz`. A ViT model's (and the text tower's) state dict
     already carries the reference's names and layouts; an RN or DINO
     model's is written as the raw flax tree under `__flax_raw__/`, as the
-    JAX package writes it."""
-    sd = model.state_dict()
+    JAX package writes it. A model sharded over a mesh's model axis is
+    gathered whole first, a collective every rank of the mesh joins."""
+    from zutis_tpu_torch.parallel.mesh import full_state_dict
+
+    sd = full_state_dict(model)
     if getattr(model, "encoder_family", "vit") != "vit":
         return flatten_tree(params_to_jax(sd), FLAX_RAW_PREFIX)
     return {k: _np(v) for k, v in sd.items()}
