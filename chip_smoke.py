@@ -82,18 +82,25 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
      (configs/coco2017_val_imagenet_pass_n500_vit_b_16.yaml through the
      port's Config.load: ViT-B/16, 384 px, batch 8, 81 categories,
      ignore_index 255, bf16; mesh_axes dropped here, a mesh of one in
-     phase 14) over 6 iterations of seeded batches, logging at 2, 4, 6 and evaluating and checkpointing
+     phase 14) over 6 iterations of seeded batches, logging with the
+     figures (`visualise=True`) at 2, 4, 6 and evaluating and checkpointing
      the full state at 3 and 6 (16 in-memory coco2017 images at the eval
      bench's native sizes, COCO scoring against their box annotations),
      every launch count set to 0 before and read after (24 flash launches
-     a step and a padded forward, one matcher launch a step, no probe), its
-     quiet iterations after the first under the sync debug mode "error";
-     the artifacts the JAX Trainer writes; a second straight run for the
+     a step, a padded forward and a log point's figures, one matcher launch
+     a step and a log point's matched pairs, no probe), its quiet
+     iterations after the first under the sync debug mode "error"; at each
+     log point the figures' launches, counted around their call (exactly
+     24 flash and 1 matcher), the matcher's assignment against its plain
+     version on the same costs and the host ms of the figures' forward,
+     matcher, composition and write (the `visualise:` line); the
+     artifacts and figures the JAX Trainer writes, each PNG decoded to its
+     layout's size; a second straight run for the
      spread of the backward's atomics, and the run resumed from the step-3
      checkpoint in a fresh model held to 4 x that spread (bit-equal where
-     the straight runs are); fit's iterations/s beside phase_train's step
-     rate, the eval's img/s, a checkpoint's bytes and write and restore
-     seconds, peak memory.
+     the straight runs are); fit's iterations/s, also without the
+     figures' seconds, beside phase_train's step rate, the eval's img/s,
+     a checkpoint's bytes and write and restore seconds, peak memory.
 
   9. Retrieval at full width (`phase_retrieval`): a synthetic merges
      file of CLIP's size (48,894 merges learned from the 80 COCO names and
@@ -145,17 +152,24 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
      CLI's cache file (equal to phase 9's), the pseudo-masks of every
      image combined_retrieval chose generated by the CLI from phase 10's
      checkpoint (24 flash launches an image), 6 iterations of batch 8 at
-     384 px from the JPEGs, logs at 2, 4, 6, evaluations of the 16 val
-     JPEGs and full checkpoints at 3 and 6, every launch count set to 0
-     before and read after (24 flash launches a step and a padded
-     forward, 18 of those masked, one matcher launch a step, no probe)
-     and the seconds it waited for batches, its artifacts; the loader's
+     384 px from the JPEGs, logs with the figures at 2, 4, 6, evaluations
+     of the 16 val JPEGs and full checkpoints at 3 and 6, every launch
+     count set to 0 before and read after (24 flash launches a step, a
+     padded forward and a log point's figures, 18 of a padded forward's
+     masked, one matcher launch a step and a matched-pairs figure, no
+     probe) and the seconds it waited for batches, its artifacts and
+     figures (matched pairs where the batch's first image has a valid
+     instance, at one log point at least; each log point's launches
+     counted around its call, as in phase 8, and its matcher against the
+     plain version); the loader's
      IndexDataset.sample ms and batch_iterator samples/s at 1, 2 and
      os.cpu_count() threads, and a COCO2017Dataset item's ms; the same
      evaluation again with no loader thread running, and the run resumed
      from step 3 (which reads the cache and finds every pseudo-mask,
      untouched) against the straight one; `cli.coco20k_eval.main` on the
-     trained final_model.npz, batched at depth 1 and 2. Prints the decode
+     trained final_model.npz, batched at depth 1 and 2 and per image, each
+     with `--visualise_first 2` (two overlay PNGs at their images' sizes;
+     24 flash launches a padded forward or an image). Prints the decode
      ms, the loader's rates, fit's iters/s beside phase_trainer's, the
      eval CLI's img/s and peak memory.
 
@@ -216,7 +230,8 @@ scipy for the matcher's host yardstick (`linear_sum_assignment`).
      NCCL), with every launch count set to 0 before each part and read
      after: the training CLI on phase 11's YAML with `mesh_axes: {data: 1,
      model: 1}`, its final parameters held against phase 11's straight run
-     within 4 x phase 8's spread of two runs without a mesh; the training
+     within 4 x phase 8's spread of two runs without a mesh, its figures
+     as phase 11's; the training
      step at phase 7's configuration with and without the mesh (two models
      from one seed), in turns, a warm-up and 5 steps each, the first
      losses equal to 1e-6; InferenceServer with `mesh=` (16 queued
@@ -264,7 +279,9 @@ from zutis_tpu_torch.core.checkpoint import (load_params_any,
                                              save_train_state)
 from zutis_tpu_torch.core.config import Config
 from zutis_tpu_torch.data.label_maps import new_label_id_to_old_label_id
+from zutis_tpu_torch.data.image_io import read_png
 from zutis_tpu_torch.engine import batched_eval as BE
+from zutis_tpu_torch.engine import visualiser
 from zutis_tpu_torch.engine.coco_eval import COCOEvaluator
 from zutis_tpu_torch.engine.server import InferenceServer
 from zutis_tpu_torch.engine.train_step import (TrainState, make_train_step,
@@ -2680,15 +2697,124 @@ def _max_param_diff(a: torch.nn.Module, b: torch.nn.Module) -> float:
                                b.state_dict().values()))
 
 
+FIGURE_STEMS = ("semantic", "queries", "matched")
+
+
+def figure_names(log_points, matched=None) -> list:
+    """The JAX Trainer's figure files at these log points; `matched`: the
+    log points with a matched-pairs figure (all of them by default)."""
+    matched = log_points if matched is None else matched
+    return [f"{stem}_{k:05d}.png" for k in log_points for stem in FIGURE_STEMS
+            if stem != "matched" or k in matched]
+
+
+def check_figures(run_dir: str, names: list, image_hw: tuple,
+                  proposal_hw: tuple, n_queries: int, n_max: int) -> None:
+    """Each figure decodes through read_png to a size its layout gives:
+    the triptych of three images, the query grid of n_queries tiles ten to
+    a row, matched pairs of 1 to n_max rows of two images (under titles
+    of any query index, which may be wider than small images)."""
+    (h, w), (ph, pw) = image_hw, proposal_hw
+    cells = {"semantic": [visualiser.layout([(t, h, w) for t in (
+                 "input", "ground truth", "prediction")], 3)[0]],
+             "queries": [visualiser.layout(
+                 [(str(i), ph, pw) for i in range(n_queries)]
+                 + [None] * (-n_queries % 10), 10)[0]],
+             "matched": [visualiser.layout(
+                 [("gt 0", h, w), (f"query {q}", h, w)] * n, 2)[0]
+                 for n in range(1, n_max + 1) for q in (0, 10, 100)
+                 if q < n_queries]}
+    for name in names:
+        image = read_png(os.path.join(run_dir, name))
+        check(image.dtype == np.uint8 and image.ndim == 3
+              and image.shape[:2] in cells[name.split("_")[0]],
+              f"{name} decodes to {image.dtype} {image.shape}")
+
+
+@contextlib.contextmanager
+def figure_record():
+    """While open, each `Trainer._visualise_train` call (a log point's
+    figures, `Trainer.fit`'s or a CLI's) appends a record to the yielded
+    list: its iteration; whether the batch's first image has a valid
+    instance, and so a matched-pairs figure is due; the flash and matcher
+    launches it made (the counts read before and after it, not zeroed);
+    its seconds. On the writer also its files, matched rows and the host
+    ms of its parts, its matcher's assignment held to the plain version on
+    the same costs (on the card where the Trainer runs)."""
+    calls, real = [], Trainer._visualise_train
+
+    def recorded(self, batch, num_iter, ignore_index):
+        valid = batch["instance_valid"][0]
+        matched = bool((valid.cpu().numpy() if torch.is_tensor(valid)
+                        else np.asarray(valid)).any())
+        before = read_counts()[0]
+        t0 = time.perf_counter()
+        real(self, batch, num_iter, ignore_index)
+        _sync(self.device)
+        seconds = time.perf_counter() - t0
+        after = read_counts()[0]
+        call = dict(num_iter=num_iter, matched=matched, seconds=seconds,
+                    launches={k: after[k] - before[k]
+                              for k in ("flash_attention",
+                                        "batched_hungarian")})
+        if self._writer:
+            rec = self.last_visualisation
+            check(rec is not None and rec["num_iter"] == num_iter,
+                  f"Trainer.fit drew no figures at log point {num_iter}")
+            check((rec["cost"] is not None) == matched,
+                  f"matched pairs at {num_iter}: due {matched}, drawn "
+                  f"{rec['cost'] is not None}")
+            if matched:
+                plain = hg.batched_hungarian_reference(
+                    rec["cost"]).cpu().numpy()
+                check(np.array_equal(plain, rec["assignment"][None]),
+                      f"the figures' matcher at {num_iter}: "
+                      f"{rec['assignment']} against the plain version's "
+                      f"{plain}")
+            call.update(
+                files=[os.path.basename(f) for f in rec["files"]],
+                rows=int(rec["cost"].shape[-2]) if matched else 0,
+                **{f"{part}_ms": rec[f"{part}_s"] * 1e3
+                   for part in ("forward", "matcher", "compose", "write")})
+        calls.append(call)
+
+    Trainer._visualise_train = recorded
+    try:
+        yield calls
+    finally:
+        Trainer._visualise_train = real
+
+
+def check_figure_launches(figures: list, where: str) -> None:
+    """Each log point's figures launched flash 24 times (their forward)
+    and the matcher once where matched pairs were due, else not."""
+    for f in figures:
+        want = {"flash_attention": LAUNCHES_PER_FORWARD,
+                "batched_hungarian": int(f["matched"])}
+        check(f["launches"] == want, f"{where}: the figures at log point "
+              f"{f['num_iter']} launched {f['launches']}, expected {want}")
+
+
+def rate_without_figures(log: dict, figures: list,
+                         start_iter: int = 0) -> float:
+    """A training_metrics.json record's iters_per_sec with the seconds of
+    the same run's figures drawn before it (a log point's figures follow
+    its record) taken out of its window."""
+    n = log["num_iter"] - start_iter
+    return n / (n / log["iters_per_sec"] - sum(
+        f["seconds"] for f in figures if f["num_iter"] < log["num_iter"]))
+
+
 def phase_trainer(train_stats: dict, model_cfg: dict = VIT_B16,
                   image_size: int = 0, val_images: int = TRAINER_VAL_IMAGES,
                   device="cuda") -> dict:
     """Trainer.fit and evaluate at the shipped config's widths: the main
-    run (6 iterations; logs at 2, 4, 6; evaluations and full-state
-    checkpoints at 3 and 6, each evaluation 16 images through the bucketed
-    eval and COCO scoring) with every launch count set to 0 before and
-    read after, its quiet iterations after the first under the sync debug
-    mode "error";
+    run (6 iterations; logs with the figures at 2, 4, 6; evaluations and
+    full-state checkpoints at 3 and 6, each evaluation 16 images through
+    the bucketed eval and COCO scoring) with every launch count set to 0
+    before and read after, its quiet iterations after the first under the
+    sync debug mode "error"; at each log point the figures' matcher held
+    to its plain version, and each figure decoded;
     a second straight run for the spread; the run resumed from the main
     run's step-3 checkpoint in a fresh model, held to that spread; a
     checkpoint's write and restore seconds and bytes, and an .npz
@@ -2740,7 +2866,8 @@ def phase_trainer(train_stats: dict, model_cfg: dict = VIT_B16,
 
     def fit(trainer, state, **kw):
         """`trainer.fit` with the quiet iterations after the first under
-        the sync debug mode "error" (the first initialises AdamW's state)."""
+        the sync debug mode "error" (the first initialises AdamW's
+        state)."""
         sync()
         try:
             return trainer.fit(state, iter(batches[state.step:]),
@@ -2768,28 +2895,36 @@ def phase_trainer(train_stats: dict, model_cfg: dict = VIT_B16,
             torch.cuda.reset_peak_memory_stats(device)
         zero_counts()
         t0 = time.perf_counter()
-        fit(trainer, state_a, iter_eval=cfg.iter_eval, val_dataset=val,
-            checkpoint_every=cfg.checkpoint_every, checkpoint_dir=ckpt)
+        with figure_record() as visualised:
+            fit(trainer, state_a, iter_eval=cfg.iter_eval, val_dataset=val,
+                checkpoint_every=cfg.checkpoint_every, checkpoint_dir=ckpt,
+                visualise=True)
         sync()
         fit_s = time.perf_counter() - t0
         launches, masked = read_counts()
         peak_gib = (torch.cuda.max_memory_allocated(device) / 2 ** 30
                     if on_card else None)
         n_evals = cfg.n_iters // cfg.iter_eval
+        log_points = list(range(cfg.iter_log, cfg.n_iters + 1, cfg.iter_log))
+        check([v["num_iter"] for v in visualised] == log_points,
+              f"figures at {[v['num_iter'] for v in visualised]}")
         print(f"trainer: fit of {cfg.n_iters} iterations in {fit_s:.3f} s; "
               f"launches {json.dumps(launches)} ({masked} masked flash)",
               flush=True)
         if on_card:
             check(launches["flash_attention"] == LAUNCHES_PER_FORWARD * (
-                cfg.n_iters + n_evals), f"{launches['flash_attention']} "
-                f"flash launches: expected {LAUNCHES_PER_FORWARD} a step and "
-                "a padded forward")
+                cfg.n_iters + n_evals + len(log_points)),
+                f"{launches['flash_attention']} flash launches: expected "
+                f"{LAUNCHES_PER_FORWARD} a step, a padded forward and a "
+                "log point's figures")
             check(masked == EVAL_MASKED_LAUNCHES * n_evals,
                   f"{masked} masked flash launches in {n_evals} evaluations")
-            check(launches["batched_hungarian"] == cfg.n_iters,
-                  "one matcher launch a step")
+            check(launches["batched_hungarian"] == cfg.n_iters
+                  + len(log_points), "one matcher launch a step and a log "
+                  "point's figures")
             check(sum(launches[p] for p in PROBES) == 0,
                   "fit launched a probe")
+            check_figure_launches(visualised, "Trainer.fit")
 
         # the artifacts, as the JAX Trainer writes them
         names = sorted(os.listdir(dir_ckpt))
@@ -2798,8 +2933,15 @@ def phase_trainer(train_stats: dict, model_cfg: dict = VIT_B16,
              "eval_metrics.json", "final_model.npz", "latest_model.npz",
              "training_metrics.json"] + [
                 f"instance_predictions_{k:05d}.json"
-                for k in range(cfg.iter_eval, cfg.n_iters + 1, cfg.iter_eval)]),
-              f"the run wrote {names}")
+                for k in range(cfg.iter_eval, cfg.n_iters + 1, cfg.iter_eval)]
+              + figure_names(log_points)), f"the run wrote {names}")
+        size = image_size or cfg.train_image_size
+        tokens = 2 * size // model_cfg["patch_size"]
+        check_figures(dir_ckpt, figure_names(log_points), (size, size),
+                      (tokens, tokens), model_cfg["n_queries"], TRAIN_N_MAX)
+        check(all(v["matched"] and v["rows"] == TRAIN_VALID
+                  for v in visualised),
+              f"matched rows {[v['rows'] for v in visualised]}")
         logs = _read_jsonl(os.path.join(dir_ckpt, "training_metrics.json"))
         check([r["num_iter"] for r in logs] == list(
             range(cfg.iter_log, cfg.n_iters + 1, cfg.iter_log)),
@@ -2869,6 +3011,8 @@ def phase_trainer(train_stats: dict, model_cfg: dict = VIT_B16,
     rate = logs[-1]["iters_per_sec"]
     out = dict(config=str(TRAINER_CONFIG.name), fit_s=fit_s,
                fit_iters_per_sec=rate,
+               fit_iters_per_sec_without_figures=rate_without_figures(
+                   logs[-1], visualised),
                train_step_its_per_sec=train_stats["train_step_its_per_sec"],
                step_iters_per_s=train_stats["iters_per_s"],
                eval_images_per_sec=[e["eval_images_per_sec"] for e in evals],
@@ -2879,11 +3023,13 @@ def phase_trainer(train_stats: dict, model_cfg: dict = VIT_B16,
                export_bytes=export_bytes, resume_max_diff=diff,
                straight_spread=spread, resume_bound=bound,
                launches=launches, masked_launches=masked,
-               peak_memory_gib=peak_gib,
+               visualised=visualised, peak_memory_gib=peak_gib,
                phase_s=time.perf_counter() - t_phase)
     print(f"trainer rate: fit {rate:.3f} iters/s over {cfg.n_iters} "
           f"iterations with {len(logs)} logs, {n_evals} evaluations and "
-          f"{n_evals} checkpoints (phase_train: "
+          f"{n_evals} checkpoints, "
+          f"{out['fit_iters_per_sec_without_figures']:.3f} without the "
+          f"figures' seconds before the last log (phase_train: "
           f"{out['train_step_its_per_sec']:.3f} steps/s back to back, "
           f"{out['step_iters_per_s']:.3f} synchronised); eval "
           f"{json.dumps(out['eval_images_per_sec'])} img/s; checkpoint "
@@ -2903,6 +3049,7 @@ CLI_CATEGORIES = ("person", "dog", "kite", "cup")  # of the config's coco81
 CLI_PER_CATEGORY = 6  # 24 training images at ImageNet's 500 x 375
 CLI_VAL_IMAGES = 16  # every fourth the 640 x 480 fixture, the rest 500 x 375
 CLI_BATCH_IMAGES = 16  # the eval CLI's batch, as Trainer.evaluate's
+CLI_OVERLAYS = 2  # the eval CLI's --visualise_first
 LOADER_SAMPLES = 12  # IndexDataset.sample timed one at a time
 LOADER_PARTS = {  # a sample's parts: (file, function) under cProfile
     "resample": ("transforms.py", "_pass"),
@@ -3136,10 +3283,11 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
     and full checkpoints at 3 and 6) with every launch count set to 0
     before and read after, its text embeddings computed from the synthetic
     ViT-B/16 checkpoint into the JAX CLI's cache file (equal to
-    phase_retrieval's), its artifacts, and the run resumed from step 3
-    (which reads the cache) against the straight one;
+    phase_retrieval's), its artifacts and figures, and the run resumed from
+    step 3 (which reads the cache) against the straight one;
     `cli.coco20k_eval.main` on the trained final_model.npz, batched at
-    depth 1 and 2; then `parallel(root, cfg_fp, straight final parameters,
+    depth 1 and 2 and per image, each drawing the overlays of its first 2
+    images; then `parallel(root, cfg_fp, straight final parameters,
     phase_trainer's spread)` where given (phase_parallel). `model_kwargs`
     and `image_size` shrink the model for a rehearsal on the CPU, where the
     card's checks are left out."""
@@ -3189,7 +3337,8 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
         zero_counts()
         sync()
         t0 = time.perf_counter()
-        with loader_waits() as waits, generation_record() as generated:
+        with loader_waits() as waits, generation_record() as generated, \
+                figure_record() as drawn:
             cli_main.main(args)
         sync()
         fit_s = time.perf_counter() - t0
@@ -3226,6 +3375,15 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
               f"{sum(waits):.3f} s waiting for batches (by step: "
               f"{json.dumps([round(w, 4) for w in waits])}); launches "
               f"{json.dumps(launches)} ({masked} masked flash)", flush=True)
+        run = checkpoint_dir(cfg)
+        # the figures at every log point, matched pairs where the batch's
+        # first image has a valid instance: one matcher launch each
+        log_points = list(range(cfg.iter_log, cfg.n_iters + 1, cfg.iter_log))
+        matched = [f["num_iter"] for f in drawn if f["matched"]]
+        check([f["num_iter"] for f in drawn] == log_points and matched,
+              f"the training CLI drew figures at {drawn}: expected at "
+              f"{log_points}, matched pairs at one at least")
+        figures = figure_names(log_points, matched)
         if on_card:
             check(gen["launches"] == SELFMASK_LAUNCHES * gen["images"],
                   f"{gen['launches']} flash launches for {gen['images']} "
@@ -3235,16 +3393,18 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
                   f"{gen['split_launches']} split flash launches for "
                   f"{gen['images']} pseudo-masks")
             check(launches["flash_attention"] - gen["launches"]
-                  == LAUNCHES_PER_FORWARD * (cfg.n_iters + forwards * n_evals),
+                  == LAUNCHES_PER_FORWARD * (cfg.n_iters + forwards * n_evals
+                                             + len(log_points)),
                   f"{launches['flash_attention']} flash launches: expected "
-                  f"{LAUNCHES_PER_FORWARD} a step and a padded forward")
+                  f"{LAUNCHES_PER_FORWARD} a step, a padded forward and a "
+                  "log point's figures")
             check(masked == EVAL_MASKED_LAUNCHES * forwards * n_evals,
                   f"{masked} masked flash launches")
-            check(launches["batched_hungarian"] == cfg.n_iters,
-                  "one matcher launch a step")
+            check(launches["batched_hungarian"] == cfg.n_iters + len(matched),
+                  "one matcher launch a step and a matched-pairs figure")
             check(sum(launches[p] for p in PROBES) == 0, "the CLI launched "
                   "a probe")
-        run = checkpoint_dir(cfg)
+            check_figure_launches(drawn, "the training CLI")
         names = sorted(os.listdir(run))
         check(names == sorted(
             ["best_model.npz", "checkpoints", "config.json",
@@ -3252,7 +3412,7 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
              "final_model.npz", "latest_model.npz", "training_metrics.json"]
             + [f"instance_predictions_{k:05d}.json"
                for k in range(cfg.iter_eval, cfg.n_iters + 1,
-                              cfg.iter_eval)]),
+                              cfg.iter_eval)] + figures),
             f"the CLI wrote {names}")
         check(sorted(os.listdir(os.path.join(run, "checkpoints"))) == [
             f"step_{k}" for k in range(cfg.checkpoint_every, cfg.n_iters + 1,
@@ -3274,8 +3434,12 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
         check(all(np.isfinite(v).all() for v in straight.values()),
               "final_model.npz holds a non-finite parameter")
 
-        loader = time_loader(cli_main.build_index_dataset(cfg, 0, device),
-                             batch, device)
+        index = cli_main.build_index_dataset(cfg, 0, device)
+        size, arch = image_size or cfg.train_image_size, model_kwargs or VIT_B16
+        tokens = 2 * size // arch["patch_size"]
+        check_figures(run, figures, (size, size), (tokens, tokens),
+                      arch["n_queries"], index.max_n_masks)
+        loader = time_loader(index, batch, device)
         print(f"cli: loader: IndexDataset.sample {loader['sample_ms']:.1f} "
               f"ms (median of {LOADER_SAMPLES}, "
               f"{loader['objects_per_sample']:.2f} objects a sample; "
@@ -3314,7 +3478,8 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
         shutil.rmtree(os.path.join(run, "checkpoints", f"step_{cfg.n_iters}"))
         zero_counts()
         t0 = time.perf_counter()
-        with generation_record() as generated_again:
+        with generation_record() as generated_again, \
+                figure_record() as drawn_again:
             cli_main.main(args)
         sync()
         resume_s = time.perf_counter() - t0
@@ -3325,9 +3490,25 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
                                        for m in masks.values()}
               == mask_stamps, "the resumed run made pseudo-masks again")
         resumed_steps = cfg.n_iters - cfg.checkpoint_every
+        # its batches are the straight run's: matched pairs where that
+        # run drew them
+        resumed_logs = [k for k in log_points if k > cfg.checkpoint_every]
+        resumed_matched = [k for k in matched if k > cfg.checkpoint_every]
+        check([f["num_iter"] for f in drawn_again] == resumed_logs
+              and [f["num_iter"] for f in drawn_again if f["matched"]]
+              == resumed_matched,
+              f"the resumed run drew figures at {drawn_again}: expected at "
+              f"{resumed_logs}, matched pairs at {resumed_matched}")
+        resumed_evals = sum(k % cfg.iter_eval == 0 for k in range(
+            cfg.checkpoint_every + 1, cfg.n_iters + 1))
         if on_card:
-            check(resumed_launches["batched_hungarian"] == resumed_steps,
+            check(resumed_launches["batched_hungarian"]
+                  == resumed_steps + len(resumed_matched)
+                  and resumed_launches["flash_attention"]
+                  == LAUNCHES_PER_FORWARD * (resumed_steps + len(resumed_logs)
+                                             + forwards * resumed_evals),
                   f"the resumed run took {resumed_launches} launches")
+            check_figure_launches(drawn_again, "the resumed training CLI")
         logs_after = _read_jsonl(os.path.join(run, "training_metrics.json"))
         check([r["num_iter"] for r in logs_after] == [
             r["num_iter"] for r in logs] + [
@@ -3346,35 +3527,49 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
         check(diff <= bound if spread > 0 else diff == 0.0,
               "the resumed CLI run left the straight runs' spread")
 
-        # the eval CLI on the trained weights, batched, depth 1 and 2
+        # the eval CLI on the trained weights, batched at depth 1 and 2 and
+        # per image, each drawing the overlays of its first images
         eval_rates, eval_launches = {}, {}
-        for depth in (1, 2):
+        val_hw = {i + 1: hw for i, hw in enumerate(paths["val_sizes"])}
+        for mode in (1, 2, "per_image"):
             zero_counts()
+            batched = mode != "per_image"
             res = cli_eval.main([
                 "--p_config", str(cfg_fp), "--p_state_dict", final,
                 "--dir_dataset", str(paths["dir_20k"]),
-                "--dir_ckpt", str(root / f"eval_d{depth}"),
-                "--batch_images", str(CLI_BATCH_IMAGES),
-                "--pipeline_depth", str(depth), "--suffix", f"d{depth}",
-                "--device", str(device)])
+                "--dir_ckpt", str(root / f"eval_{mode}"),
+                "--batch_images", str(CLI_BATCH_IMAGES if batched else 1),
+                "--pipeline_depth", str(mode if batched else 1),
+                "--suffix", str(mode), "--visualise_first",
+                str(CLI_OVERLAYS), "--device", str(device)])
             sync()
-            eval_launches[depth], eval_masked = read_counts()
-            eval_rates[depth] = res["eval_images_per_sec"]
-            written = [os.path.join(dp, fn) for dp, _, fns in
-                       os.walk(root / f"eval_d{depth}") for fn in fns]
-            check(len(written) == 1 and written[0].endswith(
-                f"coco20k_metrics_vit_b_16_nms_hard_d{depth}.json"),
-                f"the eval CLI wrote {written}")
+            eval_launches[mode], eval_masked = read_counts()
+            eval_rates[mode] = res["eval_images_per_sec"]
+            written = {fn: os.path.join(dp, fn) for dp, _, fns in
+                       os.walk(root / f"eval_{mode}") for fn in fns}
+            overlays = sorted(fn for fn in written if fn.startswith("overlay_"))
+            check(len(written) == 1 + CLI_OVERLAYS
+                  and f"coco20k_metrics_vit_b_16_nms_hard_{mode}.json"
+                  in written and len(overlays) == CLI_OVERLAYS,
+                  f"the eval CLI wrote {sorted(written)}")
+            for fn in overlays:
+                image = read_png(written[fn])
+                check(image.shape == (*val_hw[int(fn[8:-4])], 3),
+                      f"{fn} decodes to {image.shape}")
             check(all(np.isfinite(res[k]) for k in ("AP", "AR_100")),
                   f"the eval CLI's metrics: {res}")
             if on_card:
-                check(eval_launches[depth]["flash_attention"]
-                      == LAUNCHES_PER_FORWARD * forwards
-                      and eval_masked == EVAL_MASKED_LAUNCHES * forwards,
-                      f"the eval CLI launched {eval_launches[depth]}")
-        print(f"cli: eval: coco20k_eval on {CLI_VAL_IMAGES} JPEGs, "
-              f"{json.dumps({f'depth {d}': r for d, r in eval_rates.items()})}"
-              f" img/s; AP {res['AP']:.4f}", flush=True)
+                want = ((LAUNCHES_PER_FORWARD * forwards,
+                         EVAL_MASKED_LAUNCHES * forwards) if batched
+                        else (LAUNCHES_PER_FORWARD * CLI_VAL_IMAGES, 0))
+                check((eval_launches[mode]["flash_attention"], eval_masked)
+                      == want, f"the eval CLI ({mode}) launched "
+                      f"{eval_launches[mode]}, {eval_masked} masked")
+        print(f"cli: eval: coco20k_eval on {CLI_VAL_IMAGES} JPEGs with "
+              f"{CLI_OVERLAYS} overlays, img/s "
+              f"{json.dumps({str(m): r for m, r in eval_rates.items()})} "
+              f"(batched by depth, per image); AP {res['AP']:.4f}",
+              flush=True)
         par = None
         if parallel is not None:
             par = parallel(root, cfg_fp, straight,
@@ -3385,6 +3580,10 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
                pseudo_masks=gen,
                loader_wait_s=waits,
                fit_iters_per_sec=rate,
+               fit_iters_per_sec_without_figures=rate_without_figures(
+                   logs[-1], drawn),
+               trainer_fit_iters_per_sec_without_figures=trainer_stats.get(
+                   "fit_iters_per_sec_without_figures"),
                trainer_fit_iters_per_sec=trainer_stats.get(
                    "fit_iters_per_sec"),
                trainer_fit_s=trainer_stats.get("fit_s"),
@@ -3395,13 +3594,17 @@ def phase_cli(trainer_stats: dict, retrieval: dict, device="cuda",
                quiet_eval_images_per_sec=quiet_eval["eval_images_per_sec"],
                eval_images_per_sec=eval_rates, launches=launches,
                masked_launches=masked, resumed_launches=resumed_launches,
+               figures=drawn, resumed_figures=drawn_again,
                eval_launches=eval_launches, resume_max_diff=diff,
                resume_s=resume_s, losses=[r["loss"] for r in logs],
                peak_memory_gib=peak_gib, val_forwards_per_eval=forwards,
                parallel=par, phase_s=time.perf_counter() - t_phase)
     print(f"cli rate: fit {rate:.3f} iters/s on batches from disk against "
           f"{out['trainer_fit_iters_per_sec']} on synthetic batches "
-          f"(phase_trainer, same schedule; bare step "
+          f"(phase_trainer, same schedule), without the figures' seconds "
+          f"before the last log {out['fit_iters_per_sec_without_figures']:.3f}"
+          f" against {out['trainer_fit_iters_per_sec_without_figures']} (bare "
+          f"step "
           f"{out['train_step_its_per_sec']} steps/s); loader "
           f"{json.dumps(loader['loader_samples_per_s'])} samples/s by "
           f"threads (a step takes {batch} samples); eval CLI "
@@ -4878,8 +5081,20 @@ def phase_parallel(root: Path, cfg_fp: Path, straight: dict, spread: float,
 
     from zutis_tpu_torch.core.config import checkpoint_dir
 
-    final = os.path.join(checkpoint_dir(Config.load(job["cli_config"])),
-                         "final_model.npz")
+    mesh_cfg = Config.load(job["cli_config"])
+    run = checkpoint_dir(mesh_cfg)
+    final = os.path.join(run, "final_model.npz")
+    # the figures, as the training CLI without a mesh draws them
+    drawn = res["cli"]["figures"]
+    log_points = list(range(mesh_cfg.iter_log, mesh_cfg.n_iters + 1,
+                            mesh_cfg.iter_log))
+    figures = figure_names(log_points, [f["num_iter"] for f in drawn
+                                        if f["matched"]])
+    check([f["num_iter"] for f in drawn] == log_points and sorted(
+        n for n in os.listdir(run) if n.endswith(".png")) == sorted(figures),
+        f"the training CLI on a mesh drew {drawn}")
+    if device.type == "cuda":
+        check_figure_launches(drawn, "the training CLI on a mesh")
     with np.load(final) as f:
         check(set(f.files) == set(straight), "the mesh run's final_model.npz "
               "holds other parameters")
@@ -5083,11 +5298,12 @@ def parallel_rank(job_fp: Path) -> None:
     print(f"parallel: {mesh} on {backend}", flush=True)
     zero_counts()
     t1 = time.perf_counter()
-    cli_main.main(job["cli_args"])
+    with figure_record() as drawn:
+        cli_main.main(job["cli_args"])
     _sync(device)
     launches, masked = read_counts()
     res["cli"] = dict(s=time.perf_counter() - t1, launches=launches,
-                      masked_launches=masked)
+                      masked_launches=masked, figures=drawn)
     print(f"parallel: cli: {res['cli']['s']:.1f} s, launches "
           f"{json.dumps(launches)}", flush=True)
     res["step"] = _parallel_step_turns(mesh, job, device)
@@ -5097,6 +5313,18 @@ def parallel_rank(job_fp: Path) -> None:
     res["rank_s"] = time.perf_counter() - t0
     (Path(job["out"]) / "result.json").write_text(json.dumps(res))
     close_mesh(mesh)
+
+
+def figure_launches(kernel: str, trainer: dict, cli: dict,
+                    par: dict) -> dict:
+    """`kernel`'s launches for the figures by path: each log point's,
+    counted around its `_visualise_train` call in the main run (see
+    `figure_record`), summed."""
+    paths = {"trainer": trainer["visualised"], "cli_train": cli["figures"],
+             "cli_resumed": cli["resumed_figures"],
+             "parallel_cli_mesh": par["cli"]["figures"]}
+    return {p: sum(f["launches"][kernel] for f in figs)
+            for p, figs in paths.items()}
 
 
 def parallel_launches(par: dict) -> dict:
@@ -5144,6 +5372,15 @@ def main() -> None:
          if k not in ("flash_rows", "wide_flash_rows")}), flush=True)
     trainer = phase_trainer(tr)
     print(f"trainer on {card}: {json.dumps(trainer)}", flush=True)
+    vis = trainer["visualised"]
+    parts = ("forward", "matcher", "compose", "write")
+    print("visualise: host ms a log point of Trainer.fit (log points "
+          f"{[v['num_iter'] for v in vis]}; forward, matcher, composition, "
+          "write): " + json.dumps({p: [v[f"{p}_ms"] for v in vis]
+                                   for p in parts})
+          + "; medians " + json.dumps({p: statistics.median(
+              v[f"{p}_ms"] for v in vis) for p in parts})
+          + f" on {card}", flush=True)
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
@@ -5182,11 +5419,12 @@ def main() -> None:
         "replaces": "zutis_tpu/ops/flash_attention.py:53",
         # the main paths, each counted from 0: the serving forwards, the
         # eval's padded forwards, the training steps, Trainer.fit (its
-        # steps and its evaluations' padded forwards), the retrieval's
-        # image banks (f32, bf16, and the library path's two archives),
-        # the pseudo-masks' SelfMask, and the two CLIs on images from disk
-        # (the training CLI with the pseudo-masks it made, its resumed run
-        # and the eval CLI at depth 1 and 2)
+        # steps, its figures' forwards and its evaluations' padded
+        # forwards), the retrieval's image banks (f32, bf16, and the
+        # library path's two archives), the pseudo-masks' SelfMask, and the
+        # two CLIs on images from disk (the training CLI with the
+        # pseudo-masks it made and its figures, its resumed run and the
+        # eval CLI at depth 1 and 2 and per image)
         "launches": (stats["launches"] + ev["launches"]
                      + tr["launches"]["flash_attention"]
                      + trainer["launches"]["flash_attention"]
@@ -5220,6 +5458,9 @@ def main() -> None:
                              **lev_launches,
                              "encoders": encoder_launches(enc),
                              "parallel": par_launches["flash_attention"]},
+        # of those, the figures' forwards, each log point's counted
+        "figure_launches": figure_launches("flash_attention", trainer, cli,
+                                           par),
         # the launches given a key bias (the levers' ToMe encoder and
         # padded pooled cross-attention), by path
         "biased_launches": {
@@ -5324,7 +5565,8 @@ def main() -> None:
         "source": "zutis_tpu_torch/csrc/hungarian.cu",
         "replaces": "zutis_tpu/ops/hungarian.py:34",
         # the training steps, Trainer.fit's and the training CLI's (and
-        # its resumed run's), each counted from 0
+        # its resumed run's), and their matched-pairs figures, each path
+        # counted from 0
         "launches": (tr["launches"]["batched_hungarian"]
                      + lev["train"]["launches"]["batched_hungarian"]
                      + trainer["launches"]["batched_hungarian"]
@@ -5338,6 +5580,9 @@ def main() -> None:
             "cli_train": cli["launches"]["batched_hungarian"],
             "cli_resumed": cli["resumed_launches"]["batched_hungarian"],
             "parallel": par_launches["batched_hungarian"]},
+        # of those, the matched-pairs figures': one a figure
+        "figure_launches": figure_launches("batched_hungarian", trainer,
+                                           cli, par),
         "max_abs_err": 0.0,  # col4row bit-equal to the plain version
         # one call on a training step's [48, 10, 100] costs
         "ms": matcher["ms"],

@@ -1,17 +1,19 @@
 """The port's two CLIs (zutis_tpu_torch/cli/main.py, cli/coco20k_eval.py)
 and its model factory on the CPU, against the JAX package's on the tiny
 fixture of tests/fixture_helpers.py: training writes the JAX CLI's
-artifacts (no figures: the port does not visualise) and resumes from its
-newest full checkpoint; evaluating a JAX-written `.npz` gives the JAX CLI's
-`eval_metrics.json` and `eval_coco_style_metrics.json` (every score within
-1e-6, NaNs where JAX has NaNs); `coco20k_eval` gives the JAX CLI's
-predictions and metrics; `load_clip_visual` gives `load_clip_params`'s
-encoder on a synthetic CLIP-layout checkpoint; the training CLI makes missing
-pseudo-masks from a synthetic SelfMask checkpoint in the flat and ImageNet
-layouts, equal to the JAX package's, and refuses without one; both CLIs
-build the config's `tome_r` / `decoder_pool` extras into the model (the port
-of tests/test_cli_levers.py); the other refusals name their ROADMAP item
-or, for a mesh larger than the process group, the world size. The text
+artifacts and figures (`visualise` defaults to True, as in the JAX CLI)
+and resumes from its newest full checkpoint; evaluating a JAX-written
+`.npz` gives the JAX CLI's `eval_metrics.json` and
+`eval_coco_style_metrics.json` (every score within 1e-6, NaNs where JAX
+has NaNs); `coco20k_eval` gives the JAX CLI's predictions and metrics, and
+with `--visualise_first` its overlays' contents; `load_clip_visual` gives
+`load_clip_params`'s encoder on a synthetic CLIP-layout checkpoint; the
+training CLI makes missing pseudo-masks from a synthetic SelfMask
+checkpoint in the flat and ImageNet layouts, equal to the JAX package's,
+and refuses without one; both CLIs build the config's `tome_r` /
+`decoder_pool` extras into the model (the port of
+tests/test_cli_levers.py); the other refusals (a mesh larger than the
+process group, the DINO arm without `skip_pretrained`) say why. The text
 embeddings computed from a checkpoint are in
 tests/test_torch_text_embeddings.py."""
 import json
@@ -39,6 +41,9 @@ TIMING_KEYS = {"timestamp", "eval_images_per_sec", "iters_per_sec",
 ARTIFACTS = {"config.json", "training_metrics.json", "eval_metrics.json",
              "eval_coco_style_metrics.json", "instance_predictions_00003.json",
              "latest_model.npz", "best_model.npz", "final_model.npz"}
+# the JAX Trainer's figures at each log point (iter_log 1, 3 iterations)
+FIGURES = {f"{stem}_{k:05d}.png" for stem in ("semantic", "queries", "matched")
+           for k in (1, 2, 3)}
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +87,7 @@ def test_train_three_iterations_writes_the_artifacts(fixture):
     port_main.main(["--p_config", cfg_fp, "--device", "cpu"])
     run = _run_dir(fixture[0] / "ckpt_train")
     names = set(os.listdir(run))
-    assert names == ARTIFACTS, names  # no figures
+    assert names == ARTIFACTS | FIGURES, names
     logs = _jsonl(f"{run}/training_metrics.json")
     assert [r["num_iter"] for r in logs] == [1, 2, 3]
     assert {"num_iter", "loss", "Mean IoU", "Pixel Acc"} <= set(logs[0])
@@ -235,7 +240,7 @@ def test_train_cli_trains_a_tiny_rn_from_its_clip_checkpoint(fixture,
                      model_kwargs=TINY_RN)
     port_main.main(["--p_config", cfg_fp, "--device", "cpu"])
     run = _run_dir(fixture[0] / "ckpt_train_rn")
-    assert set(os.listdir(run)) == ARTIFACTS
+    assert set(os.listdir(run)) == ARTIFACTS | FIGURES
     assert all(np.isfinite(r["loss"])
                for r in _jsonl(f"{run}/training_metrics.json"))
     with np.load(f"{run}/final_model.npz") as f:
@@ -296,12 +301,50 @@ def test_coco20k_eval_of_rn_and_dino_runs_per_image(fixture, coco20k,
     _assert_scores_close(out["port"], out["jax"])
 
 
-def test_coco20k_eval_refuses_visualise(fixture, jax_npz, coco20k):
+@pytest.mark.parametrize("batch_images", [4, 1])
+def test_coco20k_eval_visualise_first_writes_overlays(
+        fixture, jax_npz, coco20k, monkeypatch, tmp_path, batch_images):
+    """--visualise_first 2 on the batched and the per-image path: the JAX
+    CLI's `overlay_<image_id>.png` for the same two images, drawn from the
+    same image, kept masks, labels and scores, each PNG the composed
+    figure."""
+    from zutis_tpu.engine import visualiser as jax_vis
+    from zutis_tpu_torch.data.image_io import read_png
+    from zutis_tpu_torch.engine import visualiser as port_vis
+
+    seen = {"jax": [], "port": []}
+    for side, module in (("jax", jax_vis), ("port", port_vis)):
+        def record(*a, _seen=seen[side], _real=module.instance_overlay):
+            _seen.append((a, _real(*a)))
+            return _seen[-1][1]
+        monkeypatch.setattr(module, "instance_overlay", record)
     _, cfg_fp = _cfg(fixture, "c20k_vis")
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        coco20k_eval.main(["--p_config", cfg_fp, "--p_state_dict", jax_npz,
-                           "--dir_dataset", str(coco20k),
-                           "--visualise_first", "1", "--device", "cpu"])
+    args = ["--p_config", cfg_fp, "--p_state_dict", jax_npz,
+            "--dir_dataset", str(coco20k), "--threshold", "0.3",
+            "--batch_images", str(batch_images), "--max_images", "3",
+            "--visualise_first", "2"]
+    jax_coco20k.main(args + ["--dir_ckpt", str(tmp_path / "jax")])
+    coco20k_eval.main(args + ["--dir_ckpt", str(tmp_path / "port"),
+                              "--device", "cpu"])
+    pngs = {}
+    for side in ("jax", "port"):
+        pngs[side] = {fn: os.path.join(dp, fn) for dp, _, fns in
+                      os.walk(tmp_path / side) for fn in fns
+                      if fn.endswith(".png")}
+    assert sorted(pngs["port"]) == sorted(pngs["jax"]) and len(pngs["port"]) == 2
+    assert len(seen["port"]) == len(seen["jax"]) == 2
+    n_masks = 0
+    for ((image, masks, scores, labels), (canvas, _)), (want, _) in zip(
+            seen["port"], seen["jax"]):
+        fp = pngs["port"][os.path.basename(want[4])]
+        np.testing.assert_array_equal(image, want[0])
+        np.testing.assert_array_equal(masks, want[1])
+        assert labels == want[3]
+        np.testing.assert_allclose(scores, want[2], rtol=0, atol=SCORE_TOL)
+        np.testing.assert_array_equal(read_png(fp), canvas)
+        assert canvas.shape == (*image.shape[1:], 3)
+        n_masks += len(masks)
+    assert n_masks > 0
 
 
 # ------------------------------------------------------------ factory
@@ -614,7 +657,6 @@ def test_text_embeddings_from_the_npz_and_the_jax_cache(fixture, tmp_path):
 @pytest.mark.parametrize("overrides,error,match", [
     (dict(mesh_axes={"data": 2, "model": 1}), ValueError,
      "a mesh of 2 ranks, but the world size is 1"),
-    (dict(visualise=True), NotImplementedError, "matplotlib"),
     (dict(category_to_p_images_fp="MISSING_PM"), FileNotFoundError,
      "1 pseudo-masks missing and no SelfMask weights at .*selfmask_nq20.pt"),
     (dict(encoder_type="dino", skip_pretrained=False), ValueError,
@@ -635,6 +677,28 @@ def test_cli_refusals(fixture, tmp_path, overrides, error, match):
     fp = dump_cfg(cfg, tmp_path / "refuse.yaml")
     with pytest.raises(error, match=match):
         port_main.main(["--p_config", fp, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("visualise", [True, False])
+def test_training_cli_visualise_key(fixture, tmp_path, visualise):
+    """`visualise` in the config: the three figures at each log point
+    (iter_log 2: iteration 2), each a PNG the port's decoder reads, or
+    none."""
+    from zutis_tpu_torch.data.image_io import read_png
+
+    cfg, _ = _cfg(fixture, "vis", visualise=visualise, n_iters=2,
+                  iter_log=2, iter_eval=2)
+    cfg["dir_ckpt"] = str(tmp_path / "ckpt")
+    port_main.main(["--p_config", dump_cfg(cfg, tmp_path / "vis.yaml"),
+                    "--device", "cpu"])
+    run = _run_dir(tmp_path / "ckpt")
+    figures = sorted(f for f in os.listdir(run) if f.endswith(".png"))
+    assert figures == ([f"{stem}_00002.png" for stem in
+                        ("matched", "queries", "semantic")]
+                       if visualise else [])
+    for name in figures:
+        image = read_png(os.path.join(run, name))
+        assert image.dtype == np.uint8 and image.shape[2] == 3
 
 
 @pytest.fixture(scope="module")

@@ -4,7 +4,8 @@ with `--device cpu`.
 
   * 4 steps at DP=2 (`{data: 2, model: 1}`), full checkpoints every 2 steps
     and evaluations at 2 and 4 on every rank; the mesh's first rank alone
-    writes the artifacts (one line a log point);
+    writes the artifacts (one line a log point) and the figures, which
+    every rank's forward feeds;
   * preemption: step 4's checkpoint and the final model are lost, and the
     run resumes at TP=2 (`{data: 1, model: 2}`): the checkpoint holds whole
     tensors, which the other factorisation slices;
@@ -60,6 +61,7 @@ def runs(tmp_path_factory):
     artifacts = {name: open(f"{run}/{name}").read().splitlines()
                  for name in ("training_metrics.json", "eval_metrics.json")}
     checkpoints = sorted(os.listdir(f"{run}/checkpoints"))
+    figures = sorted(f for f in os.listdir(run) if f.endswith(".png"))
 
     # preemption after step 2's checkpoint; resume on the other mesh
     os.remove(f"{run}/final_model.npz")
@@ -72,7 +74,7 @@ def runs(tmp_path_factory):
                     "--device", "cpu"])
     return dict(straight=straight, resumed=f"{run}/final_model.npz",
                 single=f"{_run_dir(root / 'ckpt_single')}/final_model.npz",
-                artifacts=artifacts, checkpoints=checkpoints,
+                artifacts=artifacts, checkpoints=checkpoints, figures=figures,
                 logs=(first.stdout, resumed.stdout))
 
 
@@ -80,6 +82,8 @@ def test_the_first_rank_alone_writes(runs):
     assert runs["checkpoints"] == ["step_2", "step_4"]
     assert len(runs["artifacts"]["training_metrics.json"]) == 2  # 2 and 4
     assert len(runs["artifacts"]["eval_metrics.json"]) == 2
+    assert runs["figures"] == [f"{stem}_{k:05d}.png" for stem in (
+        "matched", "queries", "semantic") for k in (2, 4)]
     assert runs["logs"][1].count("resumed train state from") == 1
 
 

@@ -20,8 +20,11 @@ directory:
     bit-exact against the straight run; artifacts fresh on a new run and
     appended on a resumed one; a NaN batch raises NonFiniteError naming
     step 1; the bucketed eval equals the per-image one on mixed
-    resolutions and ImageNet-S's original sizes; the parts the port does
-    not carry raise NotImplementedError.
+    resolutions and ImageNet-S's original sizes;
+  * the figures: fit with visualise=True and with debug=True writes the
+    JAX Trainer's file names at its iterations, and `_visualise_train`
+    hands its figures the JAX one's arrays (semantic argmax, proposals,
+    matched assignment) on the same parameters.
 
 The ffn1 output layer is scaled by 8 on both sides, so that the random
 model's proposals cross the 0.5 threshold and the instance path has masks.
@@ -44,6 +47,7 @@ from zutis_tpu.losses.criterion import criterion_loss as jcriterion_loss
 from zutis_tpu.models.zutis import ZUTIS as JZUTIS
 from zutis_tpu_torch.core.checkpoint import latest_step_dir, restore_train_state
 from zutis_tpu_torch.core.profiling import TRACE_FILE, NonFiniteError
+from zutis_tpu_torch.data.image_io import read_png
 from zutis_tpu_torch.engine.trainer import Trainer
 from zutis_tpu_torch.engine.train_step import TrainState, make_train_step
 from zutis_tpu_torch.models.weights import load_params, params_from_jax
@@ -441,12 +445,89 @@ def test_evaluate_builds_each_bucket_step_once(setup, monkeypatch):
     assert len(made) == n_made
 
 
-def test_what_the_port_does_not_carry_raises(setup):
+@pytest.mark.parametrize("mode", ["visualise", "debug"])
+def test_fit_writes_the_jax_figures(setup, tmp_path, mode):
+    """visualise=True draws at each log point (iter_log 2: iteration 2),
+    debug at its one iteration; the same file names as the JAX Trainer's,
+    each a PNG that the port's decoder reads."""
+    debug = mode == "debug"
+    kw = dict(n_iters=N_ITERS, n_categories=N_CAT, iter_log=2,
+              visualise=not debug)
+    for side in ("jax", "port"):
+        (tmp_path / side).mkdir()
+    tx = jmake_optimizer(base_lr=LR, n_iters=N_ITERS)
+    JTrainer(setup["jmodel"], jnp.asarray(setup["text"]),
+             dir_ckpt=str(tmp_path / "jax"), debug=debug).fit(
+        JTrainState.create(jax.tree.map(jnp.array, setup["params"]), tx), tx,
+        batches(jax_arrays=True), **kw)
     model = _port_model(setup["params"])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Trainer(model, setup["text"], device="cpu").fit(
-            _port_state(model), batches(), n_iters=1, n_categories=N_CAT,
-            visualise=True)
+    trainer = Trainer(model, setup["text"], dir_ckpt=str(tmp_path / "port"),
+                      debug=debug, device="cpu")
+    trainer.fit(_port_state(model), batches(), **kw)
+    figures = {side: sorted(f for f in os.listdir(tmp_path / side)
+                            if f.endswith(".png")) for side in ("jax", "port")}
+    k = 1 if debug else 2
+    assert figures["port"] == figures["jax"] == [
+        f"{stem}_{k:05d}.png" for stem in ("matched", "queries", "semantic")]
+    assert trainer.last_visualisation["num_iter"] == k
+    for name in figures["port"]:
+        image = read_png(tmp_path / "port" / name)
+        assert image.dtype == np.uint8 and image.shape[2] == 3
+
+
+def test_visualise_train_matches_jax(setup, tmp_path, monkeypatch):
+    """On the same parameters and batch, the arrays each side hands its
+    figures: the triptych's image and ground truth equal and its semantic
+    argmax equal wherever the top two resized logits are more than 1e-5
+    apart; the proposals and the resized proposals within the f32 parity
+    tolerance; the matched assignment and ground truth equal."""
+    from zutis_tpu.engine import visualiser as jax_vis
+    from zutis_tpu.ops.resize import resize_2d as jresize
+    from zutis_tpu_torch.engine import visualiser as port_vis
+
+    seen = {"jax": {}, "port": {}}
+    for side, module in (("jax", jax_vis), ("port", port_vis)):
+        for name in ("semantic_triptych", "query_grid", "matched_pairs"):
+            def record(*a, _side=side, _name=name, _real=getattr(module, name),
+                       **k):
+                seen[_side][_name] = a
+                return _real(*a, **k)
+            monkeypatch.setattr(module, name, record)
+    batch = batch_at(0)
+    params = jax.tree.map(jnp.array, setup["params"])
+    for side in ("jax", "port"):
+        (tmp_path / side).mkdir()
+    JTrainer(setup["jmodel"], jnp.asarray(setup["text"]),
+             dir_ckpt=str(tmp_path / "jax"))._visualise_train(
+        params, batch, 7, 255)
+    Trainer(_port_model(setup["params"]), setup["text"],
+            dir_ckpt=str(tmp_path / "port"),
+            device="cpu")._visualise_train(batch, 7, 255)
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(
+        os.listdir(tmp_path / "jax")) == [
+        "matched_00007.png", "queries_00007.png", "semantic_00007.png"]
+
+    got, want = seen["port"], seen["jax"]
+    for i in (0, 1):  # the normalised image, the ground truth
+        np.testing.assert_array_equal(got["semantic_triptych"][i],
+                                      want["semantic_triptych"][i])
+    out = setup["jmodel"].apply({"params": params},
+                                jnp.asarray(batch["image"][:1]))
+    logits = np.asarray(jresize(jnp.einsum(
+        "nc,bhwc->bnhw", jnp.asarray(setup["text"]), out["patch_tokens"]),
+        (H, H), "linear"))[0]
+    top2 = np.sort(logits, axis=0)[-2:]
+    decided = top2[1] - top2[0] > 1e-5
+    assert decided.mean() > 0.9
+    np.testing.assert_array_equal(got["semantic_triptych"][2][decided],
+                                  want["semantic_triptych"][2][decided])
+    np.testing.assert_allclose(got["query_grid"][0], want["query_grid"][0],
+                               rtol=2e-4, atol=2e-5)
+    gt, up, assignment = got["matched_pairs"][:3]
+    np.testing.assert_array_equal(gt, want["matched_pairs"][0])
+    np.testing.assert_allclose(up, np.asarray(want["matched_pairs"][1]),
+                               rtol=2e-4, atol=2e-5)
+    assert assignment == want["matched_pairs"][2] and len(assignment) == 1
 
 
 def test_trainer_refuses_a_model_on_another_device(setup):

@@ -17,8 +17,10 @@ through the dense forward, the reference's per-image regime, and so do the
 RN and DINO models at any `--batch_images` (they have no padded path; the
 JAX CLI sends the RN family per image and, by a fault, the DINO arm to the
 batched path, where `ZUTIS.forward_padded` refuses it).
-`--visualise_first > 0` raises: the overlays need the JAX package's
-matplotlib visualiser.
+`--visualise_first N` writes `overlay_<image_id>.png` beside the metrics
+for the first N images on either path: the kept instances over the image,
+each with its category id and score (engine/visualiser.py); only those
+images' masks are copied off the card.
 """
 from __future__ import annotations
 
@@ -46,13 +48,11 @@ def main(argv=None):
                              "assembly with the next batch's loading and "
                              "device work; 1 = synchronous")
     parser.add_argument("--visualise_first", type=int, default=0,
-                        help="not supported by the port (raises if > 0)")
+                        help="save instance-overlay PNGs for the first N "
+                             "images (the reference's detectron2 "
+                             "visualisation, coco20k_eval.py:120-180)")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
-    if args.visualise_first > 0:
-        raise NotImplementedError(
-            "--visualise_first: the instance overlays need matplotlib, "
-            "which the port does not use")
 
     import numpy as np
     import torch
@@ -66,11 +66,12 @@ def main(argv=None):
     from zutis_tpu_torch.core.config import Config
     from zutis_tpu_torch.core.device import resolve_device, to_device
     from zutis_tpu_torch.data.coco_api import COCOIndex
-    from zutis_tpu_torch.data.image_io import read_rgb
+    from zutis_tpu_torch.data.image_io import read_rgb, write_png
     from zutis_tpu_torch.data.label_maps import new_label_id_to_old_label_id
     from zutis_tpu_torch.data.transforms import normalize_image
     from zutis_tpu_torch.engine import batched_eval as BE
     from zutis_tpu_torch.engine.coco_eval import COCOEvaluator
+    from zutis_tpu_torch.engine.visualiser import instance_overlay
     from zutis_tpu_torch.postproc.instance import (
         instances_to_coco_counts,
         predict_instances_device,
@@ -100,6 +101,23 @@ def main(argv=None):
         arr = read_rgb(f"{args.dir_dataset}/train2014/{info['file_name']}")
         return np.ascontiguousarray(arr.transpose(2, 0, 1))
 
+    n_visualised = [0]
+
+    def maybe_visualise(image_id, img, res, dev_masks, slot):
+        """`res` holds the fetched host arrays; of `dev_masks` only this
+        image's [Q, H, W] window is copied over."""
+        if n_visualised[0] >= args.visualise_first:
+            return
+        H, W = img.shape[-2:]
+        keep = np.flatnonzero(res["keep"][slot])
+        canvas, _ = instance_overlay(
+            normalize_image(img.transpose(1, 2, 0)),
+            dev_masks[slot, :, :H, :W][keep],
+            [float(res["scores"][slot, k]) for k in keep],
+            [str(int(res["category_ids"][slot, k])) for k in keep])
+        write_png(f"{dir_ckpt}/overlay_{image_id}.png", canvas)
+        n_visualised[0] += 1
+
     t0 = time.time()
     if args.batch_images > 1 and model.encoder_family == "vit":
         # images load lazily, inside the pipelined loop, so batch N + 1's
@@ -108,7 +126,8 @@ def main(argv=None):
             model, text_embeddings, (load_image_u8(i) for i in image_ids),
             image_ids, label_map=new_label_id_to_old_label_id,
             batch_images=args.batch_images, depth=args.pipeline_depth,
-            threshold=args.threshold, nms_type=args.nms_type, device=device)
+            threshold=args.threshold, nms_type=args.nms_type, device=device,
+            on_image=maybe_visualise)
     else:
         text = to_device(torch.from_numpy(text_embeddings), device)
         predictions = []
@@ -123,11 +142,13 @@ def main(argv=None):
                     out["mask_proposals"], out["patch_tokens"], text,
                     size=(int(H), int(W)), threshold=args.threshold,
                     nms_type=args.nms_type, rle=True)
+            host = BE.fetch_to_host(res).result()
+            masks = BE.SideStreamView(res["masks"])
+            maybe_visualise(image_id, img, host, masks, 0)
             predictions.extend(instances_to_coco_counts(
-                BE.fetch_to_host(res).result(), image_ids=[image_id],
-                sizes=[(int(H), int(W))],
+                host, image_ids=[image_id], sizes=[(int(H), int(W))],
                 new_label_id_to_old_label_id=new_label_id_to_old_label_id,
-                dev_masks=BE.SideStreamView(res["masks"])))
+                dev_masks=masks))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     eval_seconds = time.time() - t0

@@ -43,14 +43,16 @@ artifacts and the checkpoints, whose tensors are whole, so a resume may
 run on another factorisation. The eval path (--p_state_dict) runs without
 a mesh, as the JAX CLI's does.
 
-What the port does not do, and raises on:
-  - `encoder_type: dino` without `skip_pretrained`: the JAX CLI puts the
-    CLIP visual tree into the DINO arm's DeiT encoder there
-    (zutis_tpu/cli/main.py:262-268), which cannot load; the DINO encoder's
-    own weights go in through `models.factory.load_dino_encoder`;
-  - `visualise`: the JAX CLI defaults it to True and renders figures with
-    matplotlib, which the port does not use; here it defaults to False and
-    a config that sets it raises.
+Training writes the JAX CLI's figures at every log point
+(`semantic_`, `queries_` and `matched_<iter>.png` beside the metrics,
+engine/visualiser.py) unless the config sets `visualise: false`.
+
+What the port does not do, and raises on: `encoder_type: dino` without
+`skip_pretrained`. The JAX CLI puts the CLIP visual tree into the DINO
+arm's DeiT encoder there (zutis_tpu/cli/main.py:262-268), which cannot
+load; the DINO encoder's own weights go in through
+`models.factory.load_dino_encoder`.
+
 The `matmul_precision` extra ("highest", "high", "default", and JAX's
 other names) sets `torch.set_float32_matmul_precision` for the process:
 "highest" keeps float32 matrix products in full float32 (TF32 off, the
@@ -301,10 +303,6 @@ def main(argv=None):
         seed=args.seed, weight_ce_loss=args.weight_ce_loss,
         suffix=args.suffix,
     )
-    if cfg.extras.get("visualise"):
-        raise NotImplementedError(
-            "visualise: the JAX CLI's figures need matplotlib, which the "
-            "port does not use; drop the key")
     dir_ckpt = checkpoint_dir(cfg)
     if (os.path.exists(f"{dir_ckpt}/final_model.npz")
             and not args.p_state_dict):
@@ -403,6 +401,8 @@ def _run(args, cfg, dir_ckpt, mesh):
             val_dataset=val_dataset,
             checkpoint_every=cfg.checkpoint_every or None,
             checkpoint_dir=ckpt_base,
+            # the reference's figures every iter_log (trainer.py:204-240)
+            visualise=bool(cfg.extras.get("visualise", True)),
             profile_dir=args.profile_dir or None,
         )
     finally:

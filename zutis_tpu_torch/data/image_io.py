@@ -2,7 +2,8 @@
 `Image.open(p).convert("RGB")` (`read_rgb`), of `np.array(Image.open(png))`
 (`read_png`), and of `Image.open(p)` in the file's own mode with its
 `.convert("RGB")` (`open_image`, `to_rgb`), which CLIP's preprocessing
-needs: Pillow resizes before it converts.
+needs: Pillow resizes before it converts. `write_png` writes the figures
+of engine/visualiser.py as 8-bit RGB PNGs.
 
 JPEG decoding and PNG unfiltering run in the native library
 (`native/image.cc`), inflate in `zlib`; both give Pillow's pixels bit for
@@ -145,6 +146,31 @@ def decode_png(data: bytes, path="<bytes>", rgb: bool = False) -> np.ndarray:
         return arr
     mode = "1" if (ctype, depth) == (0, 1) else _PNG_MODES[ctype]
     return to_rgb(arr, mode, palette)
+
+
+def _png_chunk(ctype: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + ctype + body
+            + struct.pack(">I", zlib.crc32(ctype + body)))
+
+
+def write_png(path: PathLike, rgb: np.ndarray) -> None:
+    """Write an [H, W, 3] uint8 array to `path` as an 8-bit RGB PNG (filter
+    0 on every row, one IDAT chunk deflated by zlib at its default level)
+    that `read_png` and Pillow decode to the same array."""
+    arr = np.asarray(rgb)
+    if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3 \
+            or 0 in arr.shape:
+        raise ValueError(f"write_png takes a non-empty [H, W, 3] uint8 array, "
+                         f"not {arr.dtype} {arr.shape}")
+    h, w = arr.shape[:2]
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)  # a filter byte before each row
+    raw[:, 1:] = arr.reshape(h, 3 * w)
+    data = (PNG_SIGNATURE
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _png_chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _decode_jpeg(data: bytes, path) -> Tuple[np.ndarray, int]:

@@ -306,9 +306,9 @@ def make_instance_step(
 
 class HostFetch:
     """A step's small outputs on their way to the host. On a card the
-    copies run on `stream`, after an event recorded behind the step's
-    kernels, into pinned buffers; `result()` waits for those copies only.
-    On the CPU the arrays are read at once."""
+    copies run on `stream` (the current stream if None), after an event
+    recorded behind the step's kernels, into pinned buffers; `result()`
+    waits for those copies only. On the CPU the arrays are read at once."""
 
     def __init__(self, tensors: Dict[str, torch.Tensor], stream=None):
         first = next(iter(tensors.values()))
@@ -316,6 +316,8 @@ class HostFetch:
         if first.device.type != "cuda":
             self._host = {k: v.numpy() for k, v in tensors.items()}
             return
+        if stream is None:
+            stream = torch.cuda.current_stream(first.device)
         ready = torch.cuda.Event()
         ready.record()
         self._host = {}
@@ -380,6 +382,7 @@ def evaluate_instances(
     threshold: float = 0.5,
     nms_type: str = "hard",
     device="cuda",
+    on_image=None,
 ) -> List[dict]:
     """The COCO prediction list of `images`: the batched loop of the
     COCO-20k evaluation (zutis_tpu/cli/coco20k_eval.py). Images are grouped
@@ -387,8 +390,12 @@ def evaluate_instances(
     `batch_images` images, and the partial batches run at the end. Each
     batch is padded (uint8), runs the instance step without the semantic
     decode, and its device RLE is assembled into COCO dicts on the host,
-    `depth` batches in flight. `model` must already be on `device`; raises
-    on a host without a card unless device="cpu"."""
+    `depth` batches in flight. `on_image(image_id, image, result, masks,
+    slot)` is called for each image as its batch is collected, with the
+    batch's fetched host arrays (`result`) and its device masks (`masks`, a
+    SideStreamView) at the image's `slot` (the JAX CLI draws its overlays
+    there). `model` must already be on `device`; raises on a host without a
+    card unless device="cpu"."""
     device = resolve_device(device)
     steps: Dict[Tuple[int, int], object] = {}
     pending: Dict[Tuple[int, int], list] = {}
@@ -419,11 +426,14 @@ def evaluate_instances(
     def collect(handles, batch):
         res, fetch = handles
         _, items = batch
+        host, masks = fetch.result(), SideStreamView(res["masks"], stream)
+        if on_image is not None:
+            for slot, (image_id, img) in enumerate(items):
+                on_image(image_id, img, host, masks, slot)
         return instances_to_coco_counts(
-            fetch.result(), image_ids=[iid for iid, _ in items],
+            host, image_ids=[iid for iid, _ in items],
             sizes=[tuple(img.shape[-2:]) for _, img in items],
-            new_label_id_to_old_label_id=label_map,
-            dev_masks=SideStreamView(res["masks"], stream))
+            new_label_id_to_old_label_id=label_map, dev_masks=masks)
 
     predictions: List[dict] = []
     for preds in pipelined(dispatch, collect, batches(), depth=depth):

@@ -26,9 +26,10 @@ each data rank is given its slice of the batches, and the whole evaluation
 runs on every rank. Only the mesh's first rank writes logs, artifacts and
 checkpoints; the checkpoints' tensors are gathered whole first.
 
-Not carried by this port (raises NotImplementedError): `visualise=True`
-(engine/visualiser.py needs matplotlib, queue 1, item 4); `debug` writes no
-images.
+With `visualise` or `debug`, every log point also writes the JAX Trainer's
+figures for the first image of the batch (engine/visualiser.py):
+`semantic_<iter>.png`, `queries_<iter>.png` and `matched_<iter>.png`. Their
+forward and matcher run on the device; the figures are composed on the host.
 """
 from __future__ import annotations
 
@@ -46,7 +47,9 @@ from zutis_tpu_torch.core import profiling
 from zutis_tpu_torch.core.checkpoint import save_train_state
 from zutis_tpu_torch.core.device import resolve_device, to_device
 from zutis_tpu_torch.data.label_maps import new_label_id_to_old_label_id
+from zutis_tpu_torch.data.image_io import write_png
 from zutis_tpu_torch.engine import batched_eval as BE
+from zutis_tpu_torch.engine import visualiser as V
 from zutis_tpu_torch.engine.coco_eval import COCOEvaluator
 from zutis_tpu_torch.engine.metrics import (
     AverageMeter,
@@ -54,7 +57,10 @@ from zutis_tpu_torch.engine.metrics import (
     confusion_update,
 )
 from zutis_tpu_torch.engine.train_step import TrainState, make_train_step
+from zutis_tpu_torch.losses.criterion import bce_cost, dice_cost
 from zutis_tpu_torch.models.weights import export_params
+from zutis_tpu_torch.ops.hungarian import batched_hungarian
+from zutis_tpu_torch.ops.resize import resize_2d
 from zutis_tpu_torch.parallel.mesh import mesh_of
 from zutis_tpu_torch.postproc.instance import (
     instances_to_coco_counts,
@@ -71,6 +77,11 @@ def _append_jsonl(path: str, record: dict, first: bool) -> None:
         if not first and os.path.getsize(path) > 0:
             f.write("\n")
         json.dump(record, f)
+
+
+def _first(x) -> np.ndarray:
+    """The first item of a batch array (numpy or a tensor) on the host."""
+    return x[0].cpu().numpy() if torch.is_tensor(x) else np.asarray(x[0])
 
 
 class _LossFetch:
@@ -125,6 +136,7 @@ class Trainer:
         self._bucket_steps: Dict = {}
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
+        self.last_visualisation: Optional[Dict] = None
 
     def _write_artifact(self, name: str, record: dict,
                         resumed: bool = False) -> None:
@@ -142,6 +154,79 @@ class Trainer:
         params = export_params(state.model)
         if self._writer:
             np.savez(f"{self.dir_ckpt}/{name}.npz", **params)
+
+    # ---------------- visualisation ----------------
+
+    def _visualise_train(self, batch: Dict, num_iter: int,
+                         ignore_index: int) -> None:
+        """The JAX Trainer's `_visualise_train` (reference trainer.py:204-240)
+        for the first image of `batch`: the semantic triptych, the last
+        decoder layer's query grid and the Hungarian-matched (ground truth,
+        proposal) pairs, into `dir_ckpt`. The forward and the matcher run on
+        this Trainer's device; on a mesh every rank runs the forward, which
+        the model axis' collectives need, and only the writer goes on.
+        `last_visualisation` keeps the host seconds of each part, and the
+        matcher's costs and assignment."""
+        on_card = self.device.type == "cuda"
+
+        def lap(t0):
+            if on_card:
+                torch.cuda.synchronize(self.device)
+            return time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        image = batch["image"][:1]
+        image = to_device(image if torch.is_tensor(image)
+                          else torch.from_numpy(np.asarray(image)), self.device)
+        with torch.no_grad():
+            out = self.model(image)
+            if not self._writer:
+                return
+            H, W = image.shape[-2:]
+            logits = torch.einsum("nc,bhwc->bnhw", self._text,
+                                  out["patch_tokens"].float())
+            sem_pred = resize_2d(logits, (H, W), "linear").argmax(1)[0]
+            proposals = out["mask_proposals"][0, -1]  # [Q, h, w]
+            sem_pred, proposals_host = sem_pred.cpu().numpy(), proposals.cpu()
+        forward_s = lap(t0)
+
+        t0 = time.perf_counter()
+        gt = _first(batch["instance_masks"])[_first(batch["instance_valid"])]
+        cost = assignment = None
+        if gt.shape[0]:
+            with torch.no_grad():
+                up = resize_2d(proposals[None], (H, W), "linear")[0].clamp(
+                    0.0, 1.0)
+                dt = up.float().reshape(1, -1, H * W)
+                gtf = to_device(torch.from_numpy(
+                    gt.reshape(1, gt.shape[0], H * W)), self.device)
+                cost = dice_cost(dt, gtf) + bce_cost(dt, gtf)
+                assignment = batched_hungarian(cost)[0].cpu().numpy()
+                up = up.cpu().numpy()
+        matcher_s = lap(t0)
+
+        t0 = time.perf_counter()
+        palette = V.get_palette(self.text_embeddings.shape[0])
+        figures = {
+            "semantic": V.semantic_triptych(
+                _first(batch["image"]), _first(batch["semantic_mask"]),
+                sem_pred, palette, ignore_index=ignore_index)[0],
+            "queries": V.query_grid(proposals_host.numpy())[0]}
+        if assignment is not None:
+            figures["matched"] = V.matched_pairs(
+                gt, up, [int(a) for a in assignment])[0]
+        compose_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        files = []
+        for stem, canvas in figures.items():
+            files.append(f"{self.dir_ckpt}/{stem}_{num_iter:05d}.png")
+            write_png(files[-1], canvas)
+        self.last_visualisation = dict(
+            num_iter=num_iter, files=files, forward_s=forward_s,
+            matcher_s=matcher_s, compose_s=compose_s,
+            write_s=time.perf_counter() - t0, cost=cost,
+            assignment=assignment)
 
     # ---------------- training ----------------
 
@@ -170,11 +255,8 @@ class Trainer:
         as the uninterrupted one (on the CPU bit for bit). `batches` must
         already be positioned at `state.step` when resuming.
         `eval_every_cb(num_iter, state)` runs at the end of each iteration;
-        `profile_dir` traces steps `profile_steps[0]` to `[1]`."""
-        if visualise:
-            raise NotImplementedError(
-                "visualise=True: engine/visualiser.py needs matplotlib, which "
-                "the port does not use (ROADMAP.md, queue 1, item 4)")
+        `profile_dir` traces steps `profile_steps[0]` to `[1]`; `visualise`
+        (or `debug`) draws the figures at each log point into dir_ckpt."""
         if state.model is not self.model:
             raise ValueError("the TrainState's model is not this Trainer's")
         step_key = (n_categories, ignore_index, weight_ce_loss)
@@ -249,6 +331,8 @@ class Trainer:
                               f"{loss_meter.avg:.3f} "
                               f"mIoU {scores['Mean IoU']:.3f} "
                               f"pix-acc {scores['Pixel Acc']:.3f}", flush=True)
+                    if (visualise or self.debug) and self.dir_ckpt is not None:
+                        self._visualise_train(batch, num_iter, ignore_index)
 
                 if ((self.debug or (iter_eval and num_iter % iter_eval == 0))
                         and val_dataset is not None
