@@ -268,6 +268,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -409,6 +410,7 @@ def counted_wrappers() -> dict:
     return {"flash_attention": fa.flash_attention,
             "batched_hungarian": hg.batched_hungarian,
             "mask_nms": mask_nms,
+            "pairwise_iou": nms_ops.pairwise_iou,
             **{name: w for name, (w, _, _) in PROBES.items()}}
 
 
@@ -527,15 +529,17 @@ def phase_card() -> tuple[str, list]:
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
-    # one compiler per source, together: nvcc for the four kernel
+    # one compiler per source, together: nvcc for the five kernel
     # libraries, g++ for the RLE codec, the image library and the hole
     # fill and labelling
-    cuda_libs = (fa, ap, hg, nms_ops)
-    with ThreadPoolExecutor(7) as pool:
-        builds = [pool.submit(m.build) for m in (*cuda_libs, native,
-                                                 native_image, native_labels)]
+    cuda_builds = (fa.build, ap.build, hg.build, nms_ops.build,
+                   nms_ops.build_iou)
+    with ThreadPoolExecutor(8) as pool:
+        builds = [pool.submit(b) for b in (*cuda_builds, native.build,
+                                           native_image.build,
+                                           native_labels.build)]
         results = [b.result() for b in builds]
-    print(f"build: all seven libraries in {time.perf_counter() - t0:.1f} s",
+    print(f"build: all eight libraries in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for path, seconds, log in results:
         print(f"build: {path.name} in {seconds:.1f} s", flush=True)
@@ -547,10 +551,11 @@ def phase_card() -> tuple[str, list]:
         serialised = [line for line in report if "serialized" in line]
         check(not serialised, f"{path.name}: ptxas serialised wgmma: "
               f"{serialised[:2]}")
-    # the selection loops' kernels keep their per-lane arrays in registers:
-    # a register array indexed at run time would go to local memory
-    for module, (path, _, log) in zip(cuda_libs, results):
-        if module in (hg, nms_ops):
+    # the selection kernels keep their per-lane arrays (and the IoU kernel
+    # its loaders' rows) in registers: a register array indexed at run time
+    # would go to local memory
+    for build, (path, _, log) in zip(cuda_builds, results):
+        if build in (hg.build, nms_ops.build, nms_ops.build_iou):
             local = [line.strip() for line in log.splitlines()
                      if "stack frame" in line and not re.search(
                          r"\b0 bytes stack frame, 0 bytes spill stores, "
@@ -560,10 +565,11 @@ def phase_card() -> tuple[str, list]:
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
-    return card, [path for path, _, _ in results[:len(cuda_libs)]]
+    return card, [path for path, _, _ in results[:len(cuda_builds)]]
 
 
-SASS_OPS = ("UTMALDG", "HGMMA", "HMMA", "LDGSTS")  # TMA, wgmma, mma.sync, cp.async
+# TMA, wgmma (bf16, int8), mma.sync, cp.async
+SASS_OPS = ("UTMALDG", "HGMMA", "IGMMA", "HMMA", "LDGSTS")
 # the wgmma kernels of each library and their instantiations: flash's bf16
 # kernel per head dim (d 64 to 256 on one consumer warpgroup, 320 to 512 on
 # two), its f32 kernel at d 64 with one and two consumer warpgroups and at
@@ -585,6 +591,9 @@ SASS_KERNELS = {
     "maxfree_kernel": 2 * (len(ap.EXP_MODES) * len(ap.SUM_MODES)
                            + len(ap.EXP_MODES) + 1),
 }
+# the int8 wgmma kernel: NMS's intersection counts, <tile pairs, TMA>, its
+# two instantiations without TMA loading the rows themselves
+IGMMA_KERNELS = {"mask_counts_kernel": 4}
 
 
 # kernels that a redesign replaced: the f32 flash forward on mma.sync, and
@@ -613,10 +622,10 @@ def sass_check(libs: list) -> dict:
         for block in out.stdout.split("Function : ")[1:]:
             name = _kernel_name(block.split()[0])
             names.append(name)
-            if name.split("<")[0] in SASS_KERNELS:
+            if name.split("<")[0] in {**SASS_KERNELS, **IGMMA_KERNELS}:
                 counts[name] = {op: len(re.findall(rf"\b{op}\b", block))
                                 for op in SASS_OPS}
-    for kernel, n in SASS_KERNELS.items():
+    for kernel, n in {**SASS_KERNELS, **IGMMA_KERNELS}.items():
         found = sorted(k for k in counts if k.split("<")[0] == kernel)
         check(len(found) == n,
               f"cuobjdump found {found} for {kernel}, expected {n}")
@@ -624,10 +633,16 @@ def sass_check(libs: list) -> dict:
           f"the libraries still hold one of {GONE_KERNELS}")
     for name, c in counts.items():
         print(f"sass: {name}: {json.dumps(c)}", flush=True)
-        check(c["UTMALDG"] > 0 and c["HGMMA"] > 0,
-              f"{name} has no TMA load or no wgmma")
         check(c["HMMA"] == 0 and c["LDGSTS"] == 0,
               f"{name} still holds mma.sync or cp.async")
+        if name.split("<")[0] in IGMMA_KERNELS:
+            tma = name.endswith(",1>")
+            check(c["IGMMA"] > 0 and c["HGMMA"] == 0
+                  and (c["UTMALDG"] > 0) == tma,
+                  f"{name}: no int8 wgmma, or TMA loads where it has none")
+            continue
+        check(c["UTMALDG"] > 0 and c["HGMMA"] > 0,
+              f"{name} has no TMA load or no wgmma")
     return counts
 
 
@@ -1063,6 +1078,14 @@ def f32_kernel_forward(model: ZUTIS, x: torch.Tensor, want: dict,
 # its reciprocal, and the two exps round differently); hard and linear run
 # the same f32 operations on both
 TOL_NMS_CPU = 1e-6
+# the eval step on the float64 IoU product, before the IoU kernel (H100
+# 80GB HBM3, 700 W; PERF.md section 5): mask_nms and decode host ms, peak
+# memory
+FLOAT64_IOU_EVAL = {"nms_ms": 11.30, "decode_ms": "83.7-91.3",
+                    "peak_memory_gib": 17.10}
+# the per-image decode's size for the IoU kernel's own row loads: 375 x 500
+# bytes a mask, no multiple of 16 (COCO holds many 375 x 500 photos)
+RAGGED_SIZE = (375, 500)
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1141,6 +1164,115 @@ def time_nms(inputs: tuple, masks: torch.Tensor, label: str) -> dict:
     return row
 
 
+@contextlib.contextmanager
+def iou_inputs():
+    """Records the masks of every IoU kernel call that mask_nms makes."""
+    real, seen = nms_ops.pairwise_iou_kernel, []
+
+    def capture(masks):
+        seen.append(masks)
+        return real(masks)
+
+    nms_ops.pairwise_iou_kernel = capture
+    try:
+        yield seen
+    finally:
+        nms_ops.pairwise_iou_kernel = real
+
+
+def check_iou_kernel(masks: torch.Tensor, inputs: tuple, label: str) -> dict:
+    """The IoU kernel against its plain version on the same card masks (a
+    path's own): counts equal, IoU and areas bit-equal; then mask_nms on
+    the kernels against the plain IoU and rounds, for every NMS type, with
+    the path's scores, categories and options (`inputs`, the rounds'
+    captured inputs): keep equal, scores bit-equal."""
+    _, _, conf, cats, options = inputs
+    options = {k: v for k, v in options.items() if k != "nms_type"}
+    iou, areas, counts = nms_ops.pairwise_iou_kernel(masks)
+    want_counts = nms_ops.intersection_counts_reference(masks)
+    want_iou, want_areas = nms_ops.pairwise_iou_reference(masks)
+    torch.cuda.synchronize()
+    check(torch.equal(counts.long(), want_counts.long()),
+          f"{label}: the IoU kernel's counts differ from the plain product's")
+    check(same_bits(iou, want_iou) and same_bits(areas, want_areas),
+          f"{label}: the IoU kernel's IoU or areas differ from the plain "
+          "version's")
+    kept = {}
+    for nms_type in nms_ops.NMS_TYPES:
+        keep, out = mask_nms(masks, conf, cats, nms_type=nms_type, **options)
+        want_keep, want_out = nms_ops.nms_rounds_reference(
+            want_iou, want_areas, conf, cats, nms_type=nms_type, **options)
+        torch.cuda.synchronize()
+        check(torch.equal(keep, want_keep) and same_bits(out, want_out),
+              f"{label}: mask_nms on the kernels differs from the plain route "
+              f"({nms_type})")
+        kept[nms_type] = int(keep.sum())
+    b, q = masks.shape[:2]
+    row = dict(shape=[b, q, *masks.shape[2:]],
+               max_abs_err=(iou - want_iou).abs().max().item(),
+               max_count=int(counts.max()), kept=kept)
+    print(f"{label}: IoU kernel equals its plain version on the card "
+          f"{row['shape']} (counts equal, IoU and areas bit for bit; largest "
+          f"count {row['max_count']}); mask_nms keeps {json.dumps(kept)} as "
+          "the plain route does, scores bit for bit", flush=True)
+    return row
+
+
+def event_ms(fn, reps: int = 5, warmup: int = 1) -> float:
+    """Median device ms of eager calls of `fn` between CUDA events (for
+    calls a CUDA graph may not capture)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_iou(masks: torch.Tensor, label: str, row: dict) -> dict:
+    """The IoU kernel's device time on a path's masks beside its bound (the
+    masks read once, the IoU and areas written once; the product's int8
+    operations at 1,979 TOP/s), the plain version's (the float64 product
+    and the f32 IoU), the float64 product's alone, and, as the library's
+    yardstick, torch._int_mm per image on [Q, K] x [K, Q rounded up to 8]
+    int8 summed over the batch (where K is a multiple of 8; timed only)."""
+    b, q = masks.shape[:2]
+    k = masks[0, 0].numel()
+    ms = cuda_ms(lambda: nms_ops.pairwise_iou(masks))
+    plain_ms = cuda_ms(lambda: nms_ops.pairwise_iou_reference(masks),
+                       calls=3, reps=5, warmup=1)
+    product_ms = cuda_ms(lambda: nms_ops.intersection_counts_reference(masks),
+                         calls=3, reps=5, warmup=1)
+    library_ms = None
+    if k % 8 == 0 and q > 16:
+        n = -(-q // 8) * 8
+        a8 = torch.zeros(b, n, k, dtype=torch.int8, device=masks.device)
+        a8[:, :q] = masks.reshape(b, q, k)
+
+        def int_mm():
+            for i in range(b):
+                torch._int_mm(a8[i, :q], a8[i].t())
+        library_ms = event_ms(int_mm)
+        del a8
+    bytes_ms = (b * q * k + b * q * q * 4 + b * q * 4) / 3.35e12 * 1e3
+    ops_ms = 2 * b * q * q * k / 1979e12 * 1e3
+    row = dict(row, ms=ms, plain_ms=plain_ms, float64_product_ms=product_ms,
+               library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    print(f"{label}: IoU kernel {row['shape']}: {ms:.4f} ms, bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}), plain version "
+          f"{plain_ms:.4f} ms (the float64 product {product_ms:.4f} ms), "
+          f"torch._int_mm image by image {library_ms} ms", flush=True)
+    return row
+
+
 def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
                   n_categories: int = N_CATEGORIES, n_requests: int = 20,
                   device="cuda", launches_per_forward: int = LAUNCHES_PER_FORWARD,
@@ -1176,7 +1308,7 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     threshold = float(torch.quantile(proposals.flatten()[::7].float(), 0.9))
     print(f"serving: threshold {threshold:.6f}", flush=True)
 
-    for w in (fa.flash_attention, mask_nms,
+    for w in (fa.flash_attention, mask_nms, nms_ops.pairwise_iou,
               *(w for w, _, _ in PROBES.values())):
         w.launches = 0
     fa.flash_attention.launches_by_dim = {}
@@ -1190,6 +1322,7 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     sync = server.infer(images[:BATCH])
     launches = fa.flash_attention.launches
     nms_launches = mask_nms.launches
+    iou_launches = nms_ops.pairwise_iou.launches
     by_dim = dict(fa.flash_attention.launches_by_dim)
     probe_launches = sum(w.launches for w, _, _ in PROBES.values())
     batches = server.batches
@@ -1222,8 +1355,9 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
         check(by_dim == {d: n * batches for d, n in dims_per_forward.items()},
               f"flash launches by head dim {by_dim} for {batches} batch "
               f"forwards, expected {dims_per_forward} each")
-        check(nms_launches == batches,
-              f"{nms_launches} NMS launches for {batches} serving steps")
+        check(nms_launches == batches and iou_launches == batches,
+              f"{nms_launches} NMS and {iou_launches} IoU launches for "
+              f"{batches} serving steps")
 
     # the kernel path against the "torch" attention path on one batch, and
     # both against an f32 forward of the same (bf16-rounded) weights with
@@ -1315,12 +1449,28 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
         check(torch.equal(cats_d, cats_c), "categories differ between card and CPU")
         check(rel <= TOL_NMS_CPU, f"NMS {nms_type} scores differ between card "
               f"and CPU by {rel:.3e} relative")
-    nms_row = None
+    nms_row = iou_row = ragged_row = None
     if nms_checks and device.type == "cuda":
-        with torch.inference_mode(), nms_inputs() as seen:
+        with torch.inference_mode(), nms_inputs() as seen, \
+                iou_inputs() as masks:
             server.step(x)
         check_nms_kernel(seen[0], "serving")
         nms_row = time_nms(seen[0], binary, "serving")
+        iou_row = time_iou(masks[0], "serving", check_iou_kernel(
+            masks[0], seen[0], "serving"))
+        # the per-image decode at an image size whose rows are no multiple
+        # of 16 bytes (TMA refuses them: the kernel loads them itself)
+        with torch.inference_mode(), nms_inputs() as seen, \
+                iou_inputs() as masks:
+            predict_instances_device(
+                out_k["mask_proposals"][:1], out_k["patch_tokens"][:1],
+                text_d, size=RAGGED_SIZE, threshold=threshold,
+                temperature=server.temperature,
+                nms_threshold=server.nms_threshold)
+        label = f"per-image decode {RAGGED_SIZE[0]} x {RAGGED_SIZE[1]}"
+        ragged_row = time_iou(masks[0], label, check_iou_kernel(
+            masks[0], seen[0], label))
+        del seen, masks
 
     # serving rate of the synchronous path, and where a batch's time goes
     rate_images = images[:2 * BATCH]
@@ -1342,6 +1492,8 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
                  ms_per_batch=per_batch, forward_ms=fwd_ms, step_ms=step_ms,
                  forward_torch_attention_ms=fwd_torch_ms, launches=launches,
                  nms_launches=nms_launches, nms=nms_row,
+                 iou_launches=iou_launches, iou=iou_row,
+                 iou_per_image=ragged_row,
                  step_kernels=step_kernels, step_nms_kernels=step_nms,
                  launches_by_dim=by_dim, f32_kernel_forward=f32_check,
                  semantic_floor=floor,
@@ -1631,7 +1783,7 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
         thr = _threshold(model.forward_padded(x, grid)["mask_proposals"][:, -1])
     print(f"eval: threshold {thr:.6f}", flush=True)
 
-    counted = (fa.flash_attention, mask_nms,
+    counted = (fa.flash_attention, mask_nms, nms_ops.pairwise_iou,
                *(w for w, _, _ in PROBES.values()))
     for w in counted:
         w.launches = 0
@@ -1643,6 +1795,7 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     launches = fa.flash_attention.launches
     masked = fa.flash_attention.masked_launches
     nms_launches = mask_nms.launches
+    iou_launches = nms_ops.pairwise_iou.launches
     probe_launches = sum(w.launches for w, _, _ in PROBES.values())
     batches = EVAL_IMAGES // EVAL_BATCH
     print(f"eval: evaluate_instances on {EVAL_IMAGES} images: {len(preds)} "
@@ -1652,8 +1805,9 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     check(launches == EVAL_LAUNCHES * batches,
           f"{launches} flash launches for {batches} padded forwards, expected "
           f"{EVAL_LAUNCHES} each")
-    check(nms_launches == batches,
-          f"{nms_launches} NMS launches for {batches} eval steps")
+    check(nms_launches == batches and iou_launches == batches,
+          f"{nms_launches} NMS and {iou_launches} IoU launches for {batches} "
+          "eval steps")
     check(masked == EVAL_MASKED_LAUNCHES * batches,
           f"{masked} masked flash launches, expected {EVAL_MASKED_LAUNCHES} "
           "a forward (12 encoder, 6 cross)")
@@ -1680,11 +1834,14 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     stream = torch.cuda.Stream(device)
     with torch.inference_mode():
         out = model.forward_padded(x, grid)
-        with nms_inputs() as seen:
+        with nms_inputs() as seen, iou_inputs() as masks:
             res = BE.decode_instances(out, text_d, pix, EVAL_SHAPE, thr)
         nms_kept = check_nms_kernel(seen[0], "eval")
         nms_row = time_nms(seen[0], res["masks"], "eval")
-        del seen
+        iou_row = time_iou(masks[0], "eval", check_iou_kernel(
+            masks[0], seen[0], "eval"))
+        del seen, masks
+        torch.cuda.empty_cache()
         forward_ms = host_ms(lambda: model.forward_padded(x, grid), device, reps=5)
         decode_ms = host_ms(lambda: BE.decode_instances(
             out, text_d, pix, EVAL_SHAPE, thr), device, reps=5)
@@ -1702,6 +1859,8 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     step(padded, grid, pix)
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    float64_route = _eval_on_the_float64_iou(model, x, grid, text_d, pix, thr,
+                                             step, padded, device)
     busy_ms, kernels, by_name = profile_device(lambda: step(padded, grid, pix),
                                                device)
     rates = {f"depth {d}": eval_bench.run(
@@ -1709,7 +1868,8 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
         for d in (1, 2)}
     stats = dict(img_per_s=rates, forward_ms=forward_ms, decode_ms=decode_ms,
                  nms_ms=nms_ms, nms=nms_row, nms_kept=nms_kept,
-                 nms_launches=nms_launches,
+                 nms_launches=nms_launches, iou=iou_row,
+                 iou_launches=iou_launches, float64_iou_route=float64_route,
                  step_kernels=sum(n for _, (_, n) in by_name.items()),
                  assembly_ms=assembly_ms, step_ms=step_ms,
                  step_device_busy_ms=busy_ms, step_top_kernels=kernels,
@@ -1723,7 +1883,38 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
           f"forward {forward_ms:.3f} + decode {decode_ms:.3f} (NMS "
           f"{nms_ms:.3f}); host assembly {assembly_ms:.3f} ms; device busy "
           f"{busy_ms} ms; peak memory {peak_gib:.2f} GiB", flush=True)
+    print(f"eval, the IoU kernel against the float64 product: mask_nms "
+          f"{nms_ms:.3f} ms against {float64_route['nms_ms']:.3f} ms in this "
+          f"run ({FLOAT64_IOU_EVAL['nms_ms']} before the kernel), decode "
+          f"{decode_ms:.3f} against {float64_route['decode_ms']:.3f} ms "
+          f"({FLOAT64_IOU_EVAL['decode_ms']}), peak memory {peak_gib:.2f} "
+          f"against {float64_route['peak_memory_gib']:.2f} GiB "
+          f"({FLOAT64_IOU_EVAL['peak_memory_gib']})", flush=True)
     return stats
+
+
+def _eval_on_the_float64_iou(model, x, grid, text_d, pix, thr, step, padded,
+                             device) -> dict:
+    """The eval step's decode and mask_nms host ms and its peak memory with
+    pairwise_iou's plain version (the float64 product) in the kernel's
+    place on the card, in the same run."""
+    with mock.patch.object(nms_ops, "pairwise_iou",
+                           nms_ops.pairwise_iou_reference), \
+            torch.inference_mode():
+        out = model.forward_padded(x, grid)
+        res = BE.decode_instances(out, text_d, pix, EVAL_SHAPE, thr)
+        decode_ms = host_ms(lambda: BE.decode_instances(
+            out, text_d, pix, EVAL_SHAPE, thr), device, reps=5)
+        nms_ms = host_ms(lambda: mask_nms(res["masks"], res["scores"],
+                                          res["category_ids"]), device, reps=5)
+        del out, res
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        step(padded, grid, pix)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    torch.cuda.empty_cache()
+    return dict(decode_ms=decode_ms, nms_ms=nms_ms, peak_memory_gib=peak)
 
 
 # the training step: bench.py's measure_train (bench.py:174-201): ViT-B/16
@@ -2425,8 +2616,10 @@ def phase_levers_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
                   f"{batches} batch forwards")
             check(sum(counts[p] for p in PROBES) == 0,
                   f"{key}: serving launched a probe kernel")
-            check(counts["mask_nms"] == batches,
-                  f"{key}: {counts['mask_nms']} NMS launches for {batches} "
+            check(counts["mask_nms"] == batches
+                  and counts["pairwise_iou"] == batches,
+                  f"{key}: {counts['mask_nms']} NMS and "
+                  f"{counts['pairwise_iou']} IoU launches for {batches} "
                   "serving steps")
         agree_kf, agree_tf, differ = _semantic_agreement(model, ref, x,
                                                          text_d)
@@ -2465,6 +2658,7 @@ def phase_levers_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
                                  if "flash" in k),
             launches=counts["flash_attention"], biased_launches=biased,
             nms_launches=counts["mask_nms"],
+            iou_launches=counts["pairwise_iou"],
             batches=batches, agreement_kernel_f32=agree_kf,
             agreement_torch_f32=agree_tf, f32_blocks_merging_otherwise=differ,
             kept=int(keep_d.sum()))
@@ -2542,8 +2736,10 @@ def phase_levers_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
               f"{masked} masked and {biased} biased launches: expected 18 "
               "and 18 a forward (12 encoder, 6 pooled cross)")
         check(sum(counts[p] for p in PROBES) == 0, "the eval launched a probe")
-        check(counts["mask_nms"] == batches,
-              f"{counts['mask_nms']} NMS launches for {batches} eval steps")
+        check(counts["mask_nms"] == batches
+              and counts["pairwise_iou"] == batches,
+              f"{counts['mask_nms']} NMS and {counts['pairwise_iou']} IoU "
+              f"launches for {batches} eval steps")
     check(len(preds) > 0, "evaluate_instances returned no prediction")
     rate = eval_bench.run(EVAL_BATCH, "counts", 12, 1, device, model=model,
                           threshold=thr)["value"]
@@ -2557,6 +2753,7 @@ def phase_levers_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     return dict(img_per_s_depth_1=rate, launches=counts["flash_attention"],
                 masked_launches=masked, biased_launches=biased,
                 nms_launches=counts["mask_nms"],
+                iou_launches=counts["pairwise_iou"],
                 batches=batches, predictions=len(preds),
                 f32_check=dict(worst, merges_differ=differ),
                 step_device_busy_ms=busy, step_top_kernels=top,
@@ -5333,7 +5530,8 @@ def parallel_launches(par: dict) -> dict:
     turns with and without the mesh, the server on the mesh, Ulysses."""
     turns = par["step"]["launches"]
     out = {}
-    for kernel in ("flash_attention", "batched_hungarian", "mask_nms"):
+    for kernel in ("flash_attention", "batched_hungarian", "mask_nms",
+                   "pairwise_iou"):
         out[kernel] = {
             "cli_mesh": par["cli"]["launches"][kernel],
             "step_turns": sum(t[kernel] for name in turns
@@ -5594,21 +5792,27 @@ def main() -> None:
         "in_step_ms": tr["matcher_in_step_ms"],
         "shape": matcher["shape"],
     })
-    nms_by_path = {
-        "serving": stats["nms_launches"],
-        "eval": ev["nms_launches"],
-        "levers_serving": sum(r["nms_launches"]
-                              for r in lev["serving"].values()),
-        "levers_eval": lev["eval"]["nms_launches"],
-        "encoders_serving": {label: res["serving"]["nms_launches"]
-                             for label, res in enc.items()
-                             if isinstance(res, dict) and "serving" in res},
-        "trainer": trainer["launches"]["mask_nms"],
-        "cli_train": cli["launches"]["mask_nms"],
-        "cli_resumed": cli["resumed_launches"]["mask_nms"],
-        "cli_eval": {d: e["mask_nms"] for d, e in cli["eval_launches"].items()},
-        "parallel": par_launches["mask_nms"],
-    }
+    def selection_by_path(kernel: str, key: str) -> dict:
+        """`kernel`'s launches by path (`key` in the phases' own records)."""
+        return {
+            "serving": stats[key],
+            "eval": ev[key],
+            "levers_serving": sum(r[key] for r in lev["serving"].values()),
+            "levers_eval": lev["eval"][key],
+            "encoders_serving": {label: res["serving"][key]
+                                 for label, res in enc.items()
+                                 if isinstance(res, dict) and "serving" in res},
+            "trainer": trainer["launches"][kernel],
+            "cli_train": cli["launches"][kernel],
+            "cli_resumed": cli["resumed_launches"][kernel],
+            "cli_eval": {d: e[kernel] for d, e in cli["eval_launches"].items()},
+            "parallel": par_launches[kernel],
+        }
+
+    nms_by_path = selection_by_path("mask_nms", "nms_launches")
+    iou_by_path = selection_by_path("pairwise_iou", "iou_launches")
+    check(iou_by_path == nms_by_path, f"IoU launches {iou_by_path} differ "
+          f"from the NMS launches {nms_by_path} by path")
     kernels.append({
         "name": "mask_nms",
         "route": "cuda",
@@ -5628,6 +5832,32 @@ def main() -> None:
         "plain_host_ms": stats["nms"]["plain_host_ms"],
         "shape": stats["nms"]["shape"],
         "eval": ev["nms"],  # the eval step's [32, 100]
+    })
+    kernels.append({
+        "name": "pairwise_iou",
+        "route": "cuda",
+        "source": "zutis_tpu_torch/csrc/mask_iou.cu",
+        "replaces": "zutis_tpu/ops/nms.py:46",
+        # one with every mask_nms on the card, each path counted from 0
+        "launches": sum(sum(n.values()) if isinstance(n, dict) else n
+                        for n in iou_by_path.values()),
+        "launches_by_path": iou_by_path,
+        # counts equal, IoU and areas bit-equal to the plain version
+        "max_abs_err": max(r["max_abs_err"] for r in (
+            ev["iou"], stats["iou"], stats["iou_per_image"])),
+        # one call on the eval step's [32, 100, 512, 640] masks
+        "ms": ev["iou"]["ms"],
+        "plain_ms": ev["iou"]["plain_ms"],
+        "bound_ms": ev["iou"]["bound_ms"],
+        "bound_by": ev["iou"]["bound_by"],
+        "library_ms": ev["iou"]["library_ms"],  # torch._int_mm image by image
+        "float64_product_ms": ev["iou"]["float64_product_ms"],
+        "shape": ev["iou"]["shape"],
+        "serving": stats["iou"],  # [8, 100, 24, 24]
+        "per_image": stats["iou_per_image"],  # [1, 100, 375, 500]
+        "eval_on_the_float64_product": ev["float64_iou_route"],
+        "sass": {k: c for k, c in sass.items()
+                 if k.startswith("mask_counts_kernel")},
     })
     print("tune runs: " + json.dumps(
         [{k: r[k] for k in ("variant", "exp_mode", "dots_only", "max_err", "ms")}

@@ -212,7 +212,8 @@ def test_source_carries_its_note_and_c_interface():
 
 @pytest.mark.parametrize("name", ["nms_shuffle_max", "matcher_shuffle_min",
                                   "nms_warp_loads", "nms_device_rows",
-                                  "nms_no_rounds", "matcher_no_rows"])
+                                  "nms_no_rounds", "matcher_no_rows",
+                                  "iou_no_split", "iou_one_box"])
 def test_selection_bench_ablations_still_match_the_source(name, tmp_path):
     """Each ablation of the selection tool edits one line that the source
     still holds, once."""

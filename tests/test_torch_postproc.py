@@ -15,6 +15,7 @@ from zutis_tpu.ops import rle as jrle
 from zutis_tpu.ops.nms import mask_nms as jmask_nms
 from zutis_tpu.postproc.instance import classify_proposals as jclassify
 from zutis_tpu.postproc.instance import predict_semantic as jpredict_semantic
+from zutis_tpu_torch.ops import nms as nms_ops
 from zutis_tpu_torch.ops import rle as trle
 from zutis_tpu_torch.ops.nms import mask_nms, nms_rounds_reference, pairwise_iou
 from zutis_tpu_torch.postproc.instance import classify_proposals, predict_semantic
@@ -121,6 +122,45 @@ def test_nms_rounds_reference_on_jax_iou_matches_jax(nms_type, seed):
         assert not keep[0].any() and keep[1].any()
     else:
         assert keep.any()
+
+
+def _jax_counts(masks):
+    """zutis_tpu/ops/nms.py's intersection counts, batched: int8 in int32."""
+    m8 = jnp.asarray(masks).astype(jnp.int8)
+    return np.array(jnp.einsum("bqhw,bphw->bqp", m8, m8,
+                               preferred_element_type=jnp.int32))
+
+
+def _iou_sets():
+    """name -> [b, Q, H, W] bool masks, seeded."""
+    rng = np.random.RandomState(7)
+    ragged = _boxes(3, 2, 30, 13, 17)
+    ragged[:, 4] = True
+    return {"rectangles": _boxes(4, 3, 24, 16, 16),
+            "all empty": np.zeros((2, 9, 12, 12), bool),
+            "all full": np.ones((2, 9, 12, 12), bool),
+            "ragged 13 x 17": ragged,
+            "random pixels 48 x 40": rng.rand(2, 16, 48, 40) < 0.4}
+
+
+@pytest.mark.parametrize("name", list(_iou_sets()))
+def test_pairwise_iou_cpu_route_matches_jax_int8_counts(name):
+    """The CPU route (the kernel's plain version) against the JAX package's
+    int8 -> int32 IoU: intersections and areas equal as integers, the IoU
+    equal bit for bit."""
+    masks = _iou_sets()[name]
+    tmasks = torch.from_numpy(masks)
+    counts = nms_ops.intersection_counts_reference(tmasks)
+    np.testing.assert_array_equal(counts.long().numpy(), _jax_counts(masks))
+    iou, areas = pairwise_iou(tmasks)
+    jiou, jareas = _jax_iou(masks)
+    np.testing.assert_array_equal(areas.numpy().astype(np.int64),
+                                  np.diagonal(_jax_counts(masks), axis1=1,
+                                              axis2=2))
+    np.testing.assert_array_equal(areas.numpy().view(np.int32),
+                                  jareas.view(np.int32))
+    np.testing.assert_array_equal(iou.numpy().view(np.int32),
+                                  jiou.view(np.int32))
 
 
 def test_pairwise_iou_counts_are_exact_past_tf32_range():

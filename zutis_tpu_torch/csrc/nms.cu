@@ -7,8 +7,9 @@
 // not the counterpart of a Pallas kernel but of XLA's loop: eager PyTorch
 // writes the rounds out as a Python loop of a dozen small launches each
 // (ops/nms.py::nms_rounds_reference, 100 rounds at Q = 100), and the kernel
-// runs them all in one. The pairwise IoU stays a product outside it, as in
-// JAX (ops/nms.py::pairwise_iou).
+// runs them all in one. The pairwise IoU is computed before it, as in JAX,
+// by its own kernel (csrc/mask_iou.cu: exact int32 intersection counts on
+// s8 wgmma, as JAX's int8 product; ops/nms.py::pairwise_iou).
 //
 // Design: one block of one warp an image. Lane l holds candidates
 // l, l + 32, ... (K = Q / 32 rounded up to a power of two, a template

@@ -1,10 +1,10 @@
-"""The two selection loops on the card: the NMS rounds (csrc/nms.cu) and
-the matcher (csrc/hungarian.cu) against another checkout's, in turns, with
-the serving and eval steps around NMS; and copies of the sources with one
-design choice undone.
+"""The selection kernels on the card: the NMS rounds (csrc/nms.cu), NMS's
+IoU (csrc/mask_iou.cu) and the matcher (csrc/hungarian.cu) against another
+checkout's, in turns, with the serving and eval steps around NMS; and
+copies of the sources with one design choice undone.
 
     python -m zutis_tpu_torch.tools.selection_bench [--against DIR] \\
-        [--ablations nms_shuffle_max,matcher_shuffle_min,nms_warp_loads]
+        [--ablations nms_shuffle_max,matcher_shuffle_min,iou_no_split]
 
 - `--against DIR`: a checkout of another commit (`git archive` of it,
   unpacked into a directory git ignores). Each checkout is measured in a
@@ -17,15 +17,22 @@ design choice undone.
     bucket (81 categories): device ms in a CUDA graph (the IoU product and
     the rounds), host ms with a sync, `pairwise_iou`'s device ms, and the
     rounds alone where the checkout has `nms_rounds`;
+  - `pairwise_iou` at those shapes and at the per-image decode's
+    `[1, 100, 375 x 500]` (rows no multiple of 16 bytes), beside its bound
+    (the masks read once, IoU and areas written once, at 3.35 TB/s; the
+    int8 operations at 1,979 TOP/s), the float64 product (the cast and the
+    bmm, the IoU's route before the kernel) and, as the library's
+    yardstick, `torch._int_mm` image by image on `[Q, K] x [K, Q rounded up
+    to 8]` int8 (timed only; K a multiple of 8);
   - serving: ZUTIS ViT-B/16 (seeded, bf16 matrices), 384 px, batch 8, 919
     classes, as `chip_smoke.py` serves it: sync `infer` ms a batch, the
     step's device busy and its kernels (torch.profiler);
   - the bucketed eval (batch 32, 512 x 640, 81 classes): img/s at depth 1
     and 2 (`instance_eval_bench.run`), the step's, decode's and mask_nms's
     host ms, the step's device busy and its kernels.
-- `--ablations`: this checkout's two kernels built from copies of csrc/
-  with one edit each (ABLATIONS), timed in turns with the unedited source
-  at the kernel shapes, twice.
+- `--ablations`: this checkout's kernels built from copies of csrc/ with
+  one edit each (ABLATIONS), timed in turns with the unedited source at the
+  kernel shapes, twice.
 
 Device times: 20 calls captured in a CUDA graph, the median of 21 replays
 (3 calls and 5 replays for calls that hold the plain loop). Every record
@@ -103,6 +110,14 @@ ABLATIONS = {
     "matcher_no_rows": ("hungarian.cu", [(
         "for (int cur = 0; cur < R; ++cur) {",
         "for (int cur = 0; cur < 0; ++cur) {")]),
+    # the IoU kernel with K unsplit: one block an (image, tile pair); and
+    # with one 128-byte tile a stage along K
+    "iou_no_split": ("mask_iou.cu", [(
+        "long long per_block = (p.total + sms - 1) / sms;",
+        "long long per_block = p.k_tiles;")]),
+    "iou_one_box": ("mask_iou.cu", [(
+        "constexpr int boxes(bool pairs) { return pairs ? 1 : 4; }",
+        "constexpr int boxes(bool pairs) { return 1; }")]),
 }
 # NMS shapes: label -> (images, candidates, mask height, width, categories)
 NMS_SHAPES = {
@@ -110,6 +125,9 @@ NMS_SHAPES = {
     "eval [32,100]": (32, 100, 512, 640, 81),
 }
 MATCHER_SHAPE = (48, 10, 100)
+# the IoU alone at the per-image decode's ragged rows: label -> (images,
+# candidates, mask height, width)
+IOU_SHAPES = {"per-image [1,100,375x500]": (1, 100, 375, 500)}
 
 
 def host_ms(fn, reps=5):
@@ -160,8 +178,46 @@ def nms_inputs(b, q, h, w, n_categories, seed=0):
     return masks, scores, cats
 
 
-def kernel_times(shapes) -> dict:
-    """The matcher's and NMS's times (see the module's note)."""
+def iou_times(masks, label) -> dict:
+    """pairwise_iou's device ms on `masks` beside its bound, the float64
+    product's and torch._int_mm's (see the module's note)."""
+    import torch
+
+    from zutis_tpu_torch.ops import nms
+
+    b, q = masks.shape[:2]
+    k = masks[0, 0].numel()
+    out = {f"pairwise_iou {label}": device_ms(
+        lambda: nms.pairwise_iou(masks), calls=3, reps=5)}
+    out[f"iou bound {label}"] = max(
+        (b * q * k + b * q * q * 4 + b * q * 4) / 3.35e12 * 1e3,
+        2 * b * q * q * k / 1979e12 * 1e3)
+
+    def float64_product():
+        m = masks.reshape(b, q, -1).to(torch.float64)
+        return torch.bmm(m, m.transpose(1, 2))
+    out[f"float64 product {label}"] = device_ms(float64_product, calls=3,
+                                                reps=5)
+    if k % 8 == 0 and q > 16:
+        n = -(-q // 8) * 8
+        a8 = torch.zeros(b, n, k, dtype=torch.int8, device=masks.device)
+        a8[:, :q] = masks.reshape(b, q, k)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        times = []
+        for _ in range(6):
+            start.record()
+            for i in range(b):
+                torch._int_mm(a8[i, :q], a8[i].t())
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[f"torch._int_mm image by image {label}"] = sorted(times[1:])[2]
+        del a8
+    return out
+
+
+def kernel_times(shapes, iou_shapes) -> dict:
+    """The matcher's, NMS's and the IoU's times (see the module's note)."""
     import numpy as np
     import torch
 
@@ -190,14 +246,18 @@ def kernel_times(shapes) -> dict:
                 lambda: nms.mask_nms(masks, scores, cats), calls=3, reps=5)
             out[f"mask_nms host {label}"] = host_ms(
                 lambda: nms.mask_nms(masks, scores, cats))
-            out[f"pairwise_iou {label}"] = device_ms(
-                lambda: nms.pairwise_iou(masks), calls=3, reps=5)
+            out.update(iou_times(masks, label))
             if hasattr(nms, "nms_rounds"):
                 iou, areas = nms.pairwise_iou(masks)
                 out[f"rounds {label}"] = device_ms(
                     lambda: nms.nms_rounds(iou, areas, scores, cats))
         del masks
         torch.cuda.empty_cache()
+    for label, (b, q, h, w) in iou_shapes.items():
+        masks, _, _ = nms_inputs(b, q, h, w, 1)
+        with torch.inference_mode():
+            out.update(iou_times(masks, label))
+        del masks
     return out
 
 
@@ -278,7 +338,7 @@ def path_times() -> dict:
 
 def measure(plan: dict) -> dict:
     """The plan's measurements in this process's checkout."""
-    out = kernel_times(plan["nms_shapes"])
+    out = kernel_times(plan["nms_shapes"], plan["iou_shapes"])
     out.update(path_times())
     out["nvidia-smi"] = smi()
     return out
@@ -290,7 +350,7 @@ def timer_script() -> str:
     return "\n\n".join(
         ["import json, sys", f"MATCHER_SHAPE = {MATCHER_SHAPE!r}",
          *(inspect.getsource(f) for f in (
-             device_ms, host_ms, smi, nms_inputs, kernel_times,
+             device_ms, host_ms, smi, nms_inputs, iou_times, kernel_times,
              step_profile, path_times, measure)),
          "print(json.dumps(measure(json.loads(sys.argv[1]))))"])
 
@@ -333,23 +393,26 @@ def run_ablations(names: Sequence[str], rounds: int = 2) -> None:
     from zutis_tpu_torch.ops import hungarian as hg
     from zutis_tpu_torch.ops import nms
 
-    modules = {"nms.cu": nms, "hungarian.cu": hg}
+    # file -> (the source its wrapper loads, its binding)
+    sources = {"nms.cu": (nms.SOURCE, nms._bind),
+               "hungarian.cu": (hg.SOURCE, hg._bind),
+               "mask_iou.cu": (nms.IOU_SOURCE, nms._bind_iou)}
     work = _build.BUILD_DIR / "selection_ablations"
     work.mkdir(parents=True, exist_ok=True)
     libs = {}
     for name in ["none", *names]:
         libs[name] = {}
-        for file, module in modules.items():
+        for file, (original, bind) in sources.items():
             if name == "none" or ABLATIONS[name][0] == file:
-                source = (module.SOURCE if name == "none" else
+                source = (original if name == "none" else
                           ablated_source(name, _build.CSRC, work / name))
                 lib = ctypes.CDLL(str(nvcc(source, work / f"lib_{name}_{file}.so")))
                 lib.zutis_cuda_error_string.restype = ctypes.c_char_p
                 lib.zutis_cuda_error_string.argtypes = [ctypes.c_int]
-                module._bind(lib)
-                libs[name][module.SOURCE] = lib
+                bind(lib)
+                libs[name][original] = lib
             else:
-                libs[name][module.SOURCE] = None
+                libs[name][original] = None
     order = list(libs)
     for r in range(rounds):
         for name in order if r % 2 == 0 else order[::-1]:
@@ -358,7 +421,8 @@ def run_ablations(names: Sequence[str], rounds: int = 2) -> None:
             with mock.patch.object(_build, "load",
                                    lambda source, *a: chosen[source]):
                 _emit({"ablation": name, "round": r,
-                       "ms": kernel_times(NMS_SHAPES), "nvidia-smi": smi()})
+                       "ms": kernel_times(NMS_SHAPES, IOU_SHAPES),
+                       "nvidia-smi": smi()})
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -375,7 +439,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     here = Path(__file__).resolve().parents[2]
     if args.against is not None:
         other = args.against.resolve()
-        plan = {"nms_shapes": NMS_SHAPES}
+        plan = {"nms_shapes": NMS_SHAPES, "iou_shapes": IOU_SHAPES}
         for who in ("other", "this", "this", "other"):
             root = other if who == "other" else here
             _emit({"checkout": who, "ms": time_checkout(root, plan)})
