@@ -1,0 +1,10 @@
+"""flash_attention_roofline (kernels, device_trace): the bound of the
+attention the traced units' forwards need, over the device time of the
+kernels that compute it, matched by name."""
+from benchmark.readers import roofline
+
+PATTERNS = (r"flash_",)
+
+
+def read(ctx):
+    return roofline(ctx, PATTERNS, "attention_bound_s")
