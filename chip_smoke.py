@@ -334,6 +334,29 @@ PROBES = {  # kernel name -> (wrapper, plain version, TPU kernel body)
     "kt_attention": (ap.kt_attention, ap.kt_attention_reference,
                      "tools/pallas_tune.py:252"),
 }
+
+
+class _ProbeCount:
+    """A probe kernel's launches (`ap.launches` of its C entry), read and
+    zeroed as a counted wrapper's `.launches`."""
+
+    def __init__(self, entry: str):
+        self.entry = entry
+
+    @property
+    def launches(self) -> int:
+        return ap.launches[self.entry]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        ap.launches[self.entry] = n
+
+
+PROBE_COUNTS = {name: _ProbeCount(entry) for name, entry in (
+    ("single_attention", "zutis_probe_single"),
+    ("fastsm_attention", "zutis_probe_fastsm"),
+    ("kt_attention", "zutis_probe_kt"))}
+
 # (kernel, label, options): every family, layout, sum mode and exp mode
 PROBE_CONFIGS = (
     [("single_attention", f"single {hp}", dict(heads_per_cell=hp))
@@ -411,7 +434,7 @@ def counted_wrappers() -> dict:
             "batched_hungarian": hg.batched_hungarian,
             "mask_nms": mask_nms,
             "pairwise_iou": nms_ops.pairwise_iou,
-            **{name: w for name, (w, _, _) in PROBES.items()}}
+            **PROBE_COUNTS}
 
 
 def zero_counts() -> None:
@@ -820,10 +843,11 @@ def _check_probes(shape_name, q, k, v, configs, max_err, max_rel):
         want = reference(q, k, v, **kw).float()
         block_qs = (128,) if kernel == "single_attention" else ap.BLOCK_Q[::-1]
         for block_q in block_qs:
-            before = wrapper.launches
+            before = PROBE_COUNTS[kernel].launches
             got = wrapper(q, k, v, block_q, **kw)
             torch.cuda.synchronize()
-            check(wrapper.launches == before + 1, f"{label}: no kernel launch")
+            check(PROBE_COUNTS[kernel].launches == before + 1,
+                  f"{label}: no kernel launch")
             check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
             err = (got.float() - want).abs().max().item()
             # relative to the largest |output|: "mul" drives single's output
@@ -961,8 +985,7 @@ def phase_tune():
     """The tuning path: kernel_tune.run for every variant at the tool's
     shape, with every launch count set to 0 before and read after."""
     inputs = kernel_tune.make_inputs(kernel_tune.SHAPE, "cuda")
-    counted = {"flash_attention": fa.flash_attention,
-               **{name: w for name, (w, _, _) in PROBES.items()}}
+    counted = {"flash_attention": fa.flash_attention, **PROBE_COUNTS}
     for w in counted.values():
         w.launches = 0
     results = []
@@ -1309,7 +1332,7 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     print(f"serving: threshold {threshold:.6f}", flush=True)
 
     for w in (fa.flash_attention, mask_nms, nms_ops.pairwise_iou,
-              *(w for w, _, _ in PROBES.values())):
+              *PROBE_COUNTS.values()):
         w.launches = 0
     fa.flash_attention.launches_by_dim = {}
     server = InferenceServer(model, text, image_size=image_size,
@@ -1324,7 +1347,7 @@ def phase_serving(cfg: dict = VIT_B16, image_size: int = IMAGE_SIZE,
     nms_launches = mask_nms.launches
     iou_launches = nms_ops.pairwise_iou.launches
     by_dim = dict(fa.flash_attention.launches_by_dim)
-    probe_launches = sum(w.launches for w, _, _ in PROBES.values())
+    probe_launches = sum(w.launches for w in PROBE_COUNTS.values())
     batches = server.batches
     print(f"serving: {len(results)} async + {len(sync)} sync requests in "
           f"{batches} batch forwards, {launches} kernel launches, "
@@ -1784,7 +1807,7 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     print(f"eval: threshold {thr:.6f}", flush=True)
 
     counted = (fa.flash_attention, mask_nms, nms_ops.pairwise_iou,
-               *(w for w, _, _ in PROBES.values()))
+               *PROBE_COUNTS.values())
     for w in counted:
         w.launches = 0
     fa.flash_attention.masked_launches = 0
@@ -1796,7 +1819,7 @@ def phase_eval(cfg: dict = VIT_B16, device="cuda") -> dict:
     masked = fa.flash_attention.masked_launches
     nms_launches = mask_nms.launches
     iou_launches = nms_ops.pairwise_iou.launches
-    probe_launches = sum(w.launches for w, _, _ in PROBES.values())
+    probe_launches = sum(w.launches for w in PROBE_COUNTS.values())
     batches = EVAL_IMAGES // EVAL_BATCH
     print(f"eval: evaluate_instances on {EVAL_IMAGES} images: {len(preds)} "
           f"predictions in {wall:.2f} s, {launches} flash launches "

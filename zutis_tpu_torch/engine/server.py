@@ -26,9 +26,18 @@ goes to the other ranks by broadcast, behind a header with its count and
 a stop flag; their `start()` runs a follower thread that steps what
 arrives, and `stop()` on the first rank broadcasts the stop (every rank
 calls `start()` and `stop()`; only the first takes `submit`).
+
+Spans (core/profiling.py): `server.queue`, one a request, from `submit`
+(with the `rid` the server numbers it by) to when the worker takes it into
+a batch (with that batch's `bid`), or to its drop, marked `cancelled`;
+`server.batch`, one a chunk of `infer` (with its `bid`), from the chunk's
+stack to its last result, around `server.upload` (the stack and the copy
+to the device) and `server.finish` (the read-back, which waits for the
+step, and the host finish).
 """
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from concurrent.futures import Future
@@ -38,6 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from zutis_tpu_torch.core import profiling
 from zutis_tpu_torch.core.device import resolve_device
 from zutis_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from zutis_tpu_torch.native import native_encode
@@ -82,6 +92,7 @@ class InferenceServer:
         self.encode_rle = encode_rle
         self.uint8_transport = uint8_transport
         self.batches = 0  # batch forwards run, padded ones included
+        self._rids = itertools.count()  # request ids, for the spans
         self._text = torch.as_tensor(
             np.asarray(text_embeddings), dtype=torch.float32, device=self.device)
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device).reshape(1, 3, 1, 1)
@@ -127,20 +138,24 @@ class InferenceServer:
         results: List[Dict] = []
         B = self.batch_size
         for s in range(0, len(images), B):
-            chunk = list(images[s:s + B])
-            n = len(chunk)
-            while len(chunk) < B:
-                chunk.append(chunk[0])
-            batch = torch.from_numpy(np.stack(chunk)).to(self.device)
-            if self.mesh is None:
-                out = self.step(batch)
-            else:
-                out = self._gather(self.step(
-                    batch.chunk(self.mesh.data_size)[self.mesh.data_rank]))
-            out = {k: v.cpu().numpy() for k, v in out.items()}
-            self.batches += 1
-            for j in range(n):
-                results.append(self._finish(out, j))
+            # a batch's id is its number among the batch forwards
+            with profiling.span("server.batch", bid=self.batches):
+                with profiling.span("server.upload"):
+                    chunk = list(images[s:s + B])
+                    n = len(chunk)
+                    while len(chunk) < B:
+                        chunk.append(chunk[0])
+                    batch = torch.from_numpy(np.stack(chunk)).to(self.device)
+                if self.mesh is None:
+                    out = self.step(batch)
+                else:
+                    out = self._gather(self.step(
+                        batch.chunk(self.mesh.data_size)[self.mesh.data_rank]))
+                with profiling.span("server.finish"):
+                    out = {k: v.cpu().numpy() for k, v in out.items()}
+                    self.batches += 1
+                    for j in range(n):
+                        results.append(self._finish(out, j))
         return results
 
     def _gather(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -206,6 +221,7 @@ class InferenceServer:
                     break
                 if item is not None:
                     item[1].cancel()
+                    profiling.close_span(item[2], cancelled=True)
 
     def submit(self, image: np.ndarray) -> "Future":
         with self._lifecycle:
@@ -215,7 +231,8 @@ class InferenceServer:
                 raise RuntimeError("on a mesh the first rank takes the "
                                    "requests")
             fut: Future = Future()
-            self._queue.put((image, fut))
+            self._queue.put((image, fut, profiling.open_span(
+                "server.queue", rid=next(self._rids))))
             return fut
 
     # ---------------- the mesh's batches ----------------
@@ -273,18 +290,25 @@ class InferenceServer:
                 pending.append(nxt)
             # a Future cancelled while queued drops out here; the rest can no
             # longer be cancelled, so setting their results cannot raise
-            pending = [p for p in pending if p[1].set_running_or_notify_cancel()]
-            if not pending:
+            taken = []
+            for p in pending:
+                if p[1].set_running_or_notify_cancel():
+                    taken.append(p)
+                else:
+                    profiling.close_span(p[2], cancelled=True)
+            if not taken:
                 continue
+            for p in taken:  # `infer` steps them as batch `self.batches`
+                profiling.close_span(p[2], bid=self.batches)
             try:
-                images = [p[0] for p in pending]
+                images = [p[0] for p in taken]
                 if self.mesh is not None:
                     images = self._send(images)
                 results = self.infer(images)
             except Exception as exc:  # the worker must outlive a failed batch
-                for _, fut in pending:
+                for _, fut, _ in taken:
                     if not fut.done():
                         fut.set_exception(exc)
                 continue
-            for (_, fut), res in zip(pending, results):
+            for (_, fut, _), res in zip(taken, results):
                 fut.set_result(res)

@@ -19,6 +19,12 @@ gradients, views of a few flat buckets, are summed over the data group
 where they lie (parallel/dp.py), and the metrics returned are the global
 batch's, summed over the data group on the device. The matcher runs on
 each rank's slice.
+
+A step is a `train.step` span around `train.upload`, `train.forward`,
+`train.criterion` (holding the criterion's `train.matcher`),
+`train.backward` (the all-reduce included) and `train.optimizer` (zeroing
+the gradients, then AdamW and PolyLR: two spans a step); on a card all but
+the upload carry device events (core/profiling.py).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from zutis_tpu_torch.core.device import resolve_device, to_device
+from zutis_tpu_torch.core.profiling import span
 from zutis_tpu_torch.engine.metrics import confusion_update
 from zutis_tpu_torch.engine.optim import make_optimizer
 from zutis_tpu_torch.losses.criterion import criterion_loss
@@ -90,27 +97,41 @@ def make_train_step(
     buckets = None if mesh is None else GradientBuckets(model.parameters(),
                                                         mesh.data_group)
 
+    on_card = device.type == "cuda"
+
     def step(state: TrainState, batch: Dict,
              confusion_acc: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
-        b = upload_batch(batch, device)
-        out = state.model(b["image"])
-        losses = criterion_loss(
-            out["mask_proposals"], b["instance_masks"], b["instance_valid"],
-            out["patch_tokens"], b["semantic_mask"], text,
-            weight_ce_loss=weight_ce_loss, weight_mask_loss=weight_mask_loss,
-            weight_dice_loss=weight_dice_loss, weight_bce_loss=weight_bce_loss,
-            ignore_index=ignore_index, mesh=mesh)
+        with span("train.step"):
+            return run(state, batch, confusion_acc)
+
+    def run(state, batch, confusion_acc):
+        with span("train.upload"):
+            b = upload_batch(batch, device)
+        with span("train.forward", device=on_card):
+            out = state.model(b["image"])
+        with span("train.criterion", device=on_card):
+            losses = criterion_loss(
+                out["mask_proposals"], b["instance_masks"],
+                b["instance_valid"], out["patch_tokens"], b["semantic_mask"],
+                text, weight_ce_loss=weight_ce_loss,
+                weight_mask_loss=weight_mask_loss,
+                weight_dice_loss=weight_dice_loss,
+                weight_bce_loss=weight_bce_loss, ignore_index=ignore_index,
+                mesh=mesh)
         del out
-        if buckets is None:
-            state.optimizer.zero_grad(set_to_none=True)
-        else:
-            buckets.zero()
-        losses["loss"].backward()
-        if buckets is not None:
-            buckets.all_reduce()
-        state.optimizer.step()
-        state.scheduler.step()
+        with span("train.optimizer", device=on_card):
+            if buckets is None:
+                state.optimizer.zero_grad(set_to_none=True)
+            else:
+                buckets.zero()
+        with span("train.backward", device=on_card):
+            losses["loss"].backward()
+            if buckets is not None:
+                buckets.all_reduce()
+        with span("train.optimizer", device=on_card):
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         # the criterion's logits give the semantic prediction (no second
         # full-resolution resize)

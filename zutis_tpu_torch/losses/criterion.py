@@ -13,7 +13,9 @@ over every decoder layer.
     checkpointing. Padded rows cost 0, non-finite costs are replaced before
     matching, and ONE matcher call solves all L * b problems; the matched,
     unguarded costs are summed over layers and valid rows, an image whose
-    GT holds no pixel adds nothing, and the sum is divided by b.
+    GT holds no pixel adds nothing, and the sum is divided by b. The costs
+    through the matcher and the gather are the `train.matcher` span
+    (core/profiling.py).
 
 On a mesh (parallel/mesh.py) each data rank holds a slice of the batch:
 the CE's count of valid pixels is summed over the data group before it
@@ -29,6 +31,7 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from zutis_tpu_torch.core.device import to_device
+from zutis_tpu_torch.core.profiling import span
 from zutis_tpu_torch.ops.hungarian import batched_hungarian
 from zutis_tpu_torch.ops.resize import _resize_matrix, resize_2d
 
@@ -198,23 +201,28 @@ def criterion_loss(
         return (weight_dice_loss * dice_cost_projected(proposals_l)
                 + weight_bce_loss * bce_cost_2d(up, gt4))
 
-    # each layer's full-resolution proposals are recomputed in the backward
-    # instead of being kept ([L, b, Q, H, W] f32 would be ~13 GB)
-    costs = torch.stack([
-        checkpoint(cost_layer, mask_proposals[:, layer], use_reentrant=False,
-                   preserve_rng_state=False)  # the layer cost draws no random numbers
-        for layer in range(L)])  # [L, b, N, Q]
+    # the per-layer costs through the matcher and the gather
+    with span("train.matcher", device=dev.type == "cuda"):
+        # each layer's full-resolution proposals are recomputed in the
+        # backward instead of being kept ([L, b, Q, H, W] f32 would be ~13 GB)
+        costs = torch.stack([
+            checkpoint(cost_layer, mask_proposals[:, layer],
+                       use_reentrant=False,
+                       # the layer cost draws no random numbers
+                       preserve_rng_state=False)
+            for layer in range(L)])  # [L, b, N, Q]
 
-    # padded rows cost a constant (0) and do not move the real rows'
-    # matching; non-finite costs would stall the matcher, so they are
-    # replaced for matching only and still reach the loss
-    valid = instance_valid.bool()
-    cost_for_match = torch.where(valid[None, :, :, None], costs.detach(), 0.0)
-    cost_for_match = torch.nan_to_num(cost_for_match, nan=1e6, posinf=1e6,
-                                      neginf=-1e6)
-    col4rows = batched_hungarian(
-        cost_for_match.reshape(L * b, n_max, Q)).reshape(L, b, n_max)
-    matched = torch.gather(costs, -1, col4rows[..., None].long())[..., 0]
+        # padded rows cost a constant (0) and do not move the real rows'
+        # matching; non-finite costs would stall the matcher, so they are
+        # replaced for matching only and still reach the loss
+        valid = instance_valid.bool()
+        cost_for_match = torch.where(valid[None, :, :, None], costs.detach(),
+                                     0.0)
+        cost_for_match = torch.nan_to_num(cost_for_match, nan=1e6,
+                                          posinf=1e6, neginf=-1e6)
+        col4rows = batched_hungarian(
+            cost_for_match.reshape(L * b, n_max, Q)).reshape(L, b, n_max)
+        matched = torch.gather(costs, -1, col4rows[..., None].long())[..., 0]
     matched = torch.where(valid[None], matched, 0.0)
     per_image_layers = matched.sum(-1)  # [L, b]
     # an image whose valid GT masks hold no pixel adds nothing

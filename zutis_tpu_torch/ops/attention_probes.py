@@ -36,11 +36,12 @@ one max-free kernel that streams K (or K^T) and V through a four-stage
 ring (`maxfree_smem_layout`) and takes any sk >= 1. `single_occupancy` and
 `maxfree_occupancy` report a kernel's shared memory and blocks per SM on
 the card. `block_q` sets the query rows a block owns and does not change the
-result. The plain versions also take f32. Launch counts are the wrappers'
-`.launches`.
+result. The plain versions also take f32. `launches` counts the kernels'
+launches by C entry.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -59,6 +60,8 @@ KEY_TILE = 64      # keys per K/V chunk, and query rows per warpgroup
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
 BLOCK_Q = (64, 128)  # one or two consumer warpgroups of 64 rows
 HEAD_DIMS = (64, 96)  # the probe kernels' instantiations
+# launches by C entry (zutis_probe_single, _fastsm, _kt), counted in _launch
+launches: collections.Counter = collections.Counter()
 SINGLE_V_STAGES = 2  # V chunks in `single`'s ring
 MAXFREE_STAGES = 4   # K and V chunks each in the max-free kernel's ring
 ONES_BYTES = 512     # the max-free kernel's tile of bf16 ones ("mxu" sum)
@@ -246,6 +249,7 @@ def _launch(name: str, q, k, v, sk: int, block_q: int, opt1: int, opt2: int):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             bb, h, sq, sk, d, strides, d ** -0.5, block_q, opt1, opt2, stream)
     _build.check_launch(lib, err, name)
+    launches[name] += 1
     return o
 
 
@@ -259,10 +263,8 @@ def single_attention(q, k, v, block_q=128, heads_per_cell="unroll",
     check_kernel_inputs(q, k, v, block_q, "single")
     if heads_per_cell == "batched":
         exp_mode = "exp"  # kernel_batched calls jnp.exp (pallas_tune.py:88)
-    o = _launch("zutis_probe_single", q, k, v, k.shape[2], block_q,
-                int(heads_per_cell != "grid"), EXP_MODES.index(exp_mode))
-    single_attention.launches += 1
-    return o
+    return _launch("zutis_probe_single", q, k, v, k.shape[2], block_q,
+                   int(heads_per_cell != "grid"), EXP_MODES.index(exp_mode))
 
 
 def single_occupancy(d: int, sk: int, block_q: int = 128,
@@ -312,10 +314,8 @@ def fastsm_attention(q, k, v, block_q=128, sum_mode="lane", exp_mode="exp"):
     if _on_cpu(q, "fastsm_attention"):
         return fastsm_attention_reference(q, k, v, sum_mode, exp_mode)
     check_kernel_inputs(q, k, v, block_q, "fastsm")
-    o = _launch("zutis_probe_fastsm", q, k, v, k.shape[2], block_q,
-                SUM_MODES.index(sum_mode), EXP_MODES.index(exp_mode))
-    fastsm_attention.launches += 1
-    return o
+    return _launch("zutis_probe_fastsm", q, k, v, k.shape[2], block_q,
+                   SUM_MODES.index(sum_mode), EXP_MODES.index(exp_mode))
 
 
 def transpose_keys(k: torch.Tensor) -> torch.Tensor:
@@ -344,10 +344,8 @@ def kt_attention_kernel(q, kt, v, block_q=128, exp_mode="exp",
         raise ValueError(
             f"K^T {tuple(kt.shape)} {kt.dtype}: expected a contiguous "
             f"{(b, h, d, -(-sk // 8) * 8)} {v.dtype} from transpose_keys")
-    o = _launch("zutis_probe_kt", q, kt, v, sk, block_q,
-                EXP_MODES.index(exp_mode), int(dots_only))
-    kt_attention.launches += 1
-    return o
+    return _launch("zutis_probe_kt", q, kt, v, sk, block_q,
+                   EXP_MODES.index(exp_mode), int(dots_only))
 
 
 def kt_attention(q, k, v, block_q=128, exp_mode="exp", dots_only=False):
@@ -359,8 +357,3 @@ def kt_attention(q, k, v, block_q=128, exp_mode="exp", dots_only=False):
     check_kernel_inputs(q, k, v, block_q, "kt")
     return kt_attention_kernel(q, transpose_keys(k), v, block_q, exp_mode,
                                dots_only)
-
-
-single_attention.launches = 0
-fastsm_attention.launches = 0
-kt_attention.launches = 0
